@@ -1,0 +1,14 @@
+"""sparkdq4ml_tpu_torch: the PyTorch/CUDA port of sparkdq4ml_tpu, for one
+NVIDIA H100. It covers the reference application's path: CSV ingest, the
+DQ rule/UDF layer, the SQL subset, and the Lasso LinearRegression, with
+the fused DQ chain and the packed Gramian as hand-written CUDA kernels
+(``ops/kernels.py``). The JAX package ``sparkdq4ml_tpu`` is the reference
+and is not imported here."""
+
+from .config import config
+from .frame import Frame, read_csv
+from .ops import (call_udf, col, dq_rules_fused, lit, minimum_price_rule,
+                  price_correlation_rule, register_builtin_rules)
+from .session import TorchSession
+
+__version__ = "0.1.0"

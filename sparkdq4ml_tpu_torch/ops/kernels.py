@@ -1,0 +1,262 @@
+"""The hand-written Hopper kernels of the port, their plain PyTorch
+versions, the build step and the launch counts.
+
+Two kernels, each the counterpart of a Pallas TPU kernel in
+``sparkdq4ml_tpu/ops/pallas_kernels.py``:
+
+* ``dq_rules`` (``csrc/dq_rules.cu``) replaces ``_dq_kernel``: the fused DQ
+  chain behind ``ops/rules.py:dq_rules_fused``.
+* ``packed_gram`` (``csrc/packed_gram.cu``) replaces
+  ``_packed_gram_kernel``: ``A = ZᵀZ`` of the packed design, the only data
+  pass of ``LinearRegression.fit``.
+
+Dispatch has one rule. A CUDA tensor goes to the kernel and a CPU tensor
+to the plain version; any other device raises. A build or launch failure
+raises too: nothing falls back from a kernel to its plain version.
+
+The CUDA sources are compiled with ``nvcc`` into one shared library each
+(plain ``extern "C"`` launchers, called through ``ctypes``) at first use,
+into ``.kernels_build/<hash>/`` at the root of the checkout, keyed by a
+hash of the sources and the flags. Importing this module needs no
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .rules import (BAD_ROW_SENTINEL, CORRELATION_MAX_GUESTS,
+                    CORRELATION_MAX_PRICE, MIN_PRICE)
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / ".kernels_build"
+SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu"}
+
+# Stage-1 form of packed_gram.cu: D <= GRAM_SMALL_MAX_D keeps the D x D sum
+# in registers, one block per chunk; larger D uses 64 x 64 output tiles.
+# The kernel reads the threshold from the nvcc flags below, the chunk plan
+# from here.
+GRAM_SMALL_MAX_D = 4
+GRAM_TILE = 64
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC",
+              f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}")
+# Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
+# chunk at D = 514 in float64, so at most 15 chunks there).
+GRAM_PARTIAL_BYTES = 32 << 20
+GRAM_MAX_CHUNKS = 1024
+GRAM_MIN_ROWS_PER_CHUNK = 256
+
+
+class LaunchCounts:
+    """How many times each wrapper launched its kernel. A call that runs
+    the plain version, or launches nothing (n = 0), does not count."""
+
+    def __init__(self):
+        self._counts = dict.fromkeys(SOURCES, 0)
+        self._lock = threading.Lock()
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = dict.fromkeys(SOURCES, 0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+
+launches = LaunchCounts()
+
+
+# ---------------------------------------------------------------------------
+# Build
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "sparkdq4ml_tpu_torch cannot be built")
+    return found
+
+
+def build_key(name: str) -> str:
+    """Hash of one kernel's source and the nvcc flags."""
+    h = hashlib.sha256()
+    h.update((CSRC / SOURCES[name]).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_ROOT / build_key(name) / f"lib{name}.so"
+
+
+_libs: dict = {}
+_build_lock = threading.Lock()
+
+
+def build(names=tuple(SOURCES)) -> dict:
+    """Compile every kernel in ``names`` whose library is not built yet,
+    one ``nvcc`` each, all started together; load each library once.
+    Raises with the compiler's output if a build fails."""
+    with _build_lock:
+        todo = [n for n in names if n not in _libs]
+        missing = [n for n in todo if not library_path(n).exists()]
+        nvcc = _nvcc() if missing else None
+        procs = {}
+        for name in missing:
+            out = library_path(name)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        for name in todo:
+            _libs[name] = _bind(name, ctypes.CDLL(str(library_path(name))))
+        return {n: _libs[n] for n in names}
+
+
+def _bind(name: str, lib):
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if name == "dq_rules":
+        fns = (lib.dq_rules_f32, lib.dq_rules_f64)
+        argtypes = [P, P, P, P, P, LL, P]
+    else:
+        fns = (lib.packed_gram_f32, lib.packed_gram_f64)
+        argtypes = [P, P, P, LL, I, I, LL, P]
+    for fn in fns:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return {torch.float32: fns[0], torch.float64: fns[1]}
+
+
+def _launcher(name: str, dtype: torch.dtype):
+    lib = _libs.get(name) or build((name,))[name]
+    if dtype not in lib:
+        raise TypeError(f"{name}: no kernel for dtype {dtype}")
+    return lib[dtype]
+
+
+def _check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _route(name: str, *tensors: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain version (CPU
+    tensors); raises for anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for {dev}")
+
+
+# ---------------------------------------------------------------------------
+# dq_rules
+# ---------------------------------------------------------------------------
+
+def dq_rules_reference(price: torch.Tensor, guest: torch.Tensor):
+    """Plain version: the ``torch.where`` chain of ``ops/rules.py``."""
+    sentinel = price.new_full((), BAD_ROW_SENTINEL)
+    pnm = torch.where(price < MIN_PRICE, sentinel, price)
+    bad = (guest < CORRELATION_MAX_GUESTS) & (price > CORRELATION_MAX_PRICE)
+    null = torch.isnan(price) | torch.isnan(guest)
+    pcc = torch.where(bad | null, sentinel, price)
+    return pnm, pcc, (pnm > 0) & (pcc > 0)
+
+
+def dq_rules(price: torch.Tensor, guest: torch.Tensor):
+    """``(price_no_min, price_correct_correl, keep)`` of two float columns
+    of one dtype (float32 or float64)."""
+    if price.dtype != guest.dtype or price.shape != guest.shape \
+            or price.ndim != 1:
+        raise ValueError("dq_rules: price and guest must be 1-D columns of "
+                         "one shape and dtype")
+    if not _route("dq_rules", price, guest):
+        return dq_rules_reference(price, guest)
+    fn = _launcher("dq_rules", price.dtype)
+    price, guest = price.contiguous(), guest.contiguous()
+    n = price.shape[0]
+    pnm, pcc = torch.empty_like(price), torch.empty_like(price)
+    keep = torch.empty(n, dtype=torch.bool, device=price.device)
+    if n == 0:
+        return pnm, pcc, keep
+    stream = torch.cuda.current_stream(price.device).cuda_stream
+    _check("dq_rules", fn(price.data_ptr(), guest.data_ptr(), pnm.data_ptr(),
+                          pcc.data_ptr(), keep.data_ptr(), n, stream))
+    launches.add("dq_rules")
+    return pnm, pcc, keep
+
+
+# ---------------------------------------------------------------------------
+# packed_gram
+# ---------------------------------------------------------------------------
+
+def packed_gram_reference(Z: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``Z.T @ Z``."""
+    return Z.T @ Z
+
+
+def gram_plan(n: int, D: int, elem_bytes: int) -> tuple[int, int]:
+    """``(chunks, rows_per_chunk)`` of the stage-1 grid: about a thousand
+    blocks in all, partials under ``GRAM_PARTIAL_BYTES``, no empty chunk."""
+    tiles = 1 if D <= GRAM_SMALL_MAX_D else -(-D // GRAM_TILE)
+    cap = max(1, min(GRAM_MAX_CHUNKS,
+                     GRAM_PARTIAL_BYTES // (D * D * elem_bytes)))
+    want = max(1, -(-GRAM_MAX_CHUNKS // (tiles * tiles)))
+    chunks = max(1, min(cap, want, -(-n // GRAM_MIN_ROWS_PER_CHUNK)))
+    rows = -(-n // chunks)
+    return -(-n // rows), rows
+
+
+def packed_gram(Z: torch.Tensor) -> torch.Tensor:
+    """``A = ZᵀZ`` of a pre-masked packed design ``Z`` (n, D); zeros when
+    n = 0. Bit-identical from run to run on the card."""
+    if Z.ndim != 2:
+        raise ValueError("packed_gram: Z must be 2-D")
+    if not _route("packed_gram", Z):
+        return packed_gram_reference(Z)
+    fn = _launcher("packed_gram", Z.dtype)
+    n, D = Z.shape
+    if n == 0 or D == 0:
+        return torch.zeros((D, D), dtype=Z.dtype, device=Z.device)
+    Z = Z.contiguous()
+    out = torch.empty((D, D), dtype=Z.dtype, device=Z.device)
+    chunks, rows = gram_plan(n, D, Z.element_size())
+    part = torch.empty((chunks, D, D), dtype=Z.dtype, device=Z.device)
+    stream = torch.cuda.current_stream(Z.device).cuda_stream
+    _check("packed_gram", fn(Z.data_ptr(), part.data_ptr(), out.data_ptr(),
+                             n, D, chunks, rows, stream))
+    launches.add("packed_gram")
+    return out

@@ -1,0 +1,123 @@
+"""The kernel module of the torch port (``sparkdq4ml_tpu_torch/ops/
+kernels.py``) on the CPU: it imports without ``nvcc``, a CPU tensor runs
+the plain version of each kernel (and counts no launch), and the plain
+Gramian agrees with the JAX package's Pallas kernel (interpret mode) and
+with ``Z.T @ Z`` within 1e-12 relative to ``|Z|ᵀ|Z|``, elementwise (the
+scale of each sum of products, so that entries that cancel to near zero
+are held to the same precision as the rest). The CUDA kernels themselves
+are held against these plain versions on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sparkdq4ml_tpu.config import config as jax_config
+from sparkdq4ml_tpu.ops import pallas_kernels as jax_kernels
+from sparkdq4ml_tpu.parallel.distributed import pack_design as jax_pack
+from sparkdq4ml_tpu_torch.ops import kernels
+
+
+@pytest.fixture
+def interpret():
+    jax_config.pallas = "interpret"
+    yield
+    jax_config.pallas = "off"
+
+
+def _design(n, D, seed):
+    rng = np.random.default_rng(seed)
+    return np.asarray(jax_pack(rng.normal(size=(n, D - 2)),
+                               rng.normal(size=n), rng.random(n) > 0.25))
+
+
+@pytest.mark.parametrize("n,D", [(1, 3), (40, 3), (jax_kernels.BLOCK_ROWS + 33,
+                                                   3), (700, 18), (300, 130)])
+def test_packed_gram_matches_pallas_interpret(interpret, n, D):
+    Z = _design(n, D, seed=n + D)
+    ref = np.asarray(jax_kernels.packed_gram_pallas(Z))
+    got = kernels.packed_gram(torch.as_tensor(Z)).numpy()
+    scale = 1e-12 * (np.abs(Z).T @ np.abs(Z))
+    assert np.all(np.abs(got - ref) <= scale)
+    assert np.all(np.abs(got - Z.T @ Z) <= scale)
+
+
+def test_packed_gram_zero_rows(interpret):
+    got = kernels.packed_gram(torch.zeros((0, 3), dtype=torch.float64))
+    ref = np.asarray(jax_kernels.packed_gram_pallas(np.zeros((0, 3))))
+    assert got.shape == (3, 3)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_dq_rules_reference_matches_pallas_interpret(interpret):
+    rng = np.random.default_rng(3)
+    n = 1000
+    price = rng.uniform(0, 130, n)
+    guest = rng.integers(1, 40, n).astype(np.float64)
+    price[::37] = np.nan
+    guest[::41] = np.nan
+    ref = jax_kernels.dq_rules_pallas(price, guest)
+    got = kernels.dq_rules(torch.as_tensor(price), torch.as_tensor(guest))
+    for g, r in zip(got, ref):
+        g, r = g.numpy(), np.asarray(r)
+        if g.dtype == np.float64:
+            g, r = g.view(np.int64), r.view(np.int64)
+        np.testing.assert_array_equal(g, r)
+
+
+def test_cpu_tensors_count_no_launch():
+    kernels.launches.reset()
+    kernels.dq_rules(torch.ones(4, dtype=torch.float64),
+                     torch.ones(4, dtype=torch.float64))
+    kernels.packed_gram(torch.ones((4, 3), dtype=torch.float64))
+    assert kernels.launches.snapshot() == {"dq_rules": 0, "packed_gram": 0}
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.packed_gram(meta)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.dq_rules(meta[:, 0], meta[:, 1])
+
+
+def test_dq_rules_rejects_mixed_inputs():
+    with pytest.raises(ValueError):
+        kernels.dq_rules(torch.ones(3, dtype=torch.float32),
+                         torch.ones(3, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        kernels.dq_rules(torch.ones(3), torch.ones(4))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """Importing needs no nvcc; a build without one raises, naming it."""
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+
+
+def test_build_key_hashes_source_and_flags(monkeypatch):
+    key = kernels.build_key("packed_gram")
+    assert len(key) == 16 and key == kernels.build_key("packed_gram")
+    assert key != kernels.build_key("dq_rules")
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-G",))
+    assert kernels.build_key("packed_gram") != key
+    assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
+    assert "--use_fast_math" not in kernels.NVCC_FLAGS
+    # packed_gram.cu reads its stage-1 threshold from the flags
+    assert f"-DGRAM_SMALL_MAX_D={kernels.GRAM_SMALL_MAX_D}" in \
+        kernels.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("n,D,elem", [(1, 3, 4), (40, 3, 4),
+                                      (10_000_000, 3, 4), (1_000_000, 18, 4),
+                                      (1_000_000, 130, 4),
+                                      (1_000_000, 514, 8), (999, 514, 4)])
+def test_gram_plan_covers_rows_with_bounded_partials(n, D, elem):
+    chunks, rows = kernels.gram_plan(n, D, elem)
+    assert 1 <= chunks <= kernels.GRAM_MAX_CHUNKS
+    assert chunks * rows >= n > (chunks - 1) * rows    # no empty chunk
+    assert chunks == 1 or chunks * D * D * elem <= kernels.GRAM_PARTIAL_BYTES
