@@ -1,8 +1,10 @@
 """sparkdq4ml_tpu_torch: the PyTorch/CUDA port of sparkdq4ml_tpu, for one
-NVIDIA H100. It covers the reference application's path: CSV ingest, the
-DQ rule/UDF layer, the SQL subset, and the Lasso LinearRegression, with
-the fused DQ chain and the packed Gramian as hand-written CUDA kernels
-(``ops/kernels.py``). The JAX package ``sparkdq4ml_tpu`` is the reference
+NVIDIA H100. It covers the reference application's path (CSV ingest, the
+DQ rule/UDF layer, the SQL subset, the Lasso LinearRegression) and model
+selection and robust fits (CrossValidator, TrainValidationSplit, Huber,
+weighted fits, OWL-QN, pipelines and their persistence), with the fused DQ
+chain, the packed Gramian and the masked Gramian as hand-written CUDA
+kernels (``ops/kernels.py``). The JAX package ``sparkdq4ml_tpu`` is the reference
 and is not imported here."""
 
 from .config import config

@@ -190,6 +190,27 @@ class Frame:
         cond = self._eval(condition)
         return self._with(mask=self._mask & predicate_keep_mask(cond))
 
+    def random_split(self, weights: Sequence[float],
+                     seed: int = 0) -> list["Frame"]:
+        """Split the rows into disjoint frames with the given relative
+        weights (``df.randomSplit([0.8, 0.2], seed)``). The draw is the JAX
+        package's (one numpy uniform per row slot), so both packages split
+        alike. The splits share the columns; only the masks differ."""
+        w = np.asarray(weights, np.float64)
+        if w.ndim != 1 or len(w) < 1 or np.any(w < 0) or w.sum() == 0:
+            raise ValueError(f"invalid split weights {weights!r}")
+        edges = np.cumsum(w / w.sum())
+        u = np.random.default_rng(seed).random(self._n)
+        out = []
+        lo = 0.0
+        for hi in edges:
+            pick = torch.as_tensor((u >= lo) & (u < hi), device=self.device)
+            out.append(self._with(mask=self._mask & pick))
+            lo = hi
+        return out
+
+    randomSplit = random_split
+
     # -- actions -------------------------------------------------------------
     def count(self) -> int:
         """Number of valid (unmasked) rows."""

@@ -1,6 +1,8 @@
-"""Carrying state between the JAX package and the port, through numpy: the
+"""Carrying state between the JAX package and the port through numpy: the
 same seeded data feeds both, and a model fitted in one predicts in the
-other."""
+other. Saved stages need nothing here: both packages write one on-disk
+format, so ``models.load_stage`` (or ``PipelineModel.load``,
+``LinearRegressionModel.load``) reads a directory the JAX package saved."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import numpy as np
 
 from .frame.frame import Frame
 from .models.regression import LinearRegressionModel
+from .models.tuning import CrossValidatorModel
 
 
 def frame_from_numpy(columns: Mapping[str, np.ndarray], mask=None,
@@ -22,10 +25,19 @@ def frame_from_numpy(columns: Mapping[str, np.ndarray], mask=None,
 
 
 def linear_model_from_numpy(coefficients, intercept: float,
-                            params: Optional[dict] = None
-                            ) -> LinearRegressionModel:
+                            params: Optional[dict] = None,
+                            scale: float = 1.0) -> LinearRegressionModel:
     """A ``LinearRegressionModel`` from host coefficients, such as
     ``np.asarray`` of a JAX model's. ``params`` uses the estimator's
-    snake_case names (``reg_param``, ``features_col``, ...)."""
+    snake_case names (``reg_param``, ``features_col``, ...); ``scale`` is a
+    Huber model's fitted sigma."""
     return LinearRegressionModel(np.asarray(coefficients),
-                                 float(intercept), params)
+                                 float(intercept), params, scale=scale)
+
+
+def cv_model_from_numpy(best_model, avg_metrics, best_index: int
+                        ) -> CrossValidatorModel:
+    """A ``CrossValidatorModel`` from a best model (a port model) and the
+    reference's ``avg_metrics``/``best_index`` as numpy."""
+    return CrossValidatorModel(best_model, np.asarray(avg_metrics, np.float64),
+                               int(best_index))

@@ -7,10 +7,13 @@ from typing import Optional, Sequence
 import torch
 
 from ..config import float_dtype
-from .base import Transformer
+from .base import Transformer, persistable
 
 
+@persistable
 class VectorAssembler(Transformer):
+    _persist_attrs = ("input_cols", "output_col")
+
     def __init__(self, input_cols: Optional[Sequence[str]] = None,
                  output_col: str = "features"):
         self.input_cols = list(input_cols) if input_cols else []

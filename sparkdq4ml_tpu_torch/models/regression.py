@@ -1,16 +1,22 @@
-"""``LinearRegression``, its model and its training summary (subset of
-``sparkdq4ml_tpu/models/regression.py``): the MLlib surface the reference
-app uses.
+"""``LinearRegression``, its model and its summaries (port of
+``sparkdq4ml_tpu/models/regression.py``; ``IsotonicRegression`` is not
+ported yet).
 
-``fit`` packs the frame's valid rows into one design, takes its Gramian
-through the ``packed_gram`` kernel and runs the solver on the device; the
-model keeps host copies of the coefficients. MLlib's defaults hold:
-``maxIter=100``, ``regParam=0``, ``elasticNetParam=0``, ``tol=1e-6``,
-``fitIntercept=True``, ``standardization=True``, ``solver="auto"``.
+A squared-error ``fit`` packs the frame's valid rows into one design, takes
+its Gramian through the ``packed_gram`` kernel and runs the solver (FISTA,
+the normal equations or OWL-QN) on the device. ``loss="huber"`` runs the
+robust fit of ``solvers.huber_fit``, whose warm start is one
+``masked_gram``. A ``weight_col`` scales each packed row by ``sqrt(w)``.
+The model keeps host copies of the coefficients and saves in the JAX
+package's format (``metadata.json`` + ``coefficients.npy``). MLlib's
+defaults hold: ``maxIter=100``, ``regParam=0``, ``elasticNetParam=0``,
+``tol=1e-6``, ``fitIntercept=True``, ``standardization=True``,
+``solver="auto"``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -18,7 +24,7 @@ import torch
 
 from ..config import float_dtype
 from ..frame.frame import Frame
-from .base import Estimator, Model
+from .base import Estimator, Model, persistable, read_json, write_json
 from .solvers import FitResult, resolve_solver
 
 
@@ -30,15 +36,44 @@ def _extract_xy(frame: Frame, features_col: str, label_col: str):
     return X, y, frame.mask
 
 
+def _model_from_flat(flat, d: int, params: dict, frame: Frame,
+                     scale: float = 1.0) -> "LinearRegressionModel":
+    """A model (with its summary source) from a packed device result, read
+    to the host once."""
+    from ..parallel.distributed import unpack_fit_result
+
+    result = unpack_fit_result(flat, d)
+    model = LinearRegressionModel(result.coefficients,
+                                  float(result.intercept), params,
+                                  scale=scale)
+    model._summary_source = (frame, result)
+    return model
+
+
+@persistable
 class LinearRegression(Estimator):
-    """Elastic-net linear regression, MLlib numeric convention."""
+    """Elastic-net (or Huber) linear regression, MLlib numeric convention."""
+
+    _persist_attrs = ("max_iter", "reg_param", "elastic_net_param", "tol",
+                      "fit_intercept", "standardization", "solver",
+                      "features_col", "label_col", "prediction_col",
+                      "weight_col", "aggregation_depth", "loss", "epsilon")
+
+    # Class-level defaults: stages saved before these params existed load
+    # through setattr and still resolve them.
+    weight_col = None
+    loss = "squaredError"
+    epsilon = 1.35
 
     def __init__(self, max_iter: int = 100, reg_param: float = 0.0,
                  elastic_net_param: float = 0.0, tol: float = 1e-6,
                  fit_intercept: bool = True, standardization: bool = True,
                  solver: str = "auto", features_col: str = "features",
                  label_col: str = "label",
-                 prediction_col: str = "prediction"):
+                 prediction_col: str = "prediction",
+                 weight_col: Optional[str] = None,
+                 aggregation_depth: int = 2, loss: str = "squaredError",
+                 epsilon: float = 1.35):
         self.max_iter = max_iter
         self.reg_param = reg_param
         self.elastic_net_param = elastic_net_param
@@ -49,9 +84,17 @@ class LinearRegression(Estimator):
         self.features_col = features_col
         self.label_col = label_col
         self.prediction_col = prediction_col
+        self.weight_col = weight_col
+        # MLlib's treeAggregate depth: one device sums every row, so it has
+        # no effect. Accepted for API parity.
+        self.aggregation_depth = aggregation_depth
+        if loss not in ("squaredError", "huber"):
+            raise ValueError(f"unknown loss {loss!r} "
+                             "(squaredError or huber)")
+        self.loss = loss
+        self.epsilon = float(epsilon)
 
-    # The setters the reference app (camelCase) and the README (snake_case)
-    # call; every other parameter is a constructor argument.
+    # -- MLlib-style fluent setters and getters -----------------------------
     def set_max_iter(self, v: int):
         self.max_iter = int(v); return self
 
@@ -61,23 +104,83 @@ class LinearRegression(Estimator):
     def set_elastic_net_param(self, v: float):
         self.elastic_net_param = float(v); return self
 
+    def set_tol(self, v: float):
+        self.tol = float(v); return self
+
+    def set_fit_intercept(self, v: bool):
+        self.fit_intercept = bool(v); return self
+
+    def set_standardization(self, v: bool):
+        self.standardization = bool(v); return self
+
+    def set_solver(self, v: str):
+        self.solver = v; return self
+
+    def set_features_col(self, v: str):
+        self.features_col = v; return self
+
+    def set_label_col(self, v: str):
+        self.label_col = v; return self
+
+    def set_prediction_col(self, v: str):
+        self.prediction_col = v; return self
+
+    def set_weight_col(self, v):
+        self.weight_col = v; return self
+
+    def set_aggregation_depth(self, v: int):
+        self.aggregation_depth = int(v); return self
+
     setMaxIter = set_max_iter
     setRegParam = set_reg_param
     setElasticNetParam = set_elastic_net_param
+    setTol = set_tol
+    setFitIntercept = set_fit_intercept
+    setStandardization = set_standardization
+    setSolver = set_solver
+    setFeaturesCol = set_features_col
+    setLabelCol = set_label_col
+    setPredictionCol = set_prediction_col
+    setWeightCol = set_weight_col
+    setAggregationDepth = set_aggregation_depth
+
+    def get_max_iter(self): return self.max_iter
+    def get_reg_param(self): return self.reg_param
+    def get_elastic_net_param(self): return self.elastic_net_param
+    def get_tol(self): return self.tol
+    def get_fit_intercept(self): return self.fit_intercept
+    def get_standardization(self): return self.standardization
+    def get_solver(self): return self.solver
+
+    getMaxIter = get_max_iter
+    getRegParam = get_reg_param
+    getElasticNetParam = get_elastic_net_param
+    getTol = get_tol
+    getFitIntercept = get_fit_intercept
+    getStandardization = get_standardization
+    getSolver = get_solver
 
     def _params_dict(self) -> dict:
-        return {k: getattr(self, k) for k in (
-            "max_iter", "reg_param", "elastic_net_param", "tol",
-            "fit_intercept", "standardization", "solver", "features_col",
-            "label_col", "prediction_col")}
+        return {k: getattr(self, k) for k in self._persist_attrs}
 
+    # -- fit ----------------------------------------------------------------
     def fit(self, frame: Frame) -> "LinearRegressionModel":
-        """Fit on the frame's valid rows: one Gramian pass, then the solver
-        loop on the device of the frame."""
-        from ..parallel.distributed import (fused_linear_fit_packed,
-                                            pack_design, unpack_fit_result)
+        """Fit on the frame's valid rows, on the device of the frame."""
+        from ..parallel.distributed import fused_linear_fit_packed, pack_design
 
         X, y, mask = _extract_xy(frame, self.features_col, self.label_col)
+        if self.weight_col is not None:
+            # Instance weights (MLlib weightCol): scaling packed rows by
+            # sqrt(w) makes the Gramian Σ w·zzᵀ, so every moment the solver
+            # unpacks takes its weighted form. Only valid rows are checked
+            # (one host read), and masked rows' weights never reach sqrt.
+            w = frame._column_values(self.weight_col).to(float_dtype())
+            if not bool(((w >= 0) | ~mask).all()):
+                raise ValueError("weights must be nonnegative")
+            mask = mask.to(X.dtype) * torch.sqrt(
+                torch.where(mask, w, X.new_zeros(())))
+        if self.loss == "huber":
+            return self._fit_huber(frame, X, y, mask)
         fit_fn = fused_linear_fit_packed(
             resolve_solver(self.solver, self.reg_param,
                            self.elastic_net_param),
@@ -85,28 +188,73 @@ class LinearRegression(Estimator):
             self.standardization)
         flat = fit_fn(pack_design(X, y, mask), self.reg_param,
                       self.elastic_net_param)
-        result = unpack_fit_result(flat, X.shape[1])
-        model = LinearRegressionModel(result.coefficients,
-                                      float(result.intercept),
-                                      self._params_dict())
+        return _model_from_flat(flat, X.shape[1], self._params_dict(), frame)
+
+    def _fit_huber(self, frame, X, y, mask) -> "LinearRegressionModel":
+        """MLlib ``loss="huber"`` (see ``solvers.huber_fit``): L2 only, as
+        in MLlib; the scale estimate is ``model.scale``."""
+        from .solvers import huber_fit
+
+        if self.elastic_net_param not in (0, 0.0):
+            raise ValueError("huber loss supports only L2 regularization "
+                             "(elasticNetParam must be 0), as in MLlib")
+        b, c, sigma, iters, obj = huber_fit(
+            X, y, mask, epsilon=self.epsilon, reg_param=self.reg_param,
+            fit_intercept=self.fit_intercept, max_iter=self.max_iter,
+            tol=self.tol, standardization=self.standardization)
+        dt = b.dtype
+        host = torch.cat([b, torch.stack([c, sigma, iters.to(dt),
+                                          obj.to(dt)])]).cpu().numpy()
+        d = X.shape[1]
+        iterations = int(host[d + 2])
+        result = FitResult(coefficients=host[:d], intercept=host[d],
+                           iterations=np.int32(iterations),
+                           objective_history=host[d + 3:d + 4],
+                           converged=iterations < self.max_iter)
+        model = LinearRegressionModel(host[:d], float(host[d]),
+                                      self._params_dict(),
+                                      scale=float(host[d + 1]))
         model._summary_source = (frame, result)
         return model
 
+    def fit_from_gram(self, A: torch.Tensor,
+                      frame: Frame) -> "LinearRegressionModel":
+        """Fit from a precomputed augmented Gramian: no data pass."""
+        from ..parallel.distributed import pack_fit_result
+        from .solvers import solve
 
+        result = solve(A, self.reg_param, self.elastic_net_param,
+                       max_iter=self.max_iter, tol=self.tol,
+                       fit_intercept=self.fit_intercept,
+                       standardization=self.standardization,
+                       solver=self.solver)
+        return _model_from_flat(pack_fit_result(result), A.shape[-1] - 2,
+                                self._params_dict(), frame)
+
+
+@persistable
 class LinearRegressionModel(Model):
     def __init__(self, coefficients, intercept: float,
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None, scale: float = 1.0):
         self.coefficients = np.array(coefficients)
         self.intercept = float(intercept)
+        # MLlib: 1.0 for squared-error fits; the fitted sigma for huber
+        self.scale = float(scale)
         self._params = dict(params or {})
         self._training_summary = None
         self._summary_source = None  # (frame, FitResult) until first access
 
     def get_reg_param(self): return self._params.get("reg_param", 0.0)
     def get_tol(self): return self._params.get("tol", 1e-6)
+    def get_max_iter(self): return self._params.get("max_iter", 100)
+
+    def get_elastic_net_param(self):
+        return self._params.get("elastic_net_param", 0.0)
 
     getRegParam = get_reg_param
     getTol = get_tol
+    getMaxIter = get_max_iter
+    getElasticNetParam = get_elastic_net_param
 
     @property
     def features_col(self):
@@ -119,6 +267,12 @@ class LinearRegressionModel(Model):
     @property
     def label_col(self):
         return self._params.get("label_col", "label")
+
+    @property
+    def num_features(self) -> int:
+        return int(self.coefficients.shape[0])
+
+    numFeatures = num_features
 
     def transform(self, frame: Frame) -> Frame:
         """Append the prediction column (one matrix-vector product on the
@@ -142,14 +296,50 @@ class LinearRegressionModel(Model):
     def summary(self) -> "LinearRegressionTrainingSummary":
         if self._training_summary is None:
             if self._summary_source is None:
-                raise RuntimeError("model was not fit with a summary")
+                raise RuntimeError("model was not fit with a summary "
+                                   "(loaded model?)")
             frame, result = self._summary_source
             self._training_summary = LinearRegressionTrainingSummary(
                 self, frame, result)
         return self._training_summary
 
+    @property
+    def has_summary(self) -> bool:
+        return (self._training_summary is not None
+                or self._summary_source is not None)
+
+    hasSummary = has_summary
+
     def evaluate(self, frame: Frame) -> "LinearRegressionSummary":
         return LinearRegressionSummary(self, frame)
+
+    # -- persistence (the JAX package's format) -----------------------------
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        write_json(os.path.join(path, "metadata.json"), {
+            "class": "LinearRegressionModel",
+            "intercept": self.intercept,
+            "scale": self.scale,
+            "params": self._params,
+        })
+        np.save(os.path.join(path, "coefficients.npy"), self.coefficients)
+
+    @classmethod
+    def load(cls, path: str) -> "LinearRegressionModel":
+        meta = read_json(os.path.join(path, "metadata.json"))
+        if meta.get("class") != "LinearRegressionModel":
+            raise ValueError(f"not a LinearRegressionModel checkpoint: {path}")
+        coef = np.load(os.path.join(path, "coefficients.npy"))
+        return cls(coef, meta["intercept"], meta.get("params"),
+                   scale=meta.get("scale", 1.0))
+
+    # Pipeline persistence (base.save_stage/load_stage dispatch here).
+    def _save_to_dir(self, path: str) -> None:
+        self.save(path)
+
+    @classmethod
+    def _load_from_dir(cls, path: str, meta: dict):
+        return cls.load(path)
 
 
 class LinearRegressionSummary:
@@ -158,16 +348,28 @@ class LinearRegressionSummary:
 
     def __init__(self, model: LinearRegressionModel, frame: Frame):
         self._model = model
+        self._frame = frame
         pred_frame = model.transform(frame)
         d = pred_frame.to_pydict()
         self._label = d[model.label_col].astype(np.float64)
         self._pred = d[model.prediction_col].astype(np.float64)
-        self._device = pred_frame.device
+        self._predictions_frame = pred_frame
+        self._inference_cache = None
+
+    @property
+    def predictions(self) -> Frame:
+        return self._predictions_frame
+
+    @property
+    def num_instances(self) -> int:
+        return int(self._label.shape[0])
+
+    numInstances = num_instances
 
     @property
     def residuals(self) -> Frame:
         return Frame({"residuals": self._label - self._pred},
-                     device=self._device)
+                     device=self._frame.device)
 
     @property
     def mean_squared_error(self) -> float:
@@ -182,12 +384,104 @@ class LinearRegressionSummary:
     rootMeanSquaredError = root_mean_squared_error
 
     @property
+    def mean_absolute_error(self) -> float:
+        return float(np.mean(np.abs(self._label - self._pred)))
+
+    meanAbsoluteError = mean_absolute_error
+
+    @property
+    def explained_variance(self) -> float:
+        return float(np.var(self._pred))
+
+    explainedVariance = explained_variance
+
+    @property
     def r2(self) -> float:
         ss_res = float(np.sum((self._label - self._pred) ** 2))
         ss_tot = float(np.sum((self._label - np.mean(self._label)) ** 2))
         if ss_tot == 0.0:  # constant label: undefined, like MLlib's 0/0
             return float("nan")
         return 1.0 - ss_res / ss_tot
+
+    @property
+    def r2adj(self) -> float:
+        n = self.num_instances
+        d = self._model.num_features
+        return 1.0 - (1.0 - self.r2) * (n - 1) / (n - d - 1)
+
+    @property
+    def degrees_of_freedom(self) -> int:
+        extra = 1 if self._model._params.get("fit_intercept", True) else 0
+        return self.num_instances - self._model.num_features - extra
+
+    degreesOfFreedom = degrees_of_freedom
+
+    # -- inference statistics (MLlib: the solver="normal" surface) ---------
+    def _inference(self):
+        """(std_errors, t_values, p_values), intercept last (MLlib's
+        layout): the classical OLS covariance ``σ̂²(XᵀX)⁻¹``, exact only
+        for unpenalized, unweighted training fits, so anything else raises
+        as MLlib does."""
+        if self._inference_cache is not None:
+            return self._inference_cache
+        params = self._model._params or {}
+        if float(params.get("reg_param", 0.0)) > 0.0:
+            raise ValueError(
+                "standard errors / t-values / p-values are available only "
+                "for unpenalized fits (MLlib: solver='normal' without "
+                "regularization); this model has regParam > 0")
+        if params.get("weight_col") is not None:
+            raise ValueError("standard errors for weighted fits are not "
+                             "computed here")
+        if not isinstance(self, LinearRegressionTrainingSummary):
+            raise ValueError(
+                "inference statistics exist only on the training summary "
+                "(MLlib: evaluate() summaries throw)")
+        from scipy import stats
+
+        Xd, _, mask = _extract_xy(self._frame, self._model.features_col,
+                                  self._model.label_col)
+        X = Xd.cpu().numpy().astype(np.float64)[mask.cpu().numpy()]
+        fit_intercept = bool(params.get("fit_intercept", True))
+        A = (np.concatenate([X, np.ones((len(X), 1))], axis=1)
+             if fit_intercept else X)
+        dof = self.degrees_of_freedom
+        if dof <= 0:
+            raise ValueError("non-positive degrees of freedom")
+        G = A.T @ A
+        if np.linalg.matrix_rank(G) < A.shape[1]:
+            raise ValueError(
+                "design matrix is rank-deficient (collinear features); "
+                "standard errors are not identifiable")
+        resid = self._label - self._pred
+        sigma2 = float(resid @ resid) / dof
+        se = np.sqrt(np.diag(sigma2 * np.linalg.pinv(G)))
+        coef = np.asarray(self._model.coefficients, np.float64)
+        beta = (np.concatenate([coef, [self._model.intercept]])
+                if fit_intercept else coef)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = beta / se
+        p = 2.0 * stats.t.sf(np.abs(t), dof)
+        self._inference_cache = (se, t, p)
+        return self._inference_cache
+
+    @property
+    def coefficient_standard_errors(self) -> np.ndarray:
+        return self._inference()[0]
+
+    coefficientStandardErrors = coefficient_standard_errors
+
+    @property
+    def t_values(self) -> np.ndarray:
+        return self._inference()[1]
+
+    tValues = t_values
+
+    @property
+    def p_values(self) -> np.ndarray:
+        return self._inference()[2]
+
+    pValues = p_values
 
 
 class LinearRegressionTrainingSummary(LinearRegressionSummary):

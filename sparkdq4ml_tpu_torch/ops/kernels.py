@@ -1,7 +1,7 @@
 """The hand-written Hopper kernels of the port, their plain PyTorch
 versions, the build step and the launch counts.
 
-Two kernels, each the counterpart of a Pallas TPU kernel in
+Three kernels, each the counterpart of a Pallas TPU kernel in
 ``sparkdq4ml_tpu/ops/pallas_kernels.py``:
 
 * ``dq_rules`` (``csrc/dq_rules.cu``) replaces ``_dq_kernel``: the fused DQ
@@ -9,6 +9,13 @@ Two kernels, each the counterpart of a Pallas TPU kernel in
 * ``packed_gram`` (``csrc/packed_gram.cu``) replaces
   ``_packed_gram_kernel``: ``A = ZᵀZ`` of the packed design, the only data
   pass of ``LinearRegression.fit``.
+* ``masked_gram`` (``csrc/masked_gram.cu``) replaces ``_gram_kernel``:
+  ``A = (Z·w)ᵀ(Z·w)`` with ``Z = [X, y, 1]`` read from ``X``, ``y`` and
+  ``w`` directly, behind ``models/solvers.py:augmented_gram`` (the Huber
+  warm start, the cross-validation fold Gramians, ``compute_gram``).
+
+The two Gramian kernels share their two-stage plan
+(``csrc/gram_common.cuh``).
 
 Dispatch has one rule. A CUDA tensor goes to the kernel and a CPU tensor
 to the plain version; any other device raises. A build or launch failure
@@ -17,8 +24,8 @@ raises too: nothing falls back from a kernel to its plain version.
 The CUDA sources are compiled with ``nvcc`` into one shared library each
 (plain ``extern "C"`` launchers, called through ``ctypes``) at first use,
 into ``.kernels_build/<hash>/`` at the root of the checkout, keyed by a
-hash of the sources and the flags. Importing this module needs no
-``nvcc``.
+hash of the sources, the headers they include and the flags. Importing
+this module needs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,12 +46,13 @@ from .rules import (BAD_ROW_SENTINEL, CORRELATION_MAX_GUESTS,
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".kernels_build"
-SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu"}
+SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu",
+           "masked_gram": "masked_gram.cu"}
 
-# Stage-1 form of packed_gram.cu: D <= GRAM_SMALL_MAX_D keeps the D x D sum
-# in registers, one block per chunk; larger D uses 64 x 64 output tiles.
-# The kernel reads the threshold from the nvcc flags below, the chunk plan
-# from here.
+# Stage-1 form of both Gramian kernels (csrc/gram_common.cuh): D <=
+# GRAM_SMALL_MAX_D keeps the D x D sum in registers, one block per chunk;
+# larger D uses 64 x 64 output tiles. The kernels read the threshold from
+# the nvcc flags below, the chunk plan from here.
 GRAM_SMALL_MAX_D = 4
 GRAM_TILE = 64
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -94,10 +103,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _local_headers(path: Path, seen: set) -> list:
+    """The files of ``csrc/`` that ``path`` includes with quotes, directly
+    or through another of them, in include order."""
+    out = []
+    for m in _INCLUDE.finditer(path.read_bytes()):
+        header = path.parent / m.group(1).decode()
+        if header not in seen and header.exists():
+            seen.add(header)
+            out += [header] + _local_headers(header, seen)
+    return out
+
+
 def build_key(name: str) -> str:
-    """Hash of one kernel's source and the nvcc flags."""
+    """Hash of one kernel's source, the headers it includes and the nvcc
+    flags."""
+    src = CSRC / SOURCES[name]
     h = hashlib.sha256()
-    h.update((CSRC / SOURCES[name]).read_bytes())
+    for path in [src] + _local_headers(src, {src}):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -142,25 +170,34 @@ def build(names=tuple(SOURCES)) -> dict:
         return {n: _libs[n] for n in names}
 
 
-def _bind(name: str, lib):
+def _bind(name: str, lib) -> dict:
+    """The library's launchers, keyed by input dtype (and, for
+    ``masked_gram``, by ``(dtype, weight dtype)``)."""
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    f32, f64, b8 = torch.float32, torch.float64, torch.bool
     if name == "dq_rules":
-        fns = (lib.dq_rules_f32, lib.dq_rules_f64)
+        fns = {f32: lib.dq_rules_f32, f64: lib.dq_rules_f64}
         argtypes = [P, P, P, P, P, LL, P]
-    else:
-        fns = (lib.packed_gram_f32, lib.packed_gram_f64)
+    elif name == "packed_gram":
+        fns = {f32: lib.packed_gram_f32, f64: lib.packed_gram_f64}
         argtypes = [P, P, P, LL, I, I, LL, P]
-    for fn in fns:
+    else:
+        fns = {(f32, b8): lib.masked_gram_f32_b8,
+               (f32, f32): lib.masked_gram_f32_f32,
+               (f64, b8): lib.masked_gram_f64_b8,
+               (f64, f64): lib.masked_gram_f64_f64}
+        argtypes = [P, P, P, P, P, LL, I, I, LL, P]
+    for fn in fns.values():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return {torch.float32: fns[0], torch.float64: fns[1]}
+    return fns
 
 
-def _launcher(name: str, dtype: torch.dtype):
+def _launcher(name: str, key):
     lib = _libs.get(name) or build((name,))[name]
-    if dtype not in lib:
-        raise TypeError(f"{name}: no kernel for dtype {dtype}")
-    return lib[dtype]
+    if key not in lib:
+        raise TypeError(f"{name}: no kernel for dtype {key}")
+    return lib[key]
 
 
 def _check(name: str, err: int) -> None:
@@ -259,4 +296,47 @@ def packed_gram(Z: torch.Tensor) -> torch.Tensor:
     _check("packed_gram", fn(Z.data_ptr(), part.data_ptr(), out.data_ptr(),
                              n, D, chunks, rows, stream))
     launches.add("packed_gram")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# masked_gram
+# ---------------------------------------------------------------------------
+
+def masked_gram_reference(X: torch.Tensor, y: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    """Plain version, the XLA expression of ``augmented_gram``:
+    ``Zw = [X, y, 1]·w``, ``Zw.T @ Zw``."""
+    Z = torch.cat([X, y[:, None], torch.ones_like(y)[:, None]], dim=1)
+    Zw = Z * w.to(X.dtype)[:, None]
+    return Zw.T @ Zw
+
+
+def masked_gram(X: torch.Tensor, y: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """``A = Σᵢ wᵢ² zᵢzᵢᵀ`` with ``zᵢ = [xᵢ, yᵢ, 1]``, shape (d+2, d+2), of
+    ``X`` (n, d), ``y`` (n) and a weight ``w`` (n) that is boolean or of
+    ``X``'s float type (float32 or float64); zeros when n = 0.
+    Bit-identical from run to run on the card."""
+    if X.ndim != 2 or y.shape != (X.shape[0],) or w.shape != y.shape:
+        raise ValueError("masked_gram: X must be (n, d), y and w (n,)")
+    if y.dtype != X.dtype or (w.dtype != torch.bool and w.dtype != X.dtype):
+        raise ValueError("masked_gram: y must have X's dtype, w X's dtype "
+                         "or bool")
+    if not _route("masked_gram", X, y, w):
+        return masked_gram_reference(X, y, w)
+    fn = _launcher("masked_gram", (X.dtype, w.dtype))
+    n, d = X.shape
+    D = d + 2
+    if n == 0:
+        return torch.zeros((D, D), dtype=X.dtype, device=X.device)
+    X, y, w = X.contiguous(), y.contiguous(), w.contiguous()
+    out = torch.empty((D, D), dtype=X.dtype, device=X.device)
+    chunks, rows = gram_plan(n, D, X.element_size())
+    part = torch.empty((chunks, D, D), dtype=X.dtype, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    _check("masked_gram", fn(X.data_ptr(), y.data_ptr(), w.data_ptr(),
+                             part.data_ptr(), out.data_ptr(), n, d, chunks,
+                             rows, stream))
+    launches.add("masked_gram")
     return out

@@ -6,6 +6,9 @@
 ``packed_gram`` kernel (``ops/kernels.py``), runs the solver on it, and
 returns one flat tensor ``[coef | intercept | iterations | converged |
 objective_history]``, decoded on the host by :func:`unpack_fit_result`.
+:func:`compute_gram` is the augmented Gramian of ``(X, y, mask)`` through
+the ``masked_gram`` kernel. The mesh (sharded) halves of both wait for the
+port of ``parallel/mesh.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.solvers import FitResult, fista_solve, normal_solve
+from ..models.solvers import FitResult, augmented_gram, run_solver
 from ..ops import kernels
 
 
@@ -32,32 +35,28 @@ def pack_design(X: torch.Tensor, y: torch.Tensor,
 def fused_linear_fit_packed(solver: str, max_iter: int, tol: float,
                             fit_intercept: bool, standardization: bool):
     """The packed fit as one function ``fit(Z, reg_param,
-    elastic_net_param) -> flat``. The solver is ``"fista"`` or
-    ``"normal"`` (``resolve_solver``); OWL-QN is not ported yet."""
-    if solver == "fista":
-        def solve_A(A, reg, alpha):
-            return fista_solve(A, reg, alpha, max_iter=max_iter, tol=tol,
-                               fit_intercept=fit_intercept,
-                               standardization=standardization)
-    elif solver == "normal":
-        def solve_A(A, reg, alpha):
-            return normal_solve(A, reg, alpha, fit_intercept=fit_intercept,
-                                standardization=standardization)
-    else:
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported to the torch package yet")
+    elastic_net_param) -> flat``. The solver is ``"fista"``, ``"normal"``
+    or ``"owlqn"`` (``resolve_solver``)."""
+    if solver not in ("normal", "fista", "owlqn"):
+        raise ValueError(f"unknown solver {solver!r}")
 
     def fit(Z: torch.Tensor, reg_param: float,
             elastic_net_param: float) -> torch.Tensor:
-        r = solve_A(kernels.packed_gram(Z), float(reg_param),
-                    float(elastic_net_param))
-        dt = r.coefficients.dtype
-        scalars = torch.stack([r.intercept.to(dt), r.iterations.to(dt),
-                               r.converged.to(dt)])
-        return torch.cat([r.coefficients, scalars,
-                          r.objective_history.to(dt)])
+        return pack_fit_result(run_solver(
+            solver, kernels.packed_gram(Z), float(reg_param),
+            float(elastic_net_param), max_iter, tol, fit_intercept,
+            standardization))
 
     return fit
+
+
+def pack_fit_result(r: FitResult) -> torch.Tensor:
+    """One flat tensor ``[coef | intercept | iterations | converged |
+    objective_history]`` of a device ``FitResult``, for one host read."""
+    dt = r.coefficients.dtype
+    scalars = torch.stack([r.intercept.to(dt), r.iterations.to(dt),
+                           r.converged.to(dt)])
+    return torch.cat([r.coefficients, scalars, r.objective_history.to(dt)])
 
 
 def unpack_fit_result(flat, d: int) -> FitResult:
@@ -70,3 +69,13 @@ def unpack_fit_result(flat, d: int) -> FitResult:
         iterations=np.int32(flat[d + 1]),
         objective_history=flat[d + 3:],
         converged=bool(flat[d + 2]))
+
+
+def compute_gram(X: torch.Tensor, y: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Augmented Gramian ``A`` of the valid rows, on the device of ``X``:
+    one ``masked_gram`` launch on the card. The mask is read as a boolean,
+    as the reference's single-device path does."""
+    if X.ndim == 1:
+        X = X[:, None]
+    return augmented_gram(X, y, torch.as_tensor(mask).to(torch.bool))

@@ -8,6 +8,8 @@ are held to the same precision as the rest). The CUDA kernels themselves
 are held against these plain versions on the card by ``chip_smoke.py``.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -70,7 +72,11 @@ def test_cpu_tensors_count_no_launch():
     kernels.dq_rules(torch.ones(4, dtype=torch.float64),
                      torch.ones(4, dtype=torch.float64))
     kernels.packed_gram(torch.ones((4, 3), dtype=torch.float64))
-    assert kernels.launches.snapshot() == {"dq_rules": 0, "packed_gram": 0}
+    kernels.masked_gram(torch.ones((4, 1), dtype=torch.float64),
+                        torch.ones(4, dtype=torch.float64),
+                        torch.ones(4, dtype=torch.bool))
+    assert kernels.launches.snapshot() == {"dq_rules": 0, "packed_gram": 0,
+                                           "masked_gram": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -79,6 +85,8 @@ def test_other_devices_raise_instead_of_falling_back():
         kernels.packed_gram(meta)
     with pytest.raises(ValueError, match="no kernel or plain version"):
         kernels.dq_rules(meta[:, 0], meta[:, 1])
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.masked_gram(meta[:, :1], meta[:, 1], meta[:, 2])
 
 
 def test_dq_rules_rejects_mixed_inputs():
@@ -107,9 +115,24 @@ def test_build_key_hashes_source_and_flags(monkeypatch):
     assert kernels.build_key("packed_gram") != key
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
-    # packed_gram.cu reads its stage-1 threshold from the flags
+    # the Gramian kernels read their stage-1 threshold from the flags
     assert f"-DGRAM_SMALL_MAX_D={kernels.GRAM_SMALL_MAX_D}" in \
         kernels.NVCC_FLAGS
+    # both Gramian kernels include the shared header, and an edit to it
+    # changes their keys (and no other)
+    header = kernels.CSRC / "gram_common.cuh"
+    for name in ("packed_gram", "masked_gram"):
+        assert header in kernels._local_headers(kernels.CSRC /
+                                                kernels.SOURCES[name], set())
+    before = {n: kernels.build_key(n) for n in kernels.SOURCES}
+    real = pathlib.Path.read_bytes
+    monkeypatch.setattr(pathlib.Path, "read_bytes",
+                        lambda p: real(p) + (b"// edit\n" if p == header
+                                             else b""))
+    after = {n: kernels.build_key(n) for n in kernels.SOURCES}
+    assert after["packed_gram"] != before["packed_gram"]
+    assert after["masked_gram"] != before["masked_gram"]
+    assert after["dq_rules"] == before["dq_rules"]
 
 
 @pytest.mark.parametrize("n,D,elem", [(1, 3, 4), (40, 3, 4),

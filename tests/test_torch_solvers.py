@@ -141,5 +141,16 @@ def test_fused_linear_fit_packed(solver):
 
 
 def test_owlqn_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="owlqn"):
-        distributed.fused_linear_fit_packed("owlqn", 40, 1e-6, True, True)
+    """OWL-QN is ported now: the packed fit takes it, as the reference's
+    does, and gives the reference's flat result."""
+    X, y, mask = _data(300, 2, seed=9)
+    Z = np.asarray(jax_dist.pack_design(X, y, mask))
+    ref_fit = jax_dist.fused_linear_fit_packed(None, "owlqn", 40, 1e-6,
+                                               True, True)
+    ref = np.asarray(ref_fit(Z, np.asarray([0.5, 1.0])))
+    fit = distributed.fused_linear_fit_packed("owlqn", 40, 1e-6, True, True)
+    got = fit(torch.as_tensor(Z), 0.5, 1.0).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-14)
+    with pytest.raises(ValueError, match="unknown solver"):
+        distributed.fused_linear_fit_packed("newton", 40, 1e-6, True, True)
