@@ -7,11 +7,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: a CUDA device must be present; prints its name and power limit;
 2. build: compiles the three CUDA kernels from the sources in the checkout,
-   one nvcc each, all started together;
+   one nvcc each, all started together; then one wrapper call of each
+   Gramian under torch.profiler at the app's, the tour's and the full
+   table's shapes, for the number of kernels it launches (first, while no
+   other profiler session has run in the process);
 3. parity: each kernel against its plain PyTorch version on the card, in
    float32 and float64, at the listed sizes, including NaNs, an int32
    guest column, n = 0, boolean and float weights for the masked Gramian,
-   and two runs of each Gramian that must agree bit for bit;
+   the Gramians' tile edges (D = 5, 128, 256 and a ragged n at D = 130),
+   two runs of each Gramian that must agree bit for bit, and each Gramian
+   equal to its transpose bit for bit;
 4. golden app: the reference application (CSV -> DQ rules -> SQL ->
    VectorAssembler -> Lasso fit -> predict(40)) on the three datasets
    through ``TorchSession``, in float32, against the row counts and fit
@@ -75,10 +80,16 @@ HUBER_GOLDEN = {"coef": 4.97610721, "intercept": 22.2313856,
                 "scale": 1.20692064, "iterations": 80}
 FULL_ROWS = 10_000_000
 DQ_SIZES = (0, 1, 127, 128, 65_537, 10_000_000)
-GRAM_SHAPES = ((0, 3), (1, 3), (10_000_000, 3), (1_000_000, 18),
-               (1_000_000, 130), (1_000_000, 514))
-MASKED_SHAPES = ((0, 1), (1, 1), (10_000_000, 1), (1_000_000, 16),
-                 (1_000_000, 128), (1_000_000, 512))
+# The Gramians' edges: one launch up to kernels.GRAM_ONE_CHUNK_ROWS rows
+# (40, 1040, 16384), D = 5 (the first tiled D), D = 128 and 256 (tile
+# multiples), a ragged n at D = 130 (several chunks, a partial last tile).
+GRAM_SHAPES = ((0, 3), (1, 3), (40, 3), (16_384, 3), (10_000_000, 3),
+               (65_537, 5), (1_000_000, 18), (65_537, 128), (65_537, 256),
+               (100_003, 130), (1_000_000, 130), (1_000_000, 514))
+MASKED_SHAPES = ((0, 1), (1, 1), (1040, 1), (16_384, 1), (10_000_000, 1),
+                 (65_537, 3), (1_000_000, 16), (65_537, 126),
+                 (65_537, 254), (100_003, 128), (1_000_000, 128),
+                 (1_000_000, 512))
 APP_KERNELS = ("dq_rules", "packed_gram")   # the app path's; CV and Huber
                                             # launch masked_gram
 TIMED_RUNS = 25
@@ -253,6 +264,9 @@ def check_packed_gram(device: str, shapes=GRAM_SHAPES) -> dict:
             if not same_bits(got, again):
                 raise AssertionError(f"packed_gram not bit-stable: n={n} "
                                      f"D={D} {dtype}")
+            if not same_bits(got, got.T.contiguous()):
+                raise AssertionError(f"packed_gram not symmetric: n={n} "
+                                     f"D={D} {dtype}")
             absZ = Z.abs().double()
             bound = rel * (absZ.T @ absZ)
             del absZ
@@ -274,7 +288,8 @@ def check_packed_gram(device: str, shapes=GRAM_SHAPES) -> dict:
                         f"packed_gram float64 n={n} D={D}: |kernel - plain| "
                         f"exceeds 1e-12 |Z|'|Z| by {over}")
             del Z, got, again, plain, bound
-    log(f"packed_gram: within bounds and bit-stable at {list(shapes)}")
+    log(f"packed_gram: within bounds, bit-stable and symmetric at "
+        f"{list(shapes)}")
     return errs
 
 
@@ -448,6 +463,8 @@ def check_masked_gram(device: str, shapes=MASKED_SHAPES) -> dict:
                     raise AssertionError(f"{what}: shape {got.shape}")
                 if not same_bits(got, again):
                     raise AssertionError(f"{what}: not bit-stable")
+                if not same_bits(got, got.T.contiguous()):
+                    raise AssertionError(f"{what}: not symmetric")
                 Z = torch.cat([X.double(), y.double()[:, None],
                                torch.ones_like(y, dtype=torch.float64)[:, None]],
                               dim=1) * w.double()[:, None]
@@ -469,7 +486,8 @@ def check_masked_gram(device: str, shapes=MASKED_SHAPES) -> dict:
                     errs[(n, d)] = (float((got - plain).abs().max())
                                     if n else 0.0)
                 del X, y, w, got, again, plain, bound, want
-    log(f"masked_gram: within bounds and bit-stable at {list(shapes)}, "
+    log(f"masked_gram: within bounds, bit-stable and symmetric at "
+        f"{list(shapes)}, "
         "float32 and float64, boolean and float weights; the float32 plain "
         f"version's excess over 1e-5 |Zw|'|Zw|: {plain_excess or 'none'}")
     return errs
@@ -769,6 +787,56 @@ def profile_run(name: str, fn) -> dict:
                 if any(p in listed for p in parts))}
 
 
+def device_kernels_per_call(name: str, *args) -> dict:
+    """The device kernels that one call of the wrapper ``name`` on ``args``
+    runs, and the kernel launches its host side makes, from a
+    torch.profiler trace of that call alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    fn = getattr(kernels, name)
+    fn(*args)                                           # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [e.name for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    launched = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                              "cudaLaunchKernelExC") for e in events)
+    return {"device_kernels": len(on_device), "host_launches": launched,
+            "names": sorted(set(on_device))}
+
+
+def gram_kernel_counts() -> dict:
+    """Kernels per wrapper call at the app's (40, 3), the tour's (1040, 1)
+    and the full table's (10^7, 3) and (10^7, 1) shapes: one at the first
+    two (one chunk), two at 10^7 rows (the chunk pass and the reduce)."""
+    import torch
+
+    out = {}
+    for n, D in ((40, 3), (FULL_ROWS, 3)):
+        Z = packed_design(n, D, torch.float32, "cuda", seed=5)
+        out[f"packed_gram ({n}, {D})"] = device_kernels_per_call(
+            "packed_gram", Z)
+    for n, d in ((1040, 1), (FULL_ROWS, 1)):
+        args = masked_inputs(n, d, torch.float32, "cuda", 5, "bool")
+        out[f"masked_gram ({n}, d={d})"] = device_kernels_per_call(
+            "masked_gram", *args)
+    log(f"device kernels per wrapper call: {out}")
+    for key, got in out.items():
+        want = 1 if key in ("packed_gram (40, 3)",
+                            "masked_gram (1040, d=1)") else 2
+        if got["host_launches"] != want or got["device_kernels"] != want:
+            raise AssertionError(f"{key}: {got}, expected {want} kernel(s) "
+                                 "a call")
+    return out
+
+
 def profile_app(rows: int = FULL_ROWS) -> dict:
     guest, price = full_table(rows)
     return profile_run("app", lambda: run_full("cuda", guest, price))
@@ -789,6 +857,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    # First, while no other profiler session has run in this process.
+    per_call = gram_kernel_counts()
 
     dq_err = check_dq_rules("cuda")
     gram_errs = check_packed_gram("cuda")
@@ -839,6 +909,7 @@ def main() -> int:
          "parity": True, **masked_main, "app_size": masked_app,
          "largest": masked_big},
     ], "launches_by_path": by_path,
+        "device_kernels_per_call": per_call,
         "app_phase_s": float(np.median(app_s)), "app_phase_runs_s": app_s,
         "app_rows": FULL_ROWS, "app_stages_ms": stages,
         "app_profile": prof,

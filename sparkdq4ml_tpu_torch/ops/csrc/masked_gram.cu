@@ -14,16 +14,21 @@
 // type and then multiplied, as the plain version does.
 //
 // What the TPU kernel exists for is kept: X (n, d), y (n) and w (n, bool or
-// the input's float type) are read directly and the row z * w is formed in
-// registers (or in the shared-memory slab of the tiled form); Z is never
-// written to global memory. The two-stage, atomic-free sum of
-// gram_common.cuh makes the result bit-stable from run to run, which the
+// the input's float type) are read directly and Z is never written to
+// global memory. At D <= 4 the row z * w is formed in registers. The tiled
+// form copies raw X into the shared-memory slab (16 bytes at a time when d
+// is a multiple of 4), reads the slab's w and y one slab ahead, and then
+// scales the slab in place and fills the y and 1 columns, once per element
+// and outside the multiply loop. The plan of gram_common.cuh makes the
+// result bit-stable from run to run and symmetric bit for bit, which the
 // cross-validation's A_all - A_fold needs.
 //
 // Bound: n * (d + 2) * elem bytes in (plus one byte or elem a row for w),
 // D^2 * elem out, and n * D * (D + 1) flops for one triangle of the
-// symmetric A. At d = 1 memory is the limit; at d = 512 the float32
-// (non-tensor) rate is.
+// symmetric A. At d = 1 memory is the limit, at d = 512 the float32
+// (non-tensor) rate. On an H100 80GB HBM3 at 700 W (chip_smoke.py): about
+// 30% of the bytes' bound at (10^7, 1) and 31% of the float32 rate's bound
+// at (10^6, 512), within 1.15 times packed_gram at the same D.
 
 #include "gram_common.cuh"
 
@@ -31,15 +36,18 @@ namespace {
 
 template <typename T, typename W>
 struct MaskedDesign {
+  static constexpr bool kScaled = true;    // slabs are scaled by w in place
   const T* __restrict__ X;
   const T* __restrict__ y;
   const W* __restrict__ w;
   int d;
 
-  __device__ __forceinline__ T at(int64_t r, int c) const {
-    const T v = c < d ? X[r * d + c] : (c == d ? y[r] : T(1));
-    return v * T(w[r]);
-  }
+  // The tiled stage 1 copies X's rows (stride d, d columns), then forms
+  // [x, y, 1] * w in shared memory from the slab's weight() and label().
+  __host__ __device__ const T* src() const { return X; }
+  __host__ __device__ int ld() const { return d; }
+  __device__ __forceinline__ T weight(int64_t r) const { return T(w[r]); }
+  __device__ __forceinline__ T label(int64_t r) const { return y[r]; }
 
   template <int MAXD>
   __device__ __forceinline__ void row(int64_t r, T (&z)[MAXD]) const {

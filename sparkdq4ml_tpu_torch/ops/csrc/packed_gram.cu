@@ -5,15 +5,19 @@
 // (sparkdq4ml_tpu/ops/pallas_kernels.py, called through `_packed_gram_call`
 // and `packed_gram_pallas`), the only pass over the data of a linear fit.
 //
-// Z is (n, D) row-major with D = d + 2; A is (D, D). The two-stage plan
-// (per-chunk partials, then a fixed-order chunk reduce; no atomics, so the
-// result is bit-stable) lives in gram_common.cuh and is shared with
-// masked_gram.cu; this file only says how a row of Z is read.
+// Z is (n, D) row-major with D = d + 2; A is (D, D). The plan (upper-
+// triangle tiles over row chunks, a fixed-order chunk reduce, no atomics,
+// one launch when there is one chunk; A symmetric bit for bit) lives in
+// gram_common.cuh and is shared with masked_gram.cu; this file only says
+// how a row of Z is read. The tiled form copies Z's rows as they are, 16
+// bytes at a time when D is a multiple of 4 (8 or 4 bytes otherwise).
 //
 // Bound: A is symmetric, so the function needs n * D * (D + 1) flops (one
 // triangle) on 4 * n * D bytes in float32. At the main path's D = 3 memory
-// is the limit; at D = 514 the float32 (non-tensor) rate is. Stage 1
-// computes both triangles, twice the flops the function needs.
+// is the limit, at D = 514 the float32 (non-tensor) rate. On an H100 80GB
+// HBM3 at 700 W (chip_smoke.py): about 45% of the bytes' bound at
+// (10^7, 3) and 36% of the float32 rate's bound at (10^6, 514), where the
+// 64-wide tiles of the triangle do 1.39 times the flops it needs.
 
 #include "gram_common.cuh"
 
@@ -21,12 +25,13 @@ namespace {
 
 template <typename T>
 struct PackedDesign {
+  static constexpr bool kScaled = false;   // rows are read as they are
   const T* __restrict__ Z;
   int D;
 
-  __device__ __forceinline__ T at(int64_t r, int c) const {
-    return Z[r * D + c];
-  }
+  // The tiled stage 1 copies Z's rows (stride D, D columns) as they are.
+  __host__ __device__ const T* src() const { return Z; }
+  __host__ __device__ int ld() const { return D; }
 
   // One row is D consecutive values, so a warp reads consecutive bytes.
   template <int MAXD>

@@ -14,8 +14,10 @@ Three kernels, each the counterpart of a Pallas TPU kernel in
   ``w`` directly, behind ``models/solvers.py:augmented_gram`` (the Huber
   warm start, the cross-validation fold Gramians, ``compute_gram``).
 
-The two Gramian kernels share their two-stage plan
-(``csrc/gram_common.cuh``).
+The two Gramian kernels share their plan (``csrc/gram_common.cuh``):
+upper-triangle tiles over row chunks, then, when there is more than one
+chunk, a fixed-order reduce over the chunks; one launch in all when there
+is one.
 
 Dispatch has one rule. A CUDA tensor goes to the kernel and a CPU tensor
 to the plain version; any other device raises. A build or launch failure
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -51,13 +54,18 @@ SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu",
 
 # Stage-1 form of both Gramian kernels (csrc/gram_common.cuh): D <=
 # GRAM_SMALL_MAX_D keeps the D x D sum in registers, one block per chunk;
-# larger D uses 64 x 64 output tiles. The kernels read the threshold from
-# the nvcc flags below, the chunk plan from here.
+# larger D uses GRAM_TILE x GRAM_TILE output tiles of the upper triangle.
+# The kernels read both from the nvcc flags below, the chunk plan from here.
 GRAM_SMALL_MAX_D = 4
 GRAM_TILE = 64
+# Up to this many rows at D <= GRAM_SMALL_MAX_D, one block takes all the
+# rows and writes A itself: one launch, no partials. On the card one block
+# was as fast as the chunked plan or faster up to about this size.
+GRAM_ONE_CHUNK_ROWS = 16384
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC",
-              f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}")
+              f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}",
+              f"-DGRAM_TILE={GRAM_TILE}")
 # Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
 # chunk at D = 514 in float64, so at most 15 chunks there).
 GRAM_PARTIAL_BYTES = 32 << 20
@@ -265,16 +273,51 @@ def packed_gram_reference(Z: torch.Tensor) -> torch.Tensor:
     return Z.T @ Z
 
 
+def upper_index(b: int) -> tuple[int, int]:
+    """``(i, j)``, ``i <= j``, of the linear index ``b = j (j + 1) / 2 + i``
+    of an upper triangle: the closed form of ``upper_index`` in
+    ``csrc/gram_common.cuh``."""
+    c = int((math.sqrt(8.0 * b + 1.0) - 1.0) * 0.5)
+    while (c + 1) * (c + 2) // 2 <= b:
+        c += 1
+    while c * (c + 1) // 2 > b:
+        c -= 1
+    return b - c * (c + 1) // 2, c
+
+
+def gram_tiles(D: int) -> list[tuple[int, int]]:
+    """The output tiles ``(ti, tj)``, ``ti <= tj``, of the tiled stage 1,
+    indexed by block as the kernel maps them."""
+    T = -(-D // GRAM_TILE)
+    return [upper_index(b) for b in range(T * (T + 1) // 2)]
+
+
 def gram_plan(n: int, D: int, elem_bytes: int) -> tuple[int, int]:
-    """``(chunks, rows_per_chunk)`` of the stage-1 grid: about a thousand
-    blocks in all, partials under ``GRAM_PARTIAL_BYTES``, no empty chunk."""
-    tiles = 1 if D <= GRAM_SMALL_MAX_D else -(-D // GRAM_TILE)
+    """``(chunks, rows_per_chunk)`` of the stage-1 grid: one chunk up to
+    ``GRAM_ONE_CHUNK_ROWS`` rows at D <= ``GRAM_SMALL_MAX_D``; otherwise
+    about a thousand blocks in all, partials under ``GRAM_PARTIAL_BYTES``,
+    no empty chunk."""
+    if D <= GRAM_SMALL_MAX_D and n <= GRAM_ONE_CHUNK_ROWS:
+        return 1, n
+    tiles = 1 if D <= GRAM_SMALL_MAX_D else len(gram_tiles(D))
     cap = max(1, min(GRAM_MAX_CHUNKS,
                      GRAM_PARTIAL_BYTES // (D * D * elem_bytes)))
-    want = max(1, -(-GRAM_MAX_CHUNKS // (tiles * tiles)))
+    want = max(1, -(-GRAM_MAX_CHUNKS // tiles))
     chunks = max(1, min(cap, want, -(-n // GRAM_MIN_ROWS_PER_CHUNK)))
     rows = -(-n // chunks)
     return -(-n // rows), rows
+
+
+def _partials(chunks: int, D: int, like: torch.Tensor):
+    """Stage 1's partial Gramians, or None (a null pointer) for one chunk,
+    where stage 1 writes A itself."""
+    if chunks == 1:
+        return None
+    return torch.empty((chunks, D, D), dtype=like.dtype, device=like.device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def packed_gram(Z: torch.Tensor) -> torch.Tensor:
@@ -291,9 +334,9 @@ def packed_gram(Z: torch.Tensor) -> torch.Tensor:
     Z = Z.contiguous()
     out = torch.empty((D, D), dtype=Z.dtype, device=Z.device)
     chunks, rows = gram_plan(n, D, Z.element_size())
-    part = torch.empty((chunks, D, D), dtype=Z.dtype, device=Z.device)
+    part = _partials(chunks, D, Z)
     stream = torch.cuda.current_stream(Z.device).cuda_stream
-    _check("packed_gram", fn(Z.data_ptr(), part.data_ptr(), out.data_ptr(),
+    _check("packed_gram", fn(Z.data_ptr(), _ptr(part), out.data_ptr(),
                              n, D, chunks, rows, stream))
     launches.add("packed_gram")
     return out
@@ -333,10 +376,10 @@ def masked_gram(X: torch.Tensor, y: torch.Tensor,
     X, y, w = X.contiguous(), y.contiguous(), w.contiguous()
     out = torch.empty((D, D), dtype=X.dtype, device=X.device)
     chunks, rows = gram_plan(n, D, X.element_size())
-    part = torch.empty((chunks, D, D), dtype=X.dtype, device=X.device)
+    part = _partials(chunks, D, X)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _check("masked_gram", fn(X.data_ptr(), y.data_ptr(), w.data_ptr(),
-                             part.data_ptr(), out.data_ptr(), n, d, chunks,
+                             _ptr(part), out.data_ptr(), n, d, chunks,
                              rows, stream))
     launches.add("masked_gram")
     return out

@@ -144,3 +144,125 @@ def test_gram_plan_covers_rows_with_bounded_partials(n, D, elem):
     assert 1 <= chunks <= kernels.GRAM_MAX_CHUNKS
     assert chunks * rows >= n > (chunks - 1) * rows    # no empty chunk
     assert chunks == 1 or chunks * D * D * elem <= kernels.GRAM_PARTIAL_BYTES
+
+
+# The Gramians' plan (csrc/gram_common.cuh): upper-triangle tiles, row
+# chunks, a fixed-order reduce over the chunks. The kernels run only on the
+# card; their index map and chunk plan are Python here.
+
+TILE_DS = sorted({*range(5, 701, 29), 63, 64, 65, 127, 128, 129, 130, 255,
+                  256, 257, 513, 514, 640, 641, 700})
+
+
+@pytest.mark.parametrize("D", TILE_DS)
+def test_gram_tiles_cover_each_upper_tile_once(D):
+    T = -(-D // kernels.GRAM_TILE)
+    tiles = kernels.gram_tiles(D)
+    assert len(tiles) == T * (T + 1) // 2
+    assert sorted(tiles) == sorted((ti, tj) for ti in range(T)
+                                   for tj in range(ti, T))
+    # block b = tj (tj + 1) / 2 + ti, the kernel's order
+    for b, (ti, tj) in enumerate(tiles):
+        assert b == tj * (tj + 1) // 2 + ti
+    # every entry i <= j of A lies in exactly one tile
+    cover = np.zeros((T * kernels.GRAM_TILE,) * 2, dtype=np.int64)
+    t = kernels.GRAM_TILE
+    for ti, tj in tiles:
+        cover[ti * t:(ti + 1) * t, tj * t:(tj + 1) * t] += 1
+    upper = np.triu(np.ones((D, D), dtype=bool))
+    assert (cover[:D, :D][upper] == 1).all()
+
+
+def gram_plan_reference(Z: np.ndarray) -> np.ndarray:
+    """``Z.T @ Z`` summed as the kernels sum it: per (upper tile, chunk)
+    partials over ``gram_plan``'s chunks (the whole D x D at D <=
+    GRAM_SMALL_MAX_D), entries i <= j kept; then, with several chunks, lane
+    l of a warp adds chunks l, l + 32, ... and a shuffle tree adds the
+    lanes; then the upper triangle is mirrored."""
+    n, D = Z.shape
+    chunks, rows = kernels.gram_plan(n, D, Z.itemsize)
+    t = kernels.GRAM_TILE
+    tiles = ([(0, 0)] if D <= kernels.GRAM_SMALL_MAX_D
+             else kernels.gram_tiles(D))
+    size = D if D <= kernels.GRAM_SMALL_MAX_D else t
+    part = np.full((chunks, D, D), np.nan)
+    for c in range(chunks):
+        Zc = Z[c * rows:(c + 1) * rows]
+        for ti, tj in tiles:
+            I = slice(ti * size, min((ti + 1) * size, D))
+            J = slice(tj * size, min((tj + 1) * size, D))
+            part[c, I, J] = Zc[:, I].T @ Zc[:, J]
+    lanes = np.zeros((32, D, D))
+    for c in range(chunks):
+        lanes[c % 32] += part[c]
+    off = 16
+    while off:
+        lanes[:off] += lanes[off:2 * off]
+        off //= 2
+    A = part[0] if chunks == 1 else lanes[0]
+    upper = np.triu(A)
+    return upper + np.triu(upper, 1).T
+
+
+@pytest.mark.parametrize("n", [1, 255, 10_007])
+@pytest.mark.parametrize("D", [3, 5, 64, 130])
+def test_gram_plan_reference_is_exact_on_integers(n, D):
+    """On integer-valued Z every partial sum is exact in float64, so the
+    plan's order of summation must give Z.T @ Z exactly, and the mirrored
+    result is symmetric bit for bit; no entry is left unwritten."""
+    rng = np.random.default_rng(n + D)
+    Z = rng.integers(-8, 9, size=(n, D)).astype(np.float64)
+    A = gram_plan_reference(Z)
+    assert not np.isnan(A).any()
+    np.testing.assert_array_equal(A, Z.T @ Z)
+    np.testing.assert_array_equal(A, A.T)
+    torch_A = kernels.packed_gram(torch.as_tensor(Z)).numpy()
+    np.testing.assert_array_equal(torch_A, A)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 40, 1040, kernels.GRAM_ONE_CHUNK_ROWS])
+def test_gram_plan_one_chunk_for_small_tables(n, D):
+    """One block takes every row, and writes A itself: one launch."""
+    for elem in (4, 8):
+        chunks, rows = kernels.gram_plan(n, D, elem)
+        assert chunks == 1 and rows >= n
+
+
+@pytest.mark.parametrize("n,D,elem,want", [
+    (kernels.GRAM_ONE_CHUNK_ROWS + 1, 3, 4, None),
+    (10_000_000, 3, 4, kernels.GRAM_MAX_CHUNKS),
+    (1_000_000, 514, 4, 23),       # 45 upper tiles of 64: ceil(1024 / 45)
+    (1_000_000, 514, 8, 15),       # 32 MiB of float64 partials at D = 514
+    (1_000_000, 130, 4, 171),      # 6 upper tiles: ceil(1024 / 6)
+    (100_003, 130, 8, 171),
+    (65_537, 5, 4, 257),           # one tile; 256 rows a chunk at least
+    (200, 514, 4, 1),
+])
+def test_gram_plan_keeps_its_bounds_above_one_chunk(n, D, elem, want):
+    chunks, rows = kernels.gram_plan(n, D, elem)
+    assert 1 <= chunks <= kernels.GRAM_MAX_CHUNKS
+    assert chunks * rows >= n > (chunks - 1) * rows    # no empty chunk
+    assert chunks == 1 or chunks * D * D * elem <= kernels.GRAM_PARTIAL_BYTES
+    tiles = 1 if D <= kernels.GRAM_SMALL_MAX_D else len(kernels.gram_tiles(D))
+    assert chunks * tiles <= kernels.GRAM_MAX_CHUNKS + tiles
+    assert chunks > 1 if want is None else chunks == want
+
+
+@pytest.mark.parametrize("D", [1, 3, 4, 130, 514, 700])
+def test_upper_index_maps_each_entry_once(D):
+    """The chunk reduce takes one warp per entry i <= j of A through the
+    same closed form as the tiles."""
+    got = [kernels.upper_index(b) for b in range(D * (D + 1) // 2)]
+    assert got == [(i, j) for j in range(D) for i in range(j + 1)]
+
+
+def test_the_tile_width_reaches_the_kernels_through_the_flags(monkeypatch):
+    """gram_tiles and the kernels' tiles must agree, so the tile width is
+    passed to nvcc and is part of the build key."""
+    assert f"-DGRAM_TILE={kernels.GRAM_TILE}" in kernels.NVCC_FLAGS
+    key = kernels.build_key("masked_gram")
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", tuple(
+        f.replace(f"={kernels.GRAM_TILE}", "=128") if "GRAM_TILE" in f
+        else f for f in kernels.NVCC_FLAGS))
+    assert kernels.build_key("masked_gram") != key

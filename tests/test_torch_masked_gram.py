@@ -160,3 +160,28 @@ def test_gram_plan_at_the_masked_shapes(n, d, elem):
     assert 1 <= chunks <= kernels.GRAM_MAX_CHUNKS
     assert chunks * rows >= n > (chunks - 1) * rows
     assert chunks == 1 or chunks * D * D * elem <= kernels.GRAM_PARTIAL_BYTES
+
+
+@pytest.mark.parametrize("n", [1, 255, 10_007])
+@pytest.mark.parametrize("d", [1, 3, 62, 128])
+@pytest.mark.parametrize("weights", ["bool", "int"])
+def test_gram_plan_reference_is_exact_on_the_masked_design(n, d, weights):
+    """Zw = [X, y, 1]·w on integers, summed in the kernels' order (upper
+    tiles, gram_plan's chunks, the chunk reduce, the mirror), equals the
+    plain version exactly; one chunk up to GRAM_ONE_CHUNK_ROWS at D <= 4."""
+    from test_torch_kernels import gram_plan_reference
+
+    rng = np.random.default_rng(n + d)
+    X = rng.integers(-8, 9, size=(n, d)).astype(np.float64)
+    y = rng.integers(-8, 9, size=n).astype(np.float64)
+    w = (rng.random(n) > 0.25 if weights == "bool"
+         else rng.integers(0, 4, size=n).astype(np.float64))
+    Zw = np.concatenate([X, y[:, None], np.ones((n, 1))], axis=1) * \
+        np.asarray(w, np.float64)[:, None]
+    A = gram_plan_reference(Zw)
+    np.testing.assert_array_equal(A, _port(X, y, w))
+    np.testing.assert_array_equal(A, A.T)
+    chunks, _ = kernels.gram_plan(n, d + 2, 8)
+    assert (chunks == 1) == (d + 2 <= kernels.GRAM_SMALL_MAX_D
+                             and n <= kernels.GRAM_ONE_CHUNK_ROWS
+                             or n <= kernels.GRAM_MIN_ROWS_PER_CHUNK)
