@@ -36,7 +36,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (three runs each, the counted one first), and one more run of the app
    phase and of each model-selection path under torch.profiler for the
    device's idle share (the kernel tables go to
-   chiprun_out/<path>_profile.txt).
+   chiprun_out/<path>_profile.txt);
+7. SQL core: examples/sql_tour.py sections 1-6 (GROUP BY with HAVING and
+   ORDER BY, the sorted-program groupings, sort, distinct, joins, window
+   functions, arithmetic and a derived table) on dataset-full against
+   SQL_TOUR_GOLDEN, then the same six steps on the 10^7-row table cleaned
+   by the fused DQ kernel (the rows dq_clean keeps), in float32, with the
+   launch counts reset just before and read just after (dq_rules must
+   launch once), each step's host-clock time, one run
+   under torch.profiler (chiprun_out/sql_core_profile.txt), and every
+   result held against the CPU float64 run of the same code.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -671,6 +680,383 @@ def check_owlqn(device: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the SQL core (examples/sql_tour.py sections 1-6)
+# ---------------------------------------------------------------------------
+
+# The tour's relational sections on dataset-full: the JAX package's output
+# on the CPU in float64 (tests/test_torch_sql_core.py holds this constant
+# to it). Keys, counts and ranks are held exactly, floats within 1e-5
+# relative.
+SQL_TOUR_GOLDEN = {
+    "clean": 1040, "fluent_rows": 35, "joined": 1040, "over": 500,
+    "semi": 1040, "rank_pairs": 1040, "rank_checksum": 280847,
+    "fluent_equals_sql_rank": True,
+    "busy": {"guest": list(range(1, 36)),
+             "n": [37, 34, 31, 35, 28, 37, 29, 30, 26, 20, 25, 21, 23, 35,
+                    28, 35, 25, 35, 27, 39, 31, 26, 30, 31, 37, 26, 31, 28,
+                    30, 19, 34, 32, 29, 24, 32],
+             "avg_price": [27.197027027027037, 32.243529411764705,
+                            36.87354838709678, 42.07628571428572,
+                            49.546428571428564, 53.83648648648649,
+                            60.546551724137935, 68.29466666666667,
+                            69.62115384615385, 75.11650000000002, 79.462,
+                            82.0157142857143, 87.29608695652176,
+                            91.49885714285713, 97.28714285714285, 101.996,
+                            106.72199999999997, 111.99114285714282,
+                            116.57222222222221, 121.4289743589744,
+                            126.14774193548388, 131.85615384615383,
+                            136.50566666666668, 141.91193548387093,
+                            139.28135135135136, 140.18346153846156,
+                            151.8532258064516, 156.10035714285712,
+                            166.42633333333336, 171.61421052631573,
+                            176.83735294117645, 181.15718750000002,
+                            186.63206896551722, 191.15375000000003,
+                            196.54531250000005]},
+    "first_value": {"guest": list(range(1, 36)),
+                    "cheapest": [23.24, 29.77, 29.91, 39.67, 44.81, 49.74,
+                                 54.85, 59.69, 64.66, 70.0, 74.65, 80.0,
+                                 84.97, 89.0, 94.66, 99.39, 100.0, 109.45,
+                                 110.0, 119.24, 124.21, 129.41, 134.23,
+                                 138.0, 3.0, 4.0, 5.0, 10.0, 164.06, 169.37,
+                                 174.09, 178.97, 184.32, 188.92, 193.9]},
+    "spreads": {"guest": [27, 28, 26], "spread": [154.06, 154.01, 149.46]},
+    "top5": {"guest": [35, 35, 35, 35, 35],
+             "price": [198.84, 198.73, 198.63, 198.56, 198.31]},
+}
+SQL_ROWS_RTOL = 1e-4            # 10^7-row sums, averages, stddevs
+TOUR_RTOL = 1e-5                # dataset-full floats against the golden
+
+
+def tour_clean(spark, path: str):
+    """The tour's load and SQL cleanup; registers and returns ``clean``."""
+    df = (spark.read.format("csv").option("inferSchema", "true").load(path)
+          .with_column_renamed("_c0", "guest")
+          .with_column_renamed("_c1", "price"))
+    df.create_or_replace_temp_view("inventory")
+    clean = spark.sql(
+        "SELECT CAST(guest AS INT) AS guest, CAST(price AS DOUBLE) AS price "
+        "FROM inventory WHERE price > 0 AND guest > 0")
+    clean.create_or_replace_temp_view("clean")
+    return clean
+
+
+def host(values) -> list:
+    return np.asarray(values).tolist()
+
+
+def sql_tour(spark, F, Window, Col, clean) -> dict:
+    """examples/sql_tour.py sections 1-6 on a registered ``clean`` view,
+    through the API both packages share, reduced to host numbers."""
+    busy = spark.sql(
+        "SELECT guest, COUNT(*) AS n, AVG(price) AS avg_price FROM clean "
+        "GROUP BY guest HAVING COUNT(*) > 10 ORDER BY guest")
+    fluent = (clean.group_by("guest")
+              .agg(F.count().alias("n"), F.avg("price").alias("avg_price"))
+              .filter(Col("n") > 10).sort("guest"))
+    busy.create_or_replace_temp_view("busy")
+    joined = spark.sql("SELECT guest, price, avg_price FROM clean "
+                       "JOIN busy USING (guest)")
+    over = joined.filter(Col("price") > Col("avg_price")).count()
+    semi = spark.sql("SELECT price FROM clean LEFT SEMI JOIN busy "
+                     "USING (guest)")
+    w = Window.partition_by("guest").order_by("price")
+    ranked = clean.with_column("rk", F.dense_rank().over(w))
+    sql_ranked = spark.sql(
+        "SELECT guest, price, DENSE_RANK() OVER (PARTITION BY guest ORDER BY "
+        "price) AS rk FROM clean").to_pydict()
+    pairs = sorted(zip(host(sql_ranked["guest"]), host(sql_ranked["rk"])))
+    fluent_pairs = sorted(zip(host(ranked.to_pydict()["guest"]),
+                              host(ranked.to_pydict()["rk"])))
+    fv = spark.sql(
+        "SELECT guest, price, first_value(price) OVER (PARTITION BY guest "
+        "ORDER BY price) AS cheapest FROM clean").to_pydict()
+    cheapest = dict(zip(host(fv["guest"]), host(fv["cheapest"])))
+    spread = spark.sql(
+        "SELECT guest, max(price) - min(price) AS spread "
+        "FROM (SELECT guest, price FROM clean WHERE guest > 1) g "
+        "GROUP BY guest ORDER BY max(price) - min(price) DESC LIMIT 3"
+    ).to_pydict()
+    top5 = spark.sql("SELECT guest, price FROM clean ORDER BY price DESC "
+                     "LIMIT 5").to_pydict()
+    b = busy.to_pydict()
+    return {"clean": clean.count(),
+            "busy": {"guest": host(b["guest"]), "n": host(b["n"]),
+                     "avg_price": host(b["avg_price"])},
+            "fluent_rows": fluent.count(),
+            "joined": joined.count(), "over": over, "semi": semi.count(),
+            "rank_pairs": len(pairs),
+            "rank_checksum": int(sum(g * r for g, r in pairs)),
+            "fluent_equals_sql_rank": pairs == fluent_pairs,
+            "first_value": {"guest": sorted(cheapest),
+                            "cheapest": [cheapest[g]
+                                         for g in sorted(cheapest)]},
+            "spreads": {"guest": host(spread["guest"]),
+                        "spread": host(spread["spread"])},
+            "top5": {"guest": host(top5["guest"]),
+                     "price": host(top5["price"])}}
+
+
+def check_tour(got: dict, want: dict, rtol: float, what: str) -> None:
+    """Integers and lists of integers exactly, floats within ``rtol``."""
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            if set(g) != set(w):
+                raise AssertionError(f"{what} {path}: keys {sorted(g)}")
+            for k in w:
+                walk(g[k], w[k], f"{path}.{k}")
+        elif isinstance(w, list):
+            if len(g) != len(w):
+                raise AssertionError(f"{what} {path}: {len(g)} != {len(w)}")
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{path}[{i}]")
+        elif isinstance(w, float):
+            if not abs(g - w) <= rtol * abs(w):
+                raise AssertionError(f"{what} {path}: {g} vs {w}")
+        elif g != w:
+            raise AssertionError(f"{what} {path}: {g} != {w}")
+    walk(got, want, "")
+
+
+def check_tour_golden(device: str) -> dict:
+    """The tour's sections 1-6 on dataset-full through the port, in
+    float32, against SQL_TOUR_GOLDEN."""
+    from sparkdq4ml_tpu_torch import functions as F
+    from sparkdq4ml_tpu_torch.frame.window import Window
+    from sparkdq4ml_tpu_torch.ops.expressions import Col
+
+    spark = session(device)
+    clean = tour_clean(spark, os.path.join(ROOT, "data", "dataset-full.csv"))
+    got = sql_tour(spark, F, Window, Col, clean)
+    spark.stop()
+    check_tour(got, SQL_TOUR_GOLDEN, TOUR_RTOL, "SQL tour on dataset-full")
+    log(f"SQL tour on dataset-full, {device} float32: matches the golden")
+    return got
+
+
+KEY_GUESTS = np.arange(0, 40, 2)        # 20 keys: odd guests are missing
+
+
+def sql_core_steps(spark, clean):
+    """Steps 1-6 of the SQL core on the clean 10^7-row frame, as
+    (name, fn) pairs; each fn returns the step's result frames (and
+    counts the step itself reads)."""
+    from sparkdq4ml_tpu_torch import functions as F
+    from sparkdq4ml_tpu_torch.frame.window import Window
+    from sparkdq4ml_tpu_torch.ops.expressions import Col
+
+    def group_by():
+        stats = spark.sql(
+            "SELECT guest, COUNT(*) AS n, SUM(price) AS total, AVG(price) "
+            "AS avg_price, MIN(price) AS lo, MAX(price) AS hi, STDDEV(price) "
+            "AS sd FROM clean GROUP BY guest HAVING COUNT(*) > 10 "
+            "ORDER BY guest")
+        stats.select("guest", "avg_price").create_or_replace_temp_view(
+            "busy")
+        fluent = (clean.group_by("guest")
+                  .agg(F.count().alias("n"), F.avg("price").alias("avg_price"),
+                       F.stddev("price").alias("sd"))
+                  .filter(Col("n") > 10).sort("guest"))
+        return {"stats": stats, "fluent": fluent}
+
+    def sorted_groups():
+        nd = spark.sql("SELECT guest, COUNT(DISTINCT price) AS nd FROM clean "
+                       "GROUP BY guest")
+        by_price = spark.sql("SELECT price, COUNT(*) AS n FROM clean "
+                             "GROUP BY price")
+        return {"count_distinct": nd, "by_price": by_price}
+
+    def sort_distinct():
+        return {"top5": spark.sql("SELECT guest, price FROM clean ORDER BY "
+                                  "price DESC LIMIT 5"),
+                "sorted": clean.sort("guest", Col("price").desc()),
+                "distinct": clean.distinct(),
+                "per_guest": clean.drop_duplicates(["guest"])}
+
+    def join():
+        joined = spark.sql("SELECT guest, price, avg_price FROM clean "
+                           "JOIN busy USING (guest)")
+        keys = spark.createDataFrame({"guest": KEY_GUESTS.astype(np.int32),
+                                      "tag": KEY_GUESTS * 10.0})
+        return {"joined": joined,
+                "over": joined.filter(Col("price") > Col("avg_price")),
+                "semi": spark.sql("SELECT price FROM clean LEFT SEMI JOIN "
+                                  "busy USING (guest)"),
+                "left": clean.join(keys, "guest", "left")}
+
+    def window():
+        w = Window.partition_by("guest").order_by("price")
+        ranked = (clean.with_column("rk", F.dense_rank().over(w))
+                  .with_column("prev", F.lag("price", 1).over(w)))
+        sql = spark.sql(
+            "SELECT guest, price, DENSE_RANK() OVER (PARTITION BY guest "
+            "ORDER BY price) AS rk, first_value(price) OVER (PARTITION BY "
+            "guest ORDER BY price) AS cheapest, SUM(price) OVER (PARTITION "
+            "BY guest ORDER BY price ROWS BETWEEN 2 PRECEDING AND CURRENT "
+            "ROW) AS run FROM clean")
+        return {"ranked": ranked, "sql": sql}
+
+    def expressions():
+        feat = clean.select_expr("guest", "price",
+                                 "price / guest AS price_per_guest")
+        return {"feat": feat, "feat_nonnull": feat.na.drop(),
+                "spread": spark.sql(
+                    "SELECT guest, max(price) - min(price) AS spread "
+                    "FROM (SELECT guest, price FROM clean WHERE guest > 1) g "
+                    "GROUP BY guest ORDER BY max(price) - min(price) DESC "
+                    "LIMIT 3")}
+
+    return [("group_by", group_by), ("sorted_groups", sorted_groups),
+            ("sort_distinct", sort_distinct), ("join", join),
+            ("window", window), ("expressions", expressions)]
+
+
+def summarize_sql_core(res: dict) -> dict:
+    """Host arrays of every step's results (float64), for the comparison."""
+    out = {}
+    for step, frames in res.items():
+        for name, frame in frames.items():
+            d = frame.to_pydict()
+            out[f"{step}.{name}"] = {
+                c: np.asarray(v, np.float64) for c, v in d.items()}
+    return out
+
+
+# What each result column is held to against the CPU float64 run: "exact"
+# (keys, counts, ranks, min/max/first/last and lag picks, compared after
+# rounding the float64 value to float32) or "rtol" (SQL_ROWS_RTOL).
+SQL_CORE_RTOL_COLS = {"total", "avg_price", "sd", "run", "price_per_guest",
+                      "spread"}
+
+
+def check_sql_core(card: dict, cpu: dict) -> dict:
+    """The card's float32 results against the CPU float64 run of the same
+    code. ``price > avg_price`` compares each row with its guest's float32
+    average on the card, which may sit on the other side of a price than
+    the float64 one: its rows are held exactly to that predicate evaluated
+    on the host over the card's joined rows (which are held to the CPU
+    run like every other result). Returns the largest relative error of
+    each rtol column and the two row counts of that filter."""
+    errs = {}
+    for key, want in cpu.items():
+        got = card[key]
+        if list(got) != list(want):
+            raise AssertionError(f"{key}: columns {list(got)}")
+        if key == "join.over":
+            continue                        # held to the card's averages
+        for c, w in want.items():
+            g = got[c]
+            if g.shape != w.shape:
+                raise AssertionError(f"{key}.{c}: {g.shape} vs {w.shape}")
+            if c in SQL_CORE_RTOL_COLS:
+                ok = np.isnan(w) == np.isnan(g)
+                rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+                rel = np.where(np.isnan(w), 0.0, rel)
+                errs[f"{key}.{c}"] = float(rel.max()) if rel.size else 0.0
+                if not ok.all() or errs[f"{key}.{c}"] > SQL_ROWS_RTOL:
+                    raise AssertionError(
+                        f"{key}.{c}: max relative error "
+                        f"{errs[f'{key}.{c}']} > {SQL_ROWS_RTOL}")
+            else:
+                w32 = w.astype(np.float32).astype(np.float64)
+                if not np.array_equal(g, w32, equal_nan=True):
+                    bad = int((~((g == w32) | (np.isnan(g) & np.isnan(w32)))
+                               ).sum())
+                    raise AssertionError(f"{key}.{c}: {bad} values differ")
+    joined, over = card["join.joined"], card["join.over"]
+    above = (joined["price"].astype(np.float32)
+             > joined["avg_price"].astype(np.float32))
+    for c in over:
+        if not np.array_equal(over[c], joined[c][above], equal_nan=True):
+            raise AssertionError(f"join.over.{c}: not the joined rows above "
+                                 "their guest's average on the card")
+    errs["join.over rows (card, cpu)"] = (int(above.sum()),
+                                          cpu["join.over"]["price"].size)
+    return errs
+
+
+def run_sql_core(device: str, guest, price, times=None, runs: int = 1):
+    """The app's DQ rules on the full table through the fused kernel (one
+    ``dq_rules`` launch; the rows ``dq_clean`` keeps), then the six steps.
+    With ``times`` (a dict), each step's host-clock seconds to a device
+    synchronisation are appended to ``times[step]`` for ``runs`` runs (the
+    first run's results are returned)."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops.rules import dq_rules_fused
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    spark = session(device)
+    df = spark.createDataFrame({"guest": guest, "price": price})
+    keep = dq_rules_fused(df.col("price").eval(df),
+                          df.col("guest").eval(df))[2]
+    clean = df.filter(keep)
+    clean.create_or_replace_temp_view("clean")
+    results = {}
+    for name, fn in sql_core_steps(spark, clean):
+        for r in range(runs if name not in ("join", "window") else 1):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            if times is not None:
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+            if r == 0:
+                results[name] = out
+    kept = clean.count()
+    spark.stop()
+    return kept, results
+
+
+def check_sql_core_full(rows: int = FULL_ROWS) -> dict:
+    """Steps 1-6 on the DQ-clean 10^7-row table (cleaned by one
+    ``dq_rules`` launch): the card (float32) with
+    the launch counts reset just before and read just after, held against
+    the CPU float64 run of the same code; each step's median of 3 host-
+    clock times (the join and window steps, whose plans are host numpy,
+    once); one more run under torch.profiler for the device's idle share."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_policy
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    guest, price = full_table(rows)
+    run_sql_core("cuda", guest[:1000], price[:1000])        # warm-up
+    times: dict = {}
+    torch.cuda.synchronize()
+    kernels.launches.reset()
+    t0 = time.perf_counter()
+    kept, res = run_sql_core("cuda", guest, price, times, runs=3)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = kernels.launches.snapshot()
+    if counts["dq_rules"] != 1:
+        raise AssertionError(f"the SQL-core path launched dq_rules "
+                             f"{counts['dq_rules']} times, expected 1")
+    card = summarize_sql_core(res)
+    for step, frames in res.items():
+        for name, frame in frames.items():
+            for c in frame.columns:
+                if frame._column_values(c).device.type != "cuda":
+                    raise AssertionError(f"{step}.{name}.{c} is not on the "
+                                         "card")
+    prof = profile_run("sql_core", lambda: run_sql_core("cuda", guest,
+                                                        price))
+    with float_policy(torch.float64):
+        kept64, res64 = run_sql_core("cpu", guest, price)
+    cpu = summarize_sql_core(res64)
+    if kept != kept64:
+        raise AssertionError(f"clean rows: card {kept}, cpu {kept64}")
+    errs = check_sql_core(card, cpu)
+    steps_ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    log(f"SQL core at {rows} rows ({kept} clean), card float32: step ms "
+        f"(median) {steps_ms}; runs s {times}; launches {counts}; "
+        f"profile {prof}; errors against cpu float64 {errs}")
+    return {"rows": rows, "clean_rows": kept, "steps_ms": steps_ms,
+            "runs_s": times, "path_s": path_s, "launches": counts,
+            "profile": prof, "max_rel_err": errs}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -884,10 +1270,15 @@ def main() -> int:
                                            masked_times(1_000_000, 512))
     prof = profile_app()
     log(f"profile of the app phase: {prof}")
+    t0 = time.perf_counter()
+    tour = check_tour_golden("cuda")
+    sql_core = check_sql_core_full()
+    sql_core_s = time.perf_counter() - t0
     by_path = {"app": counts,
                **{p: selection[p]["launches"] for p in selection},
                "owlqn_dataset_full": small["owlqn"]["full"]["l-bfgs"][
-                   "launches"]}
+                   "launches"],
+               "sql_core": sql_core["launches"]}
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
@@ -917,7 +1308,10 @@ def main() -> int:
                                 if k != "launches"}
                             for p, r in selection.items()},
         "model_selection_phase_s": selection_s,
-        "small_phases": small, "small_phases_s": small_s, "card": card}
+        "small_phases": small, "small_phases_s": small_s,
+        "sql_tour_dataset_full": {"rank_checksum": tour["rank_checksum"],
+                                  "over": tour["over"]},
+        "sql_core": sql_core, "sql_core_phase_s": sql_core_s, "card": card}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 NVIDIA H100. It covers the reference application's path (CSV ingest, the
 DQ rule/UDF layer, the SQL subset, the Lasso LinearRegression) and model
 selection and robust fits (CrossValidator, TrainValidationSplit, Huber,
-weighted fits, OWL-QN, pipelines and their persistence), with the fused DQ
-chain, the packed Gramian and the masked Gramian as hand-written CUDA
-kernels (``ops/kernels.py``). The JAX package ``sparkdq4ml_tpu`` is the reference
+weighted fits, OWL-QN, pipelines and their persistence) and the relational
+core of the frame and SQL engine (grouped aggregation, sort, distinct,
+joins, window functions, arithmetic; ``ops/segments.py``,
+``frame/aggregates.py``, ``frame/window.py``, ``sql/parser.py``), with the
+fused DQ chain, the packed Gramian and the masked Gramian as hand-written
+CUDA kernels (``ops/kernels.py``). The JAX package ``sparkdq4ml_tpu`` is the reference
 and is not imported here."""
 
 from .config import config

@@ -1,0 +1,355 @@
+"""Aggregations (subset of ``sparkdq4ml_tpu/frame/aggregates.py``): global
+aggregates as mask-weighted reductions on the frame's device, and grouped
+aggregates through the grouped engine (``ops/segments.py``).
+
+The aggregate family is the engine's: count, sum, avg/mean, min, max,
+stddev, variance, stddev_pop, var_pop, first, last, count_distinct and
+sum_distinct. Any other aggregate (``median``, ``collect_list``, ``corr``,
+...) raises ``NotImplementedError`` that names it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..ops.expressions import Col, Expr
+from ..ops.segments import DEVICE_AGG_FNS, grouped_agg
+
+# The JAX package's full aggregate list, so a known-but-unported name gets
+# NotImplementedError and an unknown one ValueError, as there.
+_AGGS = ("count", "sum", "avg", "mean", "min", "max", "stddev", "variance",
+         "stddev_pop", "var_pop", "median", "mode", "percentile_approx",
+         "count_distinct", "sum_distinct", "collect_list", "collect_set",
+         "first", "last", "skewness", "kurtosis",
+         "corr", "covar_samp", "covar_pop", "max_by", "min_by")
+# windowed form exists only for the running aggregates (as in Spark <= 2.x)
+_WINDOWABLE = ("count", "sum", "avg", "min", "max")
+# the JAX package's device-reduced global aggregates; the rest of the
+# device family it answers with one host value each (``_one_value``)
+_GLOBAL_FNS = ("count", "sum", "avg", "min", "max", "stddev", "variance")
+
+
+def _check_fn(fn: str) -> str:
+    fn = fn.lower()
+    if fn not in _AGGS:
+        raise ValueError(f"unknown aggregate {fn!r} (supported: {_AGGS})")
+    fn = "avg" if fn == "mean" else fn
+    if fn not in DEVICE_AGG_FNS:
+        raise NotImplementedError(
+            f"aggregate {fn}() is not in the torch port's subset "
+            f"(supported: {sorted(DEVICE_AGG_FNS)})")
+    return fn
+
+
+class AggExpr:
+    """An aggregate over a column, e.g. ``F.avg("price")`` or SQL
+    ``AVG(price)``; ``column=None`` is ``count(*)``."""
+
+    def __init__(self, fn: str, column: Optional[str],
+                 alias: Optional[str] = None, ignore_nulls: bool = False):
+        self.fn = _check_fn(fn)
+        self.column = column
+        self.ignore_nulls = bool(ignore_nulls)   # first/last only
+        self._alias = alias
+
+    def alias(self, name: str) -> "AggExpr":
+        return AggExpr(self.fn, self.column, name, self.ignore_nulls)
+
+    @property
+    def name(self) -> str:
+        if self._alias:
+            return self._alias
+        if self.fn == "count" and self.column is None:
+            return "count"
+        if self.fn in ("count_distinct", "sum_distinct"):
+            return f"{self.fn.split('_')[0]}(DISTINCT {self.column})"
+        if self.fn in ("first", "last") and self.ignore_nulls:
+            return f"{self.fn}({self.column}, true)"
+        target = "1" if self.column is None else self.column
+        return f"{self.fn}({target})"
+
+    def __repr__(self):
+        return self.name
+
+    def over(self, spec) -> Expr:
+        """Bind as a window aggregate: ``F.sum("x").over(w)``; ``first``
+        and ``last`` map to ``first_value``/``last_value``."""
+        from .window import window_agg
+
+        if self.fn in ("first", "last"):
+            if self.ignore_nulls:
+                raise ValueError(f"windowed {self.fn}() does not support "
+                                 "ignoreNulls")
+            expr = window_agg(f"{self.fn}_value", self.column).over(spec)
+        elif self.fn not in _WINDOWABLE:
+            raise ValueError(f"windowed {self.fn}() is not supported")
+        else:
+            expr = window_agg(self.fn, self.column).over(spec)
+        return expr.alias(self._alias) if self._alias else expr
+
+
+class AggOfExpr(AggExpr):
+    """An aggregate over an expression (``sum(price * qty)``): the
+    expression becomes a temporary column just before aggregating."""
+
+    def __init__(self, fn: str, expr, alias: Optional[str] = None):
+        self.fn = _check_fn(fn)
+        self.expr = expr
+        self.column = None
+        self.ignore_nulls = False
+        self._alias = alias
+
+    def alias(self, name: str) -> "AggOfExpr":
+        return AggOfExpr(self.fn, self.expr, name)
+
+    @property
+    def name(self) -> str:
+        return self._alias if self._alias else f"{self.fn}({self.expr})"
+
+    def over(self, spec):
+        raise ValueError(
+            "windowed aggregates over expressions are not supported — "
+            "materialize the expression with withColumn first")
+
+
+def materialize_agg_exprs(frame, aggs):
+    """Expression-argument aggregates -> temp columns + plain AggExprs."""
+    out = []
+    for i, a in enumerate(aggs):
+        if isinstance(a, AggOfExpr):
+            tmp = f"__aggarg_{i}"
+            frame = frame.with_column(tmp, a.expr)
+            out.append(AggExpr(a.fn, tmp, alias=a.name))
+        else:
+            out.append(a)
+    return frame, out
+
+
+def _dict_aggs(d: dict) -> list:
+    """PySpark's dict form ``agg({'col': 'fn'})``."""
+    return [AggExpr(fn, None if col == "*" else col) for col, fn in d.items()]
+
+
+# functions-module constructors; each takes a column name or expression
+def _agg_or_expr(fn: str, col):
+    if isinstance(col, Expr):
+        if isinstance(col, Col):
+            return AggExpr(fn, col.name)
+        return AggOfExpr(fn, col)
+    return AggExpr(fn, col)
+
+
+def count(col=None) -> AggExpr:
+    if isinstance(col, Expr):
+        return _agg_or_expr("count", col)
+    return AggExpr("count", None if col in (None, "*") else col)
+
+
+def sum(col) -> AggExpr:       # noqa: A001 - mirrors Spark's name
+    return _agg_or_expr("sum", col)
+
+
+def avg(col) -> AggExpr:
+    return _agg_or_expr("avg", col)
+
+
+mean = avg
+
+
+def min(col) -> AggExpr:       # noqa: A001
+    return _agg_or_expr("min", col)
+
+
+def max(col) -> AggExpr:       # noqa: A001
+    return _agg_or_expr("max", col)
+
+
+def stddev(col) -> AggExpr:
+    return _agg_or_expr("stddev", col)
+
+
+def variance(col) -> AggExpr:
+    return _agg_or_expr("variance", col)
+
+
+def stddev_pop(col: str) -> AggExpr:
+    return AggExpr("stddev_pop", col)
+
+
+def var_pop(col: str) -> AggExpr:
+    return AggExpr("var_pop", col)
+
+
+def count_distinct(col: str) -> AggExpr:
+    return AggExpr("count_distinct", col)
+
+
+countDistinct = count_distinct
+
+
+def sum_distinct(col: str) -> AggExpr:
+    return AggExpr("sum_distinct", col)
+
+
+sumDistinct = sum_distinct
+
+
+def first(col: str, ignorenulls: bool = False) -> AggExpr:
+    return AggExpr("first", col, ignore_nulls=ignorenulls)
+
+
+def last(col: str, ignorenulls: bool = False) -> AggExpr:
+    return AggExpr("last", col, ignore_nulls=ignorenulls)
+
+
+def global_agg(frame, aggs: list):
+    """Masked reductions over the whole frame on its device -> a 1-row
+    frame; over zero valid rows sum/min/max/avg/stddev are NULL (one host
+    read decides them all, as in the JAX package). stddev_pop, var_pop,
+    first, last and the DISTINCT aggregates reduce on the device too and
+    come back as one host value each, with the JAX package's dtypes."""
+    from ..config import int_dtype, wide_types
+    from .frame import Frame
+
+    mask = frame.mask
+    dev = frame.device
+    out: dict = {}
+    deferred = []          # (name, non-null count, value, NULL result)
+    for agg in aggs:
+        if agg.fn == "count" and agg.column is None:
+            out[agg.name] = mask.sum(dtype=torch.int32)[None]
+            continue
+        v = frame._column_values(agg.column)
+        if not isinstance(v, torch.Tensor):
+            raise NotImplementedError(
+                f"aggregate {agg.fn}() over the string column "
+                f"{agg.column!r} is not in the torch port's subset")
+        if agg.fn not in _GLOBAL_FNS:
+            out[agg.name] = _one_value(agg, v, mask)
+            continue
+        if agg.fn in ("count", "sum") and not v.is_floating_point():
+            # exact integer arithmetic (Spark widens SUM to long); the JAX
+            # package's host int64 result narrows without x64
+            vals = torch.where(mask, v.to(torch.int64),
+                               torch.zeros((), dtype=torch.int64, device=dev))
+            res = (mask.sum(dtype=torch.int64) if agg.fn == "count"
+                   else vals.sum())
+            out[agg.name] = res.to(torch.int64 if wide_types()
+                                   else int_dtype())[None]
+            continue
+        vf = v.to(torch.float64 if v.dtype == torch.float64
+                  else torch.float32)
+        null = torch.isnan(vf)
+        valid = mask & ~null
+        wf = valid.to(vf.dtype)
+        nv = wf.sum()
+        vf = torch.where(null, torch.zeros_like(vf), vf)
+        nan = torch.full((1,), float("nan"), dtype=vf.dtype, device=dev)
+        cnt = valid.sum(dtype=torch.int32)
+        if agg.fn == "count":
+            out[agg.name] = cnt[None]
+        elif agg.fn == "avg":
+            out[agg.name] = ((vf * wf).sum() / nv)[None]
+        elif agg.fn == "sum":
+            out[agg.name] = None                  # keeps the column order
+            deferred.append((agg.name, cnt, (vf * wf).sum()[None], nan))
+        elif agg.fn in ("min", "max"):
+            fill = float("inf") if agg.fn == "min" else float("-inf")
+            red = torch.amin if agg.fn == "min" else torch.amax
+            out[agg.name] = None
+            deferred.append((agg.name, cnt, red(torch.where(
+                valid, vf, torch.full_like(vf, fill))).to(v.dtype)[None],
+                nan))
+        else:  # stddev / variance: sample (n - 1); NULL when n < 2
+            mu = (vf * wf).sum() / nv
+            ss = (wf * (vf - mu) ** 2).sum()
+            var = torch.where(nv > 1.0, ss / torch.clamp(nv - 1.0, min=1.0),
+                              nan[0])
+            out[agg.name] = (var if agg.fn == "variance"
+                             else torch.sqrt(var))[None]
+    if deferred:
+        counts = torch.stack([c for _, c, _, _ in deferred]).tolist()
+        for (name, _, val, nanv), c in zip(deferred, counts):
+            out[name] = val if c > 0 else nanv
+    return Frame(out, device=dev)
+
+
+def _one_value(agg, v, mask):
+    """The JAX package's host answer for one aggregate (``_np_agg``),
+    computed on the device: a 1-element numpy array whose dtype follows
+    its (a numpy scalar of the column's dtype for first/last, int64 for
+    counts and integer sums, float64 otherwise; NaN when no row
+    qualifies)."""
+    null = torch.isnan(v) if v.is_floating_point() else torch.zeros_like(
+        mask)
+    if agg.fn in ("first", "last"):
+        rows = torch.nonzero(mask & ~null if agg.ignore_nulls else mask)
+        if rows.numel() == 0:
+            return np.asarray([np.nan])
+        pick = rows[0 if agg.fn == "first" else -1]
+        return v[pick].cpu().numpy()
+    vals = v[mask & ~null]
+    if agg.fn == "count_distinct":
+        return np.asarray([torch.unique(vals).numel()])
+    if vals.numel() == 0:
+        return np.asarray([np.nan])
+    if agg.fn == "sum_distinct":
+        u = torch.unique(vals)
+        return np.asarray([(u.double() if u.is_floating_point()
+                            else u.long()).sum().item()])
+    x = vals.double()
+    var = ((x - x.mean()) ** 2).mean()
+    return np.asarray([(var if agg.fn == "var_pop" else var.sqrt()).item()])
+
+
+class _AggShortcuts:
+    """``RelationalGroupedDataset`` terminal shortcuts, via ``self.agg``."""
+
+    def count(self):
+        return self.agg(AggExpr("count", None))
+
+    def sum(self, *cols: str):
+        return self.agg(*[AggExpr("sum", c) for c in cols])
+
+    def avg(self, *cols: str):
+        return self.agg(*[AggExpr("avg", c) for c in cols])
+
+    mean = avg
+
+    def min(self, *cols: str):
+        return self.agg(*[AggExpr("min", c) for c in cols])
+
+    def max(self, *cols: str):
+        return self.agg(*[AggExpr("max", c) for c in cols])
+
+
+class GroupedFrame(_AggShortcuts):
+    """Result of ``Frame.group_by``."""
+
+    def __init__(self, frame, keys: list):
+        if not keys:
+            raise ValueError("group_by requires at least one key column")
+        self._frame = frame
+        self._keys = keys
+        for k in keys:
+            frame._column_values(k)  # validate early
+
+    def agg(self, *aggs: Union[AggExpr, str]):
+        if len(aggs) == 1 and isinstance(aggs[0], dict):
+            aggs = tuple(_dict_aggs(aggs[0]))
+        agg_list = [AggExpr(a, None) if isinstance(a, str) else a
+                    for a in aggs]
+        if not agg_list:
+            raise ValueError("agg() needs at least one aggregate")
+        frame, agg_list = materialize_agg_exprs(self._frame, agg_list)
+        return grouped_agg(frame, self._keys, agg_list)
+
+
+__all__ = ["AggExpr", "AggOfExpr", "GroupedFrame", "global_agg",
+           "materialize_agg_exprs", "count", "sum", "avg", "mean", "min",
+           "max", "stddev", "variance", "stddev_pop", "var_pop",
+           "count_distinct", "countDistinct", "sum_distinct", "sumDistinct",
+           "first", "last"]

@@ -3,8 +3,17 @@
 
 A frame is a dict of equal-length columns plus a boolean mask. Numeric
 columns are tensors on the frame's device (a vector column is 2-D); string
-columns are numpy object arrays on the host. ``filter`` never compacts
-rows: it ANDs into the mask, and every consumer reads the mask.
+columns are numpy object arrays on the host. ``filter``, ``limit`` and
+``dropna`` never compact rows: they AND into the mask, and every consumer
+reads the mask. Grouped, sorted, distinct and joined results are compact
+frames with an all-true mask.
+
+The relational verbs run on the frame's device: ``group_by().agg()``,
+``sort``, ``distinct`` and ``drop_duplicates`` through the grouped engine
+(``ops/segments.py``); ``join`` plans its row pairs on the host with numpy
+from one pull of the key columns and gathers every payload column on the
+device; window functions plan on the host the same way
+(``frame/window.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +26,92 @@ import torch
 
 from ..config import (config, float_dtype, int_dtype, resolve_device,
                       wide_types)
-from ..ops.expressions import (Col, Expr, is_host_column,
+from ..ops.expressions import (Col, Expr, SortOrder, is_host_column,
                                predicate_keep_mask, spark_type_name)
+
+_JOIN_TYPES = ("inner", "left", "right", "outer", "left_semi", "left_anti",
+               "cross")
+
+
+def _join_plan(lcols, rcols, li, ri, how):
+    """Hash-join plan for numeric keys, the JAX package's
+    ``_vector_join_plan``: ``(lpairs, rpairs)`` row-index arrays, -1 where
+    an outer join has no partner. Left rows come out in order, each with
+    its right matches in right order; unmatched right rows follow in
+    order (right/outer). A NaN key never matches (NaN != NaN), as in the
+    JAX package's dict plan for such keys. Integer key pairs compare as
+    int64, others as float64."""
+    def ids(a, b):
+        if not (np.issubdtype(a.dtype, np.floating)
+                or np.issubdtype(b.dtype, np.floating)):
+            return a.astype(np.int64), b.astype(np.int64)
+        return a.astype(np.float64), b.astype(np.float64)
+
+    conv = [ids(a, b) for a, b in zip(lcols, rcols)]
+    nl = li.size
+    if len(conv) == 1:
+        lid, rid = conv[0]
+    else:
+        # multi-key: group ids from one lexsort over the concatenated rows
+        cols = [np.concatenate([a, b]) for a, b in conv]
+        perm = np.lexsort(cols[::-1])
+        newg = np.zeros(perm.size, bool)
+        if perm.size:
+            newg[0] = True
+            for c in cols:
+                cs = c[perm]
+                newg[1:] |= cs[1:] != cs[:-1]
+        inv = np.empty(perm.size, np.int64)
+        inv[perm] = np.cumsum(newg) - 1
+        lid, rid = inv[:nl], inv[nl:]
+    order = np.argsort(rid, kind="stable")      # groups keep right order
+    rid_sorted = rid[order]
+    if rid_sorted.size:
+        bound = np.empty(rid_sorted.size, bool)
+        bound[0] = True
+        bound[1:] = rid_sorted[1:] != rid_sorted[:-1]
+        gstart = np.nonzero(bound)[0]
+        gvals = rid_sorted[gstart]
+        gcnt = np.diff(np.append(gstart, rid_sorted.size))
+        pos = np.minimum(np.searchsorted(gvals, lid), gvals.size - 1)
+        hit = gvals[pos] == lid
+        start = np.where(hit, gstart[pos], 0)
+        counts = np.where(hit, gcnt[pos], 0)
+    else:
+        start = np.zeros(lid.size, np.int64)
+        counts = np.zeros(lid.size, np.int64)
+
+    if how == "left_semi":
+        hit = counts > 0
+        return li[hit], ri[order[start[hit]]]
+    if how == "left_anti":
+        miss = counts == 0
+        return li[miss], np.full(int(miss.sum()), -1, np.int64)
+
+    ecounts = np.maximum(counts, 1) if how in ("left", "outer") else counts
+    total = int(ecounts.sum())
+    lp = np.repeat(li, ecounts)
+    group_first = np.cumsum(ecounts) - ecounts
+    within = np.arange(total) - np.repeat(group_first, ecounts)
+    flat = np.repeat(start, ecounts) + within
+    if order.size:
+        rp = ri[order[np.minimum(flat, order.size - 1)]]
+    else:
+        rp = np.full(total, -1, np.int64)
+    if how in ("left", "outer"):
+        rp = np.where(np.repeat(counts == 0, ecounts), -1, rp)
+    if how in ("right", "outer"):               # unmatched right rows last
+        lid_sorted = np.sort(lid)
+        if lid_sorted.size:
+            pos = np.searchsorted(lid_sorted, rid)
+            matched = (pos < lid_sorted.size) & \
+                (lid_sorted[np.minimum(pos, lid_sorted.size - 1)] == rid)
+        else:
+            matched = np.zeros(rid.size, bool)
+        extra = ri[~matched]
+        lp = np.concatenate([lp, np.full(extra.size, -1, np.int64)])
+        rp = np.concatenate([rp, extra])
+    return lp.astype(np.int64), rp.astype(np.int64)
 
 
 def _as_column(values, device: torch.device):
@@ -176,13 +269,322 @@ class Frame:
 
     withColumnRenamed = with_column_renamed
 
+    def with_columns(self, cols_map: Mapping[str, object]) -> "Frame":
+        """``withColumns``: every expression resolves against the input
+        frame (Spark semantics)."""
+        evaluated = {name: self._eval(v) for name, v in cols_map.items()}
+        data = dict(self._data)
+        data.update(evaluated)
+        return self._with(data=data)
+
+    withColumns = with_columns
+
     def select(self, *exprs: Union[str, Expr]) -> "Frame":
-        data: dict[str, object] = {}
+        flat = []
         for e in exprs:
+            flat.extend(e if isinstance(e, (list, tuple)) else [e])
+        data: dict[str, object] = {}
+        for e in flat:
             if isinstance(e, str):
+                if e == "*":
+                    data.update(self._data)
+                    continue
                 e = Col(e)
             data[e.name] = self._eval(e)
         return self._with(data=data)
+
+    def select_expr(self, *exprs: str) -> "Frame":
+        """``selectExpr``: SQL select-list strings over this frame, through
+        a scratch catalog so no temp view leaks."""
+        from ..sql.catalog import Catalog
+        from ..sql.parser import execute
+
+        cat = Catalog()
+        cat.register("__this__", self)
+        return execute(f"SELECT {', '.join(exprs)} FROM __this__",
+                       catalog=cat)
+
+    selectExpr = select_expr
+
+    def drop(self, *names: str) -> "Frame":
+        return self._with(data={k: v for k, v in self._data.items()
+                                if k not in names})
+
+    def limit(self, n: int) -> "Frame":
+        keep = torch.cumsum(self._mask.to(torch.int64), 0) <= n
+        return self._with(mask=self._mask & keep)
+
+    def offset(self, n: int) -> "Frame":
+        """Skip the first ``n`` valid rows (SQL OFFSET)."""
+        keep = torch.cumsum(self._mask.to(torch.int64), 0) > n
+        return self._with(mask=self._mask & keep)
+
+    def union(self, other: "Frame") -> "Frame":
+        """``union``/``unionAll``: rows of both frames, by position."""
+        if self.columns != other.columns:
+            raise ValueError("union requires identical column lists")
+        data = {}
+        for name in self.columns:
+            a, b = self._data[name], other._data[name]
+            if is_host_column(a) or is_host_column(b):
+                data[name] = np.concatenate([np.asarray(a, object),
+                                             np.asarray(b, object)])
+            else:
+                data[name] = torch.cat([a, b.to(a.device)])
+        f = Frame(data, device=self.device)
+        f._mask = torch.cat([self._mask, other._mask.to(self.device)])
+        return f
+
+    unionAll = union
+
+    def dropna(self, how="any", thresh=None, subset=None) -> "Frame":
+        """Mask out null rows (``na.drop``): ``how`` "any"|"all", ``thresh``
+        the least non-null count (overrides ``how``), ``subset`` the
+        columns considered. NaN and None are null."""
+        if isinstance(how, (list, tuple)):
+            subset, how = list(how), "any"
+        if how not in ("any", "all"):
+            raise ValueError(f"how={how!r}; expected 'any' or 'all'")
+        cols = subset if subset is not None else self.columns
+        nonnull = torch.zeros(self._n, dtype=torch.int32, device=self.device)
+        for name in cols:
+            arr = self._column_values(name)
+            if is_host_column(arr):
+                ok = torch.as_tensor([x is not None for x in arr],
+                                     dtype=torch.bool, device=self.device)
+            elif arr.is_floating_point():
+                nan = torch.isnan(arr)
+                ok = ~(nan.flatten(1).any(1) if nan.ndim > 1 else nan)
+            else:
+                ok = torch.ones(self._n, dtype=torch.bool, device=self.device)
+            nonnull = nonnull + ok.to(torch.int32)
+        if thresh is not None:
+            keep = nonnull >= int(thresh)
+        elif how == "all":
+            keep = nonnull > 0
+        else:
+            keep = nonnull == len(cols)
+        return self._with(mask=self._mask & keep)
+
+    def fillna(self, value, subset=None) -> "Frame":
+        """Replace NaN (None) with ``value`` in the [subset] float (string)
+        columns; a dict maps column -> value."""
+        if isinstance(value, dict):
+            out = self
+            for name, v in value.items():
+                out = out.fillna(v, subset=[name])
+            return out
+        cols = subset if subset is not None else self.columns
+        data = dict(self._data)
+        for name in cols:
+            arr = self._data[name]
+            if is_host_column(arr):
+                if isinstance(value, str):
+                    data[name] = np.asarray([value if x is None else x
+                                             for x in arr], dtype=object)
+            elif arr.is_floating_point() and isinstance(value, (int, float)):
+                data[name] = torch.where(torch.isnan(arr), torch.full(
+                    (), float(value), dtype=arr.dtype, device=arr.device),
+                    arr)
+        return self._with(data=data)
+
+    @property
+    def na(self) -> "_NAFunctions":
+        """``df.na``: ``fill`` -> ``fillna``, ``drop`` -> ``dropna``."""
+        return _NAFunctions(self)
+
+    # -- relational verbs ----------------------------------------------------
+    def group_by(self, *keys: str):
+        """``groupBy``: a GroupedFrame with agg/count/avg/..."""
+        from .aggregates import GroupedFrame
+
+        return GroupedFrame(self, list(keys))
+
+    groupBy = group_by
+
+    def agg(self, *aggs):
+        """Global aggregates (no grouping): masked device reductions."""
+        from .aggregates import (AggExpr, _dict_aggs, global_agg,
+                                 materialize_agg_exprs)
+
+        if len(aggs) == 1 and isinstance(aggs[0], dict):
+            aggs = tuple(_dict_aggs(aggs[0]))
+        agg_list = [a if isinstance(a, AggExpr) else AggExpr(a, None)
+                    for a in aggs]
+        frame, agg_list = materialize_agg_exprs(self, agg_list)
+        return global_agg(frame, agg_list)
+
+    def sort(self, *cols, ascending=True) -> "Frame":
+        """``orderBy``: the valid rows in key order (a compact frame).
+        Columns are names, ``Col``s or ``col.asc()``/``col.desc()`` markers
+        (a marker's direction and null placement override ``ascending``).
+        Nulls sort first ascending and last descending (Spark); ties keep
+        row order."""
+        from ..ops.segments import device_sort
+
+        if not cols:
+            raise ValueError("sort requires at least one column")
+        asc = ([ascending] * len(cols) if isinstance(ascending, bool)
+               else list(ascending))
+        if len(asc) != len(cols):
+            raise ValueError("ascending list must match columns")
+        nulls_first: list = [None] * len(cols)
+        names = []
+        for i, c in enumerate(cols):
+            if isinstance(c, SortOrder):
+                name = c.name
+                asc[i] = c.ascending
+                nulls_first[i] = c.nulls_first
+            else:
+                name = c if isinstance(c, str) else c.name
+            if name not in self._data:
+                raise ValueError(
+                    f"sort key {name!r} is not a column of this frame "
+                    "(sorting by a computed expression is not supported — "
+                    "add it with with_column first)")
+            names.append(name)
+        return device_sort(self, names, asc, nulls_first)
+
+    orderBy = order_by = sort
+
+    def distinct(self) -> "Frame":
+        """Unique valid rows in first-occurrence order (a compact frame);
+        NaN cells equal each other, as in Spark's null-safe dedup."""
+        from ..ops.segments import _empty_frame, device_unique
+
+        if self._n == 0:
+            # the JAX package's host path rebuilds the empty frame from
+            # row lists: every column takes the float dtype
+            return _empty_frame(self.columns, self.device)
+        return device_unique(self, self.columns)
+
+    def drop_duplicates(self, subset=None) -> "Frame":
+        """``dropDuplicates``: the first valid row per distinct ``subset``
+        key combination (all columns kept); without a subset, ``distinct``."""
+        from ..ops.segments import device_unique
+
+        if subset is None:
+            return self.distinct()
+        if isinstance(subset, str):
+            subset = [subset]
+        for c in subset:
+            if c not in self._data:
+                raise ValueError(f"dropDuplicates column {c!r} not found")
+        return device_unique(self, list(subset))
+
+    dropDuplicates = drop_duplicates
+
+    def join(self, other: "Frame", on=None, how: str = "inner") -> "Frame":
+        """Join on key column(s) present in both frames (Spark's USING
+        semantics: each key appears once). ``how``: inner, left, right,
+        outer/full, left_semi, left_anti, cross. A non-key name on both
+        sides keeps the left column and names the right one
+        ``<name>_right``. The row-pair plan is built on the host from one
+        pull of the masks and key columns; every payload column is gathered
+        on the device (``index_select``). Unmatched sides of outer joins
+        fill with NaN, and an int column becomes float for it."""
+        how = how.lower().replace("fullouter", "outer").replace(
+            "full", "outer")
+        if how not in _JOIN_TYPES:
+            raise ValueError(f"unknown join type {how!r}; expected one of "
+                             f"{_JOIN_TYPES}")
+        keys = [on] if isinstance(on, str) else list(on or [])
+        if how != "cross":
+            if not keys:
+                raise ValueError("join requires `on` key column(s)")
+            for k in keys:
+                if k not in self._data or k not in other._data:
+                    raise ValueError(f"join key {k!r} must exist in both "
+                                     "frames")
+                for side in (self, other):
+                    if is_host_column(side._data[k]) or \
+                            side._data[k].ndim != 1:
+                        raise NotImplementedError(
+                            f"join key {k!r}: the torch port joins on 1-D "
+                            "numeric columns only")
+
+        def pull(frame):
+            """One batched device->host read: the mask and the keys."""
+            parts = [frame._mask] + ([frame._data[k] for k in keys]
+                                     if how != "cross" else [])
+            host = [p.cpu().numpy() for p in parts]
+            return np.nonzero(host[0])[0], host[1:]
+
+        li, lk = pull(self)
+        ri, rk = pull(other)
+        if how == "cross":
+            lpairs = np.repeat(li, len(ri))
+            rpairs = np.tile(ri, len(li))
+        elif ri.size == 0:
+            if how in ("inner", "right", "left_semi"):
+                lpairs = rpairs = np.empty(0, np.int64)
+            else:                                # left / outer / left_anti
+                lpairs = li.astype(np.int64)
+                rpairs = np.full(li.size, -1, np.int64)
+        else:
+            lpairs, rpairs = _join_plan([k[li] for k in lk],
+                                        [k[ri] for k in rk], li, ri, how)
+
+        left_cols = self._gather_rows(lpairs, how in ("right", "outer"))
+        if how in ("left_semi", "left_anti"):
+            return Frame(left_cols, device=self.device)
+        right_cols = other._gather_rows(
+            rpairs, how in ("left", "outer", "left_anti"))
+        data = dict(left_cols)
+        if how in ("right", "outer") and lpairs.size and (lpairs < 0).any():
+            # USING: one key column, taken from the side that has the row
+            miss = torch.as_tensor(lpairs < 0, device=self.device)
+            for k in keys:
+                lkc = data[k]
+                data[k] = torch.where(miss, right_cols[k].to(lkc.dtype), lkc)
+        for name, col in right_cols.items():
+            if name in keys:
+                continue
+            data[name + "_right" if name in data else name] = col
+        return Frame(data, device=self.device)
+
+    def cross_join(self, other: "Frame") -> "Frame":
+        return self.join(other, on=None, how="cross")
+
+    crossJoin = cross_join
+
+    def _gather_rows(self, idx: np.ndarray, fill_missing: bool) -> dict:
+        """Every column at the host row indices ``idx`` (-1 = a missing
+        partner, filled with NaN/None when ``fill_missing``): one
+        host->device copy of the indices, then ``index_select`` per
+        column."""
+        missing = idx < 0
+        safe = np.where(missing, 0, idx)
+        safe_dev = torch.as_tensor(safe, dtype=torch.int64,
+                                   device=self.device)
+        miss_dev = (torch.as_tensor(missing, device=self.device)
+                    if fill_missing and missing.any() else None)
+        out = {}
+        for name, arr in self._data.items():
+            if is_host_column(arr):
+                col = np.asarray(arr, dtype=object)[safe] if self._n \
+                    else np.full(len(idx), None, dtype=object)
+                if fill_missing and missing.any():
+                    col = col.copy()
+                    col[missing] = None
+                out[name] = col
+                continue
+            if self._n == 0 and len(idx):
+                # gathering from an empty side: every index is missing
+                out[name] = torch.full((len(idx),) + tuple(arr.shape[1:]),
+                                       float("nan"), dtype=float_dtype(),
+                                       device=self.device)
+                continue
+            col = arr.index_select(0, safe_dev)
+            if miss_dev is not None:
+                if not col.is_floating_point():
+                    col = col.to(float_dtype())
+                m = miss_dev.view((-1,) + (1,) * (col.ndim - 1))
+                col = torch.where(m, torch.full((), float("nan"),
+                                                dtype=col.dtype,
+                                                device=col.device), col)
+            out[name] = col
+        return out
 
     def filter(self, condition: Union[Expr, torch.Tensor]) -> "Frame":
         """AND a predicate into the validity mask; a NULL (NaN) predicate
@@ -218,6 +620,21 @@ class Frame:
 
     def _host_mask(self) -> np.ndarray:
         return self._mask.cpu().numpy()
+
+    def collect(self, limit: Optional[int] = None) -> list:
+        d = self.to_pydict(limit)
+        cols = [d[name] for name in self.columns]
+        return [tuple(row) for row in zip(*cols)] if cols else []
+
+    def take(self, n: int) -> list:
+        return self.collect(limit=n)
+
+    def head(self, n: int = 1):
+        rows = self.take(n)
+        return rows if n != 1 else (rows[0] if rows else None)
+
+    def first(self):
+        return self.head(1)
 
     def to_pydict(self, limit: Optional[int] = None) -> dict:
         """The valid rows on the host, as numpy arrays; ``limit`` gathers
@@ -307,3 +724,16 @@ class Frame:
         default_catalog().register(name, self)
 
     createOrReplaceTempView = create_or_replace_temp_view
+
+
+class _NAFunctions:
+    """``df.na`` (Spark's ``DataFrameNaFunctions``): ``fill`` and ``drop``."""
+
+    def __init__(self, frame: Frame):
+        self._frame = frame
+
+    def fill(self, value, subset=None) -> Frame:
+        return self._frame.fillna(value, subset=subset)
+
+    def drop(self, how="any", thresh=None, subset=None) -> Frame:
+        return self._frame.dropna(how=how, thresh=thresh, subset=subset)

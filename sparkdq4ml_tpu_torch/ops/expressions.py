@@ -1,6 +1,7 @@
 """Column expressions, evaluated eagerly on tensors (subset of
 ``sparkdq4ml_tpu/ops/expressions.py``): column references, literals,
-aliases, casts to int or double, the comparison and boolean operators, and
+aliases, casts to int or double, arithmetic (``+ - * / %``, unary minus),
+the comparison and boolean operators, sort markers (``asc``/``desc``) and
 UDF calls. Any other construct raises ``NotImplementedError`` that names
 it.
 """
@@ -41,13 +42,6 @@ def resolve_type_name(name: str) -> torch.dtype:
             f"(supported: {sorted(_TYPE_NAMES)})") from None
 
 
-def _unsupported(what: str):
-    def method(self, *args):
-        raise NotImplementedError(
-            f"{what} is not in the torch port's expression subset")
-    return method
-
-
 class Expr:
     """Base column expression; Python operators build comparison and
     boolean expressions, like Spark's Column."""
@@ -65,10 +59,42 @@ class Expr:
     def cast(self, type_name: str) -> "Cast":
         return Cast(self, type_name)
 
+    def asc(self) -> "SortOrder":
+        """Ascending sort marker for ``sort`` and window specs; nulls
+        first unless pinned by the ``_nulls_first/_last`` variants."""
+        return SortOrder(self, True)
+
+    def desc(self) -> "SortOrder":
+        """Descending sort marker; nulls last by default (Spark)."""
+        return SortOrder(self, False)
+
+    def asc_nulls_first(self) -> "SortOrder":
+        return SortOrder(self, True, nulls_first=True)
+
+    def asc_nulls_last(self) -> "SortOrder":
+        return SortOrder(self, True, nulls_first=False)
+
+    def desc_nulls_first(self) -> "SortOrder":
+        return SortOrder(self, False, nulls_first=True)
+
+    def desc_nulls_last(self) -> "SortOrder":
+        return SortOrder(self, False, nulls_first=False)
+
     def _bin(self, op, other, reverse=False):
         other = other if isinstance(other, Expr) else Lit(other)
         return BinOp(op, other, self) if reverse else BinOp(op, self, other)
 
+    def __add__(self, o):  return self._bin("+", o)
+    def __radd__(self, o): return self._bin("+", o, True)
+    def __sub__(self, o):  return self._bin("-", o)
+    def __rsub__(self, o): return self._bin("-", o, True)
+    def __mul__(self, o):  return self._bin("*", o)
+    def __rmul__(self, o): return self._bin("*", o, True)
+    def __truediv__(self, o):  return self._bin("/", o)
+    def __rtruediv__(self, o): return self._bin("/", o, True)
+    def __mod__(self, o):      return self._bin("%", o)
+    def __rmod__(self, o):     return self._bin("%", o, True)
+    def __neg__(self):     return Neg(self)
     def __lt__(self, o):   return self._bin("<", o)
     def __le__(self, o):   return self._bin("<=", o)
     def __gt__(self, o):   return self._bin(">", o)
@@ -81,14 +107,23 @@ class Expr:
     def __ror__(self, o):  return self._bin("|", o, True)
     def __invert__(self):  return Not(self)
 
-    __add__ = __radd__ = _unsupported("operator +")
-    __sub__ = __rsub__ = _unsupported("operator -")
-    __mul__ = __rmul__ = _unsupported("operator *")
-    __truediv__ = __rtruediv__ = _unsupported("operator /")
-    __mod__ = __rmod__ = _unsupported("operator %")
-    __neg__ = _unsupported("unary -")
-
     __hash__ = object.__hash__  # __eq__ is overloaded; keep Exprs hashable
+
+
+class SortOrder:
+    """Sort-direction marker from ``col.asc()``/``col.desc()`` and the
+    ``*_nulls_first/last`` variants, read by ``Frame.sort`` and window
+    specs; not evaluable. ``nulls_first=None`` is Spark's default for the
+    direction: first ascending, last descending."""
+
+    def __init__(self, child: Expr, ascending: bool, nulls_first=None):
+        self.child = child
+        self.ascending = ascending
+        self.nulls_first = nulls_first
+
+    @property
+    def name(self) -> str:
+        return self.child.name
 
 
 class Col(Expr):
@@ -154,7 +189,21 @@ def predicate_keep_mask(cond: torch.Tensor) -> torch.Tensor:
     return cond.to(torch.bool)
 
 
+def _sql_divide(a, b):
+    """Spark's non-ANSI division: x / 0 is NULL (0 / 0 included)."""
+    return torch.where(b == 0, torch.full((), float("nan"), dtype=a.dtype,
+                                          device=a.device), a / b)
+
+
+def _sql_mod(a, b):
+    """Spark's %: the sign follows the dividend; x % 0 is NULL."""
+    return torch.where(b == 0, torch.full((), float("nan"), dtype=a.dtype,
+                                          device=a.device), torch.fmod(a, b))
+
+
 _BIN_FNS = {
+    "+": torch.add, "-": torch.sub, "*": torch.mul,
+    "/": _sql_divide, "%": _sql_mod,
     "<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge,
     "==": torch.eq, "!=": torch.ne,
     "&": torch.logical_and, "|": torch.logical_or,
@@ -170,11 +219,32 @@ class BinOp(Expr):
         self.op, self.left, self.right = op, left, right
 
     def eval(self, frame):
-        return _BIN_FNS[self.op](self.left.eval(frame),
-                                 self.right.eval(frame))
+        a, b = self.left.eval(frame), self.right.eval(frame)
+        if is_host_column(a) or is_host_column(b):
+            raise NotImplementedError(
+                f"operator {self.op} on a string column is not in the "
+                "torch port's expression subset")
+        if self.op in ("/", "%"):
+            # Spark's / always yields a double; % needs a float for the
+            # NULL of a zero divisor
+            a, b = a.to(float_dtype()), b.to(float_dtype())
+        return _BIN_FNS[self.op](a, b)
 
     def __str__(self):
         return f"({self.left} {self.op} {self.right})"
+
+
+class Neg(Expr):
+    """Unary minus."""
+
+    def __init__(self, child: Expr):
+        self.child = child
+
+    def eval(self, frame):
+        return torch.neg(self.child.eval(frame))
+
+    def __str__(self):
+        return f"(-{self.child})"
 
 
 class Not(Expr):
