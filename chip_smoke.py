@@ -6,7 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: a CUDA device must be present; prints its name and power limit;
-2. build: compiles the three CUDA kernels from the sources in the checkout,
+2. build: compiles the CUDA kernels from the sources in the checkout
+   (the three ports of the TPU kernels and the port's own segment sums),
    one nvcc each, all started together; then one wrapper call of each
    Gramian under torch.profiler at the app's, the tour's and the full
    table's shapes, for the number of kernels it launches (first, while no
@@ -16,7 +17,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    guest column, n = 0, boolean and float weights for the masked Gramian,
    the Gramians' tile edges (D = 5, 128, 256 and a ragged n at D = 130),
    two runs of each Gramian that must agree bit for bit, and each Gramian
-   equal to its transpose bit for bit;
+   equal to its transpose bit for bit; the two segment sums (dense slots,
+   sorted segments) against index_add_ in float64 and bit-identical over
+   two runs, at ragged edges and at the 10^7-row table's shapes (9,611,537
+   clean rows onto 39 guest slots, onto 20,556 price groups, onto 39 long
+   segments);
 4. golden app: the reference application (CSV -> DQ rules -> SQL ->
    VectorAssembler -> Lasso fit -> predict(40)) on the three datasets
    through ``TorchSession``, in float32, against the row counts and fit
@@ -37,15 +42,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    phase and of each model-selection path under torch.profiler for the
    device's idle share (the kernel tables go to
    chiprun_out/<path>_profile.txt);
-7. SQL core: examples/sql_tour.py sections 1-6 (GROUP BY with HAVING and
+7. SQL core: the whole of examples/sql_tour.py (GROUP BY with HAVING and
    ORDER BY, the sorted-program groupings, sort, distinct, joins, window
-   functions, arithmetic and a derived table) on dataset-full against
-   SQL_TOUR_GOLDEN, then the same six steps on the 10^7-row table cleaned
-   by the fused DQ kernel (the rows dq_clean keeps), in float32, with the
-   launch counts reset just before and read just after (dq_rules must
-   launch once), each step's host-clock time, one run
-   under torch.profiler (chiprun_out/sql_core_profile.txt), and every
-   result held against the CPU float64 run of the same code.
+   functions, arithmetic, a derived table, explode, the CTE with a scalar
+   subquery, IN (subquery) against LEFT SEMI, temp-view DDL) on
+   dataset-full against SQL_TOUR_GOLDEN, then six steps on the 10^7-row
+   table cleaned by the fused DQ kernel (the rows dq_clean keeps), in
+   float32, with the launch counts reset just before and read just after
+   (dq_rules must launch once, both segment sums at least once), each
+   step's host-clock time, one run under torch.profiler (its kernel
+   table written beside phase 6's), every result held against the CPU
+   float64 run of the same code, steps 1 and 2 bit-identical over two
+   runs and the price > avg_price count the same in all three;
+8. the rest of the SQL tour on the same cleaned table (its own dq_rules
+   launch and counts): the CTE with a scalar AVG subquery, IN (subquery)
+   against LEFT SEMI JOIN, IN/BETWEEN and a CASE band (a string column of
+   9.6 M rows), GROUP BY/ORDER BY/join/LIKE/distinct/window on the band,
+   CREATE/DROP TEMP VIEW; held to the CPU float64 run (one clean table and
+   session shared with phase 7's), steps 1-4 bit-identical over two runs,
+   each step's median of 3 and the band's dictionary-encoding time.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -503,6 +518,141 @@ def check_masked_gram(device: str, shapes=MASKED_SHAPES) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the segment sums against their plain version
+# ---------------------------------------------------------------------------
+
+def clean_columns(rows: int = FULL_ROWS):
+    """The DQ-clean full table on the card (the rows dq_clean keeps, from
+    one fused DQ pass): guest as int64 and price as float32."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    guest, price = full_table(rows)
+    g = torch.as_tensor(guest, device="cuda")
+    p = torch.as_tensor(price, dtype=torch.float32, device="cuda")
+    keep = kernels.dq_rules(p, g.to(torch.float32))[2]
+    return g[keep].to(torch.int64), p[keep]
+
+
+def segment_cases(guest, price):
+    """(name, kernel, x, seg, size) at the grouped engine's shapes: the
+    dense program's stacked (present, count, sum) onto the 39 guest slots
+    (size 41: the null slot and the masked rows' slot stay empty), the
+    sorted program's AVG(guest) over the 20,556 price groups, and 39
+    segments of ~250 k rows each (the tile carries)."""
+    import torch
+
+    one = torch.ones_like(price)
+    order = torch.sort(price, stable=True).indices
+    ps = price.index_select(0, order)
+    bound = torch.ones_like(ps, dtype=torch.bool)
+    bound[1:] = ps[1:] != ps[:-1]
+    groups = torch.cumsum(bound.to(torch.int64), 0) - 1
+    by_guest = torch.sort(guest, stable=True)
+    return [("dense 39 slots", "dense_segment_sum",
+             torch.stack([one, one, price], dim=1), guest, 41),
+            ("sorted price groups", "sorted_segment_sum",
+             guest.index_select(0, order).to(torch.float32), groups,
+             int(groups[-1]) + 1),
+            ("sorted 39 long segments", "sorted_segment_sum",
+             price.index_select(0, by_guest.indices), by_guest.values, 40)]
+
+
+def edge_segment_cases(device: str, seed: int = 0):
+    """Small and ragged shapes: no row, one row, tile and block edges,
+    the largest float32 table that fits shared memory, runs of one row."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    biggest = kernels.SEGSUM_SMEM_BYTES // (kernels.SEGSUM_WARPS * 4) - 32
+    out = []
+    for n, size, cols in ((0, 3, 1), (1, 1, 1), (31, 4, 2), (32, 4, 1),
+                          (33, 2, 3), (4097, 5, 1), (65_537, 300, 2),
+                          (100_003, biggest, 1), (100_003, 90_000, 1)):
+        x = torch.as_tensor(rng.normal(size=(n, cols)), device=device)
+        seg = torch.as_tensor(rng.integers(0, size, n), device=device)
+        out.append((f"dense n={n} size={size} C={cols}", "dense_segment_sum",
+                    x, seg, size))
+        out.append((f"sorted n={n} size={size} C={cols}",
+                    "sorted_segment_sum", x, torch.sort(seg).values, size))
+    return out
+
+
+def check_segment_sum(cases) -> dict:
+    """Each case in float32 and float64: two kernel runs bit-identical,
+    the float32 kernel within 1e-5 Σ|x| of the float64 plain version
+    (index_add_) per segment, the float64 kernel within 1e-12 Σ|x| of it.
+    A dense case whose table does not fit takes the sorted kernel after a
+    stable sort, as ops/segments.py does. Returns {name: max |float32
+    kernel - float64 plain|}."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    errs = {}
+    for name, kernel, x, seg, size in cases:
+        want = kernels.segment_sum_reference(x.double().cpu(), seg.cpu(),
+                                             size)
+        bound = kernels.segment_sum_reference(x.double().abs().cpu(),
+                                              seg.cpu(), size)
+        for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            xd, sd, fn = x.to(dtype), seg, getattr(kernels, kernel)
+            if kernel == "dense_segment_sum" and \
+                    not kernels.dense_segment_fits(
+                        size, x.shape[1] if x.ndim == 2 else 1,
+                        xd.element_size()):
+                order = torch.sort(seg, stable=True).indices
+                xd, sd = xd.index_select(0, order), seg.index_select(0, order)
+                fn = kernels.sorted_segment_sum
+            got, again = fn(xd, sd, size), fn(xd, sd, size)
+            if got.shape != want.shape or not same_bits(got, again):
+                raise AssertionError(f"{fn.__name__} {name} {dtype}: not "
+                                     "bit-identical over two runs")
+            diff = (got.double().cpu() - want).abs()
+            if bool((diff > rel * bound).any()):
+                raise AssertionError(
+                    f"{fn.__name__} {name} {dtype}: exceeds {rel} sum|x| by "
+                    f"{float((diff - rel * bound).max())}")
+            if dtype == torch.float32:
+                errs[name] = float(diff.max()) if diff.numel() else 0.0
+    log(f"segment sums: bit-identical over two runs and within bounds: "
+        f"{errs}")
+    return errs
+
+
+def segsum_times(name, kernel, x, seg, size) -> dict:
+    """One segment-sum kernel, its plain version (index_add_ into zeros)
+    and the library call (index_add_ for slot ids, torch.segment_reduce
+    for contiguous segments) at one of segment_cases' shapes."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    fn = getattr(kernels, kernel)
+    n = x.shape[0]
+    cols = x.shape[1] if x.ndim == 2 else 1
+    if kernel == "dense_segment_sum":
+        library = lambda: torch.zeros((size, cols), dtype=x.dtype,
+                                      device=x.device).index_add_(0, seg, x)
+        call = "index_add_"
+    else:
+        lengths = torch.bincount(seg, minlength=size)
+        library = lambda: torch.segment_reduce(x, "sum", lengths=lengths)
+        call = "torch.segment_reduce(lengths=...)"
+    moved = n * (8 + 4 * cols) + size * cols * 4
+    return {"case": name, "n": n, "size": size, "columns": cols,
+            "dtype": "float32",
+            "ms": median_ms(lambda: fn(x, seg, size)),
+            "plain_ms": median_ms(
+                lambda: kernels.segment_sum_reference(x, seg, size)),
+            "library_ms": median_ms(library), "library_call": call,
+            "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5b: model selection and robust fits
 # ---------------------------------------------------------------------------
 
@@ -683,9 +833,9 @@ def check_owlqn(device: str) -> dict:
 # Phase 7: the SQL core (examples/sql_tour.py sections 1-6)
 # ---------------------------------------------------------------------------
 
-# The tour's relational sections on dataset-full: the JAX package's output
-# on the CPU in float64 (tests/test_torch_sql_core.py holds this constant
-# to it). Keys, counts and ranks are held exactly, floats within 1e-5
+# Every section of the tour on dataset-full: the JAX package's output on
+# the CPU in float64 (tests/test_torch_sql_core.py holds this constant to
+# it). Keys, counts, ranks and flags are held exactly, floats within 1e-5
 # relative.
 SQL_TOUR_GOLDEN = {
     "clean": 1040, "fluent_rows": 35, "joined": 1040, "over": 500,
@@ -722,6 +872,16 @@ SQL_TOUR_GOLDEN = {
     "spreads": {"guest": [27, 28, 26], "spread": [154.06, 154.01, 149.46]},
     "top5": {"guest": [35, 35, 35, 35, 35],
              "price": [198.84, 198.73, 198.63, 198.56, 198.31]},
+    # the later sections (tour_rest)
+    "pair_rows": 3,
+    "exploded": {"guest": [1, 1, 2, 2, 2, 2],
+                 "v": [1.0, 23.24, 2.0, 30.89, 2.0, 33.74]},
+    "premium": {"guest": [35, 35, 35, 35, 35],
+                "price": [198.84, 198.73, 198.63, 198.56, 198.31]},
+    "mean_price": 110.53928846153846,
+    "semi_rows": 1040, "in_rows": 1040, "in_equals_semi": True,
+    "ddl": {"exists_before": True, "premium_rows": 660,
+            "exists_after": False},
 }
 SQL_ROWS_RTOL = 1e-4            # 10^7-row sums, averages, stddevs
 TOUR_RTOL = 1e-5                # dataset-full floats against the golden
@@ -779,7 +939,7 @@ def sql_tour(spark, F, Window, Col, clean) -> dict:
     top5 = spark.sql("SELECT guest, price FROM clean ORDER BY price DESC "
                      "LIMIT 5").to_pydict()
     b = busy.to_pydict()
-    return {"clean": clean.count(),
+    return {**tour_rest(spark, F, clean), "clean": clean.count(),
             "busy": {"guest": host(b["guest"]), "n": host(b["n"]),
                      "avg_price": host(b["avg_price"])},
             "fluent_rows": fluent.count(),
@@ -794,6 +954,48 @@ def sql_tour(spark, F, Window, Col, clean) -> dict:
                         "spread": host(spread["spread"])},
             "top5": {"guest": host(top5["guest"]),
                      "price": host(top5["price"])}}
+
+
+def tour_ddl(spark) -> dict:
+    """examples/sql_tour.py's DDL section on a registered ``clean`` view:
+    a temp view made by SQL, its row count, ``table_exists`` around DROP."""
+    spark.sql("CREATE OR REPLACE TEMP VIEW premium AS "
+              "SELECT guest, price FROM clean WHERE price > 90")
+    before = spark.catalog.table_exists("premium")
+    n = spark.sql("SELECT count(*) AS n FROM premium").to_pydict()["n"][0]
+    spark.sql("DROP VIEW premium")
+    return {"exists_before": before, "premium_rows": int(n),
+            "exists_after": spark.catalog.table_exists("premium")}
+
+
+def tour_rest(spark, F, clean) -> dict:
+    """examples/sql_tour.py's later sections on the registered ``clean``
+    and ``busy`` views: explode of a split array, the CTE with a scalar
+    subquery, LEFT SEMI against IN (subquery), the DDL round trip. The
+    exploded pieces are strings of numbers: they are held as numbers, as
+    a float32 price prints other digits than a float64 one."""
+    pair = clean.limit(3).select_expr(
+        "guest", "concat_ws(',', guest, price) AS s")
+    exploded = pair.select(
+        "guest", F.explode(F.split(F.col("s"), ",")).alias("v")).to_pydict()
+    premium = spark.sql(
+        "WITH stats AS (SELECT avg(price) AS ap FROM clean) "
+        "SELECT guest, price FROM clean "
+        "WHERE price > (SELECT ap FROM stats) ORDER BY price DESC LIMIT 5"
+    ).to_pydict()
+    semi = spark.sql("SELECT price FROM clean LEFT SEMI JOIN busy "
+                     "USING (guest)").to_pydict()["price"]
+    in_sub = spark.sql("SELECT price FROM clean WHERE guest IN "
+                       "(SELECT guest FROM busy)").to_pydict()["price"]
+    return {"pair_rows": pair.count(),
+            "exploded": {"guest": host(exploded["guest"]),
+                         "v": [float(v) for v in exploded["v"]]},
+            "premium": {"guest": host(premium["guest"]),
+                        "price": host(premium["price"])},
+            "mean_price": float(np.mean(clean.to_pydict()["price"])),
+            "semi_rows": len(semi), "in_rows": len(in_sub),
+            "in_equals_semi": bool(np.array_equal(semi, in_sub)),
+            "ddl": tour_ddl(spark)}
 
 
 def check_tour(got: dict, want: dict, rtol: float, what: str) -> None:
@@ -863,7 +1065,11 @@ def sql_core_steps(spark, clean):
                        "GROUP BY guest")
         by_price = spark.sql("SELECT price, COUNT(*) AS n FROM clean "
                              "GROUP BY price")
-        return {"count_distinct": nd, "by_price": by_price}
+        # the sorted program's float sums (the sorted segment-sum kernel)
+        by_price_avg = spark.sql("SELECT price, AVG(guest) AS avg_guest FROM "
+                                 "clean GROUP BY price")
+        return {"count_distinct": nd, "by_price": by_price,
+                "by_price_avg": by_price_avg}
 
     def sort_distinct():
         return {"top5": spark.sql("SELECT guest, price FROM clean ORDER BY "
@@ -911,21 +1117,38 @@ def sql_core_steps(spark, clean):
 
 
 def summarize_sql_core(res: dict) -> dict:
-    """Host arrays of every step's results (float64), for the comparison."""
+    """Host arrays of every step's results (float64; a string column as
+    an object array), for the comparison."""
     out = {}
     for step, frames in res.items():
         for name, frame in frames.items():
             d = frame.to_pydict()
             out[f"{step}.{name}"] = {
-                c: np.asarray(v, np.float64) for c, v in d.items()}
+                c: v if v.dtype == object else np.asarray(v, np.float64)
+                for c, v in d.items()}
     return out
+
+
+def bit_identical(a: dict, b: dict) -> list:
+    """The columns of two summaries that differ in any bit (a string
+    column in any cell)."""
+    bad = []
+    for key, cols in a.items():
+        for c, v in cols.items():
+            w = b[key][c]
+            same = (v.shape == w.shape and (
+                np.array_equal(v, w) if v.dtype == object
+                else np.array_equal(v.view(np.int64), w.view(np.int64))))
+            if not same:
+                bad.append(f"{key}.{c}")
+    return bad
 
 
 # What each result column is held to against the CPU float64 run: "exact"
 # (keys, counts, ranks, min/max/first/last and lag picks, compared after
 # rounding the float64 value to float32) or "rtol" (SQL_ROWS_RTOL).
 SQL_CORE_RTOL_COLS = {"total", "avg_price", "sd", "run", "price_per_guest",
-                      "spread"}
+                      "spread", "avg_guest"}
 
 
 def check_sql_core(card: dict, cpu: dict) -> dict:
@@ -947,7 +1170,10 @@ def check_sql_core(card: dict, cpu: dict) -> dict:
             g = got[c]
             if g.shape != w.shape:
                 raise AssertionError(f"{key}.{c}: {g.shape} vs {w.shape}")
-            if c in SQL_CORE_RTOL_COLS:
+            if g.dtype == object or w.dtype == object:
+                if not (g.dtype == w.dtype and np.array_equal(g, w)):
+                    raise AssertionError(f"{key}.{c}: strings differ")
+            elif c in SQL_CORE_RTOL_COLS:
                 ok = np.isnan(w) == np.isnan(g)
                 rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
                 rel = np.where(np.isnan(w), 0.0, rel)
@@ -962,6 +1188,8 @@ def check_sql_core(card: dict, cpu: dict) -> dict:
                     bad = int((~((g == w32) | (np.isnan(g) & np.isnan(w32)))
                                ).sum())
                     raise AssertionError(f"{key}.{c}: {bad} values differ")
+    if "join.over" not in cpu:
+        return errs
     joined, over = card["join.joined"], card["join.over"]
     above = (joined["price"].astype(np.float32)
              > joined["avg_price"].astype(np.float32))
@@ -974,86 +1202,303 @@ def check_sql_core(card: dict, cpu: dict) -> dict:
     return errs
 
 
-def run_sql_core(device: str, guest, price, times=None, runs: int = 1):
-    """The app's DQ rules on the full table through the fused kernel (one
-    ``dq_rules`` launch; the rows ``dq_clean`` keeps), then the six steps.
-    With ``times`` (a dict), each step's host-clock seconds to a device
-    synchronisation are appended to ``times[step]`` for ``runs`` runs (the
-    first run's results are returned)."""
-    import torch
-
+def clean_table(device: str, guest, price):
+    """A session and the full table cleaned by the app's DQ rules through
+    the fused kernel (one ``dq_rules`` launch; the rows ``dq_clean``
+    keeps), registered as ``clean``."""
     from sparkdq4ml_tpu_torch.ops.rules import dq_rules_fused
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     spark = session(device)
     df = spark.createDataFrame({"guest": guest, "price": price})
     keep = dq_rules_fused(df.col("price").eval(df),
                           df.col("guest").eval(df))[2]
     clean = df.filter(keep)
     clean.create_or_replace_temp_view("clean")
-    results = {}
-    for name, fn in sql_core_steps(spark, clean):
-        for r in range(runs if name not in ("join", "window") else 1):
+    return spark, clean
+
+
+def run_steps(steps, device: str, times=None, runs: int = 1, once=()):
+    """Each (name, fn) of ``steps`` run ``runs`` times (the names in
+    ``once`` once); returns {name: [each run's result]}. With ``times``
+    (a dict), each run's host-clock seconds to a device synchronisation
+    are appended to ``times[name]``."""
+    import torch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    outs: dict = {}
+    for name, fn in steps:
+        for _ in range(1 if name in once else runs):
             sync()
             t0 = time.perf_counter()
             out = fn()
             sync()
             if times is not None:
                 times.setdefault(name, []).append(time.perf_counter() - t0)
-            if r == 0:
-                results[name] = out
-    kept = clean.count()
-    spark.stop()
-    return kept, results
+            outs.setdefault(name, []).append(out)
+    return outs
 
 
-def check_sql_core_full(rows: int = FULL_ROWS) -> dict:
-    """Steps 1-6 on the DQ-clean 10^7-row table (cleaned by one
-    ``dq_rules`` launch): the card (float32) with
-    the launch counts reset just before and read just after, held against
-    the CPU float64 run of the same code; each step's median of 3 host-
-    clock times (the join and window steps, whose plans are host numpy,
-    once); one more run under torch.profiler for the device's idle share."""
+def run_sql_core(spark, clean, times=None, runs: int = 1):
+    """The six steps on a ``clean_table``; the window step, whose plan is
+    host numpy, runs once. Returns {step: [each run's result frames]}."""
+    return run_steps(sql_core_steps(spark, clean), spark.device.type,
+                     times, runs, once=("window",))
+
+
+def first_runs(outs: dict) -> dict:
+    return {name: runs[0] for name, runs in outs.items()}
+
+
+def cpu_reference(guest, price) -> dict:
+    """The CPU float64 run of phases 7 and 8 on one clean table and one
+    session (each step once): {"clean_rows", "core", "rest"} summaries."""
     import torch
 
     from sparkdq4ml_tpu_torch.config import float_policy
+
+    with float_policy(torch.float64):
+        spark, clean = clean_table("cpu", guest, price)
+        core = summarize_sql_core(first_runs(run_sql_core(spark, clean)))
+        rest = summarize_sql_core(first_runs(run_sql_rest(spark, clean)))
+        kept = clean.count()
+        spark.stop()
+    return {"clean_rows": kept, "core": core, "rest": rest}
+
+
+def card_path(run, guest, price, counted, what: str):
+    """``run(spark, clean, times, runs=3)`` on the card's clean table,
+    the launch counts set to 0 just before the table is cleaned and read
+    just after the path; each kernel in ``counted`` must have launched
+    (dq_rules once). Returns (clean rows, outs, times, counts, path s)."""
+    import torch
+
     from sparkdq4ml_tpu_torch.ops import kernels
 
-    guest, price = full_table(rows)
-    run_sql_core("cuda", guest[:1000], price[:1000])        # warm-up
     times: dict = {}
     torch.cuda.synchronize()
     kernels.launches.reset()
     t0 = time.perf_counter()
-    kept, res = run_sql_core("cuda", guest, price, times, runs=3)
+    spark, clean = clean_table("cuda", guest, price)
+    outs = run(spark, clean, times, runs=3)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     counts = kernels.launches.snapshot()
+    kept = clean.count()
+    spark.stop()
     if counts["dq_rules"] != 1:
-        raise AssertionError(f"the SQL-core path launched dq_rules "
+        raise AssertionError(f"the {what} path launched dq_rules "
                              f"{counts['dq_rules']} times, expected 1")
-    card = summarize_sql_core(res)
-    for step, frames in res.items():
-        for name, frame in frames.items():
+    for name in counted:
+        if counts[name] == 0:
+            raise AssertionError(f"the {what} path never launched {name}")
+    for step, runs in outs.items():
+        for name, frame in runs[0].items():
             for c in frame.columns:
-                if frame._column_values(c).device.type != "cuda":
+                col = frame._column_values(c)
+                if not isinstance(col, np.ndarray) and \
+                        col.device.type != "cuda":
                     raise AssertionError(f"{step}.{name}.{c} is not on the "
                                          "card")
-    prof = profile_run("sql_core", lambda: run_sql_core("cuda", guest,
-                                                        price))
-    with float_policy(torch.float64):
-        kept64, res64 = run_sql_core("cpu", guest, price)
-    cpu = summarize_sql_core(res64)
-    if kept != kept64:
-        raise AssertionError(f"clean rows: card {kept}, cpu {kept64}")
-    errs = check_sql_core(card, cpu)
+    return kept, outs, times, counts, path_s
+
+
+def check_sql_core_full(cpu: dict, rows: int = FULL_ROWS) -> dict:
+    """Steps 1-6 on the DQ-clean 10^7-row table (cleaned by one
+    ``dq_rules`` launch): the card (float32) with the launch counts reset
+    just before and read just after, held against the CPU float64 run of
+    the same code (``cpu_reference``); steps 1 and 2 bit-identical over
+    two card runs and the ``price > avg_price`` count the same in all
+    three; each step's median of 3 host-clock times (the window step,
+    whose plan is host numpy, once); one more run under torch.profiler
+    for the device's idle share."""
+    guest, price = full_table(rows)
+    spark, clean = clean_table("cuda", guest[:1000], price[:1000])
+    run_sql_core(spark, clean)                              # warm-up
+    spark.stop()
+    kept, outs, times, counts, path_s = card_path(
+        run_sql_core, guest, price, ("dense_segment_sum",
+                                     "sorted_segment_sum"), "SQL-core")
+    card = summarize_sql_core(first_runs(outs))
+    again = summarize_sql_core({k: outs[k][1] for k in ("group_by",
+                                                        "sorted_groups")})
+    unstable = bit_identical({k: card[k] for k in again}, again)
+    if unstable:
+        raise AssertionError(f"steps 1-2 differ between two card runs: "
+                             f"{unstable}")
+    over_counts = [r["over"].count() for r in outs["join"]]
+    if len(set(over_counts)) != 1:
+        raise AssertionError(f"price > avg_price kept {over_counts} rows in "
+                             "the three runs")
+
+    def profiled():
+        sp, cl = clean_table("cuda", guest, price)
+        run_sql_core(sp, cl)
+        sp.stop()
+
+    prof = profile_run("sql_core", profiled)
+    if kept != cpu["clean_rows"]:
+        raise AssertionError(f"clean rows: card {kept}, cpu "
+                             f"{cpu['clean_rows']}")
+    errs = check_sql_core(card, cpu["core"])
     steps_ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
     log(f"SQL core at {rows} rows ({kept} clean), card float32: step ms "
         f"(median) {steps_ms}; runs s {times}; launches {counts}; "
-        f"profile {prof}; errors against cpu float64 {errs}")
+        f"price > avg_price rows in the three runs {over_counts}; steps 1-2 "
+        f"bit-identical over two runs; profile {prof}; errors against cpu "
+        f"float64 {errs}")
     return {"rows": rows, "clean_rows": kept, "steps_ms": steps_ms,
             "runs_s": times, "path_s": path_s, "launches": counts,
-            "profile": prof, "max_rel_err": errs}
+            "over_rows_by_run": over_counts, "profile": prof,
+            "max_rel_err": errs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the rest of the SQL tour at 10^7 rows
+# ---------------------------------------------------------------------------
+
+BANDS = ("small", "medium", "large")
+# guests in [1, 40): the averages of guests 16 and 17 lie near 100 and
+# 105, so 102.5 splits them far from any rounding
+BUSY_REST_SQL = ("SELECT guest, COUNT(*) AS n, AVG(price) AS avg_price "
+                 "FROM clean GROUP BY guest HAVING COUNT(*) > 10 AND "
+                 "AVG(price) > 102.5")
+BAND_SQL = ("SELECT guest, price, CASE WHEN guest < 10 THEN 'small' WHEN "
+            "guest < 25 THEN 'medium' ELSE 'large' END AS band FROM clean")
+
+
+def sql_rest_steps(spark, clean):
+    """Phase 8's steps on the clean 10^7-row frame, as (name, fn) pairs
+    returning result frames: (1) the CTE with a scalar AVG subquery;
+    (2) IN (subquery) and LEFT SEMI JOIN; (3) IN, BETWEEN and the CASE
+    band (a 9.6 M-row string column); (4) string keys on a band of its
+    own, registered as ``banded``: GROUP BY band, ORDER BY band, a join on
+    band, LIKE, distinct, a window partitioned by band; (5) the DDL round
+    trip."""
+    bands = spark.createDataFrame({
+        "band": np.asarray(BANDS, dtype=object),
+        "factor": np.asarray([1.0, 2.0, 3.0])})
+
+    def cte():
+        return {"premium": spark.sql(
+            "WITH stats AS (SELECT avg(price) AS ap FROM clean) "
+            "SELECT guest, price FROM clean WHERE price > (SELECT ap FROM "
+            "stats) ORDER BY price DESC LIMIT 5")}
+
+    def in_semi():
+        spark.sql(BUSY_REST_SQL).create_or_replace_temp_view("busy")
+        return {"in": spark.sql("SELECT guest, price FROM clean WHERE guest "
+                                "IN (SELECT guest FROM busy)"),
+                "semi": spark.sql("SELECT guest, price FROM clean LEFT SEMI "
+                                  "JOIN busy USING (guest)")}
+
+    def predicates():
+        return {"in_between": spark.sql(
+            "SELECT guest, price FROM clean WHERE guest IN (3, 7, 11, 30) "
+            "AND price BETWEEN 40 AND 160"), "banded": spark.sql(BAND_SQL)}
+
+    def string_keys():
+        # a band column of its own (a new object array), so that each run
+        # pays one dictionary encoding, which the six queries then share
+        spark.sql(BAND_SQL).create_or_replace_temp_view("banded")
+        return {"group": spark.sql(
+                    "SELECT band, COUNT(*) AS n, AVG(price) AS avg_price, "
+                    "STDDEV(price) AS sd FROM banded GROUP BY band"),
+                "ordered": spark.sql("SELECT band, guest, price FROM banded "
+                                     "ORDER BY band"),
+                "joined": spark.sql("SELECT band, price FROM banded").join(
+                    bands, "band"),
+                "like": spark.sql("SELECT guest, price FROM banded WHERE "
+                                  "band LIKE 's%'"),
+                "distinct": spark.sql("SELECT band FROM banded").distinct(),
+                "window": spark.sql(
+                    "SELECT band, price, ROW_NUMBER() OVER (PARTITION BY "
+                    "band ORDER BY price) AS rn FROM banded")}
+
+    def ddl():
+        spark.sql("CREATE OR REPLACE TEMP VIEW cheap AS SELECT guest, price "
+                  "FROM clean WHERE price < 60")
+        if not spark.catalog.table_exists("cheap"):
+            raise AssertionError("CREATE TEMP VIEW did not register cheap")
+        n = spark.sql("SELECT count(*) AS n FROM cheap")
+        spark.sql("DROP VIEW cheap")
+        if spark.catalog.table_exists("cheap"):
+            raise AssertionError("DROP VIEW left cheap in the catalog")
+        return {"count": n}
+
+    return [("cte", cte), ("in_semi", in_semi), ("predicates", predicates),
+            ("string_keys", string_keys), ("ddl", ddl)]
+
+
+def run_sql_rest(spark, clean, times=None, runs: int = 1):
+    """Phase 8's steps on a ``clean_table``: {step: [each run's
+    result frames]}."""
+    return run_steps(sql_rest_steps(spark, clean), spark.device.type,
+                     times, runs)
+
+
+def encode_ms(frame, column: str, runs: int = 3) -> float:
+    """Median host-clock ms of the dictionary encoding of one string
+    column (the hash pass, the int32 codes, their copy to the card), each
+    run on a new copy of the column, which no earlier encoding holds."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import strings
+
+    cells = frame._column_values(column)
+    times = []
+    for _ in range(runs):
+        fresh = cells.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strings.device_codes([fresh], "cuda")
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def check_sql_rest_full(cpu: dict, rows: int = FULL_ROWS) -> dict:
+    """Phase 8 on the DQ-clean 10^7-row table (cleaned by one
+    ``dq_rules`` launch): the card (float32), launch counts reset just
+    before and read just after, held against the CPU float64 run of the
+    same code (keys, counts, codes, strings and order exact; sums and
+    averages within 1e-4); steps 1-4 bit-identical over two card runs;
+    IN (subquery) and LEFT SEMI give the same rows; each step's median of
+    3 host-clock times and the band's encoding time."""
+    guest, price = full_table(rows)
+    spark, clean = clean_table("cuda", guest[:1000], price[:1000])
+    run_sql_rest(spark, clean)                              # warm-up
+    spark.stop()
+    kept, outs, times, counts, path_s = card_path(
+        run_sql_rest, guest, price, ("dense_segment_sum",), "SQL-rest")
+    card = summarize_sql_core(first_runs(outs))
+    steps = ("cte", "in_semi", "predicates", "string_keys")
+    again = summarize_sql_core({k: outs[k][1] for k in steps})
+    unstable = bit_identical({k: card[k] for k in again}, again)
+    if unstable:
+        raise AssertionError(f"phase 8 steps differ between two card runs: "
+                             f"{unstable}")
+    if bit_identical({"x": card["in_semi.in"]}, {"x": card["in_semi.semi"]}):
+        raise AssertionError("IN (subquery) and LEFT SEMI JOIN gave other "
+                             "rows")
+    banded = outs["predicates"][0]["banded"]
+    enc_ms = encode_ms(banded, "band")
+    if kept != cpu["clean_rows"]:
+        raise AssertionError(f"clean rows: card {kept}, cpu "
+                             f"{cpu['clean_rows']}")
+    errs = check_sql_core(card, cpu["rest"])
+    steps_ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    info = {"in_rows": int(card["in_semi.in"]["guest"].size),
+            "band_rows": int(card["predicates.banded"]["band"].size),
+            "groups": card["string_keys.group"]["band"].tolist(),
+            "group_counts": card["string_keys.group"]["n"].tolist(),
+            "cheap_rows": int(card["ddl.count"]["n"][0])}
+    log(f"SQL rest at {rows} rows ({kept} clean), card float32: step ms "
+        f"(median) {steps_ms}; band encoding ms {enc_ms}; runs s {times}; "
+        f"launches {counts}; {info}; steps 1-4 bit-identical over two runs; "
+        f"errors against cpu float64 {errs}")
+    return {"rows": rows, "clean_rows": kept, "steps_ms": steps_ms,
+            "band_encoding_ms": enc_ms, "runs_s": times, "path_s": path_s,
+            "launches": counts, "max_rel_err": errs, **info}
 
 
 # ---------------------------------------------------------------------------
@@ -1137,7 +1582,9 @@ def masked_times(n: int, d: int) -> dict:
 # kernels share their templates and differ in the design type).
 KERNEL_NAMES = {"dq_rules": ("dq_rules_kernel",),
                 "packed_gram": ("PackedDesign",),
-                "masked_gram": ("MaskedDesign",)}
+                "masked_gram": ("MaskedDesign",),
+                "dense_segment_sum": ("dense_partials",),
+                "sorted_segment_sum": ("sorted_tiles",)}
 
 
 def profile_run(name: str, fn) -> dict:
@@ -1234,6 +1681,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on the card")
         return 1
+    script_t0 = time.perf_counter()
     sys.path.insert(0, ROOT)
     from sparkdq4ml_tpu_torch.ops import kernels
 
@@ -1249,6 +1697,9 @@ def main() -> int:
     dq_err = check_dq_rules("cuda")
     gram_errs = check_packed_gram("cuda")
     masked_errs = check_masked_gram("cuda")
+    check_segment_sum(edge_segment_cases("cuda"))
+    seg_cases = segment_cases(*clean_columns())
+    seg_errs = check_segment_sum(seg_cases)
     check_goldens("cuda")
     full, counts, app_s, stages = check_full()
     log(f"app phase at {FULL_ROWS} rows, card float32, s: {app_s}; "
@@ -1268,17 +1719,27 @@ def main() -> int:
     masked_main, masked_app, masked_big = (masked_times(FULL_ROWS, 1),
                                            masked_times(1040, 1),
                                            masked_times(1_000_000, 512))
+    seg_dense, seg_sorted, seg_long = (segsum_times(*c) for c in seg_cases)
+    del seg_cases
     prof = profile_app()
     log(f"profile of the app phase: {prof}")
     t0 = time.perf_counter()
     tour = check_tour_golden("cuda")
-    sql_core = check_sql_core_full()
+    cpu = cpu_reference(*full_table(FULL_ROWS))
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sql_core = check_sql_core_full(cpu)
     sql_core_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sql_rest = check_sql_rest_full(cpu)
+    sql_rest_s = time.perf_counter() - t0
+    del cpu
     by_path = {"app": counts,
                **{p: selection[p]["launches"] for p in selection},
                "owlqn_dataset_full": small["owlqn"]["full"]["l-bfgs"][
                    "launches"],
-               "sql_core": sql_core["launches"]}
+               "sql_core": sql_core["launches"],
+               "sql_rest": sql_rest["launches"]}
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
@@ -1299,6 +1760,21 @@ def main() -> int:
          "max_abs_err": masked_errs[(FULL_ROWS, 1)],
          "parity": True, **masked_main, "app_size": masked_app,
          "largest": masked_big},
+        {"name": "dense_segment_sum", "route": "cuda", "port_only": True,
+         "source": "sparkdq4ml_tpu_torch/ops/csrc/segment_sum.cu",
+         "replaces": "sparkdq4ml_tpu/ops/segments.py:728 "
+                     "(jax.ops.segment_sum, an XLA scatter, no pallas_call)",
+         "launches": sql_core["launches"]["dense_segment_sum"],
+         "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
+         "bit_identical_runs": True, **seg_dense},
+        {"name": "sorted_segment_sum", "route": "cuda", "port_only": True,
+         "source": "sparkdq4ml_tpu_torch/ops/csrc/segment_sum.cu",
+         "replaces": "sparkdq4ml_tpu/ops/segments.py:1026 "
+                     "(jax.ops.segment_sum, an XLA scatter, no pallas_call)",
+         "launches": sql_core["launches"]["sorted_segment_sum"],
+         "max_abs_err": seg_errs["sorted price groups"], "parity": True,
+         "bit_identical_runs": True, **seg_sorted,
+         "long_segments": seg_long},
     ], "launches_by_path": by_path,
         "device_kernels_per_call": per_call,
         "app_phase_s": float(np.median(app_s)), "app_phase_runs_s": app_s,
@@ -1311,7 +1787,10 @@ def main() -> int:
         "small_phases": small, "small_phases_s": small_s,
         "sql_tour_dataset_full": {"rank_checksum": tour["rank_checksum"],
                                   "over": tour["over"]},
-        "sql_core": sql_core, "sql_core_phase_s": sql_core_s, "card": card}
+        "sql_core": sql_core, "sql_core_phase_s": sql_core_s,
+        "sql_rest": sql_rest, "sql_rest_phase_s": sql_rest_s,
+        "cpu_float64_reference_s": cpu_s,
+        "script_s": time.perf_counter() - script_t0, "card": card}
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

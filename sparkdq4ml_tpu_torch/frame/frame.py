@@ -2,18 +2,21 @@
 ``sparkdq4ml_tpu/frame/frame.py``).
 
 A frame is a dict of equal-length columns plus a boolean mask. Numeric
-columns are tensors on the frame's device (a vector column is 2-D); string
-columns are numpy object arrays on the host. ``filter``, ``limit`` and
+columns are tensors on the frame's device (a vector column is 2-D);
+string and array columns are numpy object arrays on the host, with
+``None`` as their null, and gathers take their rows by a host index where
+the device gathers by ``index_select``. ``filter``, ``limit`` and
 ``dropna`` never compact rows: they AND into the mask, and every consumer
-reads the mask. Grouped, sorted, distinct and joined results are compact
-frames with an all-true mask.
+reads the mask. Grouped, sorted, distinct, joined and exploded results
+are compact frames with an all-true mask.
 
 The relational verbs run on the frame's device: ``group_by().agg()``,
 ``sort``, ``distinct`` and ``drop_duplicates`` through the grouped engine
 (``ops/segments.py``); ``join`` plans its row pairs on the host with numpy
 from one pull of the key columns and gathers every payload column on the
 device; window functions plan on the host the same way
-(``frame/window.py``).
+(``frame/window.py``). A string key enters each of them as int32 codes
+(``ops/strings.py``).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ import torch
 
 from ..config import (config, float_dtype, int_dtype, resolve_device,
                       wide_types)
-from ..ops.expressions import (Col, Expr, SortOrder, is_host_column,
-                               predicate_keep_mask, spark_type_name)
+from ..ops import strings
+from ..ops.expressions import (Alias, Col, Explode, Expr, SortOrder,
+                               is_host_column, predicate_keep_mask,
+                               spark_type_name)
 
 _JOIN_TYPES = ("inner", "left", "right", "outer", "left_semi", "left_anti",
                "cross")
@@ -280,9 +285,17 @@ class Frame:
     withColumns = with_columns
 
     def select(self, *exprs: Union[str, Expr]) -> "Frame":
+        """Project columns and expressions. One ``explode`` generator (a
+        bare ``Explode`` or an alias of one) may stand among them: the
+        other items are computed first, then each row repeats once for
+        every element of its array cell (Spark's rule)."""
         flat = []
         for e in exprs:
             flat.extend(e if isinstance(e, (list, tuple)) else [e])
+        gens = [e for e in flat if isinstance(e, Explode) or (
+            isinstance(e, Alias) and isinstance(e.child, Explode))]
+        if len(gens) > 1:
+            raise ValueError("only one explode() per select (Spark rule)")
         data: dict[str, object] = {}
         for e in flat:
             if isinstance(e, str):
@@ -290,8 +303,70 @@ class Frame:
                     data.update(self._data)
                     continue
                 e = Col(e)
+            if any(e is g for g in gens):
+                continue
             data[e.name] = self._eval(e)
-        return self._with(data=data)
+        if not gens:
+            return self._with(data=data)
+        g = gens[0]
+        inner = g if isinstance(g, Explode) else g.child
+        # a temporary slot keeps the source column, when it is selected
+        # too, in the output
+        tmp = "__explode_source__"
+        while tmp in data:
+            tmp += "_"
+        data[tmp] = inner.source_values(self)
+        return self._with(data=data).explode(tmp, g.name,
+                                             keep_nulls=inner.outer)
+
+    def explode(self, column: str, output_col: Optional[str] = None,
+                keep_nulls: bool = False) -> "Frame":
+        """Spark's ``explode``: one row for each element of each valid
+        row's array cell (a compact frame), the other columns repeated;
+        a null or empty cell drops its row, or with ``keep_nulls``
+        (``explode_outer``) gives one row with a null element. Numeric
+        elements make a float column on the device, strings a host
+        column. The row plan is built on the host from the cell lengths;
+        device columns gather by ``index_select``."""
+        arr = self._data.get(column)
+        if arr is None:
+            raise ValueError(f"no column {column!r}")
+        first = next((c for c in arr if c is not None), None) \
+            if is_host_column(arr) else None
+        if not is_host_column(arr) or (
+                first is not None
+                and not isinstance(first, (list, tuple, np.ndarray))):
+            raise ValueError("explode() expects an array column (e.g. "
+                             "split() output)")
+        idx = np.flatnonzero(self._host_mask())
+        cells = arr[idx]
+        lens = np.asarray([len(c) if c is not None else 0 for c in cells],
+                          np.int64)
+        src = np.repeat(idx, np.maximum(lens, 1) if keep_nulls else lens)
+        values: list = []
+        for c, ln in zip(cells, lens):
+            if ln:
+                values.extend(c)
+            elif keep_nulls:
+                values.append(None)
+        src_dev = torch.as_tensor(src, device=self.device)
+        data: dict[str, object] = {}
+        for name, col in self._data.items():
+            if name != column:
+                data[name] = (col[src] if is_host_column(col)
+                              else col.index_select(0, src_dev))
+        non_null = [v for v in values if v is not None]
+        if non_null and all(isinstance(v, (int, float, np.integer,
+                                           np.floating)) for v in non_null):
+            data[output_col or column] = torch.as_tensor(
+                [np.nan if v is None else float(v) for v in values],
+                dtype=float_dtype(), device=self.device)
+        else:
+            out = np.empty(len(values), dtype=object)
+            for i, v in enumerate(values):      # a list element stays one
+                out[i] = v                      # cell, never a 2-D array
+            data[output_col or column] = out
+        return Frame(data, device=self.device)
 
     def select_expr(self, *exprs: str) -> "Frame":
         """``selectExpr``: SQL select-list strings over this frame, through
@@ -452,9 +527,11 @@ class Frame:
         NaN cells equal each other, as in Spark's null-safe dedup."""
         from ..ops.segments import _empty_frame, device_unique
 
-        if self._n == 0:
-            # the JAX package's host path rebuilds the empty frame from
-            # row lists: every column takes the float dtype
+        if self._n == 0 or (any(map(is_host_column, self._data.values()))
+                            and not bool(self._mask.any())):
+            # the JAX package's host path (an empty frame, or any string
+            # column) rebuilds the empty result from row lists: every
+            # column takes the float dtype
             return _empty_frame(self.columns, self.device)
         return device_unique(self, self.columns)
 
@@ -496,22 +573,32 @@ class Frame:
                 if k not in self._data or k not in other._data:
                     raise ValueError(f"join key {k!r} must exist in both "
                                      "frames")
-                for side in (self, other):
-                    if is_host_column(side._data[k]) or \
-                            side._data[k].ndim != 1:
-                        raise NotImplementedError(
-                            f"join key {k!r}: the torch port joins on 1-D "
-                            "numeric columns only")
+                a, b = self._data[k], other._data[k]
+                if is_host_column(a) != is_host_column(b) or (
+                        not is_host_column(a) and (a.ndim != 1
+                                                   or b.ndim != 1)):
+                    raise NotImplementedError(
+                        f"join key {k!r}: the torch port joins 1-D numeric "
+                        "keys with numeric keys and string keys with "
+                        "string keys")
 
-        def pull(frame):
-            """One batched device->host read: the mask and the keys."""
-            parts = [frame._mask] + ([frame._data[k] for k in keys]
-                                     if how != "cross" else [])
-            host = [p.cpu().numpy() for p in parts]
+        # a string key as its codes in one dictionary of both sides: None
+        # codes as NULL_CODE on both, so a null key meets a null key, as
+        # in the JAX package's dict plan
+        shared = {k: strings.shared_codes(self._data[k], other._data[k])[0]
+                  for k in keys if how != "cross"
+                  and is_host_column(self._data[k])}
+
+        def pull(frame, side: int):
+            """The valid rows and the key columns on the host."""
+            host = [frame._mask.cpu().numpy()]
+            for k in (keys if how != "cross" else []):
+                host.append(shared[k][side] if k in shared
+                            else frame._data[k].cpu().numpy())
             return np.nonzero(host[0])[0], host[1:]
 
-        li, lk = pull(self)
-        ri, rk = pull(other)
+        li, lk = pull(self, 0)
+        ri, rk = pull(other, 1)
         if how == "cross":
             lpairs = np.repeat(li, len(ri))
             rpairs = np.tile(ri, len(li))
@@ -533,10 +620,14 @@ class Frame:
         data = dict(left_cols)
         if how in ("right", "outer") and lpairs.size and (lpairs < 0).any():
             # USING: one key column, taken from the side that has the row
-            miss = torch.as_tensor(lpairs < 0, device=self.device)
+            miss = lpairs < 0
+            miss_dev = torch.as_tensor(miss, device=self.device)
             for k in keys:
                 lkc = data[k]
-                data[k] = torch.where(miss, right_cols[k].to(lkc.dtype), lkc)
+                data[k] = (np.where(miss, right_cols[k], lkc)
+                           if is_host_column(lkc) else
+                           torch.where(miss_dev, right_cols[k].to(lkc.dtype),
+                                       lkc))
         for name, col in right_cols.items():
             if name in keys:
                 continue

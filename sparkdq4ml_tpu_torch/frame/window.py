@@ -8,7 +8,10 @@ key columns, a lexsort, partition and peer boundaries; window expressions
 over one frame and one spec reuse the last plan. Each function
 is evaluated vectorised per partition and the result is scattered back to
 the frame's row slots as a tensor on the frame's device, so masked rows stay
-masked. String and vector columns raise ``NotImplementedError``.
+masked. A string partition or ascending order key enters the plan as
+its int32 codes (``ops/strings.py``: nulls first, as the JAX package's
+host lexsort puts them); a string value column, a descending string key
+and vector columns raise.
 
 Frames follow Spark: ordered windows default to ``RANGE BETWEEN UNBOUNDED
 PRECEDING AND CURRENT ROW`` (running aggregates include peer rows);
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import float_dtype, int_dtype, numpy_dtype
+from ..ops import strings
 from ..ops.expressions import Col, Expr, is_host_column
 
 _RANKING_FNS = ("row_number", "rank", "dense_rank", "percent_rank",
@@ -157,6 +161,17 @@ def _host_column(frame, name: str) -> np.ndarray:
     return arr.cpu().numpy()
 
 
+def _host_key(frame, name: str, spec) -> np.ndarray:
+    """A partition or order key on the host; a string key as its codes."""
+    arr = frame._column_values(name)
+    if not is_host_column(arr):
+        return _host_column(frame, name)
+    if any(c == name and not asc for c, asc in spec.order_cols):
+        raise ValueError(f"descending window order on the string column "
+                         f"{name!r} is not supported")
+    return strings.codes(arr)[0]
+
+
 # The last window plan built, with weak references to the mask and key
 # tensors it was built from: window expressions over one spec and one frame
 # (a select with several OVER items, chained with_column calls) share one
@@ -180,7 +195,7 @@ def _window_plan(frame, spec):
         return last[2]
     idx = np.flatnonzero(frame.mask.cpu().numpy())     # valid slots only
     nv = len(idx)
-    host = {c: _host_column(frame, c)[idx] for c in dict.fromkeys(names)}
+    host = {c: _host_key(frame, c, spec)[idx] for c in dict.fromkeys(names)}
 
     # -- plan: lexsort by (partition keys, then order keys) ----------------
     pkeys = [_key_parts(host[c]) for c in spec.partition_cols]

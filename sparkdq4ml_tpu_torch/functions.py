@@ -1,5 +1,7 @@
 """``org.apache.spark.sql.functions`` subset: column constructors, UDF
-invocation, sort markers, aggregates and window functions."""
+invocation, sort markers, CASE WHEN, ``isnull``, the string functions
+``concat``, ``concat_ws`` and ``split``, the ``explode`` generators,
+aggregates and window functions."""
 
 from .frame.aggregates import (avg, count, count_distinct, countDistinct,
                                first, last, max, mean, min, stddev,
@@ -8,7 +10,9 @@ from .frame.aggregates import (avg, count, count_distinct, countDistinct,
 from .frame.window import (cume_dist, dense_rank, first_value, lag,
                            last_value, lead, nth_value, ntile, percent_rank,
                            rank, row_number)
-from .ops.expressions import Col, call_udf, col, lit
+from .ops.expressions import (Col, call_udf, col, concat, concat_ws,
+                              explode, explode_outer, isnull, lit, split,
+                              when)
 
 
 def asc(name: str):
@@ -21,7 +25,9 @@ def desc(name: str):
     return Col(name).desc()
 
 
-__all__ = ["col", "lit", "call_udf", "asc", "desc", "count", "sum",
+__all__ = ["col", "lit", "call_udf", "asc", "desc", "when", "isnull",
+           "concat", "concat_ws", "split", "explode", "explode_outer",
+           "count", "sum",
            "avg", "mean", "min", "max", "stddev", "variance", "stddev_pop",
            "var_pop", "first", "last", "count_distinct", "countDistinct",
            "sum_distinct", "sumDistinct", "row_number", "rank", "dense_rank",

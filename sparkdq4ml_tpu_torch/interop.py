@@ -24,6 +24,31 @@ def frame_from_numpy(columns: Mapping[str, np.ndarray], mask=None,
                  device=device)
 
 
+WORDS = ("amber", "Beta", "cobalt", "delta", "ember", "fir", "", "b_a",
+         "b%a", "éclair")
+
+
+def string_columns(n: int, seed: int = 0, null_share: float = 0.1) -> dict:
+    """A seeded table with string and array columns, as numpy arrays that
+    both packages' frames take: ``name`` (object strings from ``WORDS``,
+    about ``null_share`` of them None), ``tags`` (object array cells:
+    lists of 0 to 3 words, some None), ``k`` (int32 in [0, 5)) and ``v``
+    (float64, some NaN)."""
+    rng = np.random.default_rng(seed)
+    name = np.asarray(rng.choice(np.asarray(WORDS, dtype=object), n),
+                      dtype=object)
+    name[rng.random(n) < null_share] = None
+    tags = np.empty(n, dtype=object)
+    for i in range(n):
+        tags[i] = (None if rng.random() < null_share else
+                   [str(w) for w in rng.choice(WORDS,
+                                               int(rng.integers(0, 4)))])
+    v = rng.normal(10.0, 5.0, n)
+    v[rng.random(n) < null_share] = np.nan
+    return {"name": name, "tags": tags,
+            "k": rng.integers(0, 5, n).astype(np.int32), "v": v}
+
+
 def linear_model_from_numpy(coefficients, intercept: float,
                             params: Optional[dict] = None,
                             scale: float = 1.0) -> LinearRegressionModel:

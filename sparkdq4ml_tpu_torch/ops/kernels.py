@@ -1,7 +1,7 @@
 """The hand-written Hopper kernels of the port, their plain PyTorch
 versions, the build step and the launch counts.
 
-Three kernels, each the counterpart of a Pallas TPU kernel in
+Three kernels are the counterparts of the Pallas TPU kernels in
 ``sparkdq4ml_tpu/ops/pallas_kernels.py``:
 
 * ``dq_rules`` (``csrc/dq_rules.cu``) replaces ``_dq_kernel``: the fused DQ
@@ -13,6 +13,11 @@ Three kernels, each the counterpart of a Pallas TPU kernel in
   ``A = (Z·w)ᵀ(Z·w)`` with ``Z = [X, y, 1]`` read from ``X``, ``y`` and
   ``w`` directly, behind ``models/solvers.py:augmented_gram`` (the Huber
   warm start, the cross-validation fold Gramians, ``compute_gram``).
+
+Two more are the port's own (``csrc/segment_sum.cu``), with no TPU
+counterpart: ``dense_segment_sum`` and ``sorted_segment_sum`` give the
+grouped engine's float sums (``ops/segments.py``) in a fixed order, where
+``index_add_`` adds float atomics in no fixed order on the card.
 
 The two Gramian kernels share their plan (``csrc/gram_common.cuh``):
 upper-triangle tiles over row chunks, then, when there is more than one
@@ -50,7 +55,10 @@ from .rules import (BAD_ROW_SENTINEL, CORRELATION_MAX_GUESTS,
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".kernels_build"
 SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu",
-           "masked_gram": "masked_gram.cu"}
+           "masked_gram": "masked_gram.cu", "segment_sum": "segment_sum.cu"}
+# The wrappers that launch a kernel, each with its launch count.
+KERNELS = ("dq_rules", "packed_gram", "masked_gram", "dense_segment_sum",
+           "sorted_segment_sum")
 
 # Stage-1 form of both Gramian kernels (csrc/gram_common.cuh): D <=
 # GRAM_SMALL_MAX_D keeps the D x D sum in registers, one block per chunk;
@@ -62,10 +70,25 @@ GRAM_TILE = 64
 # rows and writes A itself: one launch, no partials. On the card one block
 # was as fast as the chunked plan or faster up to about this size.
 GRAM_ONE_CHUNK_ROWS = 16384
+# The dense segment sum's plan: contiguous row ranges of at least this many
+# rows, at most SEGSUM_MAX_BLOCKS of them (eight an SM: on the card 1056
+# blocks took half the time of 264 at 9.6 M rows, and 2112 more), and
+# per-warp tables of at most SEGSUM_SMEM_BYTES of shared memory a block
+# (eight warps, each with a table and 32 rows of staging); a larger table
+# takes the sorted kernel after a stable sort of the slot ids
+# (ops/segments.py).
+SEGSUM_MIN_ROWS_PER_BLOCK = 4096
+SEGSUM_MAX_BLOCKS = 1056
+SEGSUM_WARPS = 8
+SEGSUM_SMEM_BYTES = 96 << 10
+# Rows a thread of the sorted kernel sums in row order. The kernels read
+# SEGSUM_WARPS and SEGSUM_TILE from the nvcc flags below.
+SEGSUM_TILE = 32
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC",
               f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}",
-              f"-DGRAM_TILE={GRAM_TILE}")
+              f"-DGRAM_TILE={GRAM_TILE}", f"-DSEGSUM_WARPS={SEGSUM_WARPS}",
+              f"-DSEGSUM_TILE={SEGSUM_TILE}")
 # Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
 # chunk at D = 514 in float64, so at most 15 chunks there).
 GRAM_PARTIAL_BYTES = 32 << 20
@@ -78,7 +101,7 @@ class LaunchCounts:
     the plain version, or launches nothing (n = 0), does not count."""
 
     def __init__(self):
-        self._counts = dict.fromkeys(SOURCES, 0)
+        self._counts = dict.fromkeys(KERNELS, 0)
         self._lock = threading.Lock()
 
     def add(self, name: str) -> None:
@@ -87,7 +110,7 @@ class LaunchCounts:
 
     def reset(self) -> None:
         with self._lock:
-            self._counts = dict.fromkeys(SOURCES, 0)
+            self._counts = dict.fromkeys(KERNELS, 0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -179,25 +202,36 @@ def build(names=tuple(SOURCES)) -> dict:
 
 
 def _bind(name: str, lib) -> dict:
-    """The library's launchers, keyed by input dtype (and, for
-    ``masked_gram``, by ``(dtype, weight dtype)``)."""
+    """The library's launchers, keyed by input dtype (for ``masked_gram``
+    by ``(dtype, weight dtype)``, for ``segment_sum`` by ``(kernel,
+    dtype)``)."""
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     f32, f64, b8 = torch.float32, torch.float64, torch.bool
     if name == "dq_rules":
-        fns = {f32: lib.dq_rules_f32, f64: lib.dq_rules_f64}
-        argtypes = [P, P, P, P, P, LL, P]
+        groups = [({f32: lib.dq_rules_f32, f64: lib.dq_rules_f64},
+                   [P, P, P, P, P, LL, P])]
     elif name == "packed_gram":
-        fns = {f32: lib.packed_gram_f32, f64: lib.packed_gram_f64}
-        argtypes = [P, P, P, LL, I, I, LL, P]
+        groups = [({f32: lib.packed_gram_f32, f64: lib.packed_gram_f64},
+                   [P, P, P, LL, I, I, LL, P])]
+    elif name == "masked_gram":
+        groups = [({(f32, b8): lib.masked_gram_f32_b8,
+                    (f32, f32): lib.masked_gram_f32_f32,
+                    (f64, b8): lib.masked_gram_f64_b8,
+                    (f64, f64): lib.masked_gram_f64_f64},
+                   [P, P, P, P, P, LL, I, I, LL, P])]
     else:
-        fns = {(f32, b8): lib.masked_gram_f32_b8,
-               (f32, f32): lib.masked_gram_f32_f32,
-               (f64, b8): lib.masked_gram_f64_b8,
-               (f64, f64): lib.masked_gram_f64_f64}
-        argtypes = [P, P, P, P, P, LL, I, I, LL, P]
-    for fn in fns.values():
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        groups = [({("dense", f32): lib.dense_segment_sum_f32,
+                    ("dense", f64): lib.dense_segment_sum_f64},
+                   [P, P, P, P, LL, I, I, I, LL, P]),
+                  ({("sorted", f32): lib.sorted_segment_sum_f32,
+                    ("sorted", f64): lib.sorted_segment_sum_f64},
+                   [P, P, P, P, P, P, P, LL, I, LL, P])]
+    fns = {}
+    for group, argtypes in groups:
+        for key, fn in group.items():
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[key] = fn
     return fns
 
 
@@ -383,3 +417,108 @@ def masked_gram(X: torch.Tensor, y: torch.Tensor,
                              rows, stream))
     launches.add("masked_gram")
     return out
+
+
+# ---------------------------------------------------------------------------
+# dense_segment_sum and sorted_segment_sum (port-only: no TPU kernel)
+# ---------------------------------------------------------------------------
+
+def segment_sum_reference(x: torch.Tensor, seg: torch.Tensor,
+                          size: int) -> torch.Tensor:
+    """Plain version of both segment sums: ``index_add_`` into zeros."""
+    out = torch.zeros((size,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(0, seg, x)
+
+
+def dense_segment_fits(size: int, columns: int, elem_bytes: int) -> bool:
+    """True when the dense kernel's per-warp tables of ``size`` slots and
+    ``columns`` columns, with their staging rows, fit its shared memory."""
+    return (SEGSUM_WARPS * (size + 32) * columns * elem_bytes
+            <= SEGSUM_SMEM_BYTES)
+
+
+def dense_segment_plan(n: int) -> tuple[int, int]:
+    """``(blocks, rows_per_block)`` of the dense kernel for n >= 1 rows
+    (n = 0 launches nothing): contiguous row
+    ranges of at least ``SEGSUM_MIN_ROWS_PER_BLOCK`` rows, at most
+    ``SEGSUM_MAX_BLOCKS`` of them, no empty one. The summation order
+    follows from it, so it depends on n alone."""
+    blocks = max(1, min(SEGSUM_MAX_BLOCKS, n // SEGSUM_MIN_ROWS_PER_BLOCK))
+    rows = -(-n // blocks)
+    return -(-n // rows), rows
+
+
+def _segment_args(name: str, x: torch.Tensor, seg: torch.Tensor):
+    if x.ndim not in (1, 2) or seg.shape != x.shape[:1] \
+            or seg.dtype != torch.int64:
+        raise ValueError(f"{name}: x must be (n,) or (n, C) and seg an "
+                         "int64 (n,) tensor")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: x must be float32 or float64")
+
+
+def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor,
+                      size: int) -> torch.Tensor:
+    """``out[s] = Σ x[i] over seg[i] == s`` for slot ids ``seg`` in
+    ``[0, size)`` in any order: shape ``(size,) + x.shape[1:]``. On the
+    card the order of the adds is fixed by ``dense_segment_plan``, so the
+    result is bit-identical from run to run; the table must pass
+    ``dense_segment_fits``."""
+    _segment_args("dense_segment_sum", x, seg)
+    if not _route("dense_segment_sum", x, seg):
+        return segment_sum_reference(x, seg, size)
+    n = x.shape[0]
+    x2 = (x if x.ndim == 2 else x[:, None]).contiguous()
+    C = x2.shape[1]
+    if not dense_segment_fits(size, C, x.element_size()):
+        raise ValueError(f"dense_segment_sum: a table of {size} slots and "
+                         f"{C} columns does not fit shared memory")
+    shape = (size,) + tuple(x.shape[1:])
+    if n == 0 or C == 0:
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    fn = _launcher("segment_sum", ("dense", x.dtype))
+    seg = seg.contiguous()
+    out = torch.empty((size, C), dtype=x.dtype, device=x.device)
+    blocks, rows = dense_segment_plan(n)
+    part = (torch.empty((blocks, size, C), dtype=x.dtype, device=x.device)
+            if blocks > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check("dense_segment_sum", fn(x2.data_ptr(), seg.data_ptr(),
+                                   _ptr(part), out.data_ptr(), n, C, size,
+                                   blocks, rows, stream))
+    launches.add("dense_segment_sum")
+    return out.reshape(shape)
+
+
+def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """The segment sum of ``dense_segment_sum`` for nondecreasing ids
+    ``seg`` in ``[0, size)`` (contiguous segments), any number of them.
+    Each segment is summed in row order inside fixed tiles of rows, then
+    over its tiles in a fixed order: bit-identical from run to run."""
+    _segment_args("sorted_segment_sum", x, seg)
+    if not _route("sorted_segment_sum", x, seg):
+        return segment_sum_reference(x, seg, size)
+    n = x.shape[0]
+    x2 = (x if x.ndim == 2 else x[:, None]).contiguous()
+    C = x2.shape[1]
+    out = torch.zeros((size, C), dtype=x.dtype, device=x.device)
+    if n == 0 or C == 0:
+        return out.reshape((size,) + tuple(x.shape[1:]))
+    fn = _launcher("segment_sum", ("sorted", x.dtype))
+    seg = seg.contiguous()
+    tiles = -(-n // SEGSUM_TILE)
+    head = torch.empty((tiles, C), dtype=x.dtype, device=x.device)
+    tail = torch.empty((tiles, C), dtype=x.dtype, device=x.device)
+    # the tiles where a segment that goes on past them starts, and their
+    # number (an integer counter)
+    owners = torch.empty(tiles, dtype=torch.int32, device=x.device)
+    n_owners = torch.zeros(1, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check("sorted_segment_sum", fn(x2.data_ptr(), seg.data_ptr(),
+                                    head.data_ptr(), tail.data_ptr(),
+                                    owners.data_ptr(), n_owners.data_ptr(),
+                                    out.data_ptr(), n, C, size, stream))
+    launches.add("sorted_segment_sum")
+    return out.reshape((size,) + tuple(x.shape[1:]))

@@ -5,7 +5,11 @@ The JAX package lowers each plan to one jitted XLA program; here the same
 programs run as eager torch ops on the frame's device (``torch.sort(stable=
 True)``, ``cumsum``, ``searchsorted``, ``index_add_``, ``scatter_reduce_``,
 ``index_select``), so a CUDA frame runs on the card and a CPU frame on the
-CPU. Two lowerings of ``grouped_agg`` share one output contract:
+CPU. Float segment sums go through the port's own kernels
+(``kernels.dense_segment_sum``, ``kernels.sorted_segment_sum``), which add
+in an order fixed by the plan, so a result is bit-identical from run to
+run on the card; integer sums stay on ``index_add_`` (exact in any order).
+Two lowerings of ``grouped_agg`` share one output contract:
 
 * the **dense** program (integer-valued keys whose packed range fits
   ``S = min(2^17, max(2 n, 16))`` slots): each row's key tuple maps to a
@@ -16,18 +20,25 @@ CPU. Two lowerings of ``grouped_agg`` share one output contract:
   stable lexicographic sort over (invalid flag, per key: not-null flag,
   value), segment ids from the boundaries, reductions per segment.
 
-Host reads: one per ``grouped_agg`` (the dense fit verdict and the group
-count together), one more on a dense miss; one per ``device_sort`` (the
-valid-row count) and per ``device_unique`` (the group count).
+String keys run as int32 codes (``ops/strings.py``): the host encodes
+them in the strings' order, ``NULL_CODE`` first, and decodes the result's
+keys.
+
+Host reads: two per dense ``grouped_agg`` (the fit verdict with the table
+size, then the group count), one on a dense miss and one per sorted
+program (the group count); one per ``device_sort`` (the valid-row count)
+and per ``device_unique`` (the group count); string keys add their
+dictionary pass.
 
 Semantics are the JAX package's: masked rows carry no weight; NaN keys form
 one null group that sorts first; aggregates skip NaN values, with the
 empty -> NULL and n < 2 -> NULL variance rules; row order and output
 dtypes match, and ``-0.0`` groups with ``0.0``.
-Ineligible input (a string key, a 2-D key for grouping, an aggregate
-outside ``DEVICE_AGG_FNS``) raises ``NotImplementedError``: there is no
-host path to fall back to. An empty frame (no row slots) is answered
-directly with the JAX package's empty-result dtypes.
+Ineligible input (a 2-D key for grouping, an aggregated string column,
+an aggregate outside ``DEVICE_AGG_FNS``) raises ``NotImplementedError``:
+there is no host path to fall back to. An empty frame (no row slots), and
+a grouping on string keys with no valid row, are answered directly with
+the JAX package's empty-result dtypes.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 
 from ..config import float_dtype, int_dtype, wide_types
+from . import kernels, strings
 from .expressions import is_host_column
 
 __all__ = ["DEVICE_AGG_FNS", "grouped_agg", "device_sort", "device_unique",
@@ -95,8 +107,25 @@ def _require_kind(arr, name: str, what: str) -> str:
                  else f"a {tuple(arr.shape)} column")
         raise NotImplementedError(
             f"{what} {name!r} is {shape}; the torch port groups, sorts and "
-            "aggregates 1-D numeric and boolean columns only")
+            "aggregates 1-D numeric and boolean columns, and groups, sorts "
+            "and joins on string keys")
     return kind
+
+
+def _key_columns(frame, names, what: str):
+    """``(arrays, kinds, words)`` of the key columns ``names``: a string
+    column becomes its int32 codes on the frame's device (kind ``i``,
+    nulls first) with its dictionary in ``words``; another column must be
+    a 1-D numeric or boolean one."""
+    arrs, kinds, words = [], [], {}
+    for k in names:
+        arr = frame._column_values(k)
+        if is_host_column(arr):
+            (arr,), words[len(arrs)] = strings.device_codes([arr],
+                                                            frame.device)
+        kinds.append(_require_kind(arr, k, what))
+        arrs.append(arr)
+    return arrs, kinds, words
 
 
 def _key_components(arr, kind: str):
@@ -151,10 +180,25 @@ def _group_scaffold(keys, kinds, mask):
 # Segment reductions (the torch counterparts of jax.ops.segment_*)
 # ---------------------------------------------------------------------------
 
-def _seg_sum(x, seg, size: int):
-    out = torch.zeros((size,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    return out.index_add_(0, seg, x)
+def _seg_sum(x, seg, size: int, contiguous: bool = False):
+    """``out[s] = Σ x[seg == s]`` over ids in ``[0, size)``. Integer sums
+    run on ``index_add_`` (exact in any order); float sums in a fixed
+    order through the segment-sum kernels: the sorted kernel for the
+    nondecreasing ids of the sorted program (``contiguous``), the dense
+    kernel for a table that fits its shared memory, else the sorted
+    kernel after a stable sort of the ids."""
+    if not x.is_floating_point():
+        out = torch.zeros((size,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        return out.index_add_(0, seg, x)
+    if contiguous:
+        return kernels.sorted_segment_sum(x, seg, size)
+    cols = x.shape[1] if x.ndim == 2 else 1
+    if kernels.dense_segment_fits(size, cols, x.element_size()):
+        return kernels.dense_segment_sum(x, seg, size)
+    order = torch.sort(seg, stable=True).indices
+    return kernels.sorted_segment_sum(x.index_select(0, order),
+                                      seg.index_select(0, order), size)
 
 
 def _seg_extreme(x, seg, size: int, fill, reduce: str):
@@ -177,8 +221,9 @@ def _to_int8_if_bool(v):
 # ---------------------------------------------------------------------------
 
 def _dense_slots(keys, kinds, valid, S: int):
-    """Per-row slot ids, the fit verdict (a device bool) and the key
-    decoders. Each key contributes a digit 0 for NULL else ``k - lo + 1``,
+    """Per-row slot ids, the fit verdict (a device bool), the table size
+    (the product of the digit ranges, in the float accumulator) and the
+    key decoders. Each key contributes a digit 0 for NULL else ``k - lo + 1``,
     so ascending slot order is the lexicographic group order with nulls
     first. The digits are built in the float accumulator and cast to
     int32 only after the verdict has zeroed them on a miss: a key range
@@ -241,7 +286,7 @@ def _dense_slots(keys, kinds, valid, S: int):
 
     decoders = [make_decoder(kind, lo, dt, st, size)
                 for (kind, lo, dt), st, size in zip(infos, strides, sizes)]
-    return slot, ok, decoders
+    return slot, ok, total, decoders
 
 
 def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
@@ -252,8 +297,15 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
     dev = mask.device
     valid = mask
     idx = torch.arange(n, device=dev)
-    slot, ok, decoders = _dense_slots(keys, kinds, valid, S)
-    seg = torch.where(valid, slot, torch.full_like(slot, S)).to(torch.int64)
+    slot, ok, total, decoders = _dense_slots(keys, kinds, valid, S)
+    # host read 1: the fit verdict and the table size T (slot T collects
+    # the masked rows), so the tables hold T + 1 slots, not S + 1
+    ok_h, T = torch.stack([ok.to(acc), torch.where(
+        ok, total, torch.zeros_like(total))]).tolist()
+    if not ok_h:
+        return None
+    T = int(T)
+    seg = torch.where(valid, slot, torch.full_like(slot, T)).to(torch.int64)
 
     nonnull = [valid & ~torch.isnan(v) if vk == "f" else valid
                for v, vk in zip(vals, val_kinds)]
@@ -326,24 +378,20 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
             continue
         x = torch.stack(arrs, dim=1)
         if stack in ("ai", "af"):
-            r = _seg_sum(x, seg, S + 1)
+            r = _seg_sum(x, seg, T + 1)
         elif stack in ("mf", "mi"):
             fill = float("inf") if stack == "mf" else big_i
-            r = _seg_extreme(x, seg, S + 1, fill, "amin")
+            r = _seg_extreme(x, seg, T + 1, fill, "amin")
         else:
-            r = _seg_extreme(x, seg, S + 1, small_i, "amax")
-        reduced[stack] = r[:S]
+            r = _seg_extreme(x, seg, T + 1, small_i, "amax")
+        reduced[stack] = r[:T]
 
     def table(name):
         stack, j = index[name]
         return reduced[stack][:, j]
 
     present = table("present") > 0
-    # THE host read: the fit verdict and the group count together
-    ok_h, g = torch.stack([ok.to(torch.int64),
-                           present.sum().to(torch.int64)]).tolist()
-    if not ok_h:
-        return None
+    g = int(present.sum())                      # host read 2: the groups
 
     cs = torch.cumsum(present.to(torch.int32), 0)
     comp = torch.searchsorted(
@@ -361,7 +409,7 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
                                   if fn in _VAR_FNS))
     ssd = {}
     if need_var:
-        seg_c = seg.clamp(max=S - 1)
+        seg_c = seg.clamp(max=T - 1)
         cols = []
         for s_i in need_var:
             vf = vals[s_i].to(acc)
@@ -369,7 +417,7 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
             d = torch.where(nonnull[s_i], vf - mu.index_select(0, seg_c),
                             torch.zeros_like(vf))
             cols.append(d * d)
-        tab = _seg_sum(torch.stack(cols, dim=1), seg, S + 1)[:S]
+        tab = _seg_sum(torch.stack(cols, dim=1), seg, T + 1)[:T]
         for j, s_i in enumerate(need_var):
             ssd[s_i] = tab[:, j].index_select(0, comp)
 
@@ -432,7 +480,7 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
 def _distinct_runs(seg, v, eligible, n: int):
     """Re-sort (segment, value) among eligible rows (ineligible rows get
     segment n and sort last), then flag the first row of every
-    (segment, value) run."""
+    (segment, value) run. The sorted segments are nondecreasing."""
     seg_k = torch.where(eligible, seg, torch.full_like(seg, n))
     val_k = torch.where(eligible, v, torch.zeros_like(v))
     perm = _lex_perm([seg_k, val_k], n, seg.device)
@@ -454,7 +502,7 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
     G = max(g, 1)
 
     def seg_sum(x):
-        return _seg_sum(x, seg, G)
+        return _seg_sum(x, seg, G, contiguous=True)
 
     first_pos = _seg_extreme(torch.where(valid, idx, n), seg, G, n, "amin")
     fp = first_pos.clamp(0, n - 1)
@@ -542,7 +590,9 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
         else:                                   # count / sum DISTINCT
             vn = _to_int8_if_bool(vs)
             s2, v2, firstrun = _distinct_runs(seg, vn, nn, n)
-            sid = torch.where(s2 < n, s2, torch.zeros_like(s2))
+            # the ineligible rows sort last: the last segment takes them
+            # (their values are zero) and the ids stay nondecreasing
+            sid = torch.where(s2 < n, s2, torch.full_like(s2, G - 1))
             if fn == "count_distinct":
                 agg_outs.append(_seg_sum(firstrun.to(torch.int32), sid, G)
                                 .to(int_dtype()))
@@ -553,7 +603,8 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
             else:
                 sd = _seg_sum(torch.where(firstrun, v2.to(acc),
                                           torch.zeros((), dtype=acc,
-                                                      device=dev)), sid, G)
+                                                      device=dev)), sid, G,
+                              contiguous=True)
                 cd = _seg_sum(firstrun.to(torch.int32), sid, G)
                 agg_outs.append(torch.where(cd > 0, sd, nan)
                                 .to(float_dtype()))
@@ -583,11 +634,7 @@ def grouped_agg(frame, keys, agg_list):
     data = frame._data
     n = frame.num_slots
     names = list(keys) + [a.name for a in agg_list]
-    key_arrs, key_kinds = [], []
-    for k in keys:
-        arr = frame._column_values(k)
-        key_kinds.append(_require_kind(arr, k, "group key"))
-        key_arrs.append(arr)
+    key_arrs, key_kinds, words = _key_columns(frame, keys, "group key")
     slots: dict = {}
     val_arrs, val_kinds, agg_ops = [], [], []
     for a in agg_list:
@@ -607,7 +654,9 @@ def grouped_agg(frame, keys, agg_list):
             slots[a.column] = len(val_arrs)
             val_arrs.append(arr)
         agg_ops.append((a.fn, slots[a.column], bool(a.ignore_nulls)))
-    if n == 0:
+    # the JAX package groups string keys on its host path, which answers
+    # a frame with no valid row with float columns
+    if n == 0 or (words and not bool(frame.mask.any())):
         return _empty_frame(names, frame.device)
 
     mask = frame.mask
@@ -620,6 +669,8 @@ def grouped_agg(frame, keys, agg_list):
         out = _sorted_agg(key_arrs, key_kinds, val_arrs, val_kinds, agg_ops,
                           mask)
     key_outs, agg_outs = out
+    for i, w in words.items():
+        key_outs[i] = strings.decode(key_outs[i], w)
     cols = dict(zip(keys, key_outs))
     for a, arr in zip(agg_list, agg_outs):
         cols[a.name] = arr
@@ -647,12 +698,26 @@ def gather_rows(frame, take: torch.Tensor, host_idx=None):
 def device_sort(frame, names, ascending, nulls_first):
     """``Frame.sort``: a stable sort over (invalid flag, per key: null
     flag, value), so ties keep row order as the JAX package's host lexsort
-    does; nulls first ascending and last descending unless pinned. One
-    host read (the valid-row count); payload gathered on the device."""
+    does; nulls first ascending and last descending unless pinned. A
+    string key sorts by its codes, ascending only (as in the JAX
+    package). One host read (the valid-row count); payload gathered on
+    the device."""
     mask = frame.mask
     keys, desc = [(~mask).to(torch.uint8)], [False]
     for name, asc, nf in zip(names, ascending, nulls_first):
         arr = frame._column_values(name)
+        if is_host_column(arr):
+            if not asc:
+                raise ValueError("descending sort on string columns is "
+                                 "not supported")
+            (arr,), _ = strings.device_codes([arr], frame.device)
+            null = arr == strings.NULL_CODE
+            keys.append((~null if (asc if nf is None else nf) else null)
+                        .to(torch.uint8))
+            desc.append(False)
+            keys.append(arr)
+            desc.append(False)
+            continue
         kind = _require_kind(arr, name, "sort key")
         if kind == "f":
             # flag False sorts first: nulls-first wants nulls = False
@@ -677,9 +742,12 @@ def device_unique(frame, key_names):
     key_arrs, key_kinds = [], []
     for k in key_names:
         arr = frame._column_values(k)
-        comps = ([arr[:, j] for j in range(arr.shape[1])]
-                 if isinstance(arr, torch.Tensor) and arr.ndim == 2
-                 else [arr])
+        if is_host_column(arr):
+            comps = strings.device_codes([arr], frame.device)[0]
+        elif arr.ndim == 2:
+            comps = [arr[:, j] for j in range(arr.shape[1])]
+        else:
+            comps = [arr]
         for c in comps:
             key_kinds.append(_require_kind(c, k, "distinct key"))
             key_arrs.append(c)

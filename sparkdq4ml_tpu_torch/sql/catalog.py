@@ -1,4 +1,5 @@
-"""Temp-view catalog backing ``createOrReplaceTempView`` and ``sql``."""
+"""Temp-view catalog backing ``createOrReplaceTempView``, ``sql`` and its
+``CREATE``/``DROP VIEW`` statements (``sparkdq4ml_tpu/sql/catalog.py``)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,20 @@ class Catalog:
         except KeyError:
             raise KeyError(f"temp view {name!r} not found "
                            f"(views: {sorted(self._views)})") from None
+
+    def table_exists(self, name: str) -> bool:
+        return name.lower() in self._views
+
+    tableExists = table_exists
+
+    def drop(self, name: str) -> bool:
+        """Remove a view; False when there was none."""
+        return self._views.pop(name.lower(), None) is not None
+
+    dropTempView = drop_temp_view = drop
+
+    def list_views(self) -> list:
+        return sorted(self._views)
 
     def clear(self) -> None:
         self._views.clear()

@@ -1,6 +1,9 @@
 """The SQL subset of the torch port (the relational core of
 ``sparkdq4ml_tpu/sql/parser.py``)::
 
+    statement := [WITH name AS '(' query ')', ...] query
+                 | CREATE [OR REPLACE] [TEMP[ORARY]] VIEW name AS statement
+                 | DROP [TEMP[ORARY]] VIEW [IF EXISTS] name
     query    := SELECT [DISTINCT] item, ... FROM relation join*
                 [WHERE pred] [GROUP BY key, ...] [HAVING pred]
                 [ORDER BY key [ASC|DESC] [NULLS FIRST|LAST], ...]
@@ -13,20 +16,27 @@
     window   := '(' [PARTITION BY col, ...] [ORDER BY col [ASC|DESC], ...]
                 [(ROWS|RANGE) BETWEEN bound AND bound] ')'
 
-Expressions: columns, numeric and boolean literals, NULL, ``cast(x AS
-int|double)``, ``+ - * / %``, unary minus, comparisons, AND/OR/NOT and
-parentheses; the aggregates ``COUNT(*)``, ``COUNT(DISTINCT x)``,
-``SUM(DISTINCT x)`` and the device family (``frame/aggregates.py``),
-expressions over aggregates in the select list, HAVING and ORDER BY; the
-window functions of ``frame/window.py`` with OVER. GROUP BY and ORDER BY
-keys are names, 1-based select-item positions or expressions.
+Expressions: columns, numeric, boolean and string literals, NULL,
+``cast(x AS int|integer|double|float|string)``, ``+ - * / %``, unary
+minus, comparisons, AND/OR/NOT and parentheses; ``[NOT] IN (list)``,
+``[NOT] BETWEEN a AND b``, ``[NOT] LIKE 'pattern'``, ``IS [NOT] NULL``,
+``CASE [operand] WHEN ... THEN ... [ELSE ...] END``; the string functions
+``concat``, ``concat_ws`` and ``split``; uncorrelated subqueries: a scalar
+``(SELECT ...)`` (read once to the host as a literal), ``[NOT] IN (SELECT
+...)`` (a semi join against the subquery's values, planned on the
+device) and ``EXISTS (SELECT ...)``; the aggregates ``COUNT(*)``,
+``COUNT(DISTINCT x)``, ``SUM(DISTINCT x)`` and the device family
+(``frame/aggregates.py``), expressions over aggregates in the select
+list, HAVING and ORDER BY; the window functions of ``frame/window.py``
+with OVER. GROUP BY and ORDER BY keys are names, 1-based select-item
+positions or expressions. ``WITH`` names shadow temp views for one
+statement (``_OverlayCatalog``).
 
-``WITH``, subqueries in expressions, set operations, DDL, ``EXPLAIN``,
-string literals, ``IN``/``BETWEEN``/``LIKE``/``IS NULL``/``CASE``,
-``ROLLUP``/``CUBE`` and other function calls raise
-``NotImplementedError`` naming what was met. The executor follows the JAX
-package's ``_execute_single`` without its cost-based optimizer (whose
-rewrites are bit-identical by design).
+Correlated subqueries (a qualified reference to an outer relation), set
+operations, ``EXPLAIN``, ``ROLLUP``/``CUBE`` and other function calls
+raise ``NotImplementedError`` naming what was met. The executor follows
+the JAX package's ``_execute_single`` without its cost-based optimizer
+(whose rewrites are bit-identical by design).
 """
 
 from __future__ import annotations
@@ -67,8 +77,16 @@ _AGG_FNS = {"count", "sum", "avg", "mean", "min", "max", "stddev",
 _WINDOW_FNS = {"row_number", "rank", "dense_rank", "percent_rank",
                "cume_dist", "ntile", "lag", "lead", "first_value",
                "last_value", "nth_value"}
-_SUBSET = ("the torch port's SQL subset (SELECT ... FROM ... [JOIN] "
-           "[WHERE] [GROUP BY] [HAVING] [ORDER BY] [LIMIT])")
+_SUBSET = ("the torch port's SQL subset ([WITH ...] SELECT ... FROM ... "
+           "[JOIN] [WHERE] [GROUP BY] [HAVING] [ORDER BY] [LIMIT], with "
+           "uncorrelated subqueries; CREATE/DROP TEMP VIEW)")
+_CAST_TYPES = ("int", "integer", "double", "float", "string")
+_DDL_RE = re.compile(
+    r"^\s*create\s+(?:or\s+replace\s+)?(?:temp(?:orary)?\s+)?view\s+"
+    r"([A-Za-z_][A-Za-z_0-9]*)\s+as\s+(.*)$", re.IGNORECASE | re.DOTALL)
+_DROP_RE = re.compile(
+    r"^\s*drop\s+(?:temp(?:orary)?\s+)?view\s+(if\s+exists\s+)?"
+    r"([A-Za-z_][A-Za-z_0-9]*)\s*$", re.IGNORECASE)
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -95,7 +113,8 @@ def tokenize(sql: str) -> list:
         if m.group("number") is not None:
             tokens.append(_Token("number", m.group("number")))
         elif m.group("string") is not None:
-            tokens.append(_Token("string", m.group("string")[1:-1]))
+            tokens.append(_Token("string", m.group("string")[1:-1]
+                                 .replace("''", "'")))
         elif m.group("ident") is not None:
             ident = m.group("ident")
             tokens.append(_Token("kw" if ident.lower() in _KEYWORDS
@@ -173,8 +192,41 @@ class DerivedTable:
         self.query = query
 
 
+class _Subquery(E.Expr):
+    """An uncorrelated subquery in an expression; the executor replaces
+    it before anything evaluates (``_resolve_subqueries``)."""
+
+    def eval(self, frame):
+        raise ValueError("an unresolved subquery: subqueries run only "
+                         "inside session.sql()")
+
+
+class ScalarSubquery(_Subquery):
+    """``(SELECT one_value FROM ...)``: read once to the host as a literal
+    (NULL when it returns no row)."""
+
+    def __init__(self, query):
+        self.query = query
+
+
+class SubqueryIn(_Subquery):
+    """``expr [NOT] IN (SELECT col FROM ...)``."""
+
+    def __init__(self, child, query, negated: bool = False):
+        self.child = child
+        self.query = query
+        self.negated = negated
+
+
+class SubqueryExists(_Subquery):
+    """``EXISTS (SELECT ...)``: a boolean literal (any row?)."""
+
+    def __init__(self, query):
+        self.query = query
+
+
 class Query:
-    """A parsed SELECT."""
+    """A parsed SELECT, with the WITH clause that precedes it."""
 
     def __init__(self, items, view, where=None, group_by=(), order_by=(),
                  limit=None, joins=(), distinct=False, having=None,
@@ -190,6 +242,39 @@ class Query:
         self.having = having
         self.offset = offset
         self.drop_after_sort: list = []
+        self.ctes: list = []                  # [(name, Query), ...]
+
+
+def _map_expr(expr, fn):
+    """A copy of ``expr`` with ``fn`` applied to each child expression;
+    leaves (columns, literals, aggregates, window expressions) come back
+    as they are."""
+    if isinstance(expr, E.BinOp):
+        return E.BinOp(expr.op, fn(expr.left), fn(expr.right))
+    if isinstance(expr, (E.Not, E.Neg)):
+        return type(expr)(fn(expr.child))
+    if isinstance(expr, E.Cast):
+        return E.Cast(fn(expr.child), expr.type_name)
+    if isinstance(expr, E.IsNull):
+        return E.IsNull(fn(expr.child), expr.negated)
+    if isinstance(expr, E.InList):
+        return E.InList(fn(expr.child), [fn(v) for v in expr.values],
+                        expr.negated)
+    if isinstance(expr, E.StringMatch):
+        return E.StringMatch(fn(expr.child), expr.pattern, expr.negated)
+    if isinstance(expr, E.CaseWhen):
+        return E.CaseWhen([(fn(c), fn(v)) for c, v in expr.branches],
+                          None if expr.otherwise_expr is None
+                          else fn(expr.otherwise_expr))
+    if isinstance(expr, E.Func):
+        return E.Func(expr.fn_name, [fn(a) for a in expr.args])
+    if isinstance(expr, E.Alias):
+        return E.Alias(fn(expr.child), expr.name)
+    if isinstance(expr, E.SortOrder):
+        return E.SortOrder(fn(expr.child), expr.ascending, expr.nulls_first)
+    if isinstance(expr, SubqueryIn):
+        return SubqueryIn(fn(expr.child), expr.query, expr.negated)
+    return expr
 
 
 def _rewrite_aggs(expr, extra: list):
@@ -202,28 +287,18 @@ def _rewrite_aggs(expr, extra: list):
         agg = expr.to_agg()
         extra.append(agg)
         return E.Col(agg.name)
-    if isinstance(expr, E.BinOp):
-        return E.BinOp(expr.op, _rewrite_aggs(expr.left, extra),
-                       _rewrite_aggs(expr.right, extra))
-    if isinstance(expr, E.Not):
-        return E.Not(_rewrite_aggs(expr.child, extra))
-    if isinstance(expr, E.Neg):
-        return E.Neg(_rewrite_aggs(expr.child, extra))
-    if isinstance(expr, E.Cast):
-        return E.Cast(_rewrite_aggs(expr.child, extra), expr.type_name)
-    if isinstance(expr, E.SortOrder):
-        return E.SortOrder(_rewrite_aggs(expr.child, extra), expr.ascending,
-                           expr.nulls_first)
-    return expr
+    return _map_expr(expr, lambda e: _rewrite_aggs(e, extra))
 
 
 def _referenced_cols(expr, out: set) -> None:
     if isinstance(expr, E.Col):
         out.add(expr.name)
-    for attr in ("left", "right", "child"):
-        v = getattr(expr, attr, None)
-        if v is not None:
-            _referenced_cols(v, out)
+
+    def visit(e):
+        _referenced_cols(e, out)
+        return e
+
+    _map_expr(expr, visit)
 
 
 def _lit_value(expr, what: str):
@@ -267,10 +342,21 @@ class _Parser:
     def statement(self) -> Query:
         first = self.peek()
         if first.kind == "ident" and first.value.lower() in (
-                "with", "explain", "create", "drop", "insert", "update",
+                "explain", "create", "drop", "insert", "update",
                 "delete", "describe", "show"):
             raise _unsupported(f"{first.value.upper()} statements")
+        ctes = []
+        if self.accept("ident", "with"):
+            while True:
+                name = self.expect("ident").value
+                self.expect("kw", "as")
+                self.expect("op", "(")
+                ctes.append((name, self.query()))
+                self.expect("op", ")")
+                if not self.accept("op", ","):
+                    break
         q = self.query()
+        q.ctes = ctes
         t = self.peek()
         if t.kind == "kw" and t.value.lower() == "union" or (
                 t.kind == "ident" and t.value.lower() in ("intersect",
@@ -478,9 +564,35 @@ class _Parser:
         if t.kind == "op" and t.value in self._CMP:
             self.next()
             return E.BinOp(self._CMP[t.value], left, self.parse_add())
-        if t.kind == "kw" and t.value.lower() in ("is", "in", "between",
-                                                  "like", "not"):
-            raise _unsupported(f"the predicate {t.value.upper()}")
+        if self.accept("kw", "is"):
+            negated = bool(self.accept("kw", "not"))
+            self.expect("kw", "null")
+            return E.IsNull(left, negated)
+        negated = False
+        if t.kind == "kw" and t.value.lower() == "not" and \
+                self.peek(1).kind == "kw" and self.peek(1).value.lower() in (
+                    "in", "between", "like"):
+            self.next()
+            negated = True
+        if self.accept("kw", "in"):
+            self.expect("op", "(")
+            if self.peek().kind == "kw" and \
+                    self.peek().value.lower() == "select":
+                sub = self.query()
+                self.expect("op", ")")
+                return SubqueryIn(left, sub, negated)
+            values = [self.parse_or()]
+            while self.accept("op", ","):
+                values.append(self.parse_or())
+            self.expect("op", ")")
+            return E.InList(left, values, negated)
+        if self.accept("kw", "between"):
+            lo = self.parse_add()
+            self.expect("kw", "and")
+            expr = left.between(lo, self.parse_add())
+            return E.Not(expr) if negated else expr
+        if self.accept("kw", "like"):
+            return E.StringMatch(left, self.expect("string").value, negated)
         if t.kind == "op" and t.value in ("<=>", "||", "->"):
             raise _unsupported(f"the operator {t.value}")
         return left
@@ -518,7 +630,8 @@ class _Parser:
                 return E.Lit(int(t.value))
             return E.Lit(float(t.value))
         if t.kind == "string":
-            raise _unsupported("a string literal")
+            self.next()
+            return E.Lit(t.value)
         if self.accept("kw", "true"):
             return E.Lit(True)
         if self.accept("kw", "false"):
@@ -530,35 +643,78 @@ class _Parser:
             inner = self.parse_or()
             self.expect("kw", "as")
             tname = self.expect("ident").value
-            if tname.lower() not in ("int", "integer", "double"):
+            if tname.lower() not in _CAST_TYPES:
                 raise _unsupported(f"CAST to {tname!r}")
             self.expect("op", ")")
             return E.Cast(inner, tname)
-        if t.kind == "kw" and t.value.lower() == "case":
-            raise _unsupported("CASE")
+        if self.accept("kw", "case"):
+            return self.case()
         if t.kind == "ident":
+            if t.value.lower() == "exists" and self.at_call() and \
+                    self.peek(2).kind == "kw" and \
+                    self.peek(2).value.lower() == "select":
+                self.next()
+                self.next()
+                sub = self.query()
+                self.expect("op", ")")
+                return SubqueryExists(sub)
             if self.at_call():
                 return self.call()
             self.next()
             name = t.value
             if self.peek().kind == "op" and self.peek().value == ".":
-                raise _unsupported(f"the qualified column reference "
-                                   f"{name}.{self.peek(1).value}")
+                raise _unsupported(
+                    f"the qualified column reference {name}."
+                    f"{self.peek(1).value} (qualified names, and so "
+                    "correlated subqueries, are outside the subset)")
             return E.Col(name)
         if self.accept("op", "("):
             if self.peek().kind == "kw" and \
                     self.peek().value.lower() == "select":
-                raise _unsupported("a subquery")
+                sub = self.query()
+                self.expect("op", ")")
+                return ScalarSubquery(sub)
             inner = self.parse_or()
             self.expect("op", ")")
             return inner
         raise _unsupported(f"{t.value or 'the end of the query'!r}")
 
+    def case(self):
+        """``CASE [operand] WHEN ... THEN ... [ELSE ...] END`` (CASE is
+        consumed); the simple form compares the operand with each WHEN
+        value."""
+        operand = None
+        if not (self.peek().kind == "kw"
+                and self.peek().value.lower() == "when"):
+            operand = self.parse_or()
+        branches = []
+        while self.accept("kw", "when"):
+            cond = self.parse_or()
+            if operand is not None:
+                cond = E.BinOp("==", operand, cond)
+            self.expect("kw", "then")
+            branches.append((cond, self.parse_or()))
+        if not branches:
+            raise ValueError("CASE requires at least one WHEN branch")
+        otherwise = self.parse_or() if self.accept("kw", "else") else None
+        self.expect("kw", "end")
+        return E.CaseWhen(branches, otherwise)
+
     def call(self):
-        """``fn(args)``: an aggregate (an ``_AggCall``) or a window
-        function followed by OVER (a ``WindowExpr``)."""
+        """``fn(args)``: an aggregate (an ``_AggCall``), a window
+        function followed by OVER (a ``WindowExpr``) or a string function
+        (an ``E.Func``)."""
         fn = self.next().value
         fl = fn.lower()
+        if fl in E.FUNCTIONS:
+            self.expect("op", "(")
+            args = []
+            if not self.accept("op", ")"):
+                args.append(self.parse_or())
+                while self.accept("op", ","):
+                    args.append(self.parse_or())
+                self.expect("op", ")")
+            return E.Func(fl, args)
         if fl not in _AGG_FNS | _WINDOW_FNS:
             raise _unsupported(f"the function {fn}()")
         self.expect("op", "(")
@@ -679,11 +835,81 @@ def parse(sql: str) -> Query:
 
 
 def execute(sql: str, catalog=None):
-    """Run one query of the subset against the catalog's temp views."""
+    """Run one statement of the subset against the catalog's temp views.
+    ``CREATE [OR REPLACE] [TEMP] VIEW name AS ...`` runs its query and
+    registers the result; ``DROP [TEMP] VIEW [IF EXISTS] name`` removes
+    one (a missing view raises ``KeyError`` unless ``IF EXISTS``). Both
+    return an empty frame with no column, as the JAX package does."""
+    from ..frame.frame import Frame
     from .catalog import default_catalog
 
     cat = catalog if catalog is not None else default_catalog()
+    m = _DDL_RE.match(sql)
+    if m:
+        cat.register(m.group(1), execute(m.group(2), cat))
+        return Frame({"__one_row__": [0.0]}).drop("__one_row__").limit(0)
+    m = _DROP_RE.match(sql)
+    if m:
+        if not cat.drop(m.group(2)) and not m.group(1):
+            raise KeyError(f"temp view {m.group(2)!r} not found")
+        return Frame({"__one_row__": [0.0]}).drop("__one_row__").limit(0)
     return _execute(parse(sql), cat)
+
+
+class _OverlayCatalog:
+    """A WITH clause's scope: its names shadow the catalog's views for
+    one statement, and the catalog itself is left as it was."""
+
+    def __init__(self, base):
+        self._base = base
+        self._views: dict = {}
+
+    def register(self, name: str, frame) -> None:
+        self._views[name.lower()] = frame
+
+    def lookup(self, name: str):
+        try:
+            return self._views[name.lower()]
+        except KeyError:
+            return self._base.lookup(name)
+
+
+def _pyval(v):
+    return v.item() if hasattr(v, "item") else v
+
+
+def _subquery_column(q, cat, what: str):
+    frame = _execute(q, cat)
+    if len(frame.columns) != 1:
+        raise ValueError(f"{what} must select exactly one column, got "
+                         f"{len(frame.columns)}: {frame.columns}")
+    return frame
+
+
+def _resolve_subqueries(expr, cat):
+    """Each uncorrelated subquery in ``expr`` run against the catalog: a
+    scalar one becomes a literal (one host read; NULL for no row, an
+    error for two), ``IN`` a semi join against the subquery's valid
+    values (``E.InColumn``), ``EXISTS`` a boolean literal."""
+    if isinstance(expr, ScalarSubquery):
+        frame = _subquery_column(expr.query, cat, "a scalar subquery")
+        values = frame.to_pydict()[frame.columns[0]]
+        if len(values) > 1:
+            raise ValueError("scalar subquery returned more than one row")
+        return E.Lit(_pyval(values[0]) if len(values) else math.nan)
+    if isinstance(expr, SubqueryIn):
+        frame = _subquery_column(expr.query, cat, "IN (subquery)")
+        col = frame._column_values(frame.columns[0])
+        valid = (frame.mask.cpu().numpy() if E.is_host_column(col)
+                 else frame.mask)
+        return E.InColumn(_resolve_subqueries(expr.child, cat), col[valid],
+                          expr.negated)
+    if isinstance(expr, SubqueryExists):
+        return E.Lit(_execute(expr.query, cat).count() > 0)
+    if isinstance(expr, PostAggItem):
+        return PostAggItem(_resolve_subqueries(expr.expr, cat), expr.aggs,
+                           expr._name)
+    return _map_expr(expr, lambda e: _resolve_subqueries(e, cat))
 
 
 def _relation(source, cat):
@@ -772,9 +998,19 @@ def _group_keys(q: Query, frame):
 
 
 def _execute(q: Query, cat):
+    if q.ctes:
+        cat = _OverlayCatalog(cat)
+        for name, sub in q.ctes:                # later ones see earlier
+            cat.register(name, _execute(sub, cat))
     frame = _relation(q.view, cat)
     for view, how, keys in q.joins:
         frame = frame.join(_relation(view, cat), on=keys or None, how=how)
+    if q.where is not None:
+        q.where = _resolve_subqueries(q.where, cat)
+    if q.having is not None:
+        q.having = _resolve_subqueries(q.having, cat)
+    q.items = [it if isinstance(it, (str, AggExpr))
+               else _resolve_subqueries(it, cat) for it in q.items]
     if q.where is not None:
         frame = frame.filter(q.where)
     if any(isinstance(k, int) for k, _ in q.order_by):

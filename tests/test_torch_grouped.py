@@ -236,8 +236,9 @@ def test_sort_gathers_a_string_payload_on_the_host():
         t = TFrame({"k": [3.0, 1.0, 2.0], "s": ["c", "a", "b"]},
                    device="cpu")
         assert t.sort("k").to_pydict()["s"].tolist() == ["a", "b", "c"]
-        with pytest.raises(NotImplementedError, match="string"):
-            t.sort("s")
+        assert t.sort("s").to_pydict()["k"].tolist() == [1.0, 2.0, 3.0]
+        with pytest.raises(ValueError, match="descending"):
+            t.sort(TE.col("s").desc())
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -306,7 +307,7 @@ def test_outside_the_subset_raises():
         t = TFrame({"s": ["a", "b"], "v": [1.0, 2.0],
                     "x": np.ones((2, 2))}, device="cpu")
         with pytest.raises(NotImplementedError, match="string"):
-            t.group_by("s").agg(TA.count())
+            t.group_by("v").agg(TA.max("s"))
         with pytest.raises(NotImplementedError, match=r"\(2, 2\)"):
             t.group_by("x").agg(TA.count())
         for fn in ("median", "collect_list", "corr"):

@@ -123,6 +123,8 @@ def test_payload_gathers_stay_on_the_frame_device():
 def test_outside_the_subset_raises():
     t = TFrame({"s": ["a", "b"], "v": [1.0, 2.0]}, device="cpu")
     with pytest.raises(NotImplementedError, match="1-D numeric"):
-        t.join(t, "s")
+        t.join(TFrame({"s": [1.0, 2.0]}, device="cpu"), "s")
+    with pytest.raises(NotImplementedError, match="1-D numeric"):
+        t.join(TFrame({"s": np.ones((2, 2))}, device="cpu"), "s")
     with pytest.raises(ValueError, match="unknown join type"):
         t.join(t, "v", "sideways")

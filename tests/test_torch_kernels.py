@@ -75,8 +75,12 @@ def test_cpu_tensors_count_no_launch():
     kernels.masked_gram(torch.ones((4, 1), dtype=torch.float64),
                         torch.ones(4, dtype=torch.float64),
                         torch.ones(4, dtype=torch.bool))
-    assert kernels.launches.snapshot() == {"dq_rules": 0, "packed_gram": 0,
-                                           "masked_gram": 0}
+    seg = torch.tensor([0, 1, 1, 2])
+    kernels.dense_segment_sum(torch.ones(4, dtype=torch.float64), seg, 3)
+    kernels.sorted_segment_sum(torch.ones(4, dtype=torch.float64), seg, 3)
+    assert kernels.launches.snapshot() == {
+        "dq_rules": 0, "packed_gram": 0, "masked_gram": 0,
+        "dense_segment_sum": 0, "sorted_segment_sum": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -266,3 +270,84 @@ def test_the_tile_width_reaches_the_kernels_through_the_flags(monkeypatch):
         f.replace(f"={kernels.GRAM_TILE}", "=128") if "GRAM_TILE" in f
         else f for f in kernels.NVCC_FLAGS))
     assert kernels.build_key("masked_gram") != key
+
+
+# ---------------------------------------------------------------------------
+# The segment sums (port-only kernels of csrc/segment_sum.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 65_537, 1_081_344,
+                               9_611_537, 10**9])
+def test_dense_segment_plan_covers_rows_in_fixed_ranges(n):
+    """Contiguous row ranges, at most SEGSUM_MAX_BLOCKS, none empty, at
+    least SEGSUM_MIN_ROWS_PER_BLOCK rows each but the last; the plan (and
+    so the order of the adds) depends on n alone."""
+    blocks, rows = kernels.dense_segment_plan(n)
+    assert 1 <= blocks <= kernels.SEGSUM_MAX_BLOCKS
+    assert blocks * rows >= n and (blocks - 1) * rows < max(n, 1)
+    if blocks > 1:
+        assert rows >= kernels.SEGSUM_MIN_ROWS_PER_BLOCK
+    assert kernels.dense_segment_plan(n) == (blocks, rows)
+
+
+@pytest.mark.parametrize("size,cols,elem,fits", [
+    (40, 4, 4, True), (40, 8, 8, True), (352, 8, 4, True),
+    (353, 8, 4, False), (131_073, 1, 4, False), (1, 1, 8, True)])
+def test_dense_segment_table_must_fit_shared_memory(size, cols, elem, fits):
+    assert kernels.dense_segment_fits(size, cols, elem) == fits
+    need = kernels.SEGSUM_WARPS * (size + 32) * cols * elem
+    assert fits == (need <= kernels.SEGSUM_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sums_plain_versions_on_the_cpu(dtype):
+    """On CPU tensors both wrappers are index_add_ into zeros, any id
+    order for the dense one; (n,) and (n, C) inputs."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(1000, 3)), dtype=dtype)
+    seg = torch.as_tensor(np.sort(rng.integers(0, 17, 1000)))
+    want = torch.zeros((17, 3), dtype=dtype).index_add_(0, seg, x)
+    for fn in (kernels.dense_segment_sum, kernels.sorted_segment_sum):
+        assert torch.equal(fn(x, seg, 17), want)
+        assert torch.equal(fn(x[:, 0], seg, 17), want[:, 0])
+    perm = torch.as_tensor(rng.permutation(1000))
+    np.testing.assert_allclose(
+        kernels.dense_segment_sum(x[perm], seg[perm], 17).numpy(),
+        want.numpy(), rtol=1e-12, atol=1e-5 if dtype == torch.float32
+        else 1e-12)
+
+
+def test_segment_sums_reject_bad_arguments():
+    x = torch.ones(4)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.dense_segment_sum(x, torch.zeros(4, dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.sorted_segment_sum(x, torch.zeros(3, dtype=torch.int64), 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kernels.sorted_segment_sum(torch.ones(4, dtype=torch.int32),
+                                   torch.zeros(4, dtype=torch.int64), 1)
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.dense_segment_sum(meta, torch.zeros(
+            4, dtype=torch.int64, device="meta"), 1)
+
+
+def test_segment_sum_plan_reaches_the_kernel_through_the_flags(monkeypatch):
+    """The warp count and the tile size size the wrapper's scratch, so
+    both reach nvcc and the build key; the kernel has its own library."""
+    assert kernels.SOURCES["segment_sum"] == "segment_sum.cu"
+    for flag in (f"-DSEGSUM_WARPS={kernels.SEGSUM_WARPS}",
+                 f"-DSEGSUM_TILE={kernels.SEGSUM_TILE}"):
+        assert flag in kernels.NVCC_FLAGS
+    key = kernels.build_key("segment_sum")
+    assert key not in {kernels.build_key(n) for n in kernels.SOURCES
+                       if n != "segment_sum"}
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", tuple(
+        f.replace(f"={kernels.SEGSUM_TILE}", "=64") if "SEGSUM_TILE" in f
+        else f for f in kernels.NVCC_FLAGS))
+    assert kernels.build_key("segment_sum") != key
+    src = (kernels.CSRC / "segment_sum.cu").read_text()
+    # no float atomic: the one atomic numbers the sorted kernel's owner list
+    atomics = [line for line in src.splitlines()
+               if "atomic" in line and not line.lstrip().startswith("//")]
+    assert atomics and all("atomicAdd(n_owners, 1)" in a for a in atomics)

@@ -226,13 +226,13 @@ def test_show_text_matches(views, capsys):
 
 
 @pytest.mark.parametrize("sql,match", [
-    ("WITH s AS (SELECT guest FROM clean) SELECT guest FROM s", "WITH"),
-    ("SELECT guest FROM clean WHERE price > (SELECT avg(price) FROM clean)",
-     "subquery"),
-    ("SELECT guest FROM clean WHERE guest IN (SELECT guest FROM busy)",
-     "IN"),
+    ("SELECT guest FROM clean INTERSECT SELECT guest FROM busy",
+     "INTERSECT"),
+    ("SELECT guest FROM clean c WHERE EXISTS (SELECT guest FROM busy b "
+     "WHERE b.guest = c.guest)", "correlated"),
+    ("SELECT guest FROM clean EXCEPT SELECT guest FROM busy", "EXCEPT"),
     ("SELECT guest FROM clean UNION SELECT guest FROM busy", "UNION"),
-    ("CREATE TEMP VIEW p AS SELECT guest FROM clean", "CREATE"),
+    ("CREATE TABLE p AS SELECT guest FROM clean", "CREATE"),
     ("EXPLAIN SELECT guest FROM clean", "EXPLAIN"),
     ("SELECT median(price) FROM clean", "median"),
     ("SELECT guest FROM clean GROUP BY ROLLUP(guest)", "ROLLUP"),
@@ -244,28 +244,68 @@ def test_outside_the_subset_raises(views, sql, match):
 
 
 def test_string_key_raises(port):
+    """String keys group and sort ascending; an aggregate over a string
+    column and a descending string sort still raise."""
     port.createDataFrame({"city": ["ny", "sf", "ny"], "v": [1.0, 2.0, 3.0]}
                          ).create_or_replace_temp_view("t")
+    assert port.sql("SELECT city, count(*) AS n FROM t GROUP BY city "
+                    "ORDER BY city").to_pydict()["n"].tolist() == [2, 1]
     with pytest.raises(NotImplementedError, match="string"):
-        port.sql("SELECT city, count(*) FROM t GROUP BY city")
-    with pytest.raises(NotImplementedError, match="string"):
-        port.sql("SELECT city FROM t ORDER BY city")
+        port.sql("SELECT v, max(city) FROM t GROUP BY v")
+    with pytest.raises(ValueError, match="descending"):
+        port.sql("SELECT city FROM t ORDER BY city DESC")
 
 
 def test_chip_smoke_sql_core_phase_runs_on_the_cpu():
     """The chip script's 10^7-row phase, at 20,000 rows on the CPU: the
-    float32 run against the float64 run through its own comparison."""
+    float32 run against the float64 run through its own comparison, its
+    steps 1-2 bit-identical over two runs."""
     guest, price = smoke.full_table(20_000)
     with float_policy(torch.float32):
-        kept32, res32 = smoke.run_sql_core("cpu", guest, price)
-        card = smoke.summarize_sql_core(res32)
-    with float_policy(torch.float64):
-        kept64, res64 = smoke.run_sql_core("cpu", guest, price)
-        cpu = smoke.summarize_sql_core(res64)
+        spark, clean = smoke.clean_table("cpu", guest, price)
+        outs = smoke.run_sql_core(spark, clean, runs=2)
+        kept32 = clean.count()
+        spark.stop()
+    card = smoke.summarize_sql_core(smoke.first_runs(outs))
+    again = smoke.summarize_sql_core({k: outs[k][1] for k in (
+        "group_by", "sorted_groups")})
+    assert smoke.bit_identical({k: card[k] for k in again}, again) == []
+    assert len({r["over"].count() for r in outs["join"]}) == 1
+    cpu = smoke.cpu_reference(guest, price)
     default_catalog().clear()
-    assert kept32 == kept64 > 18_000
-    errs = smoke.check_sql_core(card, cpu)
-    assert len(card) == len(cpu) == 17
+    assert kept32 == cpu["clean_rows"] > 18_000
+    errs = smoke.check_sql_core(card, cpu["core"])
+    assert len(card) == len(cpu["core"]) == 18
     n_card, n_cpu = errs.pop("join.over rows (card, cpu)")
     assert abs(n_card - n_cpu) < 100 < n_cpu
     assert all(v <= smoke.SQL_ROWS_RTOL for v in errs.values())
+
+
+def test_chip_smoke_sql_rest_phase_runs_on_the_cpu():
+    """Phase 8 at 20,000 rows on the CPU: float32 against float64, steps
+    1-4 bit-identical over two runs, IN (subquery) rows equal to LEFT
+    SEMI's, the band's keys, codes and DDL result as expected."""
+    guest, price = smoke.full_table(20_000)
+    with float_policy(torch.float32):
+        spark, clean = smoke.clean_table("cpu", guest, price)
+        outs = smoke.run_sql_rest(spark, clean, runs=2)
+        spark.stop()
+    card = smoke.summarize_sql_core(smoke.first_runs(outs))
+    again = smoke.summarize_sql_core({k: outs[k][1] for k in (
+        "cte", "in_semi", "predicates", "string_keys")})
+    assert smoke.bit_identical({k: card[k] for k in again}, again) == []
+    assert smoke.bit_identical({"x": card["in_semi.in"]},
+                               {"x": card["in_semi.semi"]}) == []
+    cpu = smoke.cpu_reference(guest, price)
+    default_catalog().clear()
+    errs = smoke.check_sql_core(card, cpu["rest"])
+    assert set(errs) == {"string_keys.group.avg_price",
+                         "string_keys.group.sd"}
+    assert all(v <= smoke.SQL_ROWS_RTOL for v in errs.values())
+    group = card["string_keys.group"]
+    assert group["band"].tolist() == ["large", "medium", "small"]
+    assert sorted(card["string_keys.distinct"]["band"].tolist()) == [
+        "large", "medium", "small"]
+    assert 0 < card["in_semi.in"]["guest"].size < 19_000
+    assert set(card["string_keys.like"]["guest"].tolist()) <= set(range(10))
+    assert card["ddl.count"]["n"][0] > 0

@@ -192,7 +192,10 @@ def test_outside_the_subset_raises():
     with float_policy(torch.float64):
         t = TFrame({"s": ["a", "b"], "v": [1.0, 2.0]}, device="cpu")
         with pytest.raises(NotImplementedError, match="string"):
+            t.with_column("w", TF.lag("s").over(
+                TW.Window.partition_by("v").order_by("v")))
+        with pytest.raises(ValueError, match="descending"):
             t.with_column("w", TF.rank().over(
-                TW.Window.partition_by("s").order_by("v")))
+                TW.Window.partition_by("v").order_by(TE.col("s").desc())))
         with pytest.raises(ValueError, match="ORDER BY"):
             TF.rank().over(TW.Window.partition_by("v"))
