@@ -7,9 +7,11 @@ SQL engine of the SQL tour (grouped aggregation, sort, distinct, joins,
 window functions, arithmetic, string and array columns, string keys,
 explode, IN/LIKE/CASE, CTEs, uncorrelated subqueries, temp-view DDL;
 ``ops/segments.py``, ``ops/strings.py``, ``frame/aggregates.py``,
-``frame/window.py``, ``sql/parser.py``), with the fused DQ chain, the
-packed Gramian, the masked Gramian and the fixed-order segment sums as
-hand-written CUDA kernels (``ops/kernels.py``). The JAX package
+``frame/window.py``, ``sql/parser.py``), and the classification family
+with its evaluators (``models/classification.py``: LogisticRegression,
+LinearSVC, NaiveBayes, OneVsRest; ``models/evaluation.py``), with the
+fused DQ chain, the packed Gramian, the masked Gramian and the
+fixed-order segment sums as hand-written CUDA kernels (``ops/kernels.py``). The JAX package
 ``sparkdq4ml_tpu`` is the reference and is not imported here."""
 
 from .config import config

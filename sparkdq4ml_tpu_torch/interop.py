@@ -2,7 +2,13 @@
 same seeded data feeds both, and a model fitted in one predicts in the
 other. Saved stages need nothing here: both packages write one on-disk
 format, so ``models.load_stage`` (or ``PipelineModel.load``,
-``LinearRegressionModel.load``) reads a directory the JAX package saved."""
+``LinearRegressionModel.load``) reads a directory the JAX package saved.
+
+A fitted classifier crosses as its constructor arguments:
+:func:`classifier_to_numpy` reads them off a model of either package (the
+two share attribute names), and :func:`classifier_from_numpy` builds the
+port's model from them; the JAX package's class of the same name takes
+them as keyword arguments."""
 
 from __future__ import annotations
 
@@ -11,6 +17,9 @@ from typing import Mapping, Optional
 import numpy as np
 
 from .frame.frame import Frame
+from .models.classification import (LinearSVCModel,
+                                    LogisticRegressionModel,
+                                    NaiveBayesModel, OneVsRestModel)
 from .models.regression import LinearRegressionModel
 from .models.tuning import CrossValidatorModel
 
@@ -66,3 +75,50 @@ def cv_model_from_numpy(best_model, avg_metrics, best_index: int
     reference's ``avg_metrics``/``best_index`` as numpy."""
     return CrossValidatorModel(best_model, np.asarray(avg_metrics, np.float64),
                                int(best_index))
+
+
+_CLASSIFIERS = {c.__name__: c for c in (LogisticRegressionModel,
+                                        LinearSVCModel, NaiveBayesModel,
+                                        OneVsRestModel)}
+
+
+def classifier_to_numpy(model) -> dict:
+    """A fitted ``LogisticRegressionModel``, ``LinearSVCModel``,
+    ``NaiveBayesModel`` or ``OneVsRestModel`` of either package as
+    ``{"class": name, **constructor keyword arguments}``, arrays as numpy
+    (a one-vs-rest model's ``models`` as such dicts in turn)."""
+    name = type(model).__name__
+    params = dict(getattr(model, "_params", {}))
+    if name == "LogisticRegressionModel":
+        if model.is_multinomial:
+            return {"class": name, "params": params,
+                    "coefficient_matrix": np.array(model.coefficient_matrix),
+                    "intercept_vector": np.array(model.intercept_vector)}
+        return {"class": name, "params": params,
+                "coefficients": np.array(model.coefficients),
+                "intercept": float(model.intercept)}
+    if name == "LinearSVCModel":
+        return {"class": name, "params": params,
+                "coefficients": np.array(model.coefficients),
+                "intercept": float(model.intercept),
+                "objective_history": list(model.objective_history),
+                "iterations": int(model.iterations)}
+    if name == "NaiveBayesModel":
+        return {"class": name, "params": params, "pi": np.array(model.pi),
+                "theta": np.array(model.theta),
+                "model_type": model.model_type}
+    if name == "OneVsRestModel":
+        return {"class": name,
+                "models": [classifier_to_numpy(m) for m in model.models],
+                "features_col": model.features_col,
+                "prediction_col": model.prediction_col}
+    raise TypeError(f"not a classifier model: {name}")
+
+
+def classifier_from_numpy(state: dict):
+    """The port's model of :func:`classifier_to_numpy`'s dict."""
+    kwargs = {k: v for k, v in state.items() if k != "class"}
+    if state["class"] == "OneVsRestModel":
+        kwargs["models"] = [classifier_from_numpy(m)
+                            for m in kwargs["models"]]
+    return _CLASSIFIERS[state["class"]](**kwargs)

@@ -5,7 +5,10 @@
 ``Z = [X, y, 1]·mask``; the fit takes one Gramian of ``Z`` through the
 ``packed_gram`` kernel (``ops/kernels.py``), runs the solver on it, and
 returns one flat tensor ``[coef | intercept | iterations | converged |
-objective_history]``, decoded on the host by :func:`unpack_fit_result`.
+objective_history]``, decoded on the host by :func:`unpack_fit_result`
+(the binomial logistic and SVC fits return the same layout).
+``pack_design_weighted`` is the weighted classifiers' design, whose last
+column carries the instance weights.
 :func:`compute_gram` is the augmented Gramian of ``(X, y, mask)`` through
 the ``masked_gram`` kernel. The mesh (sharded) halves of both wait for the
 port of ``parallel/mesh.py``.
@@ -30,6 +33,19 @@ def pack_design(X: torch.Tensor, y: torch.Tensor,
     w = mask.to(X.dtype)
     Z = torch.cat([X, y[:, None], torch.ones_like(y)[:, None]], dim=1)
     return Z * w[:, None]
+
+
+def pack_design_weighted(X: torch.Tensor, y: torch.Tensor,
+                         mask: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The packed design of weighted fits, ``Z = [X, y, w]·mask``: the
+    mask zeroes invalid rows as in :func:`pack_design`, and the last column
+    carries the real instance weights (the weighted logistic and softmax
+    fits read them from there, ``classification._unpack_zw``)."""
+    if X.ndim == 1:
+        X = X[:, None]
+    Z = torch.cat([X, y.to(X.dtype)[:, None], w.to(X.dtype)[:, None]],
+                  dim=1)
+    return Z * mask.to(X.dtype)[:, None]
 
 
 def fused_linear_fit_packed(solver: str, max_iter: int, tol: float,
