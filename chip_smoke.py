@@ -24,8 +24,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    segments);
 4. golden app: the reference application (CSV -> DQ rules -> SQL ->
    VectorAssembler -> Lasso fit -> predict(40)) on the three datasets
-   through ``TorchSession``, in float32, against the row counts and fit
-   numbers of SURVEY.md section 2.3;
+   through ``TorchSession`` (each read by the native CSV engine), in
+   float32, against the row counts and fit numbers of SURVEY.md section
+   2.3;
 5. full size: the same path on a seeded 10,000,000-row table, with the
    launch counts reset just before it and read just after, held against the
    port's plain path on the CPU in float64; then, on the same table
@@ -50,17 +51,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    table cleaned by the fused DQ kernel (the rows dq_clean keeps), in
    float32, with the launch counts reset just before and read just after
    (dq_rules must launch once, both segment sums at least once), each
-   step's host-clock time, one run under torch.profiler (its kernel
-   table written beside phase 6's), every result held against the CPU
-   float64 run of the same code, steps 1 and 2 bit-identical over two
-   runs and the price > avg_price count the same in all three;
+   step's host-clock time (the window step one run, the others three),
+   one run under torch.profiler (its kernel table written beside
+   phase 6's), every result held against the CPU float64 run of the same
+   code, steps 1 and 2 bit-identical over two runs and the price >
+   avg_price count the same in every join run;
 8. the rest of the SQL tour on the same cleaned table (its own dq_rules
    launch and counts): the CTE with a scalar AVG subquery, IN (subquery)
    against LEFT SEMI JOIN, IN/BETWEEN and a CASE band (a string column of
    9.6 M rows), GROUP BY/ORDER BY/join/LIKE/distinct/window on the band,
    CREATE/DROP TEMP VIEW; held to the CPU float64 run (one clean table and
    session shared with phase 7's), steps 1-4 bit-identical over two runs,
-   each step's median of 3 and the band's dictionary-encoding time;
+   each step's median of 3 (of 2 for steps 2 and 4) and the band's
+   dictionary-encoding time;
 9. classifiers: the tour's classifier section (examples/ml_pipeline_tour.py:
    LogisticRegression graded by BinaryClassificationEvaluator, then
    LinearSVC and its accuracy) on dataset-full against ML_TOUR_GOLDEN;
@@ -75,10 +78,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the same code (the FISTA and LinearSVC fits held on the first 10^6
    clean rows, on the card as on the CPU; OneVsRest's two nearly
    separable binary fits by their objectives, not their iterations and
-   coefficients).
+   coefficients);
+10. ingest and IO: which optional modules (pandas, pyarrow) the machine
+   has; examples/io_tour.py on dataset-full through the session on the
+   card (CSV, Parquet and JSON round trips, unpivot, applyInPandas,
+   mapInPandas, spark.table; a step whose module is missing does not
+   run); then the 10^7-row table written as a headerless CSV (guest,
+   price at two decimals) to a temporary directory, read by the native
+   engine streamed into page-locked buffers and copied to the card, its
+   columns bit-identical to phase 5's createDataFrame ones, and driven
+   through the app to predict(40) with the launch counts reset just
+   before and read just after (dq_rules and packed_gram once each), its
+   result equal to phase 5's card result and within 1e-3 of its CPU
+   float64 one; the one-shot read, a quoted copy of the first 10^6 rows
+   (the per-chunk body), the Python engine on the first 10^5 rows and a
+   Parquet round trip, each bit-identical to the streamed read; the
+   float64-policy streamed read and the quoted file cut into about 100
+   chunks (float32 and float64), each bit-identical to its one-shot read,
+   the float64 read also to the columns the file was written from; the
+   median of 3 host-clock times of the streamed and one-shot reads, of
+   file to predict(40) and of applyInPandas by guest at 10^7 rows, and
+   one streamed read under torch.profiler (idle share, copy kinds).
 
-The last lines are the kernel table as one JSON object, the card's name and
-power limit from nvidia-smi, and {"ok": true, "device": {...}}.
+The last lines are the kernel table (with every phase's results and the
+optional modules) as one JSON object, the card's name and power limit from
+nvidia-smi, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -339,11 +363,16 @@ def check_packed_gram(device: str, shapes=GRAM_SHAPES) -> dict:
 def check_goldens(device: str) -> None:
     import torch
 
+    from sparkdq4ml_tpu_torch.frame import native_csv
     from sparkdq4ml_tpu_torch.ops import kernels
 
     spark = session(device)
     for name, (rows, rmse, r2, p40) in GOLDEN.items():
         df = read_dataset(spark, name)
+        read = native_csv.reads.last()
+        if read["engine"] != "native" or read["mode"] != "oneshot":
+            raise AssertionError(f"{name}: the read took {read}, not the "
+                                 "native engine")
         before = kernels.launches.snapshot()["packed_gram"]
         counts = []
         out, model, pred = app_path(spark, df, counts)
@@ -422,9 +451,9 @@ def run_full(device: str, guest, price, stages=None) -> dict:
 
 
 def check_full(rows: int = FULL_ROWS):
-    """Returns the card's result, the launch counts of the main path's run,
-    the app-phase wall times in s (that run first, then APP_RUNS - 1
-    more), and one run's stage times in ms."""
+    """Returns the card's result, the CPU float64 plain result, the launch
+    counts of the main path's run, the app-phase wall times in s (that run
+    first, then APP_RUNS - 1 more), and one run's stage times in ms."""
     import torch
 
     from sparkdq4ml_tpu_torch.config import float_policy
@@ -459,7 +488,7 @@ def check_full(rows: int = FULL_ROWS):
     for name in APP_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
-    return card, counts, app_s, stages
+    return card, plain, counts, app_s, stages
 
 
 # ---------------------------------------------------------------------------
@@ -1232,17 +1261,17 @@ def clean_table(device: str, guest, price):
     return spark, clean
 
 
-def run_steps(steps, device: str, times=None, runs: int = 1, once=()):
-    """Each (name, fn) of ``steps`` run ``runs`` times (the names in
-    ``once`` once); returns {name: [each run's result]}. With ``times``
-    (a dict), each run's host-clock seconds to a device synchronisation
-    are appended to ``times[name]``."""
+def run_steps(steps, device: str, times=None, runs: int = 1, caps=None):
+    """Each (name, fn) of ``steps`` run ``runs`` times (a name in ``caps``
+    at most that many times); returns {name: [each run's result]}. With
+    ``times`` (a dict), each run's host-clock seconds to a device
+    synchronisation are appended to ``times[name]``."""
     import torch
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     outs: dict = {}
     for name, fn in steps:
-        for _ in range(1 if name in once else runs):
+        for _ in range(min(runs, (caps or {}).get(name, runs))):
             sync()
             t0 = time.perf_counter()
             out = fn()
@@ -1253,11 +1282,21 @@ def run_steps(steps, device: str, times=None, runs: int = 1, once=()):
     return outs
 
 
+# Runs of the host-bound steps, fewer than the others' three to keep the
+# script inside its time: the window plan is host numpy. The join step
+# keeps its three runs for the price > avg_price count check.
+SQL_CORE_CAPS = {"window": 1}
+# IN (subquery) and LEFT SEMI, and the string-key step, twice: the
+# bit-identity check of steps 1-4 needs two runs.
+SQL_REST_CAPS = {"in_semi": 2, "string_keys": 2}
+
+
 def run_sql_core(spark, clean, times=None, runs: int = 1):
-    """The six steps on a ``clean_table``; the window step, whose plan is
-    host numpy, runs once. Returns {step: [each run's result frames]}."""
+    """The six steps on a ``clean_table``, the host-bound ones
+    ``SQL_CORE_CAPS`` times. Returns {step: [each run's result
+    frames]}."""
     return run_steps(sql_core_steps(spark, clean), spark.device.type,
-                     times, runs, once=("window",))
+                     times, runs, SQL_CORE_CAPS)
 
 
 def first_runs(outs: dict) -> dict:
@@ -1322,10 +1361,10 @@ def check_sql_core_full(cpu: dict, rows: int = FULL_ROWS) -> dict:
     ``dq_rules`` launch): the card (float32) with the launch counts reset
     just before and read just after, held against the CPU float64 run of
     the same code (``cpu_reference``); steps 1 and 2 bit-identical over
-    two card runs and the ``price > avg_price`` count the same in all
-    three; each step's median of 3 host-clock times (the window step,
-    whose plan is host numpy, once); one more run under torch.profiler
-    for the device's idle share."""
+    two card runs and the ``price > avg_price`` count the same in every
+    join run; each step's median of 3 host-clock times (the window step,
+    whose plan is host numpy, once); one more run under
+    torch.profiler for the device's idle share."""
     guest, price = full_table(rows)
     spark, clean = clean_table("cuda", guest[:1000], price[:1000])
     run_sql_core(spark, clean)                              # warm-up
@@ -1343,7 +1382,7 @@ def check_sql_core_full(cpu: dict, rows: int = FULL_ROWS) -> dict:
     over_counts = [r["over"].count() for r in outs["join"]]
     if len(set(over_counts)) != 1:
         raise AssertionError(f"price > avg_price kept {over_counts} rows in "
-                             "the three runs")
+                             "the join runs")
 
     def profiled():
         sp, cl = clean_table("cuda", guest, price)
@@ -1358,7 +1397,7 @@ def check_sql_core_full(cpu: dict, rows: int = FULL_ROWS) -> dict:
     steps_ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
     log(f"SQL core at {rows} rows ({kept} clean), card float32: step ms "
         f"(median) {steps_ms}; runs s {times}; launches {counts}; "
-        f"price > avg_price rows in the three runs {over_counts}; steps 1-2 "
+        f"price > avg_price rows in the join runs {over_counts}; steps 1-2 "
         f"bit-identical over two runs; profile {prof}; errors against cpu "
         f"float64 {errs}")
     return {"rows": rows, "clean_rows": kept, "steps_ms": steps_ms,
@@ -1445,10 +1484,10 @@ def sql_rest_steps(spark, clean):
 
 
 def run_sql_rest(spark, clean, times=None, runs: int = 1):
-    """Phase 8's steps on a ``clean_table``: {step: [each run's
-    result frames]}."""
+    """Phase 8's steps on a ``clean_table``, the host-bound ones
+    ``SQL_REST_CAPS`` times: {step: [each run's result frames]}."""
     return run_steps(sql_rest_steps(spark, clean), spark.device.type,
-                     times, runs)
+                     times, runs, SQL_REST_CAPS)
 
 
 def encode_ms(frame, column: str, runs: int = 3) -> float:
@@ -1478,7 +1517,8 @@ def check_sql_rest_full(cpu: dict, rows: int = FULL_ROWS) -> dict:
     same code (keys, counts, codes, strings and order exact; sums and
     averages within 1e-4); steps 1-4 bit-identical over two card runs;
     IN (subquery) and LEFT SEMI give the same rows; each step's median of
-    3 host-clock times and the band's encoding time."""
+    3 host-clock times (of 2 for steps 2 and 4) and the band's encoding
+    time."""
     guest, price = full_table(rows)
     spark, clean = clean_table("cuda", guest[:1000], price[:1000])
     run_sql_rest(spark, clean)                              # warm-up
@@ -1905,6 +1945,465 @@ def check_classifiers_full(rows: int = FULL_ROWS) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: ingest and IO
+# ---------------------------------------------------------------------------
+
+OPTIONAL_MODULES = ("pandas", "pyarrow")
+INGEST_RUNS = 3
+QUOTED_ROWS = 1_000_000
+QUOTED_CHUNK_BYTES = 1 << 17  # the quoted file cut into about 100 chunks
+PYTHON_ENGINE_ROWS = 100_000
+TOUR_MEAN_ATOL = 1e-3       # examples/io_tour.py: per-guest residual means
+
+
+def optional_modules() -> dict:
+    """Each optional module's version, or None where this machine lacks
+    it; a step that needs a missing one does not run."""
+    import importlib
+
+    out = {}
+    for name in OPTIONAL_MODULES:
+        try:
+            out[name] = importlib.import_module(name).__version__
+        except ImportError:
+            out[name] = None
+    return out
+
+
+def _digits(v, width: int):
+    """The decimal digits of the non-negative ints ``v`` as (n, width)
+    uint8 characters, and which of them the number shows (no leading
+    zeros, at least one digit)."""
+    chars = np.empty((len(v), width), np.uint8)
+    x = v.copy()
+    for k in range(width - 1, -1, -1):
+        chars[:, k] = 48 + x % 10
+        x //= 10
+    shown = np.ones(len(v), np.int64)
+    for p in range(1, width):
+        shown += v >= 10 ** p
+    return chars, np.arange(width)[None, :] >= width - shown[:, None]
+
+
+def write_table_csv(path: str, guest, price, quoted: bool = False) -> int:
+    """Headerless ``guest,price`` rows, prices at two decimals, one a line
+    (every field in quotes with ``quoted``), built with array arithmetic
+    and written with one ``tofile``. The decimal k/100 parses to the
+    float64 nearest it, which is what ``np.round(price, 2)`` gave, so the
+    file reads back to the columns it was written from. Returns its
+    size in bytes."""
+    cents = np.rint(price * 100.0).astype(np.int64)
+    g = guest.astype(np.int64)
+    if cents.min() < 0 or g.min() < 0:
+        raise ValueError("write_table_csv writes non-negative values only")
+    whole, frac = np.divmod(cents, 100)
+    n = len(g)
+
+    def const(ch):
+        return np.full((n, 1), ord(ch), np.uint8), np.ones((n, 1), bool)
+
+    q = [const('"')] if quoted else []
+    frac_chars, _ = _digits(frac, 2)
+    parts = (q + [_digits(g, len(str(g.max())))] + q + [const(",")] + q
+             + [_digits(whole, len(str(whole.max()))), const("."),
+                (frac_chars, np.ones((n, 2), bool))] + q + [const("\n")])
+    chars = np.hstack([c for c, _ in parts])
+    shown = np.hstack([v for _, v in parts])
+    chars[shown].tofile(path)
+    return os.path.getsize(path)
+
+
+def timed(fn):
+    """(fn(), host-clock seconds to a device synchronisation)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def demean_price(g):
+    """examples/io_tour.py's applyInPandas function."""
+    g = g.copy()
+    g["price"] = g["price"] - g["price"].mean()
+    return g
+
+
+def tour_io(spark, F, tmp: str, have: dict) -> dict:
+    """Phase 10(a): every section of examples/io_tour.py on dataset-full
+    through the session on the card, with each of its asserts, but for a
+    step whose optional module this machine lacks."""
+    from sparkdq4ml_tpu_torch import col
+    from sparkdq4ml_tpu_torch.frame import native_csv
+
+    ran, skipped = [], {}
+    df = (spark.read.format("csv").option("inferSchema", "true")
+          .load(os.path.join(ROOT, "data", "dataset-full.csv"))
+          .with_column_renamed("_c0", "guest")
+          .with_column_renamed("_c1", "price"))
+    rec = native_csv.reads.last()
+    n = df.count()
+    if n != 1040 or rec["engine"] != "native" or df.device.type != "cuda":
+        raise AssertionError(f"io tour csv: {n} rows, read {rec}")
+    ran.append("csv")
+    if have["pyarrow"]:
+        pq_path = os.path.join(tmp, "inv.parquet")
+        df.write.parquet(pq_path)
+        back = spark.read.parquet(pq_path)
+        if back.count() != n or not np.array_equal(
+                np.sort(back.to_pydict()["price"].astype(np.float64)),
+                np.sort(df.to_pydict()["price"].astype(np.float64))):
+            raise AssertionError("io tour parquet round trip")
+        ran.append("parquet")
+    else:
+        skipped["parquet"] = "pyarrow"
+    js_path = os.path.join(tmp, "inv.jsonl")
+    df.limit(100).write.json(js_path)
+    if spark.read.json(js_path).count() != 100:
+        raise AssertionError("io tour json round trip")
+    ran.append("json")
+    wide = df.limit(5).select("guest", "price").with_column(
+        "price2", col("price") * 2)
+    long = wide.unpivot("guest", ["price", "price2"], "metric", "amount")
+    if long.count() != 10 or \
+            list(long.to_pydict()["metric"][:2]) != ["price", "price2"]:
+        raise AssertionError("io tour unpivot")
+    ran.append("unpivot")
+    if have["pandas"]:
+        demeaned = df.group_by("guest").apply_in_pandas(
+            demean_price, "guest DOUBLE, price DOUBLE")
+        means = demeaned.group_by("guest").agg(
+            F.avg("price").alias("m")).to_pydict()["m"]
+        worst = float(np.max(np.abs(means)))
+        if demeaned.count() != n or worst >= TOUR_MEAN_ATOL:
+            raise AssertionError(f"io tour applyInPandas: worst mean {worst}")
+
+        def add_ratio(batches):
+            for b in batches:
+                b = b.copy()
+                b["ratio"] = b["price"] / b["guest"]
+                yield b
+
+        with_ratio = df.map_in_pandas(
+            add_ratio, "guest DOUBLE, price DOUBLE, ratio DOUBLE")
+        if with_ratio.columns != ["guest", "price", "ratio"]:
+            raise AssertionError("io tour mapInPandas")
+        ran += ["applyInPandas", "mapInPandas"]
+    else:
+        skipped["applyInPandas"] = skipped["mapInPandas"] = "pandas"
+    df.create_or_replace_temp_view("inv")
+    if spark.table("inv").count() != n:
+        raise AssertionError("io tour spark.table")
+    spark.catalog.drop("inv")
+    ran.append("table")
+    return {"ran": ran, "skipped": skipped, "csv_read": rec}
+
+
+def copy_times(frame) -> dict:
+    """The streamed read's copies replayed alone: each column of ``frame``
+    from a page-locked host buffer to the card on a side stream, timed
+    with CUDA events (median of 5) -- the device time of the read's
+    copies when the profiler records none."""
+    import torch
+
+    cols = [frame._column_values(c) for c in ("guest", "price")]
+    host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+            for c in cols]
+    dev = [torch.empty_like(c) for c in cols]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def run():
+        with torch.cuda.stream(side):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for d, h in zip(dev, host):
+                d.copy_(h, non_blocking=True)
+            end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    ms = float(np.median([run() for _ in range(5)]))
+    nbytes = sum(c.numel() * c.element_size() for c in cols)
+    return {"bytes": nbytes, "ms": ms, "gb_s": nbytes / ms / 1e6}
+
+
+def ingest_read(spark, path: str, engine: str = "native"):
+    """The app's read (inferSchema, no header) and its two renames."""
+    df = (spark.read.format("csv").option("inferSchema", "true")
+          .option("engine", engine).load(path))
+    return df.with_column_renamed("_c0", "guest").with_column_renamed(
+        "_c1", "price")
+
+
+def ingest_app(spark, path: str) -> dict:
+    """File to predict(40): the read, the app path, its summary's RMSE and
+    the fused DQ pass over the ingested columns (``run_full``'s result)."""
+    from sparkdq4ml_tpu_torch.ops.rules import dq_rules_fused
+
+    df = ingest_read(spark, path)
+    out, model, pred = app_path(spark, df)
+    rmse = model.summary.rootMeanSquaredError
+    keep = dq_rules_fused(df.col("price").eval(df),
+                          df.col("guest").eval(df))[2]
+    return {"kept": out.count(), "fused_kept": int(keep.sum()),
+            "coef": float(model.coefficients[0]),
+            "intercept": model.intercept, "rmse": rmse, "predict40": pred}
+
+
+def ingest_conf(key: str, value: str):
+    """A context in which the session's ingest setting ``key``
+    (``spark.ingest.*``) is ``value``; the old value comes back after."""
+    import contextlib
+
+    from sparkdq4ml_tpu_torch import TorchSession
+    from sparkdq4ml_tpu_torch.config import INGEST_KEYS, config
+
+    @contextlib.contextmanager
+    def scope():
+        old = getattr(config, INGEST_KEYS[key][0])
+        TorchSession.builder().config(key, value).get_or_create()
+        try:
+            yield
+        finally:
+            TorchSession.builder().config(key, str(old)).get_or_create()
+
+    return scope()
+
+
+def same_columns(a, b, what: str, rows=None, price_dtype=None) -> None:
+    """``guest`` (int32) and ``price`` (float32, or ``price_dtype``) of two
+    frames on the card, bit for bit (``b``'s first ``rows`` rows when
+    given; ``b`` may be a dict of tensors)."""
+    import torch
+
+    for c, dt in (("guest", torch.int32),
+                  ("price", price_dtype or torch.float32)):
+        x = a._column_values(c)
+        y = b[c] if isinstance(b, dict) else b._column_values(c)
+        y = y if rows is None else y[:rows]
+        if x.dtype != dt or x.device.type != "cuda" or \
+                y.dtype != dt or not same_bits(x, y):
+            raise AssertionError(f"{what}: column {c} ({x.dtype}, "
+                                 f"{x.device}) differs")
+
+
+def against_oneshot(spark, path: str, mode: str, what: str,
+                    price_dtype=None):
+    """The streamed read of ``path``, which must take ``mode``, held bit for
+    bit to the one-shot read of the same file under the policy in force;
+    returns (the streamed frame, its read record)."""
+    from sparkdq4ml_tpu_torch.frame import native_csv
+
+    streamed = ingest_read(spark, path)
+    rec = native_csv.reads.last()
+    with ingest_conf("spark.ingest.streaming", "false"):
+        oneshot = ingest_read(spark, path)
+    one_rec = native_csv.reads.last()
+    if rec["mode"] != mode or one_rec["mode"] != "oneshot":
+        raise AssertionError(f"{what}: reads {rec}, {one_rec}")
+    same_columns(streamed, oneshot, what, price_dtype=price_dtype)
+    return streamed, rec
+
+
+def check_ingest(full: dict, plain: dict, have: dict) -> dict:
+    """Phase 10: the IO tour on dataset-full, then ingest at 10^7 rows: the
+    streamed read of a headerless CSV of ``full_table`` into the app, held
+    bit for bit to phase 5's input columns and its card result (``full``),
+    and within 1e-3 to its CPU float64 result (``plain``); the one-shot,
+    quoted, Python-engine and Parquet reads against it; the float64-policy
+    streamed read and the quoted file in many chunks against their
+    one-shot reads; times."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sparkdq4ml_tpu_torch import functions as F
+    from sparkdq4ml_tpu_torch.config import config, float_policy
+    from sparkdq4ml_tpu_torch.frame import native_csv
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    spark = session("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        tour = tour_io(spark, F, tmp, have)
+        log(f"io tour on dataset-full: ran {tour['ran']}, skipped "
+            f"{tour['skipped']}")
+        guest, price = full_table(FULL_ROWS)
+        path = os.path.join(tmp, "full.csv")
+        t0 = time.perf_counter()
+        size = write_table_csv(path, guest, price)
+        gen_s = time.perf_counter() - t0
+        head = os.path.join(tmp, "head.csv")
+        write_table_csv(head, guest[:PYTHON_ENGINE_ROWS],
+                        price[:PYTHON_ENGINE_ROWS])
+        log(f"ingest file: {FULL_ROWS} rows, {size} bytes, written in "
+            f"{gen_s:.2f} s")
+        ingest_app(spark, head)                             # warm-up
+
+        # the streamed read (the file is in the page cache: parse and copy)
+        read_s, records = [], []
+        for _ in range(INGEST_RUNS):
+            streamed, s = timed(lambda: ingest_read(spark, path))
+            read_s.append(s)
+            records.append(native_csv.reads.last())
+        rec = records[-1]
+        want_chunks = math.ceil(size / config.ingest_chunk_bytes)
+        if any(r["mode"] != "pinned" or r["copies"] != "pinned"
+               or r["chunks"] < want_chunks or r["rows"] != FULL_ROWS
+               for r in records):
+            raise AssertionError(f"the streamed read took another path: "
+                                 f"{records}")
+        same_columns(streamed, spark.createDataFrame(
+            {"guest": guest, "price": price}), "streamed read against "
+            "createDataFrame")
+        prof = profile_run("ingest_read", lambda: ingest_read(spark, path))
+        if prof["device_events"] == 0:
+            # after the script's earlier profiler sessions, the first one
+            # here has recorded no device event for the read: try once
+            # more, and time the read's copies with CUDA events in any case
+            prof = {"first_try": prof, **profile_run(
+                "ingest_read", lambda: ingest_read(spark, path))}
+        copies = copy_times(streamed)
+
+        # the one-shot read
+        oneshot_s = []
+        with ingest_conf("spark.ingest.streaming", "false"):
+            for _ in range(INGEST_RUNS):
+                oneshot, s = timed(lambda: ingest_read(spark, path))
+                oneshot_s.append(s)
+        oneshot_rec = native_csv.reads.last()
+        if oneshot_rec["mode"] != "oneshot":
+            raise AssertionError(f"one-shot read: {oneshot_rec}")
+        same_columns(oneshot, streamed, "one-shot read against streamed")
+        del oneshot
+
+        # the float64 policy: float64 rows copied chunk by chunk, held to
+        # the one-shot read and to the columns the file was written from
+        with float_policy(torch.float64):
+            wide, wide_rec = against_oneshot(
+                spark, path, "pinned", "float64 streamed read against "
+                "one-shot", torch.float64)
+        same_columns(wide, {"guest": torch.from_numpy(guest).cuda(),
+                            "price": torch.from_numpy(price).cuda()},
+                     "float64 streamed read against the written columns",
+                     price_dtype=torch.float64)
+        del wide
+
+        # file to predict(40), the launch counts from the first run
+        torch.cuda.synchronize()
+        kernels.launches.reset()
+        app, first = timed(lambda: ingest_app(spark, path))
+        counts = kernels.launches.snapshot()
+        app_s = [first] + [timed(lambda: ingest_app(spark, path))[1]
+                           for _ in range(INGEST_RUNS - 1)]
+        log(f"file to predict(40): {app}; launches {counts}")
+        if any(counts[k] != 1 for k in APP_KERNELS):
+            raise AssertionError(f"ingest app launches {counts}, expected "
+                                 f"{APP_KERNELS} once each")
+        if app != full:
+            raise AssertionError(f"ingest app {app} != phase 5's card "
+                                 f"result {full}")
+        if app["kept"] != plain["kept"] or any(
+                abs(app[k] - plain[k]) > 1e-3 * abs(plain[k])
+                for k in ("coef", "intercept", "rmse", "predict40")):
+            raise AssertionError(f"ingest app {app} against cpu float64 "
+                                 f"{plain}")
+
+        # a quoted copy of the first rows: the per-chunk body
+        qpath = os.path.join(tmp, "quoted.csv")
+        qsize = write_table_csv(qpath, guest[:QUOTED_ROWS],
+                                price[:QUOTED_ROWS], quoted=True)
+        quoted, quoted_s = timed(lambda: ingest_read(spark, qpath))
+        quoted_rec = native_csv.reads.last()
+        if quoted_rec["mode"] != "chunked":
+            raise AssertionError(f"quoted read: {quoted_rec}")
+        same_columns(quoted, streamed, "quoted read", rows=QUOTED_ROWS)
+        del quoted
+        # ... and cut into many chunks, under both policies
+        quoted_many = {}
+        with ingest_conf("spark.ingest.chunkBytes", str(QUOTED_CHUNK_BYTES)):
+            for name, dt in (("float32", torch.float32),
+                             ("float64", torch.float64)):
+                with float_policy(dt):
+                    _, rec_many = against_oneshot(
+                        spark, qpath, "chunked", f"quoted read in many "
+                        f"chunks against one-shot, {name}", dt)
+                if rec_many["chunks"] < math.ceil(qsize / QUOTED_CHUNK_BYTES):
+                    raise AssertionError(f"quoted read: {rec_many}")
+                quoted_many[name] = rec_many
+
+        # the Python engine against the native one
+        py, py_s = timed(lambda: ingest_read(spark, head, engine="python"))
+        py_rec = native_csv.reads.last()
+        if py_rec["engine"] != "python":
+            raise AssertionError(f"python engine read: {py_rec}")
+        same_columns(py, ingest_read(spark, head), "python engine")
+        del py
+
+        parquet = None
+        if have["pyarrow"]:
+            pq_path = os.path.join(tmp, "full.parquet")
+            _, write_s = timed(lambda: streamed.write.parquet(pq_path))
+            back, pq_read_s = timed(lambda: spark.read.parquet(pq_path))
+            same_columns(back, streamed, "parquet round trip")
+            parquet = {"write_s": write_s, "read_s": pq_read_s,
+                       "bytes": os.path.getsize(pq_path)}
+            del back
+
+        apply_s = None
+        if have["pandas"]:
+            apply_s = []
+            for _ in range(INGEST_RUNS):
+                demeaned, s = timed(lambda: streamed.group_by(
+                    "guest").apply_in_pandas(demean_price,
+                                             "guest DOUBLE, price DOUBLE"))
+                apply_s.append(s)
+            means = demeaned.group_by("guest").agg(
+                F.avg("price").alias("m")).to_pydict()["m"]
+            if demeaned.count() != FULL_ROWS or len(means) != 39 or \
+                    float(np.max(np.abs(means))) >= TOUR_MEAN_ATOL:
+                raise AssertionError("applyInPandas at 10^7 rows")
+            del demeaned
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        spark.stop()
+    med = float(np.median(read_s))
+    out = {"rows": FULL_ROWS, "file_bytes": size, "file_write_s": gen_s,
+           "chunk_bytes": config.ingest_chunk_bytes,
+           "streamed_read_s": read_s, "streamed_read_median_s": med,
+           "streamed_bytes_per_s": size / med,
+           "streamed_rows_per_s": FULL_ROWS / med,
+           "streamed_records": records, "streamed_profile": prof,
+           "streamed_copies_replayed": copies,
+           "oneshot_read_s": oneshot_s,
+           "oneshot_read_median_s": float(np.median(oneshot_s)),
+           "oneshot_record": oneshot_rec,
+           "file_to_predict40_s": app_s,
+           "file_to_predict40_median_s": float(np.median(app_s)),
+           "app": app, "launches": counts,
+           "float64_streamed_record": wide_rec,
+           "quoted": {"rows": QUOTED_ROWS, "bytes": qsize, "s": quoted_s,
+                      "record": quoted_rec, "many_chunks": quoted_many},
+           "python_engine": {"rows": PYTHON_ENGINE_ROWS, "s": py_s,
+                             "record": py_rec},
+           "parquet": parquet, "apply_in_pandas_s": apply_s,
+           "apply_in_pandas_median_s": (None if apply_s is None
+                                        else float(np.median(apply_s))),
+           "io_tour": tour,
+           "page_cache": "the file is read right after it is written, so "
+                         "the times are of parsing and copying, not of "
+                         "the disk"}
+    log(f"ingest at {FULL_ROWS} rows: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -1995,7 +2494,8 @@ def profile_run(name: str, fn) -> dict:
     run's wall time, the wrappers whose kernels the trace holds (the busy
     time counts only those), and the kernel table written to
     chiprun_out/<name>_profile.txt. The profiler's own cost is inside the
-    wall time."""
+    wall time. Where the trace holds no device event, the busy time and
+    the idle share are None: not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2009,15 +2509,20 @@ def profile_run(name: str, fn) -> dict:
     on_device = [e for e in events
                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
     listed = " ".join(e.key for e in on_device)
-    busy_ms = 1e-3 * sum(e.self_device_time_total for e in on_device)
+    # the copies by kind, e.g. "Memcpy HtoD (Pinned -> Device)"
+    copies = {e.key: e.count for e in on_device if "memcpy" in e.key.lower()}
+    # a trace that recorded no device event measured no busy time
+    busy_ms = (1e-3 * sum(e.self_device_time_total for e in on_device)
+               if on_device else None)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"{name}_profile.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=60))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_events": len(on_device),
+            "device_idle_share": (None if busy_ms is None
+                                  else 1.0 - busy_ms / wall_ms),
+            "device_events": len(on_device), "copies": copies,
             "port_kernels_in_trace": sorted(
                 name for name, parts in KERNEL_NAMES.items()
                 if any(p in listed for p in parts))}
@@ -2104,7 +2609,7 @@ def main() -> int:
     seg_cases = segment_cases(*clean_columns())
     seg_errs = check_segment_sum(seg_cases)
     check_goldens("cuda")
-    full, counts, app_s, stages = check_full()
+    full, plain, counts, app_s, stages = check_full()
     log(f"app phase at {FULL_ROWS} rows, card float32, s: {app_s}; "
         f"launches of the first run {counts}")
     t0 = time.perf_counter()
@@ -2141,6 +2646,11 @@ def main() -> int:
     tour_classifiers = check_ml_tour_golden("cuda")
     classifiers = check_classifiers_full()
     classifiers_s = time.perf_counter() - t0
+    have = optional_modules()
+    log(f"optional modules: {have}")
+    t0 = time.perf_counter()
+    ingest = check_ingest(full, plain, have)
+    ingest_s = time.perf_counter() - t0
     by_path = {"app": counts,
                **{p: selection[p]["launches"] for p in selection},
                "owlqn_dataset_full": small["owlqn"]["full"]["l-bfgs"][
@@ -2149,7 +2659,8 @@ def main() -> int:
                "sql_rest": sql_rest["launches"],
                "classifier_table": classifiers["clean_launches"],
                **{f"classifier_{name}": fit["launches"]
-                  for name, fit in classifiers["fits"].items()}}
+                  for name, fit in classifiers["fits"].items()},
+               "ingest_app": ingest["launches"]}
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
@@ -2201,6 +2712,8 @@ def main() -> int:
         "sql_rest": sql_rest, "sql_rest_phase_s": sql_rest_s,
         "ml_tour_dataset_full": tour_classifiers,
         "classifiers": classifiers, "classifiers_phase_s": classifiers_s,
+        "ingest": ingest, "ingest_phase_s": ingest_s,
+        "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}
     print(json.dumps(kernels_line))

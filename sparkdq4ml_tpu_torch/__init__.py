@@ -9,13 +9,17 @@ explode, IN/LIKE/CASE, CTEs, uncorrelated subqueries, temp-view DDL;
 ``ops/segments.py``, ``ops/strings.py``, ``frame/aggregates.py``,
 ``frame/window.py``, ``sql/parser.py``), and the classification family
 with its evaluators (``models/classification.py``: LogisticRegression,
-LinearSVC, NaiveBayes, OneVsRest; ``models/evaluation.py``), with the
-fused DQ chain, the packed Gramian, the masked Gramian and the
-fixed-order segment sums as hand-written CUDA kernels (``ops/kernels.py``). The JAX package
-``sparkdq4ml_tpu`` is the reference and is not imported here."""
+LinearSVC, NaiveBayes, OneVsRest; ``models/evaluation.py``), and ingest
+and IO (the native CSV tokenizer streamed into page-locked buffers and
+copied to the card, ``frame/native_csv.py``; quoted fields, read modes
+and schemas, JSON lines, Parquet, the writer, unpivot, applyInPandas and
+mapInPandas), with the fused DQ chain, the packed Gramian, the masked
+Gramian and the fixed-order segment sums as hand-written CUDA kernels
+(``ops/kernels.py``). The JAX package ``sparkdq4ml_tpu`` is the reference
+and is not imported here."""
 
 from .config import config
-from .frame import Frame, read_csv
+from .frame import Frame, read_csv, read_json, read_parquet
 from .ops import (call_udf, col, dq_rules_fused, lit, minimum_price_rule,
                   price_correlation_rule, register_builtin_rules)
 from .session import TorchSession

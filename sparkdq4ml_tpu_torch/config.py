@@ -1,6 +1,7 @@
 """Process-wide defaults of the PyTorch port (subset of
 ``sparkdq4ml_tpu/config.py``): the float and int dtype policy, the
-``show()`` row default, and the device a session runs on.
+``show()`` row default, the device a session runs on, and the native CSV
+ingest settings (``spark.ingest.*`` in a session's conf).
 
 There is no kernel on/off switch: a wrapper in ``ops/kernels.py`` launches
 its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a
@@ -27,9 +28,64 @@ class _Config:
     default_show_rows: int = 20
     # Device of a session whose conf does not set spark.torch.device.
     default_device: str = "cuda"
+    # Native CSV ingest (frame/native_csv.py). Files larger than one chunk
+    # parse through the native stream in chunks cut on record boundaries,
+    # a producer thread running the parse up to ``ingest_prefetch`` chunks
+    # ahead of the copies to the device (spark.ingest.streaming; False
+    # parses every file in one call).
+    ingest_streaming: bool = True
+    # Parse threads a chunk: 0 lets the native layer choose
+    # (spark.ingest.threads).
+    ingest_threads: int = 0
+    # Chunk size in bytes, and the size above which a file streams
+    # (spark.ingest.chunkBytes).
+    ingest_chunk_bytes: int = 8 << 20
+    # Parsed chunks the producer may run ahead; 0 parses inline
+    # (spark.ingest.prefetch).
+    ingest_prefetch: int = 2
+    # SIMD tier of the parse: "auto", "off", "avx2" or "avx512", clamped to
+    # what the CPU has (spark.ingest.simd).
+    ingest_simd: str = "auto"
 
 
 config = _Config()
+
+CONF_FALSE = ("false", "off", "0", "no")
+CONF_TRUE = ("true", "on", "1", "yes")
+
+
+def _flag(value: str):
+    v = value.strip().lower()
+    return True if v in CONF_TRUE else False if v in CONF_FALSE else None
+
+
+# Session conf keys of the ingest settings: key -> (attribute, parser); a
+# parser's None leaves the setting as it is.
+INGEST_KEYS = {
+    "spark.ingest.streaming": ("ingest_streaming", _flag),
+    "spark.ingest.threads": ("ingest_threads", int),
+    "spark.ingest.chunkBytes": ("ingest_chunk_bytes", int),
+    "spark.ingest.prefetch": ("ingest_prefetch", int),
+    "spark.ingest.simd": ("ingest_simd", lambda v: v.strip().lower()),
+}
+
+
+def apply_conf(conf: dict, saved: dict) -> None:
+    """Set the ingest settings that ``conf`` names, recording each
+    setting's value before its first change into ``saved`` (for
+    :func:`restore_conf`)."""
+    for key, (attr, parse) in INGEST_KEYS.items():
+        if key in conf:
+            value = parse(str(conf[key]))
+            if value is not None:
+                saved.setdefault(attr, getattr(config, attr))
+                setattr(config, attr, value)
+
+
+def restore_conf(saved: dict) -> None:
+    for attr, value in saved.items():
+        setattr(config, attr, value)
+    saved.clear()
 
 
 def float_dtype() -> torch.dtype:

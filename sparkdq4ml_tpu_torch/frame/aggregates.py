@@ -337,6 +337,35 @@ class GroupedFrame(_AggShortcuts):
         for k in keys:
             frame._column_values(k)  # validate early
 
+    def apply_in_pandas(self, func, schema):
+        """Spark 3's ``groupBy(...).applyInPandas(fn, schema)``: each group
+        (pandas ``groupby`` with ``sort=True, dropna=False``) goes through
+        ``func`` as a pandas DataFrame on the host, and the results
+        concatenate into one frame on the session's device, cast to the
+        DDL ``schema``."""
+        import pandas as pd
+
+        from .csv import parse_ddl_schema
+        from .frame import pandas_result
+
+        fields = parse_ddl_schema(schema) if isinstance(schema, str) \
+            else list(schema)
+        pdf = self._frame.to_pandas()
+        groups = [] if len(pdf) == 0 else [
+            g.reset_index(drop=True)
+            for _, g in pdf.groupby(self._keys, sort=True, dropna=False)]
+        outs = []
+        for g in groups:
+            out = func(g)
+            if not isinstance(out, pd.DataFrame):
+                raise TypeError("applyInPandas function must return a "
+                                f"pandas DataFrame, got {type(out).__name__}")
+            outs.append(out)
+        return pandas_result(outs, fields, self._frame.device,
+                             "applyInPandas")
+
+    applyInPandas = apply_in_pandas
+
     def agg(self, *aggs: Union[AggExpr, str]):
         if len(aggs) == 1 and isinstance(aggs[0], dict):
             aggs = tuple(_dict_aggs(aggs[0]))

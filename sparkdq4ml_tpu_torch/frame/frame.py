@@ -368,6 +368,67 @@ class Frame:
             data[output_col or column] = out
         return Frame(data, device=self.device)
 
+    def unpivot(self, ids, values=None, variable_column_name: str = "variable",
+                value_column_name: str = "value") -> "Frame":
+        """Spark 3.4's ``unpivot``/``melt``: wide to long. ``ids`` stay as
+        identifier columns; each of ``values`` (default: every other
+        column) gives one output row per valid input row, tagged with its
+        name, row-major as Spark orders it (row 0's values first). A
+        compact frame: the numeric columns are built on the device
+        (``repeat_interleave`` and a stack, the values as float64 first,
+        as the JAX package's numpy reshape does), the variable column is
+        a host string column."""
+        ids = [ids] if isinstance(ids, str) else list(ids)
+        if values is None:
+            values = [c for c in self.columns if c not in ids]
+        values = [values] if isinstance(values, str) else list(values)
+        if not values:
+            raise ValueError("unpivot requires at least one value column")
+        for c in ids + values:
+            if c not in self.columns:
+                raise ValueError(f"unpivot column {c!r} is not a column")
+        for c in values:
+            if is_host_column(self._data[c]):
+                raise ValueError(f"unpivot value column {c!r} is not "
+                                 "numeric")
+        host = np.flatnonzero(self._host_mask())
+        idx = torch.as_tensor(host, device=self.device)
+        n, k = len(host), len(values)
+        data: dict[str, object] = {}
+        for c in ids:
+            col = self._data[c]
+            data[c] = (np.repeat(col[host], k) if is_host_column(col)
+                       else col.index_select(0, idx).repeat_interleave(k,
+                                                                      dim=0))
+        data[variable_column_name] = np.asarray(values * n, dtype=object)
+        stacked = torch.stack([self._data[c].index_select(0, idx).to(
+            torch.float64) for c in values], dim=1).reshape(-1)
+        data[value_column_name] = stacked.to(
+            torch.float64 if wide_types() else float_dtype())
+        return Frame(data, device=self.device)
+
+    melt = unpivot
+
+    def map_in_pandas(self, func, schema):
+        """Spark 3's ``mapInPandas(fn, schema)``: ``func`` takes an
+        iterator of pandas DataFrame batches (one batch: the whole frame)
+        and yields output batches, concatenated on the host and cast to
+        the DDL ``schema`` on the frame's device."""
+        import pandas as pd
+
+        from .csv import parse_ddl_schema
+
+        fields = parse_ddl_schema(schema) if isinstance(schema, str) \
+            else list(schema)
+        outs = list(func(iter([self.to_pandas()])))
+        for b in outs:
+            if not isinstance(b, pd.DataFrame):
+                raise TypeError("mapInPandas function must yield pandas "
+                                f"DataFrames, got {type(b).__name__}")
+        return pandas_result(outs, fields, self.device, "mapInPandas")
+
+    mapInPandas = map_in_pandas
+
     def select_expr(self, *exprs: str) -> "Frame":
         """``selectExpr``: SQL select-list strings over this frame, through
         a scratch catalog so no temp view leaks."""
@@ -743,6 +804,25 @@ class Frame:
             out[name] = np.asarray(host)[m]
         return out
 
+    def to_pandas(self):
+        """The valid rows as a pandas DataFrame (Spark ``toPandas``):
+        string columns stay object dtype, numeric columns keep their
+        dtypes, and a vector column (2-D) becomes an object column of
+        per-row arrays."""
+        import pandas as pd
+
+        out = {}
+        for k, v in self.to_pydict().items():
+            if v.ndim > 1:
+                col = np.empty(len(v), dtype=object)
+                for i in range(len(v)):
+                    col[i] = np.asarray(v[i])
+                v = col
+            out[k] = v
+        return pd.DataFrame(out, columns=self.columns)
+
+    toPandas = to_pandas
+
     # -- display -------------------------------------------------------------
     @staticmethod
     def _format_cell(v, truncate: int) -> str:
@@ -815,6 +895,39 @@ class Frame:
         default_catalog().register(name, self)
 
     createOrReplaceTempView = create_or_replace_temp_view
+
+    # -- writer --------------------------------------------------------------
+    @property
+    def write(self):
+        """``df.write.format("csv").option("header", True).save(path)``."""
+        from .writer import DataFrameWriter
+
+        return DataFrameWriter(self)
+
+
+def pandas_result(outs: list, fields: list, device, what: str) -> Frame:
+    """The pandas DataFrames a pandas UDF returned, concatenated into a
+    frame on ``device`` and cast to the DDL ``fields``."""
+    import pandas as pd
+
+    names = [n for n, _ in fields]
+    if outs:
+        cat = pd.concat(outs, ignore_index=True)
+        missing = [n for n in names if n not in cat.columns]
+        if missing:
+            raise ValueError(f"{what} output is missing schema columns "
+                             f"{missing}")
+        data = {}
+        for n in names:
+            # pandas may hand out read-only views: a column owns its memory
+            a = cat[n].to_numpy()
+            data[n] = a if a.flags.writeable else a.copy()
+    else:
+        data = {n: np.asarray([], np.float64) for n in names}
+    out = Frame(data, device=device)
+    for name, tname in fields:
+        out = out.with_column(name, out.col(name).cast(tname))
+    return out
 
 
 class _NAFunctions:

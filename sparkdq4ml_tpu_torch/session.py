@@ -4,7 +4,9 @@
 The session's device comes from the conf key ``spark.torch.device``, which
 defaults to ``"cuda"``. Without a CUDA device, ``get_or_create`` raises
 unless the caller asked for ``"cpu"``: the port never continues on the CPU
-when the card was asked for.
+when the card was asked for. The ``spark.ingest.*`` keys set the native
+CSV ingest (``config.INGEST_KEYS``) while the session runs; ``stop``
+restores them.
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .config import check_device, config
+from .config import (apply_conf, check_device, config, restore_conf,
+                     wide_types)
 from .frame.csv import DataFrameReader
 from .frame.frame import Frame
 from .ops.udf import UDFRegistry, default_registry
@@ -39,6 +43,8 @@ class TorchSession:
             self.conf.get(DEVICE_KEY, config.default_device))
         self.catalog: Catalog = default_catalog()
         self.udf: UDFRegistry = default_registry()
+        self._saved_conf: dict = {}
+        apply_conf(self.conf, self._saved_conf)
 
     class Builder:
         def __init__(self):
@@ -75,6 +81,7 @@ class TorchSession:
                         f"the active session runs on {_ACTIVE.device}; stop "
                         f"it before asking for {self._conf[DEVICE_KEY]}")
                 _ACTIVE.conf.update(self._conf)
+                apply_conf(self._conf, _ACTIVE._saved_conf)
                 return _ACTIVE
 
         getOrCreate = get_or_create
@@ -106,8 +113,42 @@ class TorchSession:
 
     createDataFrame = create_data_frame
 
+    def table(self, name: str) -> Frame:
+        """Spark's ``spark.table(name)``: the registered temp view."""
+        return self.catalog.lookup(name)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: Optional[int] = None) -> Frame:
+        """Spark's ``spark.range``: a frame with one integer ``id`` column,
+        ``range(n)`` counting 0..n-1 and ``range(start, end, step)`` as
+        Python's; ``num_partitions`` is accepted and ignored. The ids are
+        int64 under the float64 policy and int32 under the float32 one,
+        where ids outside int32 raise (as the JAX package does without
+        x64)."""
+        if step == 0:
+            raise ValueError("range step must not be zero")
+        if end is None:
+            start, end = 0, start
+        ids = np.arange(start, end, step, dtype=np.int64)
+        if not wide_types() and ids.size > 0:
+            # arange is monotone: the extremes are its endpoints
+            lo, hi = sorted((int(ids[0]), int(ids[-1])))
+            if lo < -(2 ** 31) or hi >= 2 ** 31:
+                raise ValueError(
+                    f"range ids [{lo}, {hi}] exceed int32 under the float32 "
+                    "policy; use the float64 policy for 64-bit ids")
+        return Frame({"id": ids}, device=self.device)
+
+    @property
+    def version(self) -> str:
+        """The port's version string (Spark's ``spark.version``)."""
+        from . import __version__
+
+        return __version__
+
     def stop(self) -> None:
         global _ACTIVE
         with _ACTIVE_LOCK:
+            restore_conf(self._saved_conf)
             if _ACTIVE is self:
                 _ACTIVE = None

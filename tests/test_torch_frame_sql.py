@@ -63,9 +63,11 @@ def test_read_csv_records_and_nulls(tmp_path):
     assert d["_c0"].tolist() == [1, 2, 3]
     assert np.isnan(d["_c1"][1]) and d["_c2"].tolist() == ["a", "b", "c"]
     quoted = tmp_path / "q.csv"
-    quoted.write_text('1,"a"\n')
-    with pytest.raises(NotImplementedError, match="quoted"):
-        read_csv(str(quoted), device="cpu")
+    quoted.write_text('1,"a"\n2,"b,c"\n')
+    with float_policy(torch.float64):
+        q = read_csv(str(quoted), device="cpu")
+    assert q.dtypes() == [("_c0", "integer"), ("_c1", "string")]
+    assert q.to_pydict()["_c1"].tolist() == ["a", "b,c"]
 
 
 def _app_stages(dq, session, path, VectorAssembler):
