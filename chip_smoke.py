@@ -18,10 +18,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the Gramians' tile edges (D = 5, 128, 256 and a ragged n at D = 130),
    two runs of each Gramian that must agree bit for bit, and each Gramian
    equal to its transpose bit for bit; the two segment sums (dense slots,
-   sorted segments) against index_add_ in float64 and bit-identical over
-   two runs, at ragged edges and at the 10^7-row table's shapes (9,611,537
-   clean rows onto 39 guest slots, onto 20,556 price groups, onto 39 long
-   segments);
+   sorted segments) against their plain version in float64 (index_add_;
+   sum at one slot) and bit-identical over two runs, at ragged edges and
+   at the 10^7-row table's shapes (9,611,537 clean rows onto 39 guest
+   slots, onto 20,556 price groups, onto 39 long segments; the 10^7 slots
+   of the global sums onto one slot, three stacked columns and one);
 4. golden app: the reference application (CSV -> DQ rules -> SQL ->
    VectorAssembler -> Lasso fit -> predict(40)) on the three datasets
    through ``TorchSession`` (each read by the native CSV engine), in
@@ -98,7 +99,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the float64 read also to the columns the file was written from; the
    median of 3 host-clock times of the streamed and one-shot reads, of
    file to predict(40) and of applyInPandas by guest at 10^7 rows, and
-   one streamed read under torch.profiler (idle share, copy kinds).
+   one streamed read under torch.profiler (idle share, copy kinds);
+11. a DQ report on the 10^7-row table, raw and cleaned by one dq_rules
+   launch (with phase 8's CASE band): the profile (describe, summary,
+   corr pearson and spearman, cov, approxQuantile, crosstab), per-guest
+   order statistics and moments and the median guest at each of 20,556
+   prices, rollup, cube, ROLLUP in SQL and a pivot, the rejected rows by
+   set operations (EXCEPT ALL 388,463 rows, INTERSECT ALL 9,611,537, and
+   the distinct forms, frame and SQL), correlated EXISTS / NOT EXISTS / IN
+   (and EXISTS / NOT EXISTS with an inner price filter, a proper subset)
+   against their explicit LEFT SEMI / ANTI joins, sample and randomSplit;
+   the CPU float64 run of the profile, per-guest, subtotal and sampling
+   steps first, then the card with the launch counts reset just before
+   and read just after (dq_rules once, both segment sums at least once),
+   each step's median of 3 host-clock times, one run under
+   torch.profiler, steps 2-3 bit-identical over two runs, the order
+   statistics, the sampling masks and every row of the set-operation and
+   correlated steps against numpy, the other results against the CPU
+   run.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -603,6 +621,26 @@ def segment_cases(guest, price):
              price.index_select(0, by_guest.indices), by_guest.values, 40)]
 
 
+def one_slot_cases():
+    """(name, kernel, x, seg, size) at the global sums' shape: every slot
+    of the full table onto one slot, the rows dq_rules drops weighted 0.
+    stat.corr/cov stack (weight, weighted a, weighted b) into one launch
+    (frame/stat.py:_sums), describe, summary and avg sum one column
+    (frame/aggregates.py:global_agg's fsum)."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    guest, price = full_table(FULL_ROWS)
+    p = torch.as_tensor(price, dtype=torch.float32, device="cuda")
+    g = torch.as_tensor(guest, device="cuda").to(torch.float32)
+    w = kernels.dq_rules(p, g)[2].to(torch.float32)
+    one_slot = torch.zeros(FULL_ROWS, dtype=torch.int64, device="cuda")
+    return [("dense one slot C=3", "dense_segment_sum",
+             torch.stack([w, p * w, p * p * w], dim=1), one_slot, 1),
+            ("dense one slot C=1", "dense_segment_sum", p * w, one_slot, 1)]
+
+
 def edge_segment_cases(device: str, seed: int = 0):
     """Small and ragged shapes: no row, one row, tile and block edges,
     the largest float32 table that fits shared memory, runs of one row."""
@@ -628,7 +666,8 @@ def edge_segment_cases(device: str, seed: int = 0):
 def check_segment_sum(cases) -> dict:
     """Each case in float32 and float64: two kernel runs bit-identical,
     the float32 kernel within 1e-5 Σ|x| of the float64 plain version
-    (index_add_) per segment, the float64 kernel within 1e-12 Σ|x| of it.
+    (index_add_; sum at one slot) per segment, the float64 kernel within
+    1e-12 Σ|x| of it.
     A dense case whose table does not fit takes the sorted kernel after a
     stable sort, as ops/segments.py does. Returns {name: max |float32
     kernel - float64 plain|}."""
@@ -668,9 +707,10 @@ def check_segment_sum(cases) -> dict:
 
 
 def segsum_times(name, kernel, x, seg, size) -> dict:
-    """One segment-sum kernel, its plain version (index_add_ into zeros)
-    and the library call (index_add_ for slot ids, torch.segment_reduce
-    for contiguous segments) at one of segment_cases' shapes."""
+    """One segment-sum kernel, its plain version (index_add_ into zeros;
+    sum at one slot) and the library call (index_add_ for slot ids, sum
+    over the rows at one slot, torch.segment_reduce for contiguous
+    segments) at one of segment_cases' or one_slot_cases' shapes."""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
@@ -678,7 +718,10 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
     fn = getattr(kernels, kernel)
     n = x.shape[0]
     cols = x.shape[1] if x.ndim == 2 else 1
-    if kernel == "dense_segment_sum":
+    if size == 1:
+        library = lambda: x.sum(0, keepdim=True)
+        call = "sum(dim=0)"
+    elif kernel == "dense_segment_sum":
         library = lambda: torch.zeros((size, cols), dtype=x.dtype,
                                       device=x.device).index_add_(0, seg, x)
         call = "index_add_"
@@ -2404,6 +2447,566 @@ def check_ingest(full: dict, plain: dict, have: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: a DQ report at 10^7 rows
+# ---------------------------------------------------------------------------
+
+# full_table(10^7) through the DQ rules: the rows dq_rules keeps and drops
+REPORT_KEPT = 9_611_537
+REPORT_REJECTED = 388_463
+REPORT_QUANTILES = (0.01, 0.5, 0.99)
+REPORT_FRACTION = 0.1
+REPORT_WEIGHTS = (0.8, 0.2)
+REPORT_SEED = 7
+# The correlated step's inner filter: only rule 2's rejected rows (guests
+# under 14) cost more, so EXISTS keeps a proper subset of the clean rows.
+REPORT_DEAR = 90.0
+# The steps the CPU float64 run repeats; the rejected rows and the
+# correlated step are exact rows, held against numpy (report_rows_numpy).
+REPORT_CPU_STEPS = ("profile", "per_guest", "subtotals", "sampling")
+# The steps whose two card runs must agree bit for bit (fixed-order sums).
+REPORT_STABLE = ("per_guest", "subtotals")
+SKEW_RTOL = 1e-9               # skewness/kurtosis against numpy, float64
+
+
+def report_tables(device: str, guest, price, rejected: bool = True):
+    """A session, the raw table, the table cleaned by one ``dq_rules``
+    launch (as ``clean_table``), phase 8's CASE band over the clean rows,
+    and (with ``rejected``) the rejected rows, ``raw.except_all(clean)``,
+    registered as raw, clean, banded and rejected."""
+    from sparkdq4ml_tpu_torch.ops.rules import dq_rules_fused
+
+    spark = session(device)
+    raw = spark.createDataFrame({"guest": guest, "price": price})
+    keep = dq_rules_fused(raw.col("price").eval(raw),
+                          raw.col("guest").eval(raw))[2]
+    clean = raw.filter(keep)
+    raw.create_or_replace_temp_view("raw")
+    clean.create_or_replace_temp_view("clean")
+    banded = spark.sql(BAND_SQL)
+    banded.create_or_replace_temp_view("banded")
+    if rejected:
+        raw.except_all(clean).create_or_replace_temp_view("rejected")
+    return spark, {"raw": raw, "clean": clean, "banded": banded}
+
+
+def report_steps(spark, t):
+    """Phase 11's steps on ``report_tables``' frames, as (name, fn) pairs
+    returning {name: frame or host value}: (1) the profile (describe,
+    summary, corr, cov, quantiles, crosstab); (2) per-guest statistics
+    (the order statistics, moments, a distinct count and a set of bands),
+    and the median guest at each price; (3) subtotals: rollup, cube, the
+    rollup through SQL, a pivot; (4) the rejected rows by set operations,
+    frame and SQL; (5) correlated EXISTS / NOT EXISTS / IN, the first two
+    also with an inner filter (r.price > REPORT_DEAR), and their explicit
+    joins; (6) sampling."""
+    from sparkdq4ml_tpu_torch import functions as F
+
+    raw, clean, banded = t["raw"], t["clean"], t["banded"]
+
+    def profile():
+        return {"describe": clean.describe("guest", "price"),
+                "summary": clean.summary(),
+                "corr": {"pearson": clean.stat.corr("guest", "price"),
+                         "spearman": clean.stat.corr("guest", "price",
+                                                     "spearman"),
+                         "cov": clean.stat.cov("guest", "price")},
+                "quantiles": clean.stat.approx_quantile(
+                    "price", list(REPORT_QUANTILES), 0.0),
+                "crosstab": banded.stat.crosstab("guest", "band")}
+
+    def per_guest():
+        return {"by_guest": banded.group_by("guest").agg(
+                    F.median("price"), F.percentile_approx("price", 0.9),
+                    F.mode("price"), F.skewness("price"),
+                    F.kurtosis("price"), F.count_distinct("price"),
+                    F.collect_set("band")),
+                "by_price": clean.group_by("price").agg(F.median("guest"))}
+
+    def subtotals():
+        aggs = [F.count(), F.sum("price"), F.avg("price")]
+        return {"rollup": banded.rollup("band", "guest").agg(*aggs),
+                "cube": banded.cube("band", "guest").agg(*aggs),
+                "sql_rollup": spark.sql(
+                    "SELECT band, guest, COUNT(*), SUM(price), AVG(price) "
+                    "FROM banded GROUP BY ROLLUP(band, guest)"),
+                "pivot": banded.group_by("guest").pivot("band").agg(
+                    F.avg("price"), F.count())}
+
+    def rejected():
+        return {"except_all": raw.except_all(clean),
+                "intersect_all": raw.intersect_all(clean),
+                "subtract": raw.subtract(clean),
+                "intersect": raw.intersect(clean),
+                "clean_distinct": clean.distinct(),
+                "raw_distinct": raw.distinct(),
+                "sql_except": spark.sql("SELECT guest, price FROM raw EXCEPT "
+                                        "SELECT guest, price FROM clean"),
+                "sql_union": spark.sql("SELECT guest, price FROM raw UNION "
+                                       "SELECT guest, price FROM clean")}
+
+    def correlated():
+        sub = "(SELECT 1 FROM rejected r WHERE r.guest = c.guest)"
+        dear = ("(SELECT 1 FROM rejected r WHERE r.guest = c.guest AND "
+                f"r.price > {REPORT_DEAR})")
+        dear_guests = (f"(SELECT guest FROM rejected WHERE price > "
+                       f"{REPORT_DEAR}) d")
+        return {"exists": spark.sql("SELECT c.guest, c.price FROM clean c "
+                                    f"WHERE EXISTS {sub}"),
+                "semi": spark.sql("SELECT guest, price FROM clean LEFT SEMI "
+                                  "JOIN rejected USING (guest)"),
+                "not_exists": spark.sql("SELECT c.guest, c.price FROM clean "
+                                        f"c WHERE NOT EXISTS {sub}"),
+                "anti": spark.sql("SELECT guest, price FROM clean LEFT ANTI "
+                                  "JOIN rejected USING (guest)"),
+                "in_pairs": spark.sql(
+                    "SELECT c.guest, c.price FROM clean c WHERE c.price IN "
+                    "(SELECT r.price FROM rejected r WHERE r.guest = "
+                    "c.guest)"),
+                "semi_pairs": spark.sql(
+                    "SELECT guest, price FROM clean LEFT SEMI JOIN rejected "
+                    "USING (guest, price)"),
+                "exists_dear": spark.sql("SELECT c.guest, c.price FROM "
+                                         f"clean c WHERE EXISTS {dear}"),
+                "semi_dear": spark.sql("SELECT guest, price FROM clean LEFT "
+                                       f"SEMI JOIN {dear_guests} USING "
+                                       "(guest)"),
+                "not_exists_dear": spark.sql(
+                    "SELECT c.guest, c.price FROM clean c WHERE NOT EXISTS "
+                    f"{dear}"),
+                "anti_dear": spark.sql("SELECT guest, price FROM clean LEFT "
+                                       f"ANTI JOIN {dear_guests} USING "
+                                       "(guest)")}
+
+    def sampling():
+        parts = clean.random_split(list(REPORT_WEIGHTS), seed=REPORT_SEED)
+        return {"sample": clean.sample(REPORT_FRACTION, seed=REPORT_SEED),
+                **{f"split{i}": p for i, p in enumerate(parts)}}
+
+    return [("profile", profile), ("per_guest", per_guest),
+            ("subtotals", subtotals), ("rejected", rejected),
+            ("correlated", correlated), ("sampling", sampling)]
+
+
+def run_report(spark, tables, times=None, runs: int = 1, names=None):
+    """Phase 11's steps (those in ``names``, all by default): {step: [each
+    run's results]}."""
+    steps = [(name, fn) for name, fn in report_steps(spark, tables)
+             if names is None or name in names]
+    return run_steps(steps, spark.device.type, times, runs)
+
+
+def summarize_report(res: dict) -> dict:
+    """Host arrays of every step's results: a frame's columns (numeric as
+    float64, strings and lists as object arrays) and its mask, a number
+    as a 1-element float64 array."""
+    out = {}
+    for step, results in res.items():
+        for name, value in results.items():
+            key = f"{step}.{name}"
+            if isinstance(value, dict):
+                out[key] = {k: np.asarray([v], np.float64)
+                            for k, v in value.items()}
+            elif isinstance(value, list):
+                out[key] = {"values": np.asarray(value, np.float64)}
+            else:
+                d = value.to_pydict()
+                cols = {c: v if v.dtype == object else np.asarray(v,
+                                                                  np.float64)
+                        for c, v in d.items()}
+                cols["__mask__"] = value.mask.cpu().numpy().astype(
+                    np.float64)
+                out[key] = cols
+    return out
+
+
+# What each report column is held to against the CPU float64 run: the
+# statistics computed from sums "rtol" (SQL_ROWS_RTOL), the medians and
+# the summary's interpolated percentiles "near" (REPORT_NEAR_RTOL: the
+# card averages two float32 picks where the CPU averages two float64
+# ones; held exactly against numpy on the card's own values instead);
+# everything else exact, a float64 value rounded to float32 first.
+REPORT_RTOL_COLS = {"sum(price)", "avg(price)", "pearson", "spearman",
+                    "cov"}
+REPORT_NEAR_RTOL = 1e-6
+# Skewness and excess kurtosis are near 0 for the guests without outliers,
+# so they are held absolutely: float32 prices move them by up to 3e-5
+# from their float64 values at 10^6 rows of full_table; the tight check
+# is against numpy on the card's own values (check_report_numpy).
+REPORT_MOMENT_COLS = {"skewness(price)", "kurtosis(price)"}
+REPORT_MOMENT_ATOL = 1e-4
+
+
+def _pivot_sums(name: str) -> bool:
+    return name.endswith("_avg(price)")
+
+
+def check_report(card: dict, cpu: dict) -> dict:
+    """The card's float32 report against the CPU float64 run of the same
+    code. describe/summary cells are strings: counts, minima and maxima
+    equal to the CPU's values formatted as float32 scalars; means and
+    stddevs parsed and within SQL_ROWS_RTOL; percentiles within
+    REPORT_NEAR_RTOL. Returns the largest relative error of each
+    tolerance column."""
+    errs = {}
+    for key, want in cpu.items():
+        got = card[key]
+        if list(got) != list(want):
+            raise AssertionError(f"{key}: columns {list(got)} vs "
+                                 f"{list(want)}")
+        strings_ = key.endswith((".describe", ".summary"))
+        for c, w in want.items():
+            g = got[c]
+            where = f"{key}.{c}"
+            if g.shape != w.shape:
+                raise AssertionError(f"{where}: {g.shape} vs {w.shape}")
+            if strings_ and c not in ("summary", "__mask__"):
+                stats = want["summary"].tolist()
+                for s, a, b in zip(stats, g.tolist(), w.tolist()):
+                    if s in ("mean", "stddev") or s.endswith("%"):
+                        tol = (SQL_ROWS_RTOL if s in ("mean", "stddev")
+                               else REPORT_NEAR_RTOL)
+                        rel = abs(float(a) - float(b)) / abs(float(b))
+                        errs[f"{where}.{s}"] = rel
+                        if rel > tol:
+                            raise AssertionError(f"{where}.{s}: {a} vs {b}")
+                    elif a != (b if s == "count" or c == "guest"
+                               else str(np.float32(float(b)))):
+                        raise AssertionError(f"{where}.{s}: {a} vs {b}")
+                continue
+            if g.dtype == object or w.dtype == object:
+                if not (g.dtype == w.dtype and all(
+                        x == y for x, y in zip(g.tolist(), w.tolist()))):
+                    raise AssertionError(f"{where}: cells differ")
+                continue
+            if c in REPORT_MOMENT_COLS:
+                errs[where] = float(np.max(np.abs(g - w)))
+                if not errs[where] <= REPORT_MOMENT_ATOL:
+                    raise AssertionError(f"{where}: max absolute error "
+                                         f"{errs[where]}")
+                continue
+            near = c.startswith("median(")
+            if c in REPORT_RTOL_COLS or near or _pivot_sums(c):
+                tol = REPORT_NEAR_RTOL if near else SQL_ROWS_RTOL
+                ok = np.isnan(w) == np.isnan(g)
+                rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+                rel = np.where(np.isnan(w), 0.0, rel)
+                errs[where] = float(rel.max()) if rel.size else 0.0
+                if not ok.all() or errs[where] > tol:
+                    raise AssertionError(f"{where}: max relative error "
+                                         f"{errs[where]} > {tol}")
+                continue
+            w32 = w.astype(np.float32).astype(np.float64)
+            if not np.array_equal(g, w32, equal_nan=True):
+                bad = int((~((g == w32) | (np.isnan(g) & np.isnan(w32)))
+                           ).sum())
+                raise AssertionError(f"{where}: {bad} values differ")
+    return errs
+
+
+def _rows(frame) -> np.ndarray:
+    """A (guest, price) frame's valid rows as one sorted structured
+    array, for comparing row sets."""
+    d = frame.to_pydict()
+    rows = np.empty(len(d["guest"]), dtype=[("g", "f8"), ("p", "f8")])
+    rows["g"], rows["p"] = d["guest"], d["price"]
+    return np.sort(rows)
+
+
+def check_report_identities(res: dict, clean, kept: int = REPORT_KEPT,
+                            rejected: int = REPORT_REJECTED) -> dict:
+    """The identities the rules make true whatever the implementation
+    (each rule is a function of the (guest, price) pair): the rejected
+    rows, the kept rows, the distinct rejected pairs, and the SQL forms;
+    each correlated query equal to its explicit join bit for bit."""
+    rej, cor = res["rejected"], res["correlated"]
+    counts = {k: f.count() for k, f in rej.items()}
+    if counts["except_all"] != rejected:
+        raise AssertionError(f"raw EXCEPT ALL clean: {counts['except_all']}"
+                             f" rows, expected {rejected}")
+    if counts["intersect_all"] != kept:
+        raise AssertionError(f"raw INTERSECT ALL clean: "
+                             f"{counts['intersect_all']} rows, expected "
+                             f"{kept}")
+    if rej["subtract"].intersect(clean).count() != 0:
+        raise AssertionError("a row of raw.subtract(clean) is in clean")
+    pairs = {"subtract = distinct rejected rows":
+             (rej["subtract"], rej["except_all"].distinct()),
+             "intersect = clean.distinct()":
+             (rej["intersect"], rej["clean_distinct"]),
+             "SQL EXCEPT = subtract": (rej["sql_except"], rej["subtract"]),
+             "SQL UNION = raw.distinct()": (rej["sql_union"],
+                                            rej["raw_distinct"])}
+    for what, (a, b) in pairs.items():
+        if not np.array_equal(_rows(a), _rows(b)):
+            raise AssertionError(f"{what}: the row sets differ")
+    same = {}
+    for q, join in (("exists", "semi"), ("not_exists", "anti"),
+                    ("in_pairs", "semi_pairs"), ("exists_dear", "semi_dear"),
+                    ("not_exists_dear", "anti_dear")):
+        a, b = cor[q].to_pydict(), cor[join].to_pydict()
+        if list(a) != list(b) or not all(
+                np.array_equal(a[c].view(np.uint8), b[c].view(np.uint8))
+                for c in a):
+            raise AssertionError(f"correlated {q} differs from LEFT "
+                                 f"{join.upper()} JOIN")
+        same[q] = len(a["guest"])
+    if same["in_pairs"] != 0:
+        raise AssertionError("a clean (guest, price) pair is a rejected one")
+    if not 0 < same["exists_dear"] < kept or \
+            same["exists_dear"] + same["not_exists_dear"] != kept:
+        raise AssertionError(f"EXISTS with r.price > {REPORT_DEAR}: "
+                             f"{same['exists_dear']} of {kept} rows, not a "
+                             "proper subset, or NOT EXISTS does not "
+                             "complement it")
+    return {"counts": counts, "correlated_rows": same}
+
+
+def report_rows_numpy(tables) -> dict:
+    """Steps 4 and 5 by numpy alone, from the raw table's columns and the
+    clean table's mask (the rows dq_rules keeps): {"step.name": (guest,
+    price)} of each result's rows, in order. A row's key is its pair of
+    per-column ranks (np.unique: every NaN one value, -0.0 equal to 0.0),
+    dense, so one stable sort of the keys gives every count. The set
+    operations keep the left side's first-appearance order and spend the
+    right side's count of a key on its earliest left rows (clean is a
+    filter of raw, so UNION's rows are raw's first appearances); the
+    correlated queries keep the clean rows whose guest (or pair) a
+    rejected row has, in clean order."""
+    d = tables["raw"].to_pydict()
+    g, p = d["guest"].astype(np.float64), d["price"].astype(np.float64)
+    keep = tables["clean"].mask.cpu().numpy()
+    n = g.size
+    if keep.shape != (n,):
+        raise AssertionError("the clean mask does not cover the raw rows")
+    guests, g_code = np.unique(g, return_inverse=True)
+    prices, p_code = np.unique(p, return_inverse=True)
+    size = guests.size * prices.size
+    key = g_code.reshape(-1).astype(np.int64) * prices.size + p_code
+    order = np.argsort(key, kind="stable")
+    per_key = np.bincount(key, minlength=size)
+    before = np.cumsum(per_key) - per_key
+    occ = np.empty(n, np.int64)
+    occ[order] = np.arange(n) - np.repeat(before, per_key)
+    budget = np.bincount(key[keep], minlength=size)[key]
+    # each key's first kept row: the first of its run among the kept rows
+    # in key order
+    kept = order[keep[order]]
+    runs = np.ones(kept.size, bool)
+    runs[1:] = key[kept][1:] != key[kept][:-1]
+    clean_first = np.zeros(n, bool)
+    clean_first[kept[runs]] = True
+    rej = occ >= budget
+    out = {f"rejected.{k}": (g[sel], p[sel]) for k, sel in (
+        ("except_all", rej), ("intersect_all", ~rej),
+        ("subtract", (occ == 0) & (budget == 0)),
+        ("intersect", (occ == 0) & (budget > 0)),
+        ("clean_distinct", clean_first), ("raw_distinct", occ == 0),
+        ("sql_except", (occ == 0) & (budget == 0)),
+        ("sql_union", occ == 0))}
+
+    def has(codes, where, width):
+        hit = np.zeros(width, bool)
+        hit[codes[where]] = True
+        return hit[codes[keep]]
+
+    by_guest = has(g_code.reshape(-1), rej, guests.size)
+    by_dear = has(g_code.reshape(-1), rej & (p > REPORT_DEAR), guests.size)
+    by_pair = has(key, rej, size)
+    for k, sel in (("exists", by_guest), ("semi", by_guest),
+                   ("not_exists", ~by_guest), ("anti", ~by_guest),
+                   ("in_pairs", by_pair), ("semi_pairs", by_pair),
+                   ("exists_dear", by_dear), ("semi_dear", by_dear),
+                   ("not_exists_dear", ~by_dear),
+                   ("anti_dear", ~by_dear)):
+        out[f"correlated.{k}"] = (g[keep][sel], p[keep][sel])
+    return out
+
+
+def check_report_rows(res: dict, tables) -> dict:
+    """Steps 4 and 5's results equal numpy's rows (report_rows_numpy),
+    in order and exactly. Returns each result's row count."""
+    rows = {}
+    for key, (want_g, want_p) in report_rows_numpy(tables).items():
+        step, name = key.split(".")
+        d = res[step][name].to_pydict()
+        got_g, got_p = (d["guest"].astype(np.float64),
+                        d["price"].astype(np.float64))
+        if not (np.array_equal(got_g, want_g)
+                and np.array_equal(got_p, want_p)):
+            raise AssertionError(f"{key}: {got_g.size} rows differ from "
+                                 f"numpy's {want_g.size}")
+        rows[key] = int(got_g.size)
+    return rows
+
+
+def check_report_numpy(res: dict, clean) -> dict:
+    """The order statistics against numpy directly, on the card's own
+    float32 values (as float64): per guest np.median, the nearest-rank
+    percentile and the mode over np.lexsort; the median guest per price;
+    approxQuantile and summary's percentiles (np.quantile); skewness and
+    kurtosis by their numpy formulas within SKEW_RTOL and one rounding
+    to the column's type (the JAX package's float32 column); the sample
+    and split masks equal to numpy's draw."""
+    d = clean.to_pydict()
+    g, p = d["guest"].astype(np.float64), d["price"].astype(np.float64)
+    by = res["per_guest"]["by_guest"].to_pydict()
+    order = np.lexsort((p, g))
+    gs, ps = g[order], p[order]
+    starts = np.flatnonzero(np.r_[True, gs[1:] != gs[:-1]])
+    groups = np.split(ps, starts[1:])
+    want = {"median(price)": [], "percentile_approx(price, 0.9)": [],
+            "mode(price)": [], "skewness(price)": [], "kurtosis(price)": []}
+    for v in groups:
+        want["median(price)"].append(np.median(v))
+        want["percentile_approx(price, 0.9)"].append(
+            v[max(int(np.ceil(0.9 * len(v))) - 1, 0)])
+        u, c = np.unique(v, return_counts=True)
+        want["mode(price)"].append(u[np.lexsort((u, -c))[0]])
+        dv = v - v.mean()
+        m2 = np.mean(dv ** 2)
+        want["skewness(price)"].append(np.mean(dv ** 3) / m2 ** 1.5)
+        want["kurtosis(price)"].append(np.mean(dv ** 4) / m2 ** 2 - 3.0)
+    if not np.array_equal(by["guest"].astype(np.float64), gs[starts]):
+        raise AssertionError("per-guest keys differ from numpy's")
+    errs = {}
+    for c, w in want.items():
+        # the column's type is the JAX package's host-path one: float64
+        # answers stored in the policy's float dtype
+        got, w = by[c], np.asarray(w).astype(by[c].dtype)
+        if c.startswith(("skewness", "kurtosis")):
+            # float64 moments, one rounding to the column's type apart
+            tol = SKEW_RTOL + float(np.finfo(got.dtype).eps) / 2
+            errs[c] = float(np.max(np.abs(got.astype(np.float64) - w)
+                                   / np.abs(w)))
+            if errs[c] > tol:
+                raise AssertionError(f"{c}: {errs[c]} from numpy")
+        elif not np.array_equal(got, w):
+            raise AssertionError(f"{c} differs from numpy")
+    bp = res["per_guest"]["by_price"].to_pydict()
+    order = np.lexsort((g, p))
+    ps, gs = p[order], g[order]
+    starts = np.flatnonzero(np.r_[True, ps[1:] != ps[:-1]])
+    med = np.asarray([np.median(v) for v in np.split(gs, starts[1:])])
+    if not (np.array_equal(bp["price"].astype(np.float64), ps[starts])
+            and np.array_equal(bp["median(guest)"],
+                               med.astype(bp["median(guest)"].dtype))):
+        raise AssertionError("median(guest) by price differs from numpy")
+    sp = np.sort(p)
+    qs = [sp[min(int(q * sp.size), sp.size - 1)] for q in REPORT_QUANTILES]
+    if res["profile"]["quantiles"] != qs:
+        raise AssertionError("approxQuantile differs from numpy")
+    summ = res["profile"]["summary"].to_pydict()
+    for c, vals in (("guest", g), ("price", p)):
+        for s, cell in zip(summ["summary"], summ[c]):
+            if s.endswith("%") and cell != str(np.quantile(
+                    vals, float(s[:-1]) / 100.0)):
+                raise AssertionError(f"summary {c} {s}: {cell}")
+    u = np.random.default_rng(REPORT_SEED).random(clean.num_slots)
+    m = clean.mask.cpu().numpy()
+    masks = {"sample": m & (u < REPORT_FRACTION)}
+    edges = np.cumsum(np.asarray(REPORT_WEIGHTS) / sum(REPORT_WEIGHTS))
+    lo = 0.0
+    for i, hi in enumerate(edges):
+        masks[f"split{i}"] = m & (u >= lo) & (u < hi)
+        lo = hi
+    for k, want_mask in masks.items():
+        if not np.array_equal(res["sampling"][k].mask.cpu().numpy(),
+                              want_mask):
+            raise AssertionError(f"{k} mask differs from numpy's draw")
+    split_rows = [res["sampling"][f"split{i}"].count()
+                  for i in range(len(REPORT_WEIGHTS))]
+    if sum(split_rows) != clean.count():
+        raise AssertionError(f"split rows {split_rows} do not add up")
+    return {"moments_vs_numpy": errs, "split_rows": split_rows,
+            "sample_rows": int(masks["sample"].sum())}
+
+
+def report_reference(guest, price) -> dict:
+    """The CPU float64 run of phase 11's REPORT_CPU_STEPS (each once): its
+    summary."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_policy
+
+    with float_policy(torch.float64):
+        spark, tables = report_tables("cpu", guest, price, rejected=False)
+        out = summarize_report(first_runs(run_report(
+            spark, tables, names=REPORT_CPU_STEPS)))
+        spark.stop()
+    return out
+
+
+def check_report_full(guest, price) -> dict:
+    """Phase 11 on the 10^7-row table: the CPU float64 run of
+    REPORT_CPU_STEPS, then the card (float32) with the launch counts set
+    to 0 just before the table is cleaned and read just after the steps
+    (dq_rules once, both segment sums at least once); every step's median
+    of 3 host-clock times, and one more run under torch.profiler for the
+    device's idle share; steps 2 and 3 bit-identical over two runs; the
+    rules' identities; the order statistics, the sampling masks and the
+    rows of steps 4 and 5 against numpy; the other steps' results against
+    the CPU run."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    cpu = report_reference(guest, price)
+    cpu_s = time.perf_counter() - t0
+    spark, tables = report_tables("cuda", guest[:1000], price[:1000])
+    run_report(spark, tables)                               # warm-up
+    spark.stop()
+    times: dict = {}
+    torch.cuda.synchronize()
+    kernels.launches.reset()
+    t0 = time.perf_counter()
+    spark, tables = report_tables("cuda", guest, price)
+    outs = run_report(spark, tables, times, runs=3)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = kernels.launches.snapshot()
+    if counts["dq_rules"] != 1:
+        raise AssertionError(f"the DQ report launched dq_rules "
+                             f"{counts['dq_rules']} times, expected 1")
+    for name in ("dense_segment_sum", "sorted_segment_sum"):
+        if counts[name] == 0:
+            raise AssertionError(f"the DQ report never launched {name}")
+    prof = profile_run("dq_report", lambda: run_report(spark, tables))
+    first = first_runs(outs)
+    card = summarize_report(first)
+    again = summarize_report({k: outs[k][1] for k in REPORT_STABLE})
+    unstable = bit_identical({k: card[k] for k in again}, again)
+    if unstable:
+        raise AssertionError(f"steps 2-3 differ between two card runs: "
+                             f"{unstable}")
+    identities = check_report_identities(first, tables["clean"])
+    numpy_checks = check_report_numpy(first, tables["clean"])
+    t0 = time.perf_counter()
+    numpy_rows = check_report_rows(first, tables)
+    numpy_rows_s = time.perf_counter() - t0
+    kept = tables["clean"].count()
+    spark.stop()
+    if kept != REPORT_KEPT:
+        raise AssertionError(f"clean rows: {kept}, expected {REPORT_KEPT}")
+    if bit_identical({"x": card["subtotals.rollup"]},
+                     {"x": card["subtotals.sql_rollup"]}):
+        raise AssertionError("SQL ROLLUP differs from rollup()")
+    errs = check_report(card, cpu)
+    steps_ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    log(f"DQ report at {len(guest)} rows ({kept} clean), card float32: "
+        f"step ms (median) {steps_ms}; runs s {times}; launches {counts}; "
+        f"identities {identities}; numpy {numpy_checks}; steps 4-5 rows "
+        f"equal to numpy's {numpy_rows} ({numpy_rows_s:.1f} s); steps 2-3 "
+        f"bit-identical over two runs; profile {prof}; cpu float64 "
+        f"reference {cpu_s:.1f} s; errors against cpu float64 {errs}")
+    return {"rows": len(guest), "clean_rows": kept, "steps_ms": steps_ms,
+            "runs_s": times, "path_s": path_s, "launches": counts,
+            "identities": identities, "numpy": numpy_checks,
+            "numpy_rows": numpy_rows, "numpy_rows_s": numpy_rows_s,
+            "profile": prof, "cpu_reference_s": cpu_s, "max_rel_err": errs}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -2528,10 +3131,18 @@ def profile_run(name: str, fn) -> dict:
                 if any(p in listed for p in parts))}
 
 
+# Traces of one wrapper call that device_kernels_per_call takes at most:
+# the profiler has been seen to drop one kernel of a two-kernel call.
+PROFILE_RETRACES = 3
+
+
 def device_kernels_per_call(name: str, *args) -> dict:
     """The device kernels that one call of the wrapper ``name`` on ``args``
     runs, and the kernel launches its host side makes, from a
-    torch.profiler trace of that call alone."""
+    torch.profiler trace of that call alone. A trace that holds fewer
+    device kernels than host launches lost events: the call is traced
+    again, up to ``PROFILE_RETRACES`` times, and ``traces`` says how many
+    were taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2540,17 +3151,20 @@ def device_kernels_per_call(name: str, *args) -> dict:
     fn = getattr(kernels, name)
     fn(*args)                                           # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    events = prof.events()
-    on_device = [e.name for e in events
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    launched = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                              "cudaLaunchKernelExC") for e in events)
+    for taken in range(1, PROFILE_RETRACES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        events = prof.events()
+        on_device = [e.name for e in events
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        launched = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaLaunchKernelExC") for e in events)
+        if len(on_device) >= launched:
+            break
     return {"device_kernels": len(on_device), "host_launches": launched,
-            "names": sorted(set(on_device))}
+            "names": sorted(set(on_device)), "traces": taken}
 
 
 def gram_kernel_counts() -> dict:
@@ -2608,6 +3222,8 @@ def main() -> int:
     check_segment_sum(edge_segment_cases("cuda"))
     seg_cases = segment_cases(*clean_columns())
     seg_errs = check_segment_sum(seg_cases)
+    one_cases = one_slot_cases()
+    one_errs = check_segment_sum(one_cases)
     check_goldens("cuda")
     full, plain, counts, app_s, stages = check_full()
     log(f"app phase at {FULL_ROWS} rows, card float32, s: {app_s}; "
@@ -2628,7 +3244,9 @@ def main() -> int:
                                            masked_times(1040, 1),
                                            masked_times(1_000_000, 512))
     seg_dense, seg_sorted, seg_long = (segsum_times(*c) for c in seg_cases)
-    del seg_cases
+    seg_one = {c[0]: {**segsum_times(*c), "max_abs_err": one_errs[c[0]]}
+               for c in one_cases}
+    del seg_cases, one_cases
     prof = profile_app()
     log(f"profile of the app phase: {prof}")
     t0 = time.perf_counter()
@@ -2651,6 +3269,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ingest = check_ingest(full, plain, have)
     ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = check_report_full(*full_table(FULL_ROWS))
+    report_s = time.perf_counter() - t0
     by_path = {"app": counts,
                **{p: selection[p]["launches"] for p in selection},
                "owlqn_dataset_full": small["owlqn"]["full"]["l-bfgs"][
@@ -2660,12 +3281,14 @@ def main() -> int:
                "classifier_table": classifiers["clean_launches"],
                **{f"classifier_{name}": fit["launches"]
                   for name, fit in classifiers["fits"].items()},
-               "ingest_app": ingest["launches"]}
+               "ingest_app": ingest["launches"],
+               "dq_report": report["launches"]}
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
          "replaces": "sparkdq4ml_tpu/ops/pallas_kernels.py:237",
          "launches": counts["dq_rules"], "max_abs_err": dq_err,
+         "dq_report_launches": report["launches"]["dq_rules"],
          "parity": True, **dq_main, "app_size": dq_app},
         {"name": "packed_gram", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/packed_gram.cu",
@@ -2686,13 +3309,15 @@ def main() -> int:
          "replaces": "sparkdq4ml_tpu/ops/segments.py:728 "
                      "(jax.ops.segment_sum, an XLA scatter, no pallas_call)",
          "launches": sql_core["launches"]["dense_segment_sum"],
+         "dq_report_launches": report["launches"]["dense_segment_sum"],
          "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
-         "bit_identical_runs": True, **seg_dense},
+         "bit_identical_runs": True, **seg_dense, "one_slot": seg_one},
         {"name": "sorted_segment_sum", "route": "cuda", "port_only": True,
          "source": "sparkdq4ml_tpu_torch/ops/csrc/segment_sum.cu",
          "replaces": "sparkdq4ml_tpu/ops/segments.py:1026 "
                      "(jax.ops.segment_sum, an XLA scatter, no pallas_call)",
          "launches": sql_core["launches"]["sorted_segment_sum"],
+         "dq_report_launches": report["launches"]["sorted_segment_sum"],
          "max_abs_err": seg_errs["sorted price groups"], "parity": True,
          "bit_identical_runs": True, **seg_sorted,
          "long_segments": seg_long},
@@ -2713,9 +3338,14 @@ def main() -> int:
         "ml_tour_dataset_full": tour_classifiers,
         "classifiers": classifiers, "classifiers_phase_s": classifiers_s,
         "ingest": ingest, "ingest_phase_s": ingest_s,
+        "dq_report": report, "dq_report_phase_s": report_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke.json"), "w") as f:
+        json.dump(kernels_line, f)
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

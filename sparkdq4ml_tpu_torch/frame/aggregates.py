@@ -1,30 +1,39 @@
-"""Aggregations (subset of ``sparkdq4ml_tpu/frame/aggregates.py``): global
-aggregates as mask-weighted reductions on the frame's device, and grouped
-aggregates through the grouped engine (``ops/segments.py``).
+"""Aggregations (``sparkdq4ml_tpu/frame/aggregates.py``): global
+aggregates as mask-weighted reductions on the frame's device, grouped
+aggregates through the grouped engine (``ops/segments.py``), pivots and
+rollup/cube subtotals.
 
-The aggregate family is the engine's: count, sum, avg/mean, min, max,
-stddev, variance, stddev_pop, var_pop, first, last, count_distinct and
-sum_distinct. Any other aggregate (``median``, ``collect_list``, ``corr``,
-...) raises ``NotImplementedError`` that names it.
+Every aggregate of the JAX package is here: count, sum, avg/mean, min,
+max, the variances, first/last, the distinct aggregates, median, mode,
+percentile_approx, skewness, kurtosis, the two-column family (corr,
+covar_samp, covar_pop, max_by, min_by) and the collections (collect_list,
+collect_set). The order statistics, moments and two-column aggregates
+reduce on the device from one sort by (group, value); the collections,
+and any aggregate over a string column, are host objects by nature and
+are built on the host from the device's group order in one gather. Where
+the JAX package answers on its host path, the result columns take that
+path's types (``ops/segments.host_path_columns``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from ..ops.expressions import Col, Expr
-from ..ops.segments import DEVICE_AGG_FNS, grouped_agg
+from ..ops.expressions import Col, Expr, is_host_column
+from ..ops.segments import (SEGMENT_FNS, _seg_sum, global_values,
+                            grouped_agg)
 
-# The JAX package's full aggregate list, so a known-but-unported name gets
-# NotImplementedError and an unknown one ValueError, as there.
 _AGGS = ("count", "sum", "avg", "mean", "min", "max", "stddev", "variance",
          "stddev_pop", "var_pop", "median", "mode", "percentile_approx",
          "count_distinct", "sum_distinct", "collect_list", "collect_set",
          "first", "last", "skewness", "kurtosis",
          "corr", "covar_samp", "covar_pop", "max_by", "min_by")
+# two-column aggregates (Spark's F.corr(a, b), max_by(x, ord))
+_TWO_COL = ("corr", "covar_samp", "covar_pop", "max_by", "min_by")
 # windowed form exists only for the running aggregates (as in Spark <= 2.x)
 _WINDOWABLE = ("count", "sum", "avg", "min", "max")
 # the JAX package's device-reduced global aggregates; the rest of the
@@ -36,27 +45,34 @@ def _check_fn(fn: str) -> str:
     fn = fn.lower()
     if fn not in _AGGS:
         raise ValueError(f"unknown aggregate {fn!r} (supported: {_AGGS})")
-    fn = "avg" if fn == "mean" else fn
-    if fn not in DEVICE_AGG_FNS:
-        raise NotImplementedError(
-            f"aggregate {fn}() is not in the torch port's subset "
-            f"(supported: {sorted(DEVICE_AGG_FNS)})")
-    return fn
+    return "avg" if fn == "mean" else fn
 
 
 class AggExpr:
     """An aggregate over a column, e.g. ``F.avg("price")`` or SQL
-    ``AVG(price)``; ``column=None`` is ``count(*)``."""
+    ``AVG(price)``; ``column=None`` is ``count(*)``, ``column2`` the second
+    column of a two-column aggregate, ``param`` percentile_approx's
+    percentage."""
 
     def __init__(self, fn: str, column: Optional[str],
-                 alias: Optional[str] = None, ignore_nulls: bool = False):
+                 alias: Optional[str] = None,
+                 column2: Optional[str] = None,
+                 ignore_nulls: bool = False, param=None):
         self.fn = _check_fn(fn)
+        if self.fn in _TWO_COL:
+            if column is None or column2 is None:
+                raise ValueError(f"{self.fn}(col1, col2) takes two columns")
+        elif column2 is not None:
+            raise ValueError(f"{self.fn}() takes one column")
         self.column = column
+        self.column2 = column2
         self.ignore_nulls = bool(ignore_nulls)   # first/last only
+        self.param = param                       # percentile_approx only
         self._alias = alias
 
     def alias(self, name: str) -> "AggExpr":
-        return AggExpr(self.fn, self.column, name, self.ignore_nulls)
+        return AggExpr(self.fn, self.column, name, self.column2,
+                       self.ignore_nulls, self.param)
 
     @property
     def name(self) -> str:
@@ -64,10 +80,14 @@ class AggExpr:
             return self._alias
         if self.fn == "count" and self.column is None:
             return "count"
+        if self.fn in _TWO_COL:
+            return f"{self.fn}({self.column}, {self.column2})"
         if self.fn in ("count_distinct", "sum_distinct"):
             return f"{self.fn.split('_')[0]}(DISTINCT {self.column})"
         if self.fn in ("first", "last") and self.ignore_nulls:
             return f"{self.fn}({self.column}, true)"
+        if self.fn == "percentile_approx":
+            return f"percentile_approx({self.column}, {self.param})"
         target = "1" if self.column is None else self.column
         return f"{self.fn}({target})"
 
@@ -96,10 +116,16 @@ class AggOfExpr(AggExpr):
     expression becomes a temporary column just before aggregating."""
 
     def __init__(self, fn: str, expr, alias: Optional[str] = None):
-        self.fn = _check_fn(fn)
+        fn = _check_fn(fn)
+        if fn in _TWO_COL:
+            raise ValueError(
+                f"aggregate {fn!r} does not take an expression argument")
+        self.fn = fn
         self.expr = expr
         self.column = None
+        self.column2 = None
         self.ignore_nulls = False
+        self.param = None
         self._alias = alias
 
     def alias(self, name: str) -> "AggOfExpr":
@@ -205,12 +231,99 @@ def last(col: str, ignorenulls: bool = False) -> AggExpr:
     return AggExpr("last", col, ignore_nulls=ignorenulls)
 
 
+def median(col: str) -> AggExpr:
+    return AggExpr("median", col)
+
+
+def mode(col: str) -> AggExpr:
+    return AggExpr("mode", col)
+
+
+def percentile_approx(col: str, percentage: float,
+                      accuracy: int = 10000) -> AggExpr:
+    """Spark's approximate percentile, answered exactly: the nearest-rank
+    order statistic (``accuracy`` is accepted for API compatibility)."""
+    if not 0.0 <= float(percentage) <= 1.0:
+        raise ValueError(f"percentage must be in [0, 1], got {percentage}")
+    return AggExpr("percentile_approx", col, param=float(percentage))
+
+
+def approx_count_distinct(col: str, rsd: float = 0.05) -> AggExpr:
+    """Spark's HLL estimate, answered exactly (``rsd`` is accepted for API
+    compatibility)."""
+    if not 0.0 < rsd < 1.0:
+        raise ValueError(f"rsd must be in (0, 1), got {rsd}")
+    return AggExpr("count_distinct", col,
+                   alias=f"approx_count_distinct({col})")
+
+
+approxCountDistinct = approx_count_distinct
+
+
+def collect_list(col: str) -> AggExpr:
+    return AggExpr("collect_list", col)
+
+
+def collect_set(col: str) -> AggExpr:
+    return AggExpr("collect_set", col)
+
+
+def skewness(col: str) -> AggExpr:
+    return AggExpr("skewness", col)
+
+
+def kurtosis(col: str) -> AggExpr:
+    return AggExpr("kurtosis", col)
+
+
+def corr(col1: str, col2: str) -> AggExpr:
+    return AggExpr("corr", col1, column2=col2)
+
+
+def covar_samp(col1: str, col2: str) -> AggExpr:
+    return AggExpr("covar_samp", col1, column2=col2)
+
+
+def covar_pop(col1: str, col2: str) -> AggExpr:
+    return AggExpr("covar_pop", col1, column2=col2)
+
+
+def _global_answer(agg, value, string: bool, has_rows: bool) -> np.ndarray:
+    """The JAX package's global answer for an aggregate it computes on the
+    host, from the device's one-group ``value``: a 1-element numpy array
+    of the type its host value has (``np.asarray([res])``), or an object
+    slot for collections and for string columns."""
+    from .frame import list_column
+
+    if isinstance(value, np.ndarray):                 # strings, lists
+        cell = value[0]
+        if agg.fn in ("first", "last") and not has_rows:
+            cell = float("nan")
+        if string and agg.fn in _GLOBAL_FNS:          # min / max
+            return (np.asarray([cell], dtype=object) if isinstance(cell, str)
+                    else np.asarray([cell]))
+        return list_column([cell])
+    if string:                                        # count, distinct
+        cell = int(value[0])
+        return (np.asarray([cell]) if agg.fn in _GLOBAL_FNS
+                else list_column([cell]))
+    if agg.fn == "mode":
+        if not has_rows or (value.is_floating_point()
+                            and bool(torch.isnan(value[0]))):
+            return np.asarray([np.nan])
+        return value.cpu().numpy()
+    return np.asarray([float(value[0])])
+
+
 def global_agg(frame, aggs: list):
     """Masked reductions over the whole frame on its device -> a 1-row
     frame; over zero valid rows sum/min/max/avg/stddev are NULL (one host
     read decides them all, as in the JAX package). stddev_pop, var_pop,
     first, last and the DISTINCT aggregates reduce on the device too and
-    come back as one host value each, with the JAX package's dtypes."""
+    come back as one host value each, with the JAX package's dtypes; so
+    do the order statistics, moments, two-column aggregates, collections
+    and every aggregate over a string column, through the grouped
+    engine's sorted program over one group (``global_values``)."""
     from ..config import int_dtype, wide_types
     from .frame import Frame
 
@@ -218,15 +331,22 @@ def global_agg(frame, aggs: list):
     dev = frame.device
     out: dict = {}
     deferred = []          # (name, non-null count, value, NULL result)
+    hosted = []            # (agg, string column?) for global_values
+    one_group = torch.zeros(frame.num_slots, dtype=torch.int64, device=dev)
+
+    def fsum(x):
+        """A float sum in the fixed order of the segment-sum kernels."""
+        return _seg_sum(x, one_group, 1)[0]
+
     for agg in aggs:
         if agg.fn == "count" and agg.column is None:
             out[agg.name] = mask.sum(dtype=torch.int32)[None]
             continue
         v = frame._column_values(agg.column)
-        if not isinstance(v, torch.Tensor):
-            raise NotImplementedError(
-                f"aggregate {agg.fn}() over the string column "
-                f"{agg.column!r} is not in the torch port's subset")
+        if is_host_column(v) or agg.fn not in SEGMENT_FNS:
+            out[agg.name] = None                  # keeps the column order
+            hosted.append((agg, is_host_column(v)))
+            continue
         if agg.fn not in _GLOBAL_FNS:
             out[agg.name] = _one_value(agg, v, mask)
             continue
@@ -245,17 +365,17 @@ def global_agg(frame, aggs: list):
         null = torch.isnan(vf)
         valid = mask & ~null
         wf = valid.to(vf.dtype)
-        nv = wf.sum()
+        nv = fsum(wf)
         vf = torch.where(null, torch.zeros_like(vf), vf)
         nan = torch.full((1,), float("nan"), dtype=vf.dtype, device=dev)
         cnt = valid.sum(dtype=torch.int32)
         if agg.fn == "count":
             out[agg.name] = cnt[None]
         elif agg.fn == "avg":
-            out[agg.name] = ((vf * wf).sum() / nv)[None]
+            out[agg.name] = (fsum(vf * wf) / nv)[None]
         elif agg.fn == "sum":
             out[agg.name] = None                  # keeps the column order
-            deferred.append((agg.name, cnt, (vf * wf).sum()[None], nan))
+            deferred.append((agg.name, cnt, fsum(vf * wf)[None], nan))
         elif agg.fn in ("min", "max"):
             fill = float("inf") if agg.fn == "min" else float("-inf")
             red = torch.amin if agg.fn == "min" else torch.amax
@@ -264,8 +384,8 @@ def global_agg(frame, aggs: list):
                 valid, vf, torch.full_like(vf, fill))).to(v.dtype)[None],
                 nan))
         else:  # stddev / variance: sample (n - 1); NULL when n < 2
-            mu = (vf * wf).sum() / nv
-            ss = (wf * (vf - mu) ** 2).sum()
+            mu = fsum(vf * wf) / nv
+            ss = fsum(wf * (vf - mu) ** 2)
             var = torch.where(nv > 1.0, ss / torch.clamp(nv - 1.0, min=1.0),
                               nan[0])
             out[agg.name] = (var if agg.fn == "variance"
@@ -274,6 +394,11 @@ def global_agg(frame, aggs: list):
         counts = torch.stack([c for _, c, _, _ in deferred]).tolist()
         for (name, _, val, nanv), c in zip(deferred, counts):
             out[name] = val if c > 0 else nanv
+    if hosted:
+        has_rows = bool(mask.any())
+        values = global_values(frame, [a for a, _ in hosted])
+        for (agg, string), value in zip(hosted, values):
+            out[agg.name] = _global_answer(agg, value, string, has_rows)
     return Frame(out, device=dev)
 
 
@@ -377,8 +502,102 @@ class GroupedFrame(_AggShortcuts):
         return grouped_agg(frame, self._keys, agg_list)
 
 
-__all__ = ["AggExpr", "AggOfExpr", "GroupedFrame", "global_agg",
+    def pivot(self, pivot_col: str, values=None) -> "PivotedFrame":
+        """``groupBy(keys).pivot(col[, values]).agg(...)``: the distinct
+        values of ``pivot_col`` (sorted, when not given) become output
+        columns."""
+        self._frame._column_values(pivot_col)
+        return PivotedFrame(self._frame, self._keys, pivot_col, values)
+
+
+class PivotedFrame(_AggShortcuts):
+    """Result of ``GroupedFrame.pivot``: one output column per (pivot
+    value, aggregate), named by the value for a single aggregate and
+    ``value_aggname`` for several. One grouped call over the keys and the
+    pivot column, then a scatter into a [groups x values] table on the
+    device (``ops/segments.pivot_agg``)."""
+
+    def __init__(self, frame, keys: list, pivot_col: str, values):
+        self._frame = frame
+        self._keys = keys
+        self._pivot_col = pivot_col
+        self._values = list(values) if values is not None else None
+
+    def agg(self, *aggs: Union[AggExpr, str]):
+        from ..ops.segments import pivot_agg
+
+        agg_list = [AggExpr(a, None) if isinstance(a, str) else a
+                    for a in aggs]
+        if not agg_list:
+            raise ValueError("agg() needs at least one aggregate")
+        frame, agg_list = materialize_agg_exprs(self._frame, agg_list)
+        return pivot_agg(frame, self._keys, self._pivot_col, self._values,
+                         agg_list)
+
+
+class MultiGroupedFrame(_AggShortcuts):
+    """``Frame.rollup``/``Frame.cube``: aggregate at several grouping
+    levels and union the results (Spark's subtotals). Key columns come
+    back as host object columns with ``None`` in subtotal rows, so integer
+    keys stay exact. One grouped call per level, then one concatenation
+    per column."""
+
+    def __init__(self, frame, keys: list, levels: list):
+        if not keys:
+            raise ValueError("rollup/cube require at least one key column")
+        self._frame = frame
+        self._keys = keys
+        self._levels = levels
+        for k in keys:
+            frame._column_values(k)  # validate early
+
+    def agg(self, *aggs: Union[AggExpr, str]):
+        from .frame import Frame
+
+        agg_list = [AggExpr(a, None) if isinstance(a, str) else a
+                    for a in aggs]
+        if not agg_list:
+            raise ValueError("agg() needs at least one aggregate")
+        frame, agg_list = materialize_agg_exprs(self._frame, agg_list)
+        key_parts: dict = {k: [] for k in self._keys}
+        agg_parts: dict = {a.name: [] for a in agg_list}
+        for kept in self._levels:
+            out = (grouped_agg(frame, list(kept), agg_list) if kept
+                   else global_agg(frame, agg_list))
+            d = out.to_pydict()
+            n = len(next(iter(d.values()))) if d else 0
+            for k in self._keys:
+                key_parts[k].append(np.asarray(d[k], object) if k in d
+                                    else np.full(n, None, dtype=object))
+            for a in agg_list:
+                agg_parts[a.name].append(np.asarray(d[a.name]))
+        data: dict = {k: np.concatenate(key_parts[k]) for k in self._keys}
+        for a in agg_list:
+            parts = agg_parts[a.name]
+            if any(p.dtype == object for p in parts):
+                parts = [np.asarray(p, object) for p in parts]
+            data[a.name] = np.concatenate(parts)
+        return Frame(data, device=self._frame.device)
+
+
+def rollup_levels(keys: list) -> list:
+    """Prefixes, longest first, down to the grand total: Spark ROLLUP."""
+    return [tuple(keys[:i]) for i in range(len(keys), -1, -1)]
+
+
+def cube_levels(keys: list) -> list:
+    """Every key subset (kept in key order), by descending size: CUBE."""
+    out = []
+    for r in range(len(keys), -1, -1):
+        out.extend(itertools.combinations(keys, r))
+    return out
+
+
+__all__ = ["AggExpr", "AggOfExpr", "GroupedFrame", "PivotedFrame",
+           "MultiGroupedFrame", "rollup_levels", "cube_levels", "global_agg",
            "materialize_agg_exprs", "count", "sum", "avg", "mean", "min",
-           "max", "stddev", "variance", "stddev_pop", "var_pop",
-           "count_distinct", "countDistinct", "sum_distinct", "sumDistinct",
-           "first", "last"]
+           "max", "stddev", "variance", "stddev_pop", "var_pop", "median",
+           "mode", "percentile_approx", "count_distinct", "countDistinct",
+           "approx_count_distinct", "approxCountDistinct", "sum_distinct",
+           "sumDistinct", "collect_list", "collect_set", "first", "last",
+           "skewness", "kurtosis", "corr", "covar_samp", "covar_pop"]

@@ -86,13 +86,6 @@ def _join_plan(lcols, rcols, li, ri, how):
         start = np.zeros(lid.size, np.int64)
         counts = np.zeros(lid.size, np.int64)
 
-    if how == "left_semi":
-        hit = counts > 0
-        return li[hit], ri[order[start[hit]]]
-    if how == "left_anti":
-        miss = counts == 0
-        return li[miss], np.full(int(miss.sum()), -1, np.int64)
-
     ecounts = np.maximum(counts, 1) if how in ("left", "outer") else counts
     total = int(ecounts.sum())
     lp = np.repeat(li, ecounts)
@@ -117,6 +110,16 @@ def _join_plan(lcols, rcols, li, ri, how):
         lp = np.concatenate([lp, np.full(extra.size, -1, np.int64)])
         rp = np.concatenate([rp, extra])
     return lp.astype(np.int64), rp.astype(np.int64)
+
+
+def list_column(items) -> np.ndarray:
+    """A ragged list column (a collect_list result, token lists): a 1-D
+    object array with one list a row, where ``np.asarray`` would make
+    equal-length lists one 2-D array."""
+    arr = np.empty(len(items), dtype=object)
+    for i, it in enumerate(items):
+        arr[i] = it
+    return arr
 
 
 def _as_column(values, device: torch.device):
@@ -473,6 +476,90 @@ class Frame:
 
     unionAll = union
 
+    def union_by_name(self, other: "Frame",
+                      allow_missing_columns: bool = False) -> "Frame":
+        """``unionByName``: union resolving columns by name. With
+        ``allow_missing_columns`` a column only one side has fills with
+        NaN (``None`` for a string column) on the other."""
+        if allow_missing_columns:
+            both = list(dict.fromkeys(self.columns + other.columns))
+
+            def widen(frame):
+                data = {}
+                for name in both:
+                    if name in frame._data:
+                        data[name] = frame._data[name]
+                        continue
+                    ref = (other if name in other._data else self)._data[name]
+                    data[name] = (np.full(frame.num_slots, None, dtype=object)
+                                  if is_host_column(ref) else torch.full(
+                                      (frame.num_slots,), float("nan"),
+                                      dtype=float_dtype(),
+                                      device=frame.device))
+                return frame._with(data=data)
+
+            return widen(self).union(widen(other))
+        if set(self.columns) != set(other.columns):
+            raise ValueError(
+                f"unionByName: column sets differ {self.columns} vs "
+                f"{other.columns}; pass allow_missing_columns=True")
+        return self.union(other.select(*self.columns))
+
+    unionByName = union_by_name
+
+    def _set_op(self, other: "Frame", what: str, keep) -> "Frame":
+        """The rows of this frame that ``keep(in_other, occurrence,
+        budget)`` selects, in order, where the rows are keyed on the
+        device (``segments.row_keys``: null-safe, ``-0.0 == 0.0``,
+        ``1 == 1.0``; masked rows take no part): ``occurrence`` is the
+        number of earlier left rows with the same key, ``budget`` the
+        number of right rows with it. The result is rebuilt with the
+        types the JAX package's ``Frame.from_rows`` gives its rows."""
+        from ..ops.segments import (_empty_frame, gather_rows, narrow_dtype,
+                                    occurrence_ranks, row_keys)
+
+        if self.columns != other.columns:
+            raise ValueError(f"{what} requires identical column lists")
+        li, lk, _, _, rk, _ = row_keys(self, other)
+        size = int(torch.cat([lk, rk]).max()) + 1 if lk.numel() else 0
+        budget = torch.bincount(rk, minlength=size).index_select(0, lk)
+        take = li[keep(budget > 0, occurrence_ranks(lk), budget)]
+        if take.numel() == 0:
+            return _empty_frame(self.columns, self.device)
+        out = gather_rows(self, take)
+        # Frame.from_rows' types: int64 to the int dtype, float64 to the
+        # float dtype
+        return out._with(data={
+            name: arr if is_host_column(arr) else arr.to(narrow_dtype(
+                arr.dtype)) for name, arr in out._data.items()})
+
+    def intersect(self, other: "Frame") -> "Frame":
+        """Distinct rows present in both frames (SQL INTERSECT,
+        null-safe), in first-appearance order."""
+        return self._set_op(other, "intersect",
+                            lambda hit, occ, _: hit & (occ == 0))
+
+    def except_all(self, other: "Frame") -> "Frame":
+        """Rows of this frame not in ``other``, keeping duplicates (EXCEPT
+        ALL): each of other's rows cancels the earliest equal row here."""
+        return self._set_op(other, "exceptAll",
+                            lambda _, occ, budget: occ >= budget)
+
+    exceptAll = except_all
+
+    def intersect_all(self, other: "Frame") -> "Frame":
+        """Rows in both frames, each min(count here, count there) times
+        (INTERSECT ALL), the earliest ones kept."""
+        return self._set_op(other, "intersectAll",
+                            lambda _, occ, budget: occ < budget)
+
+    intersectAll = intersect_all
+
+    def subtract(self, other: "Frame") -> "Frame":
+        """Distinct rows of this frame not in ``other`` (SQL EXCEPT)."""
+        return self._set_op(other, "subtract",
+                            lambda hit, occ, _: ~hit & (occ == 0))
+
     def dropna(self, how="any", thresh=None, subset=None) -> "Frame":
         """Mask out null rows (``na.drop``): ``how`` "any"|"all", ``thresh``
         the least non-null count (overrides ``how``), ``subset`` the
@@ -537,6 +624,117 @@ class Frame:
         return GroupedFrame(self, list(keys))
 
     groupBy = group_by
+
+    def rollup(self, *keys: str):
+        """``rollup``: subtotals over every key prefix plus the grand
+        total, absent keys null (Spark ROLLUP)."""
+        from .aggregates import MultiGroupedFrame, rollup_levels
+
+        return MultiGroupedFrame(self, list(keys), rollup_levels(list(keys)))
+
+    def cube(self, *keys: str):
+        """``cube``: subtotals for every key subset (Spark CUBE)."""
+        from .aggregates import MultiGroupedFrame, cube_levels
+
+        return MultiGroupedFrame(self, list(keys), cube_levels(list(keys)))
+
+    @property
+    def stat(self):
+        """``df.stat``: corr, cov, approxQuantile, crosstab, sampleBy and
+        freqItems (Spark's DataFrameStatFunctions)."""
+        from .stat import FrameStatFunctions
+
+        return FrameStatFunctions(self)
+
+    def corr(self, col1: str, col2: str, method: str = "pearson") -> float:
+        return self.stat.corr(col1, col2, method)
+
+    def cov(self, col1: str, col2: str) -> float:
+        return self.stat.cov(col1, col2)
+
+    def describe(self, *cols: str) -> "Frame":
+        """Spark's ``describe``: count, mean, stddev, min and max rows of
+        string cells (``str`` of each value in its column's type). A
+        string column shows its non-null count and its least and greatest
+        string, with null mean and stddev."""
+        from .aggregates import AggExpr, global_agg
+
+        if not cols:
+            cols = tuple(name for name, arr in self._data.items()
+                         if arr.ndim == 1)
+        stats = ["count", "mean", "stddev", "min", "max"]
+        fns = [{"mean": "avg"}.get(s, s) for s in stats]
+        data: dict = {"summary": np.asarray(stats, dtype=object)}
+        for c in cols:
+            arr = self._data[c]
+            if is_host_column(arr):
+                codes, words = strings.codes(arr)
+                present = np.unique(codes[self._host_mask()])
+                present = present[present != strings.NULL_CODE]
+                lo, hi = ((words[present[0]], words[present[-1]])
+                          if present.size else (None, None))
+                nn = int((codes[self._host_mask()]
+                          != strings.NULL_CODE).sum())
+                data[c] = np.asarray([str(nn), None, None, lo, hi],
+                                     dtype=object)
+                continue
+            row = global_agg(self, [AggExpr(fn, c).alias(fn)
+                                    for fn in fns]).to_pydict()
+            data[c] = np.asarray([str(row[fn][0]) for fn in fns],
+                                 dtype=object)
+        return Frame(data, device=self.device)
+
+    def summary(self, *stats: str) -> "Frame":
+        """Spark's ``summary``: ``describe``'s rows plus percentiles
+        (default: count, mean, stddev, min, 25%, 50%, 75%, max) of each
+        numeric 1-D column. A percentile is numpy's linear quantile over
+        the valid non-null values in float64, from one sort on the
+        device."""
+        from .aggregates import AggExpr, global_agg
+
+        if not stats:
+            stats = ("count", "mean", "stddev", "min", "25%", "50%", "75%",
+                     "max")
+        cols = [name for name, arr in self._data.items()
+                if not is_host_column(arr) and arr.ndim == 1]
+        data: dict = {"summary": np.asarray(list(stats), dtype=object)}
+        plain = [s for s in stats if not s.endswith("%")]
+        qs = [float(s[:-1]) / 100.0 for s in stats if s.endswith("%")]
+        for c in cols:
+            agg_row = {}
+            if plain:
+                d = global_agg(self, [AggExpr({"mean": "avg"}.get(s, s), c)
+                                      .alias(s) for s in plain]).to_pydict()
+                agg_row = {s: d[s][0] for s in plain}
+            quant = iter(_linear_quantiles(self._data[c], self._mask, qs))
+            data[c] = np.asarray([next(quant) if s.endswith("%")
+                                  else str(agg_row[s]) for s in stats],
+                                 dtype=object)
+        return Frame(data, device=self.device)
+
+    def sample(self, fraction: float, seed: int = 0,
+               with_replacement: bool = False) -> "Frame":
+        """Row sample, drawn with numpy as the JAX package draws it, so
+        both packages keep the same rows. Without replacement: a Bernoulli
+        mask (``default_rng(seed).random(num_slots) < fraction``, the
+        columns shared). With replacement: Poisson copy counts per valid
+        row (``fraction`` may exceed 1), gathered into a compact frame."""
+        from ..ops.segments import gather_rows
+
+        rng = np.random.default_rng(seed)
+        if with_replacement:
+            if fraction < 0.0:
+                raise ValueError(f"fraction must be >= 0, got {fraction}")
+            counts = rng.poisson(fraction, self._n)
+            counts = np.where(self._host_mask(), counts, 0)
+            idx = np.repeat(np.arange(self._n), counts)
+            return gather_rows(self, torch.as_tensor(idx, device=self.device),
+                               host_idx=idx)
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"fraction must be in [0, 1], got {fraction}")
+        keep = torch.as_tensor(rng.random(self._n) < fraction,
+                               device=self.device)
+        return self._with(mask=self._mask & keep)
 
     def agg(self, *aggs):
         """Global aggregates (no grouping): masked device reductions."""
@@ -620,7 +818,8 @@ class Frame:
         ``<name>_right``. The row-pair plan is built on the host from one
         pull of the masks and key columns; every payload column is gathered
         on the device (``index_select``). Unmatched sides of outer joins
-        fill with NaN, and an int column becomes float for it."""
+        fill with NaN, and an int column becomes float for it. LEFT SEMI
+        and LEFT ANTI run on the device (``_semi_join``)."""
         how = how.lower().replace("fullouter", "outer").replace(
             "full", "outer")
         if how not in _JOIN_TYPES:
@@ -643,6 +842,9 @@ class Frame:
                         "keys with numeric keys and string keys with "
                         "string keys")
 
+        if how in ("left_semi", "left_anti"):
+            return self._semi_join(other, keys, how == "left_semi")
+
         # a string key as its codes in one dictionary of both sides: None
         # codes as NULL_CODE on both, so a null key meets a null key, as
         # in the JAX package's dict plan
@@ -664,9 +866,9 @@ class Frame:
             lpairs = np.repeat(li, len(ri))
             rpairs = np.tile(ri, len(li))
         elif ri.size == 0:
-            if how in ("inner", "right", "left_semi"):
+            if how in ("inner", "right"):
                 lpairs = rpairs = np.empty(0, np.int64)
-            else:                                # left / outer / left_anti
+            else:                                # left / outer
                 lpairs = li.astype(np.int64)
                 rpairs = np.full(li.size, -1, np.int64)
         else:
@@ -674,10 +876,7 @@ class Frame:
                                         [k[ri] for k in rk], li, ri, how)
 
         left_cols = self._gather_rows(lpairs, how in ("right", "outer"))
-        if how in ("left_semi", "left_anti"):
-            return Frame(left_cols, device=self.device)
-        right_cols = other._gather_rows(
-            rpairs, how in ("left", "outer", "left_anti"))
+        right_cols = other._gather_rows(rpairs, how in ("left", "outer"))
         data = dict(left_cols)
         if how in ("right", "outer") and lpairs.size and (lpairs < 0).any():
             # USING: one key column, taken from the side that has the row
@@ -694,6 +893,21 @@ class Frame:
                 continue
             data[name + "_right" if name in data else name] = col
         return Frame(data, device=self.device)
+
+    def _semi_join(self, other: "Frame", keys: list, semi: bool) -> "Frame":
+        """LEFT SEMI (LEFT ANTI) JOIN on the device: the valid left rows,
+        in order, whose key tuple is (is not) among the right side's.
+        Both sides' keys are coded jointly (``segments.row_keys``): a NaN
+        key never matches, a ``None`` string key meets a ``None`` one (the
+        JAX package's dict plan), ``1 == 1.0``."""
+        from ..ops.segments import gather_rows, row_keys
+
+        li, lk, lnull, _, rk, rnull = row_keys(self.select(*keys),
+                                                other.select(*keys))
+        size = int(torch.cat([lk, rk]).max()) + 1 if lk.numel() else 0
+        present = torch.bincount(rk[~rnull], minlength=size) > 0
+        hit = present.index_select(0, lk) & ~lnull
+        return gather_rows(self, li[hit if semi else ~hit])
 
     def cross_join(self, other: "Frame") -> "Frame":
         return self.join(other, on=None, how="cross")
@@ -903,6 +1117,35 @@ class Frame:
         from .writer import DataFrameWriter
 
         return DataFrameWriter(self)
+
+
+def _linear_quantiles(col, mask, qs) -> list:
+    """``str(np.quantile(v, q))`` for each q, ``v`` the valid non-null
+    values of ``col`` in float64: one sort on the device, then numpy's
+    linear rule (virtual index (n - 1) q, and its lerp, which switches
+    form at t >= 0.5); "NaN" for no value."""
+    if not qs:
+        return []
+    v = col.to(torch.float64)[mask]
+    v = torch.sort(v[~torch.isnan(v)]).values
+    n = v.shape[0]
+    if n == 0:
+        return ["NaN"] * len(qs)
+    out = []
+    for q in qs:
+        vi = (n - 1) * np.float64(q)
+        if vi >= n - 1:
+            lo = hi = n - 1
+            t = vi - np.float64(-1)
+        else:
+            lo = int(np.floor(vi))
+            hi = lo + 1
+            t = vi - np.float64(lo)
+        pair = v[[lo, hi]].tolist()
+        a, b = np.float64(pair[0]), np.float64(pair[1])
+        diff = b - a
+        out.append(str(b - diff * (1 - t) if t >= 0.5 else a + diff * t))
+    return out
 
 
 def pandas_result(outs: list, fields: list, device, what: str) -> Frame:

@@ -615,7 +615,7 @@ def _segment_agg(agg, seg, cnt, raw, null):
     return vals.min() if agg == "min" else vals.max()
 
 
-# -- function constructors (exported via sparkdq4ml_tpu.functions) ----------
+# -- function constructors (exported via the functions module) --------------
 
 def row_number() -> WindowFunction:
     """Sequential number within the partition, by window order (1-based)."""

@@ -1,12 +1,15 @@
 """``org.apache.spark.sql.functions`` subset: column constructors, UDF
 invocation, sort markers, CASE WHEN, ``isnull``, the string functions
 ``concat``, ``concat_ws`` and ``split``, the ``explode`` generators,
-aggregates and window functions."""
+every aggregate of the JAX package and the window functions."""
 
-from .frame.aggregates import (avg, count, count_distinct, countDistinct,
-                               first, last, max, mean, min, stddev,
-                               stddev_pop, sum, sum_distinct, sumDistinct,
-                               var_pop, variance)
+from .frame.aggregates import (approx_count_distinct, approxCountDistinct,
+                               avg, collect_list, collect_set, corr, count,
+                               count_distinct, countDistinct, covar_pop,
+                               covar_samp, first, kurtosis, last, max, mean,
+                               median, min, mode, percentile_approx,
+                               skewness, stddev, stddev_pop, sum,
+                               sum_distinct, sumDistinct, var_pop, variance)
 from .frame.window import (cume_dist, dense_rank, first_value, lag,
                            last_value, lead, nth_value, ntile, percent_rank,
                            rank, row_number)
@@ -30,6 +33,9 @@ __all__ = ["col", "lit", "call_udf", "asc", "desc", "when", "isnull",
            "count", "sum",
            "avg", "mean", "min", "max", "stddev", "variance", "stddev_pop",
            "var_pop", "first", "last", "count_distinct", "countDistinct",
-           "sum_distinct", "sumDistinct", "row_number", "rank", "dense_rank",
+           "sum_distinct", "sumDistinct", "approx_count_distinct",
+           "approxCountDistinct", "median", "mode", "percentile_approx",
+           "collect_list", "collect_set", "skewness", "kurtosis", "corr",
+           "covar_samp", "covar_pop", "row_number", "rank", "dense_rank",
            "percent_rank", "cume_dist", "ntile", "lag", "lead",
            "first_value", "last_value", "nth_value"]

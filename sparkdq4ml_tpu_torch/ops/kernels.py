@@ -425,7 +425,12 @@ def masked_gram(X: torch.Tensor, y: torch.Tensor,
 
 def segment_sum_reference(x: torch.Tensor, seg: torch.Tensor,
                           size: int) -> torch.Tensor:
-    """Plain version of both segment sums: ``index_add_`` into zeros."""
+    """Plain version of both segment sums: ``index_add_`` into zeros (the
+    order of XLA's scatter-add on the CPU); one segment is a plain
+    ``sum`` (pairwise, as XLA's reduce, where a row-order float32 sum of
+    millions of rows would drift by 1e-4 and more)."""
+    if size == 1:
+        return x.sum(0, keepdim=True)
     out = torch.zeros((size,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     return out.index_add_(0, seg, x)

@@ -1,5 +1,6 @@
-"""Grouped execution on the frame's device: ``group_by().agg()``, ``sort``
-and ``distinct`` (single-device subset of ``sparkdq4ml_tpu/ops/segments.py``).
+"""Grouped execution on the frame's device: ``group_by().agg()``, pivots,
+``sort``, ``distinct`` and the set operations' row keys (single-device
+subset of ``sparkdq4ml_tpu/ops/segments.py``).
 
 The JAX package lowers each plan to one jitted XLA program; here the same
 programs run as eager torch ops on the frame's device (``torch.sort(stable=
@@ -16,29 +17,37 @@ Two lowerings of ``grouped_agg`` share one output contract:
   lexicographic slot id with no row sort, every aggregate reduces into
   stacked slot tables, and the present slots compact by a ``searchsorted``
   over their prefix sum;
-* the **sorted** program (other keys, and the distinct aggregates): a
-  stable lexicographic sort over (invalid flag, per key: not-null flag,
-  value), segment ids from the boundaries, reductions per segment.
+* the **sorted** program (other keys; the distinct, order-valued, moment,
+  two-column and collection aggregates; string value columns): a stable
+  lexicographic sort over (invalid flag, per key: not-null flag, value),
+  segment ids from the boundaries, reductions per segment. The order
+  statistics (median, percentile_approx, mode) and collect_set read a
+  second sort of each value column by (segment, value) (``_Ranked``);
+  skewness, kurtosis and the corr family are float64 moment sums; the
+  collections and the answers over strings are built on the host from
+  the device's group order in one gather.
 
-String keys run as int32 codes (``ops/strings.py``): the host encodes
-them in the strings' order, ``NULL_CODE`` first, and decodes the result's
-keys.
+String keys and string value columns run as int32 codes
+(``ops/strings.py``): the host encodes them in the strings' order,
+``NULL_CODE`` first, and decodes the results.
 
 Host reads: two per dense ``grouped_agg`` (the fit verdict with the table
 size, then the group count), one on a dense miss and one per sorted
 program (the group count); one per ``device_sort`` (the valid-row count)
 and per ``device_unique`` (the group count); string keys add their
-dictionary pass.
+dictionary pass, host answers their gather.
 
 Semantics are the JAX package's: masked rows carry no weight; NaN keys form
 one null group that sorts first; aggregates skip NaN values, with the
 empty -> NULL and n < 2 -> NULL variance rules; row order and output
-dtypes match, and ``-0.0`` groups with ``0.0``.
-Ineligible input (a 2-D key for grouping, an aggregated string column,
-an aggregate outside ``DEVICE_AGG_FNS``) raises ``NotImplementedError``:
-there is no host path to fall back to. An empty frame (no row slots), and
-a grouping on string keys with no valid row, are answered directly with
-the JAX package's empty-result dtypes.
+dtypes match, and ``-0.0`` groups with ``0.0``. Where the JAX package
+answers on its host path (a string key or value column, an aggregate
+outside ``SEGMENT_FNS``), the result columns take that path's types
+(``host_path_columns``). Ineligible input (a 2-D key for grouping, a
+numeric-only aggregate over strings) raises ``NotImplementedError``: there
+is no host path to fall back to. An empty frame (no row slots), and a
+host-path grouping with no valid row, are answered directly with the JAX
+package's empty-result dtypes.
 """
 
 from __future__ import annotations
@@ -52,18 +61,28 @@ from ..config import float_dtype, int_dtype, wide_types
 from . import kernels, strings
 from .expressions import is_host_column
 
-__all__ = ["DEVICE_AGG_FNS", "grouped_agg", "device_sort", "device_unique",
-           "gather_rows"]
+__all__ = ["DEVICE_AGG_FNS", "SEGMENT_FNS", "grouped_agg", "global_values",
+           "host_path_columns", "narrow_dtype", "pivot_agg", "pivot_values",
+           "row_keys", "occurrence_ranks", "device_sort",
+           "device_unique", "gather_rows"]
 
-# Aggregates this engine computes (the names of frame.aggregates, after
-# the mean -> avg normalisation).
-DEVICE_AGG_FNS = frozenset({
+# The aggregates the JAX package's segment program lowers; it answers any
+# other aggregate on its host path, whose result types the port keeps
+# (``host_path_columns``).
+SEGMENT_FNS = frozenset({
     "count", "sum", "avg", "min", "max", "stddev", "variance",
     "stddev_pop", "var_pop", "first", "last", "count_distinct",
     "sum_distinct",
 })
-
-_DISTINCT_FNS = frozenset({"count_distinct", "sum_distinct"})
+# Aggregates this engine computes (the names of frame.aggregates, after
+# the mean -> avg normalisation): all of them.
+DEVICE_AGG_FNS = SEGMENT_FNS | frozenset({
+    "median", "mode", "percentile_approx", "collect_list", "collect_set",
+    "skewness", "kurtosis", "corr", "covar_samp", "covar_pop", "max_by",
+    "min_by",
+})
+# Aggregates of the dense program; the others run on the sorted one.
+_DENSE_FNS = SEGMENT_FNS - {"count_distinct", "sum_distinct"}
 _VAR_FNS = ("stddev", "variance", "stddev_pop", "var_pop")
 
 # Dense-table ceiling: the packed key range must fit min(this, 2 n) slots
@@ -474,13 +493,16 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
 
 
 # ---------------------------------------------------------------------------
-# Sorted lowering (arbitrary keys; the distinct aggregates)
+# Sorted lowering (arbitrary keys; the distinct, order-valued, moment and
+# two-column aggregates; string value columns)
 # ---------------------------------------------------------------------------
 
 def _distinct_runs(seg, v, eligible, n: int):
     """Re-sort (segment, value) among eligible rows (ineligible rows get
     segment n and sort last), then flag the first row of every
-    (segment, value) run. The sorted segments are nondecreasing."""
+    (segment, value) run. The sorted segments are nondecreasing and each
+    segment's values ascend, ties in row order. Returns ``(s2, v2, first,
+    perm)``; ``perm`` maps the re-sorted rows to the input rows."""
     seg_k = torch.where(eligible, seg, torch.full_like(seg, n))
     val_k = torch.where(eligible, v, torch.zeros_like(v))
     perm = _lex_perm([seg_k, val_k], n, seg.device)
@@ -489,10 +511,96 @@ def _distinct_runs(seg, v, eligible, n: int):
     first = live.clone()
     if n > 1:
         first[1:] &= (s2[1:] != s2[:-1]) | (v2[1:] != v2[:-1])
-    return s2, v2, first
+    return s2, v2, first, perm
 
 
-def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
+class _Ranked:
+    """One value column's non-null rows sorted by (segment, value): the
+    order median, percentile_approx, mode and collect_set read. ``cnt``
+    and ``start`` are each segment's row count and first position."""
+
+    def __init__(self, seg, v, eligible, G: int, n: int):
+        self.n = n
+        self.s2, self.v2, self.first, self.perm = _distinct_runs(
+            seg, v, eligible, n)
+        self.cnt = _seg_sum(eligible.to(torch.int64), seg, G)
+        self.start = torch.cumsum(self.cnt, 0) - self.cnt
+
+    def at(self, rank: torch.Tensor) -> torch.Tensor:
+        """Each segment's value of the given 0-based rank (clamped)."""
+        pos = (self.start + rank).clamp(0, self.n - 1)
+        return self.v2.index_select(0, pos)
+
+    def mode_pos(self, G: int) -> torch.Tensor:
+        """Each segment's position (in the sorted order) of its most
+        frequent value, ties to the smallest: run lengths, their segment
+        maximum, then the first run at that maximum (``n`` when empty)."""
+        n, dev = self.n, self.v2.device
+        idx = torch.arange(n, device=dev)
+        live = self.s2 < n
+        run = (torch.cumsum(self.first.to(torch.int64), 0) - 1).clamp_(min=0)
+        run_len = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+            0, run, live.to(torch.int64))
+        run_start = _seg_extreme(torch.where(live, idx, n), run, n, n,
+                                 "amin")
+        exists = run_len > 0
+        run_seg = torch.where(exists, self.s2.index_select(
+            0, run_start.clamp(max=n - 1)), G)
+        best = _seg_extreme(run_len, run_seg, G + 1, 0, "amax")
+        cand = exists & (run_len == best.index_select(0, run_seg))
+        return _seg_extreme(torch.where(cand, run_start, n), run_seg, G + 1,
+                            n, "amin")[:G]
+
+    def set_runs(self):
+        """The first row of each distinct (segment, value) run, ordered by
+        segment and then by first appearance: ``(segments, values)``."""
+        firsts = torch.nonzero(self.first).squeeze(1)
+        fs = self.s2.index_select(0, firsts)
+        order = torch.argsort(fs * max(self.n, 1)
+                              + self.perm.index_select(0, firsts))
+        return (fs.index_select(0, order),
+                self.v2.index_select(0, firsts).index_select(0, order))
+
+
+def _split_lists(values: list, segs: np.ndarray, G: int) -> np.ndarray:
+    """A list column of G lists: ``values`` (in segment order) cut by
+    their segment ids."""
+    from ..frame.frame import list_column
+
+    ends = np.cumsum(np.bincount(segs, minlength=G))
+    return list_column([values[lo:hi]
+                        for lo, hi in zip(np.r_[0, ends[:-1]], ends)])
+
+
+def _host_values(t: torch.Tensor, dtype, words) -> list:
+    """Python values of a gathered value column, as the JAX package's
+    ``tolist()`` of its numpy column gives them: strings (``None`` for
+    null) from codes, bools from int8."""
+    if words is not None:
+        return strings.decode(t, words).tolist()
+    if dtype == torch.bool:
+        t = t.to(torch.bool)
+    return t.cpu().tolist()
+
+
+# Aggregates whose value column must be numeric (a string column holds
+# only count, min, max, first, last, mode, the distinct count and the
+# collections, and the value of max_by/min_by).
+_NUMERIC_ONLY = frozenset({
+    "sum", "avg", "stddev", "variance", "stddev_pop", "var_pop",
+    "sum_distinct", "median", "percentile_approx", "skewness", "kurtosis",
+    "corr", "covar_samp", "covar_pop"})
+
+
+def _sorted_agg(keys, kinds, vals, val_kinds, val_words, agg_ops, mask,
+                keep_empty: bool = False):
+    """The sorted program. ``agg_ops`` holds ``(fn, slot, ignore_nulls,
+    slot2, param)``; a string value slot (kind ``s``) holds int32 codes
+    with its dictionary in ``val_words``. Returns ``(key_outs, agg_outs)``
+    with one row per group (one row for no group when ``keep_empty``); an
+    aggregate over strings, or a collection, comes back as a host object
+    array (NaN where a group has no non-null value, as the JAX package's
+    per-group numpy answers it)."""
     acc = _acc_dtype()
     n = mask.shape[0]
     dev = mask.device
@@ -500,6 +608,7 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
     perm, valid, seg, boundary = _group_scaffold(keys, kinds, mask)
     g = int(boundary.sum())                     # THE host read
     G = max(g, 1)
+    f64 = torch.float64
 
     def seg_sum(x):
         return _seg_sum(x, seg, G, contiguous=True)
@@ -512,18 +621,42 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
     lp = last_pos.clamp(0, n - 1)
 
     sorted_vals = [v.index_select(0, perm) for v in vals]
-    nonnull = [valid & ~torch.isnan(vs) if vk == "f" else valid
+    nonnull = [valid & ~torch.isnan(vs) if vk == "f" else
+               valid & (vs != strings.NULL_CODE) if vk == "s" else valid
                for vs, vk in zip(sorted_vals, val_kinds)]
     nan = _nan(acc, dev)
     wide = _wide_int()
+    ranked: dict = {}
+
+    def ranks(s_i):
+        if s_i not in ranked:
+            ranked[s_i] = _Ranked(seg, _to_int8_if_bool(sorted_vals[s_i]),
+                                  nonnull[s_i], G, n)
+        return ranked[s_i]
+
+    def moments(x_list, ok):
+        """Σ ok, then per segment Σ of each x and of the products of the
+        centred columns (float64, fixed order)."""
+        okf = ok.to(f64)
+        xs = [torch.where(ok, x.to(f64), torch.zeros((), dtype=f64,
+                                                      device=dev))
+              for x in x_list]
+        first = seg_sum(torch.stack([okf] + xs, dim=1))
+        c = first[:, 0]
+        mus = [first[:, j + 1] / c for j in range(len(xs))]
+        ds = [torch.where(ok, x - mu.index_select(0, seg),
+                          torch.zeros((), dtype=f64, device=dev))
+              for x, mu in zip(xs, mus)]
+        return c, ds
 
     agg_outs = []
-    for fn, s_i, ig in agg_ops:
+    for fn, s_i, ig, s2, param in agg_ops:
         if fn == "count" and s_i < 0:
             agg_outs.append(seg_sum(valid.to(torch.int32)).to(int_dtype()))
             continue
         nn = nonnull[s_i]
         vs = sorted_vals[s_i]
+        kind = val_kinds[s_i]
         if fn == "count":
             agg_outs.append(seg_sum(nn.to(torch.int32)).to(int_dtype()))
         elif fn in ("sum", "avg") + _VAR_FNS:
@@ -531,7 +664,7 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
             cnt = seg_sum(nn.to(acc))
             s = seg_sum(torch.where(nn, vf, torch.zeros_like(vf)))
             if fn == "sum":
-                if val_kinds[s_i] != "f":
+                if kind != "f":
                     agg_outs.append(seg_sum(torch.where(
                         valid, _to_int8_if_bool(vs).to(wide),
                         torch.zeros((), dtype=wide, device=dev)))
@@ -557,7 +690,7 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
                 agg_outs.append(out.to(float_dtype()))
         elif fn in ("min", "max"):
             red = "amin" if fn == "min" else "amax"
-            if val_kinds[s_i] == "f":
+            if kind == "f":
                 fill = float("inf") if fn == "min" else float("-inf")
                 m = _seg_extreme(
                     torch.where(nn, vs, torch.full_like(vs, fill)), seg, G,
@@ -569,10 +702,14 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
                 vi = vs.to(torch.int32) if vs.dtype == torch.bool else vs
                 info = torch.iinfo(vi.dtype)
                 fill = info.max if fn == "min" else info.min
-                m = _seg_extreme(torch.where(valid, vi,
+                m = _seg_extreme(torch.where(nn, vi,
                                              torch.full_like(vi, fill)),
                                  seg, G, fill, red)
-                agg_outs.append(m.to(vs.dtype))
+                if kind == "s":
+                    agg_outs.append(("codes", m, s_i,
+                                     seg_sum(nn.to(torch.int32)) > 0))
+                else:
+                    agg_outs.append(m.to(vs.dtype))
         elif fn in ("first", "last"):
             if ig:
                 pos = (_seg_extreme(torch.where(nn, idx, n), seg, G, n,
@@ -581,22 +718,26 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
                                     "amax"))
                 has = seg_sum(nn.to(torch.int32)) > 0
                 picked = vs.index_select(0, pos.clamp(0, n - 1))
-                if val_kinds[s_i] == "f":
+                if kind == "s":
+                    agg_outs.append(("codes", picked, s_i, has))
+                    continue
+                if kind == "f":
                     picked = torch.where(has, picked, _nan(vs.dtype, dev))
                 agg_outs.append(picked)
             else:
-                agg_outs.append(vs.index_select(0, fp if fn == "first"
-                                                else lp))
-        else:                                   # count / sum DISTINCT
+                picked = vs.index_select(0, fp if fn == "first" else lp)
+                agg_outs.append(("codes", picked, s_i, None) if kind == "s"
+                                else picked)
+        elif fn in ("count_distinct", "sum_distinct"):
             vn = _to_int8_if_bool(vs)
-            s2, v2, firstrun = _distinct_runs(seg, vn, nn, n)
+            segs, v2, firstrun, _ = _distinct_runs(seg, vn, nn, n)
             # the ineligible rows sort last: the last segment takes them
             # (their values are zero) and the ids stay nondecreasing
-            sid = torch.where(s2 < n, s2, torch.full_like(s2, G - 1))
+            sid = torch.where(segs < n, segs, torch.full_like(segs, G - 1))
             if fn == "count_distinct":
                 agg_outs.append(_seg_sum(firstrun.to(torch.int32), sid, G)
                                 .to(int_dtype()))
-            elif val_kinds[s_i] != "f":
+            elif kind != "f":
                 agg_outs.append(_seg_sum(torch.where(
                     firstrun, v2, torch.zeros_like(v2)).to(wide), sid, G)
                     .to(int_dtype()))
@@ -608,7 +749,173 @@ def _sorted_agg(keys, kinds, vals, val_kinds, agg_ops, mask):
                 cd = _seg_sum(firstrun.to(torch.int32), sid, G)
                 agg_outs.append(torch.where(cd > 0, sd, nan)
                                 .to(float_dtype()))
-    return ([k[:g] for k in key_outs], [a[:g] for a in agg_outs])
+        elif fn in ("median", "percentile_approx"):
+            r = ranks(s_i)
+            c = r.cnt
+            if fn == "median":
+                # the two middle values in float64, averaged: np.median
+                a = r.at((c - 1) // 2).to(f64)
+                b = r.at(c // 2).to(f64)
+                out = (a + b) / 2
+            else:
+                # nearest rank: max(ceil(p n) - 1, 0), at most n - 1
+                rank = (torch.ceil(float(param) * c.to(f64)) - 1).to(
+                    torch.int64).clamp(min=0)
+                out = r.at(torch.minimum(rank, (c - 1).clamp(min=0))).to(f64)
+            agg_outs.append(torch.where(c > 0, out, _nan(f64, dev)))
+        elif fn == "mode":
+            r = ranks(s_i)
+            pick = r.v2.index_select(0, r.mode_pos(G).clamp(max=n - 1))
+            if kind == "s":
+                agg_outs.append(("codes", pick, s_i, r.cnt > 0))
+            elif kind == "f":
+                agg_outs.append(torch.where(r.cnt > 0, pick,
+                                            _nan(vs.dtype, dev)))
+            else:                               # int8 back to bool
+                agg_outs.append(pick.to(vs.dtype))
+        elif fn in ("skewness", "kurtosis"):
+            c, (d,) = moments([vs], nn)
+            d2 = d * d
+            m = seg_sum(torch.stack([d2, d2 * d, d2 * d2], dim=1)) \
+                / c[:, None]
+            m2 = m[:, 0]
+            out = (m[:, 1] / m2 ** 1.5 if fn == "skewness"
+                   else m[:, 2] / m2 ** 2 - 3.0)
+            agg_outs.append(torch.where((c > 0) & (m2 != 0), out,
+                                        _nan(f64, dev)))
+        elif fn in ("corr", "covar_samp", "covar_pop"):
+            ok = nonnull[s_i] & nonnull[s2]
+            c, (da, db) = moments([vs, sorted_vals[s2]], ok)
+            m = seg_sum(torch.stack([da * db, da * da, db * db], dim=1))
+            nanf = _nan(f64, dev)
+            if fn == "covar_pop":
+                out = torch.where(c > 0, m[:, 0] / c, nanf)
+            elif fn == "covar_samp":
+                out = torch.where(c > 1, m[:, 0] / (c - 1), nanf)
+            else:
+                sa, sb = torch.sqrt(m[:, 1] / c), torch.sqrt(m[:, 2] / c)
+                out = torch.where((c > 1) & (sa != 0) & (sb != 0),
+                                  (m[:, 0] / c) / (sa * sb), nanf)
+            agg_outs.append(out)
+        elif fn in ("max_by", "min_by"):
+            # the value at the first row holding the extreme ordering;
+            # only rows with a null ordering are skipped
+            ok = nonnull[s2]
+            bb = sorted_vals[s2].to(f64)
+            fill = float("-inf") if fn == "max_by" else float("inf")
+            ext = _seg_extreme(torch.where(ok, bb, torch.full_like(bb, fill)),
+                               seg, G, fill,
+                               "amax" if fn == "max_by" else "amin")
+            cand = ok & (bb == ext.index_select(0, seg))
+            pos = _seg_extreme(torch.where(cand, idx, n), seg, G, n, "amin")
+            has = seg_sum(ok.to(torch.int32)) > 0
+            picked = vs.index_select(0, pos.clamp(0, n - 1))
+            if kind == "s":
+                agg_outs.append(("by", picked, s_i, has))
+            else:
+                agg_outs.append(torch.where(has, picked.to(f64),
+                                            _nan(f64, dev)))
+        elif fn == "collect_list":
+            sel = torch.nonzero(nn).squeeze(1)
+            agg_outs.append(("lists", vs.index_select(0, sel),
+                             seg.index_select(0, sel), s_i))
+        elif fn == "collect_set":
+            segs, values = ranks(s_i).set_runs()
+            agg_outs.append(("lists", values, segs, s_i))
+        else:
+            raise ValueError(fn)
+    keep = G if keep_empty else g
+    return ([k[:keep] for k in key_outs],
+            [_finish(o, vals, val_words, G)[:keep] if isinstance(o, tuple)
+             else o[:keep] for o in agg_outs])
+
+
+def _finish(out, vals, val_words, G: int) -> np.ndarray:
+    """A deferred host result of ``_sorted_agg`` as an object array of G
+    cells: ``("codes", codes, slot, has)`` decodes strings (NaN where
+    ``has`` is false), ``("by", codes, slot, has)`` likewise with
+    ``None``, ``("lists", values, segments, slot)`` cuts the values into
+    one list per group."""
+    tag, t, third, fourth = out
+    if tag == "lists":
+        values = _host_values(t, vals[fourth].dtype, val_words.get(fourth))
+        return _split_lists(values, third.cpu().numpy(), G)
+    if fourth is not None:
+        t = torch.where(fourth, t, strings.NULL_CODE)
+    cells = strings.decode(t, val_words[third])
+    if fourth is not None and tag == "codes":
+        cells[~fourth.cpu().numpy()] = float("nan")
+    return cells
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's host-path result types
+# ---------------------------------------------------------------------------
+
+# Results the JAX package's per-group numpy answers as Python floats.
+_FLOAT_RESULT = frozenset({
+    "avg", "stddev", "variance", "stddev_pop", "var_pop", "median",
+    "percentile_approx", "skewness", "kurtosis", "corr", "covar_samp",
+    "covar_pop", "max_by", "min_by"})
+
+
+def _host_base_dtype(fn: str, col: torch.dtype) -> torch.dtype:
+    """The numpy type of one group's answer on the JAX package's host
+    path (``_np_agg``), before a NaN for an empty group can widen it."""
+    if fn in ("count", "count_distinct"):
+        return torch.int64
+    if fn in _FLOAT_RESULT:
+        return torch.float64
+    if fn in ("sum", "sum_distinct"):
+        if col.is_floating_point:
+            return col if fn == "sum" else torch.float64
+        return torch.int64
+    return col                       # min, max, mode, first, last
+
+
+def narrow_dtype(dt: torch.dtype) -> torch.dtype:
+    """The JAX frame constructor's rule for a list-built column: int64 to
+    the int dtype, float64 to the float dtype."""
+    if dt == torch.int64:
+        return int_dtype()
+    if dt == torch.float64:
+        return float_dtype()
+    return dt
+
+
+def host_path_columns(agg_ops, vals, outs) -> list:
+    """``outs`` typed as the JAX package's host path types them, which
+    builds each column from a Python list of per-group answers: each
+    answer's own type, widened to float where a group answered NaN for
+    no value, then int64 and float64 narrowed to the policy's dtypes
+    (one host read for all the NaN checks). Host object answers come
+    back as lists, for the frame constructor's list rule."""
+    widen, checks = [], []
+    for (fn, s_i, ig, _, _), out in zip(agg_ops, outs):
+        if isinstance(out, np.ndarray):
+            widen.append(None)
+            continue
+        col = vals[s_i].dtype if s_i >= 0 else torch.int64
+        base = _host_base_dtype(fn, col)
+        fills = (fn not in ("count", "count_distinct", "first", "last")
+                 or ig)
+        if fills and base != torch.float64 and out.is_floating_point():
+            widen.append(len(checks))
+            checks.append(torch.isnan(out).any())
+        else:
+            widen.append(-1)
+    flags = torch.stack(checks).tolist() if checks else []
+    typed = []
+    for (fn, s_i, _, _, _), out, w in zip(agg_ops, outs, widen):
+        if w is None:
+            typed.append(out if fn in ("collect_list", "collect_set")
+                         else list(out))
+            continue
+        col = vals[s_i].dtype if s_i >= 0 else torch.int64
+        dt = torch.float64 if w >= 0 and flags[w] else _host_base_dtype(
+            fn, col)
+        typed.append(out.to(narrow_dtype(dt)))
+    return typed
 
 
 # ---------------------------------------------------------------------------
@@ -624,57 +931,286 @@ def _empty_frame(names, device):
                   for name in names}, device=device)
 
 
+def _value_slots(frame, agg_list):
+    """``(vals, kinds, words, ops)`` of an aggregate list: each value
+    column once (a string column as int32 codes of its own dictionary,
+    kind ``s``) and one ``(fn, slot, ignore_nulls, slot2, param)`` per
+    aggregate (slot -1 for ``count(*)``)."""
+    data = frame._data
+    slots: dict = {}
+    vals, kinds, words, ops = [], [], {}, []
+
+    def slot(name):
+        if name not in slots:
+            arr = data.get(name)
+            if arr is None:
+                frame._column_values(name)          # raises KeyError
+            if is_host_column(arr):
+                (arr,), words[len(vals)] = strings.device_codes(
+                    [arr], frame.device)
+                kinds.append("s")
+            else:
+                kinds.append(_require_kind(arr, name, "aggregated column"))
+            slots[name] = len(vals)
+            vals.append(arr)
+        return slots[name]
+
+    for a in agg_list:
+        if a.fn not in DEVICE_AGG_FNS:
+            raise ValueError(f"unknown aggregate {a.fn!r}")
+        if a.column is None:
+            ops.append(("count", -1, False, -1, None))
+            continue
+        s_i = slot(a.column)
+        s2 = -1 if a.column2 is None else slot(a.column2)
+        for si, role in ((s_i, "value"), (s2, "second")):
+            if si >= 0 and kinds[si] == "s" and (
+                    a.fn in _NUMERIC_ONLY or role == "second"):
+                raise NotImplementedError(
+                    f"aggregate {a.fn}() over the string column "
+                    f"{(a.column if role == 'value' else a.column2)!r}: "
+                    "the torch port aggregates strings with count, min, "
+                    "max, first, last, mode, count_distinct, collect_list, "
+                    "collect_set and as the value of max_by/min_by")
+        ops.append((a.fn, s_i, bool(a.ignore_nulls), s2, a.param))
+    return vals, kinds, words, ops
+
+
+def on_host_path(agg_list, val_kinds, key_words) -> bool:
+    """True when the JAX package answers this grouping on its host path:
+    a string key or value column, or an aggregate its segment program
+    does not lower (outside ``SEGMENT_FNS``, two columns, a parameter)."""
+    return bool(key_words) or "s" in val_kinds or any(
+        a.fn not in SEGMENT_FNS or a.column2 is not None
+        or a.param is not None for a in agg_list)
+
+
+def _run_grouping(frame, key_arrs, key_kinds, vals, kinds, words, ops):
+    """The dense program where it applies, else the sorted one:
+    ``(key_outs, agg_outs)`` with string keys still as codes."""
+    mask = frame.mask
+    out = None
+    if "s" not in kinds and all(fn in _DENSE_FNS for fn, *_ in ops):
+        n = frame.num_slots
+        out = _dense_agg(key_arrs, key_kinds, vals, kinds,
+                         [op[:3] for op in ops], mask,
+                         min(_DENSE_MAX, max(2 * n, 16)))
+    if out is None:
+        out = _sorted_agg(key_arrs, key_kinds, vals, kinds, words, ops,
+                          mask)
+    return out
+
+
 def grouped_agg(frame, keys, agg_list):
     """``group_by(keys).agg(agg_list)`` on the frame's device. Rows come
     out in lexicographic key order with the null group first; the result
     is a compact frame. ``agg_list`` holds plain column aggregates
-    (``frame.aggregates.AggExpr``)."""
+    (``frame.aggregates.AggExpr``). Where the JAX package answers on its
+    host path (``on_host_path``), the columns take that path's types
+    (``host_path_columns``)."""
     from ..frame.frame import Frame
 
-    data = frame._data
     n = frame.num_slots
     names = list(keys) + [a.name for a in agg_list]
     key_arrs, key_kinds, words = _key_columns(frame, keys, "group key")
-    slots: dict = {}
-    val_arrs, val_kinds, agg_ops = [], [], []
-    for a in agg_list:
-        if a.fn not in DEVICE_AGG_FNS:
-            raise NotImplementedError(
-                f"aggregate {a.fn}() is not in the torch port's subset "
-                f"(supported: {sorted(DEVICE_AGG_FNS)})")
-        if a.column is None:
-            agg_ops.append(("count", -1, False))
-            continue
-        if a.column not in slots:
-            arr = data.get(a.column)
-            if arr is None:
-                frame._column_values(a.column)      # raises KeyError
-            val_kinds.append(_require_kind(arr, a.column,
-                                           "aggregated column"))
-            slots[a.column] = len(val_arrs)
-            val_arrs.append(arr)
-        agg_ops.append((a.fn, slots[a.column], bool(a.ignore_nulls)))
-    # the JAX package groups string keys on its host path, which answers
-    # a frame with no valid row with float columns
-    if n == 0 or (words and not bool(frame.mask.any())):
+    val_arrs, val_kinds, val_words, agg_ops = _value_slots(frame, agg_list)
+    host = on_host_path(agg_list, val_kinds, words)
+    # the JAX package's host path answers a frame with no valid row with
+    # float columns
+    if n == 0 or (host and not bool(frame.mask.any())):
         return _empty_frame(names, frame.device)
 
-    mask = frame.mask
-    out = None
-    if not any(fn in _DISTINCT_FNS for fn, _, _ in agg_ops):
-        S = min(_DENSE_MAX, max(2 * n, 16))
-        out = _dense_agg(key_arrs, key_kinds, val_arrs, val_kinds, agg_ops,
-                         mask, S)
-    if out is None:
-        out = _sorted_agg(key_arrs, key_kinds, val_arrs, val_kinds, agg_ops,
-                          mask)
-    key_outs, agg_outs = out
+    key_outs, agg_outs = _run_grouping(frame, key_arrs, key_kinds, val_arrs,
+                                       val_kinds, val_words, agg_ops)
     for i, w in words.items():
         key_outs[i] = strings.decode(key_outs[i], w)
+    if host:
+        key_outs = [k if is_host_column(k) else k.to(narrow_dtype(k.dtype))
+                    for k in key_outs]
+        agg_outs = host_path_columns(agg_ops, val_arrs, agg_outs)
     cols = dict(zip(keys, key_outs))
     for a, arr in zip(agg_list, agg_outs):
         cols[a.name] = arr
     return Frame(cols, device=frame.device)
+
+
+def _pivot_codes(cells: np.ndarray):
+    """``(codes, lut)`` of a host pivot column: int32 codes (``NULL_CODE``
+    for ``None``) and the dictionary value -> code. Strings take the
+    cached dictionary of ``ops/strings.py``; a column that mixes types
+    (``1``, ``"z"``) one in first-appearance order, where values Python
+    finds equal (``1 == 1.0``) share a code."""
+    try:
+        codes, words = strings.codes(cells)
+        return codes, {w: i for i, w in enumerate(words)}
+    except NotImplementedError:
+        lut = dict.fromkeys(cells)
+        lut.pop(None, None)
+        lut = {v: i for i, v in enumerate(lut)}
+        index = dict(lut)
+        index[None] = strings.NULL_CODE
+        return np.fromiter(map(index.__getitem__, cells), np.int32,
+                           count=len(cells)), lut
+
+
+def _sorted_values(uniq) -> list:
+    try:
+        return sorted(uniq)
+    except TypeError:
+        # mixed types: grouped by type, natural order within each
+        return sorted(uniq, key=lambda x: (str(type(x)), x))
+
+
+def pivot_values(frame, column: str) -> list:
+    """The distinct non-null values of ``column`` over the valid rows, as
+    Python values, sorted (by type first when types mix)."""
+    arr = frame._column_values(column)
+    m = frame.mask
+    if is_host_column(arr):
+        codes, lut = _pivot_codes(arr)
+        present = set(np.unique(codes[m.cpu().numpy()]).tolist())
+        return _sorted_values([v for v, c in lut.items() if c in present])
+    v = arr[m]
+    if v.is_floating_point():
+        v = v[~torch.isnan(v)]
+    return _sorted_values(torch.unique(v).tolist())
+
+
+def _pivot_match(pc: torch.Tensor, value, lut) -> torch.Tensor:
+    """Rows of the inner grouping whose pivot key equals ``value`` as
+    Python's ``==`` decides: through the dictionary of a host column, or
+    as a number against a numeric one (``1 == 1.0``; NULL never
+    matches)."""
+    if lut is not None:
+        if value is None:
+            return pc == strings.NULL_CODE
+        code = lut.get(value)
+        if code is not None:
+            return pc == code
+    elif isinstance(value, (bool, int, float)):
+        return (pc.to(torch.float64) if pc.is_floating_point() else pc) \
+            == value
+    return torch.zeros_like(pc, dtype=torch.bool)
+
+
+def pivot_agg(frame, keys, pivot_col: str, values, agg_list):
+    """``group_by(keys).pivot(pivot_col, values).agg(agg_list)``: one
+    grouped call over ``keys + [pivot_col]``, the key
+    groups found from its sorted rows, then each (value, aggregate)
+    column scattered into a [groups] table on the device; an empty cell
+    is null, except ``count(*)``, which is 0. Column types follow the JAX
+    package's per-cell host answers (``_host_base_dtype``), widened to
+    float where a cell is null."""
+    from ..frame.frame import Frame
+
+    if values is None:
+        values = pivot_values(frame, pivot_col)
+    taken = set(keys)
+    names = []
+    for v in values:
+        for a in agg_list:
+            base = str(v) if len(agg_list) == 1 else f"{v}_{a.name}"
+            while base in taken:
+                base += "_pivot"
+            taken.add(base)
+            names.append(base)
+    if frame.num_slots == 0 or not bool(frame.mask.any()):
+        return _empty_frame(list(keys) + names, frame.device)
+
+    key_arrs, key_kinds, words = _key_columns(frame, keys, "group key")
+    pcol = frame._column_values(pivot_col)
+    lut = None
+    if is_host_column(pcol):
+        codes, lut = _pivot_codes(pcol)
+        pcol = torch.as_tensor(codes, device=frame.device)
+    key_arrs.append(pcol)
+    key_kinds.append(_require_kind(pcol, pivot_col, "pivot column"))
+    vals, kinds, vwords, ops = _value_slots(frame, agg_list)
+    key_outs, agg_outs = _run_grouping(frame, key_arrs, key_kinds, vals,
+                                       kinds, vwords, ops)
+    pc = key_outs[-1]
+    dev = pc.device
+    G2 = pc.shape[0]
+    boundary = torch.zeros(G2, dtype=torch.bool, device=dev)
+    boundary[:1] = True
+    for k in key_outs[:-1]:
+        neq = k[1:] != k[:-1]
+        if k.is_floating_point():
+            neq &= ~(torch.isnan(k[1:]) & torch.isnan(k[:-1]))
+        boundary[1:] |= neq
+    starts = torch.nonzero(boundary).squeeze(1)
+    ng = starts.numel()                         # host read: the groups
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    cols: dict = {}
+    for i, k in enumerate(keys):
+        kv = key_outs[i].index_select(0, starts)
+        cols[k] = (strings.decode(kv, words[i]) if i in words
+                   else kv.to(narrow_dtype(kv.dtype)))
+
+    targets = [torch.where(_pivot_match(pc, v, lut), gid, ng)
+               for v in values]
+    full = torch.stack([torch.zeros(ng + 1, dtype=torch.bool, device=dev)
+                        .scatter_(0, t, True)[:ng].all() for t in targets]
+                       ).tolist() if targets else []
+    cells, checks = [], []
+    for vi, t in enumerate(targets):
+        for (fn, s_i, ig, _, _), out in zip(ops, agg_outs):
+            star = fn == "count" and s_i < 0
+            if isinstance(out, np.ndarray):            # host objects
+                th = t.cpu().numpy()
+                table = np.full(ng + 1, float("nan"), dtype=object)
+                table[th] = out
+                cells.append(("host", fn, table[:ng]))
+                continue
+            col = vals[s_i].dtype if s_i >= 0 else torch.int64
+            base = _host_base_dtype(fn, col)
+            if not (full[vi] or star):
+                dt = torch.float64
+                fill = float("nan")
+            else:
+                dt, fill = out.dtype, 0
+            table = torch.full((ng + 1,), fill, dtype=dt, device=dev)
+            table = table.scatter_(0, t, out.to(dt))[:ng]
+            fills = fn not in ("count", "count_distinct", "first",
+                               "last") or ig
+            if dt != torch.float64 and fills and base != torch.float64 \
+                    and table.is_floating_point():
+                cells.append(("check", len(checks), table, base))
+                checks.append(torch.isnan(table).any())
+            else:
+                cells.append(("dev", base if dt != torch.float64 else dt,
+                              table))
+    flags = torch.stack(checks).tolist() if checks else []
+    for name, cell in zip(names, cells):
+        if cell[0] == "host":
+            _, fn, table = cell
+            cols[name] = (table if fn in ("collect_list", "collect_set")
+                          else list(table))
+        elif cell[0] == "check":
+            _, j, table, base = cell
+            cols[name] = table.to(narrow_dtype(torch.float64 if flags[j]
+                                          else base))
+        else:
+            _, dt, table = cell
+            cols[name] = table.to(narrow_dtype(dt))
+    return Frame(cols, device=frame.device)
+
+
+def global_values(frame, agg_list) -> list:
+    """Each aggregate of ``agg_list`` over the frame's valid rows as one
+    group of the sorted program: a 1-element tensor, or a 1-element host
+    object array for strings and collections. A frame with no row slots
+    answers as a group with no row."""
+    vals, kinds, words, ops = _value_slots(frame, agg_list)
+    if frame.num_slots == 0:
+        # one masked-out slot stands in for the missing rows
+        vals = [torch.zeros(1, dtype=v.dtype, device=frame.device)
+                for v in vals]
+        mask = torch.zeros(1, dtype=torch.bool, device=frame.device)
+    else:
+        mask = frame.mask
+    return _sorted_agg([], [], vals, kinds, words, ops, mask,
+                       keep_empty=True)[1]
 
 
 def gather_rows(frame, take: torch.Tensor, host_idx=None):
@@ -693,6 +1229,98 @@ def gather_rows(frame, take: torch.Tensor, host_idx=None):
         else:
             out[name] = arr.index_select(0, take)
     return Frame(out, device=frame.device)
+
+
+def _dense_rank(x: torch.Tensor) -> torch.Tensor:
+    """Each element's rank among the distinct values of ``x`` (int64)."""
+    return torch.unique(x, return_inverse=True)[1]
+
+
+def _cell_codes(a, b, ai, bi) -> list:
+    """Joint codes of one column of two frames over their valid rows
+    ``ai``/``bi``: a list of (left codes, right codes, left NaN, right
+    NaN) tuples, one per component (a vector column gives one per
+    element). The codes are equal exactly where Python's tuple equality
+    finds the cells equal with NaN as one null: ``-0.0 == 0.0``, and
+    ``1 == 1.0 == True`` across an int, a float and a bool column; the
+    NaN flags mark the numeric nulls (None for a string column)."""
+    ha, hb = is_host_column(a), is_host_column(b)
+    if ha and hb:
+        (ca, cb), _ = strings.shared_codes(a[ai.cpu().numpy()],
+                                           b[bi.cpu().numpy()])
+        # NULL_CODE (-1) shifted to 0: codes stay nonnegative
+        return [(torch.as_tensor(ca, device=ai.device).to(torch.int64) + 1,
+                 torch.as_tensor(cb, device=ai.device).to(torch.int64) + 1,
+                 None, None)]
+    if ha or hb:
+        # a string never equals a number: disjoint codes
+        host, dev_col, hi, di = (a, b, ai, bi) if ha else (b, a, bi, ai)
+        (hc,), _ = strings.device_codes([host[hi.cpu().numpy()]],
+                                        ai.device)
+        dc, _, null, _ = _cell_codes(dev_col, dev_col, di, di)[0]
+        hc = (hc.to(torch.int64) + 1) * 2
+        dc = dc[:di.shape[0]] * 2 + 1
+        null = null[:di.shape[0]]
+        return [(hc, dc, None, null) if ha else (dc, hc, null, None)]
+    xa, xb = a.index_select(0, ai), b.index_select(0, bi)
+    if xa.ndim == 1:
+        xa, xb = xa[:, None], xb[:, None]
+    na = xa.shape[0]
+    out = []
+    for j in range(xa.shape[1]):
+        x = torch.cat([xa[:, j].to(torch.float64), xb[:, j].to(torch.float64)])
+        null = torch.isnan(x)
+        x = torch.where(null, torch.zeros_like(x), x) + 0.0   # -0.0 -> 0.0
+        code = _dense_rank(x) * 2 + null.to(torch.int64)
+        out.append((code[:na], code[na:], null[:na], null[na:]))
+    return out
+
+
+def row_keys(left, right):
+    """``(li, lk, lnull, ri, rk, rnull)``: the valid row indices of two
+    frames with the same columns, in order, dense int64 keys of their
+    rows, equal exactly where the rows are equal as the JAX package's set
+    operations compare them (``_cell_codes``), and whether a row holds a
+    numeric NaN. The columns' codes combine two at a time, re-ranked after
+    each step so the keys stay below the row count."""
+    li = torch.nonzero(left.mask).squeeze(1)
+    ri = torch.nonzero(right.mask).squeeze(1).to(left.device)
+    nl, nr = li.shape[0], ri.shape[0]
+    key = None
+    lnull = torch.zeros(nl, dtype=torch.bool, device=left.device)
+    rnull = torch.zeros(nr, dtype=torch.bool, device=left.device)
+    for name in left.columns:
+        for ca, cb, na_, nb_ in _cell_codes(left._data[name],
+                                            right._data[name], li, ri):
+            if na_ is not None:
+                lnull |= na_
+            if nb_ is not None:
+                rnull |= nb_
+            code = torch.cat([ca, cb])
+            if key is None:
+                key = _dense_rank(code)
+            else:
+                span = int(code.max()) + 1 if code.numel() else 1
+                key = _dense_rank(key * span + code)
+    if key is None:                             # no column: one empty row
+        key = torch.zeros(nl + nr, dtype=torch.int64, device=left.device)
+    return li, key[:nl], lnull, ri, key[nl:], rnull
+
+
+def occurrence_ranks(keys: torch.Tensor) -> torch.Tensor:
+    """For each element, how many earlier elements hold the same key."""
+    n = keys.shape[0]
+    if n == 0:
+        return keys.clone()
+    order = torch.sort(keys, stable=True).indices
+    sk = keys.index_select(0, order)
+    pos = torch.arange(n, device=keys.device)
+    start = torch.zeros(n, dtype=torch.bool, device=keys.device)
+    start[0] = True
+    start[1:] = sk[1:] != sk[:-1]
+    run = torch.cumsum(start.to(torch.int64), 0) - 1
+    run_start = torch.nonzero(start).squeeze(1).index_select(0, run)
+    return torch.empty_like(pos).scatter_(0, order, pos - run_start)
 
 
 def device_sort(frame, names, ascending, nulls_first):

@@ -101,6 +101,8 @@ def shared_codes(*arrays) -> tuple[list, list]:
     """The codes of each object array in one dictionary of all their
     distinct strings: each array's own codes, remapped."""
     each = [codes(a) for a in arrays]
+    if len(each) == 1:                  # one array: its own dictionary
+        return [each[0][0]], each[0][1]
     words = sorted(set().union(*(w for _, w in each)))
     at = {w: i for i, w in enumerate(words)}
     out = []

@@ -1,5 +1,5 @@
-"""``TorchSession``: the entry point of the port, the counterpart of
-``sparkdq4ml_tpu.TpuSession`` with the same builder API.
+"""``TorchSession``: the entry point of the port, the counterpart of the
+JAX package's ``TpuSession`` with the same builder API.
 
 The session's device comes from the conf key ``spark.torch.device``, which
 defaults to ``"cuda"``. Without a CUDA device, ``get_or_create`` raises

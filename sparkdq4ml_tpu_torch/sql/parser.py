@@ -1,14 +1,16 @@
-"""The SQL subset of the torch port (the relational core of
-``sparkdq4ml_tpu/sql/parser.py``)::
+"""The SQL subset of the torch port (``sparkdq4ml_tpu/sql/parser.py``
+without EXPLAIN, the optimizer and the builtin function library)::
 
-    statement := [WITH name AS '(' query ')', ...] query
+    statement := [WITH name AS '(' set ')', ...] set
                  | CREATE [OR REPLACE] [TEMP[ORARY]] VIEW name AS statement
                  | DROP [TEMP[ORARY]] VIEW [IF EXISTS] name
+    set      := query ((UNION [ALL] | INTERSECT | EXCEPT) query)*
     query    := SELECT [DISTINCT] item, ... FROM relation join*
-                [WHERE pred] [GROUP BY key, ...] [HAVING pred]
+                [WHERE pred] [GROUP BY key, ... | GROUP BY ROLLUP|CUBE
+                '(' col, ... ')'] [HAVING pred]
                 [ORDER BY key [ASC|DESC] [NULLS FIRST|LAST], ...]
                 [LIMIT n] [OFFSET m]
-    relation := view [[AS] alias] | '(' query ')' [[AS] alias]
+    relation := view [[AS] alias] | '(' set ')' [[AS] alias]
     join     := [INNER | LEFT [OUTER|SEMI|ANTI] | RIGHT [OUTER]
                  | FULL [OUTER] | CROSS] JOIN relation
                 (USING '(' col, ... ')' | ON a = b)
@@ -16,27 +18,36 @@
     window   := '(' [PARTITION BY col, ...] [ORDER BY col [ASC|DESC], ...]
                 [(ROWS|RANGE) BETWEEN bound AND bound] ')'
 
-Expressions: columns, numeric, boolean and string literals, NULL,
-``cast(x AS int|integer|double|float|string)``, ``+ - * / %``, unary
-minus, comparisons, AND/OR/NOT and parentheses; ``[NOT] IN (list)``,
-``[NOT] BETWEEN a AND b``, ``[NOT] LIKE 'pattern'``, ``IS [NOT] NULL``,
-``CASE [operand] WHEN ... THEN ... [ELSE ...] END``; the string functions
-``concat``, ``concat_ws`` and ``split``; uncorrelated subqueries: a scalar
-``(SELECT ...)`` (read once to the host as a literal), ``[NOT] IN (SELECT
-...)`` (a semi join against the subquery's values, planned on the
-device) and ``EXISTS (SELECT ...)``; the aggregates ``COUNT(*)``,
-``COUNT(DISTINCT x)``, ``SUM(DISTINCT x)`` and the device family
-(``frame/aggregates.py``), expressions over aggregates in the select
-list, HAVING and ORDER BY; the window functions of ``frame/window.py``
-with OVER. GROUP BY and ORDER BY keys are names, 1-based select-item
-positions or expressions. ``WITH`` names shadow temp views for one
-statement (``_OverlayCatalog``).
+Set operations are left-associative (no higher INTERSECT precedence, as in
+the JAX package). Expressions: columns, qualified ``alias.col`` (resolved
+against the FROM/JOIN scope: the alias, else the view name; the right
+side's duplicate column as ``<name>_right``; a column literally named so
+first), numeric, boolean and string literals, NULL, ``cast(x AS
+int|integer|double|float|string)``, ``+ - * / %``, unary minus,
+comparisons, AND/OR/NOT and parentheses; ``[NOT] IN (list)``, ``[NOT]
+BETWEEN a AND b``, ``[NOT] LIKE 'pattern'``, ``IS [NOT] NULL``, ``CASE
+[operand] WHEN ... THEN ... [ELSE ...] END``; the string functions
+``concat``, ``concat_ws`` and ``split``; subqueries: a scalar ``(SELECT
+...)`` (read once to the host as a literal), ``[NOT] IN (SELECT ...)`` (a
+semi join against the subquery's values, planned on the device) and
+``EXISTS (SELECT ...)``, and a correlated ``[NOT] EXISTS`` / ``[NOT] IN``
+whose correlation is a conjunction of equalities, rewritten to a LEFT SEMI
+or LEFT ANTI join (a correlated NOT IN keeps the anti join's null rule);
+any other correlation raises the JAX package's ValueError. Aggregates:
+every one of ``frame/aggregates.py`` (``COUNT(*)``, ``COUNT(DISTINCT x)``,
+``SUM(DISTINCT x)``, ``PERCENTILE_APPROX(col, p)``, ``CORR(a, b)``,
+``MAX_BY(v, ord)``, ``APPROX_COUNT_DISTINCT(col[, rsd])``, ...) and the
+boolean ones (``count_if``, ``any``/``some``/``bool_or``,
+``every``/``bool_and``) desugared over a 0/1 flag; expressions over
+aggregates in the select list, HAVING and ORDER BY; the window functions
+of ``frame/window.py`` with OVER. GROUP BY and ORDER BY keys are names,
+1-based select-item positions or expressions. ``WITH`` names shadow temp
+views for one statement (``_OverlayCatalog``).
 
-Correlated subqueries (a qualified reference to an outer relation), set
-operations, ``EXPLAIN``, ``ROLLUP``/``CUBE`` and other function calls
-raise ``NotImplementedError`` naming what was met. The executor follows
-the JAX package's ``_execute_single`` without its cost-based optimizer
-(whose rewrites are bit-identical by design).
+``EXPLAIN``, a SELECT without FROM, GROUPING SETS and function calls
+outside the list above raise ``NotImplementedError`` naming what was met.
+The executor follows the JAX package's ``_execute_single`` without its
+cost-based optimizer (whose rewrites never change a result).
 """
 
 from __future__ import annotations
@@ -46,7 +57,8 @@ import re
 from typing import Optional
 
 from ..frame import window as W
-from ..frame.aggregates import AggExpr, AggOfExpr
+from ..frame.aggregates import (AggExpr, AggOfExpr, approx_count_distinct,
+                                percentile_approx)
 from ..ops import expressions as E
 
 _TOKEN_RE = re.compile(
@@ -65,21 +77,24 @@ _KEYWORDS = {"select", "from", "where", "as", "and", "or", "not", "cast",
              "else", "end", "is", "in", "between", "like", "having",
              "distinct", "union", "all"}
 
-# The JAX grammar's aggregate names: the device family parses, the others
-# raise NotImplementedError from AggExpr.
-_AGG_FNS = {"count", "sum", "avg", "mean", "min", "max", "stddev",
-            "variance", "stddev_pop", "var_pop", "median", "mode",
-            "collect_list", "collect_set", "first", "last", "skewness",
-            "kurtosis", "corr", "covar_samp", "covar_pop", "max_by",
-            "min_by", "percentile_approx", "approx_percentile",
-            "approx_count_distinct", "count_if", "any", "some", "every",
-            "bool_or", "bool_and"}
+# The JAX grammar's aggregate names: one-column aggregates, the
+# percentile with its literal percentage, the two-column family, and the
+# boolean aggregates (desugared into an aggregate of a 0/1 flag).
+_AGG_FNS_1 = {"count", "sum", "avg", "mean", "min", "max", "stddev",
+              "variance", "stddev_pop", "var_pop", "median", "mode",
+              "collect_list", "collect_set", "first", "last", "skewness",
+              "kurtosis", "approx_count_distinct"}
+_AGG_FNS_PCT = {"percentile_approx", "approx_percentile"}
+_AGG_FNS_2 = {"corr", "covar_samp", "covar_pop", "max_by", "min_by"}
+_BOOL_AGGS = {"count_if", "any", "some", "every", "bool_or", "bool_and"}
+_AGG_FNS = _AGG_FNS_1 | _AGG_FNS_PCT | _AGG_FNS_2 | _BOOL_AGGS
 _WINDOW_FNS = {"row_number", "rank", "dense_rank", "percent_rank",
                "cume_dist", "ntile", "lag", "lead", "first_value",
                "last_value", "nth_value"}
 _SUBSET = ("the torch port's SQL subset ([WITH ...] SELECT ... FROM ... "
-           "[JOIN] [WHERE] [GROUP BY] [HAVING] [ORDER BY] [LIMIT], with "
-           "uncorrelated subqueries; CREATE/DROP TEMP VIEW)")
+           "[JOIN] [WHERE] [GROUP BY [ROLLUP|CUBE]] [HAVING] [ORDER BY] "
+           "[LIMIT] [UNION|INTERSECT|EXCEPT ...], with subqueries; "
+           "CREATE/DROP TEMP VIEW)")
 _CAST_TYPES = ("int", "integer", "double", "float", "string")
 _DDL_RE = re.compile(
     r"^\s*create\s+(?:or\s+replace\s+)?(?:temp(?:orary)?\s+)?view\s+"
@@ -128,18 +143,32 @@ def tokenize(sql: str) -> list:
 class _AggCall(E.Expr):
     """An aggregate call met inside an expression (``HAVING COUNT(*) >
     2``, ``ORDER BY max(p) - min(p)``); rewritten to a column of the
-    aggregated frame before any evaluation."""
+    aggregated frame before any evaluation. ``args`` are the call's
+    arguments (none for ``*``); ``build`` makes the aggregate from them
+    (a percentage or an rsd rides along in ``extra``)."""
 
-    def __init__(self, fn: str, arg, distinct: bool = False):
+    def __init__(self, fn: str, args, distinct: bool = False, extra=None):
         self.fn = fn.lower()
-        self.arg = arg            # None = *, else an Expr
+        self.args = list(args)
         self.distinct = distinct
+        self.extra = extra
+
+    def with_args(self, args) -> "_AggCall":
+        return _AggCall(self.fn, args, self.distinct, self.extra)
 
     def to_agg(self) -> AggExpr:
-        fn = f"{self.fn}_distinct" if self.distinct else self.fn
-        if self.arg is None or isinstance(self.arg, E.Col):
-            return AggExpr(fn, None if self.arg is None else self.arg.name)
-        return AggOfExpr(fn, self.arg)
+        fn, args = self.fn, self.args
+        if self.distinct:
+            return AggExpr(f"{fn}_distinct", args[0].name)
+        if fn in _AGG_FNS_2:
+            return AggExpr(fn, args[0].name, column2=args[1].name)
+        if fn == "approx_count_distinct":
+            return approx_count_distinct(args[0].name, self.extra)
+        if fn in _AGG_FNS_PCT:
+            return percentile_approx(args[0].name, self.extra)
+        if not args or isinstance(args[0], E.Col):
+            return AggExpr(fn, args[0].name if args else None)
+        return AggOfExpr(fn, args[0])
 
     def eval(self, frame):
         raise ValueError("an aggregate is only valid in a select list, "
@@ -163,6 +192,18 @@ class _AggRef(E.Expr):
         return self.agg.name
 
 
+def _bool_agg(fn: str, pred):
+    """``count_if``/``any``/``some``/``every``/``bool_or``/``bool_and`` of
+    a predicate, desugared as the JAX package does: an aggregate of the
+    0/1 flag ``CASE WHEN pred THEN 1 ELSE 0 END`` (``count_if`` its sum;
+    the others its max or min, compared with 0)."""
+    flag = E.CaseWhen([(pred, E.Lit(1))], E.Lit(0))
+    if fn == "count_if":
+        return _AggRef(AggOfExpr("sum", flag, alias=f"count_if({pred})"))
+    red = "max" if fn in ("any", "some", "bool_or") else "min"
+    return E.BinOp(">", _AggRef(AggOfExpr(red, flag)), E.Lit(0))
+
+
 class PostAggItem:
     """A select item over aggregate results (``max(p) - min(p) AS
     spread``): ``expr`` reads the aggregated columns of ``aggs``."""
@@ -183,13 +224,14 @@ class PostAggItem:
 
 
 class DerivedTable:
-    """``FROM (SELECT ...) [AS] alias``: executed into a frame first (the
-    alias is parsed; qualified references are not in the subset)."""
+    """``FROM (SELECT ...) [AS] alias``: executed into a frame first; the
+    alias scopes qualified references to its columns."""
 
-    __slots__ = ("query",)
+    __slots__ = ("query", "alias")
 
-    def __init__(self, query):
+    def __init__(self, query, alias=None):
         self.query = query
+        self.alias = alias
 
 
 class _Subquery(E.Expr):
@@ -226,7 +268,11 @@ class SubqueryExists(_Subquery):
 
 
 class Query:
-    """A parsed SELECT, with the WITH clause that precedes it."""
+    """A parsed SELECT: its clauses, the set-operation branches that
+    follow it (``unions``: ``(op, Query)``, op one of union, union_all,
+    intersect, except; left-associative), the WITH clause before it, the
+    FROM relation's alias and the grouping mode (group, rollup or
+    cube)."""
 
     def __init__(self, items, view, where=None, group_by=(), order_by=(),
                  limit=None, joins=(), distinct=False, having=None,
@@ -237,12 +283,15 @@ class Query:
         self.group_by = list(group_by)
         self.order_by = list(order_by)
         self.limit = limit
-        self.joins = list(joins)
+        self.joins = list(joins)              # [(source, how, keys, alias)]
         self.distinct = distinct
         self.having = having
         self.offset = offset
         self.drop_after_sort: list = []
         self.ctes: list = []                  # [(name, Query), ...]
+        self.unions: list = []
+        self.view_alias = None
+        self.group_mode = "group"
 
 
 def _map_expr(expr, fn):
@@ -301,6 +350,67 @@ def _referenced_cols(expr, out: set) -> None:
     _map_expr(expr, visit)
 
 
+def _map_cols(expr, fn):
+    """A copy of ``expr`` with ``fn`` applied to every column name (inside
+    aggregate calls too; a subquery's own query is left to its scope)."""
+    if isinstance(expr, E.Col):
+        new = fn(expr.name)
+        return expr if new == expr.name else E.Col(new)
+    if isinstance(expr, _AggCall):
+        return expr.with_args([_map_cols(a, fn) for a in expr.args])
+    return _map_expr(expr, lambda e: _map_cols(e, fn))
+
+
+def _resolve_name(name: str, scope: dict, columns) -> str:
+    """A possibly qualified name against the relation scope (alias ->
+    {source column: output column}). A column literally named so wins
+    first; a name with a parenthesis is an aggregate's output column."""
+    if "." not in name or "(" in name or name in columns:
+        return name
+    alias, _, col = name.partition(".")
+    m = scope.get(alias.lower())
+    if m is None:
+        raise ValueError(
+            f"unknown relation alias {alias!r} in {name!r} "
+            f"(aliases in scope: {sorted(scope)})")
+    if col not in m:
+        raise ValueError(f"column {col!r} not found in relation "
+                         f"{alias!r} (has: {sorted(m)})")
+    return m[col]
+
+
+def _resolve_agg_cols(agg, scope: dict, columns):
+    """The qualified column names of an aggregate resolved in place (a
+    parsed query executes once)."""
+    if agg.column is not None:
+        agg.column = _resolve_name(agg.column, scope, columns)
+    if agg.column2 is not None:
+        agg.column2 = _resolve_name(agg.column2, scope, columns)
+    return agg
+
+
+def _resolve_qualified(expr, scope: dict, columns):
+    """Qualified references (``t.price``) rewritten to output columns; in
+    an item over aggregates, the references to the aggregates' outputs
+    follow their new names (``max(t.p)`` -> ``max(p)``)."""
+    if not scope:
+        return expr
+    if isinstance(expr, PostAggItem):
+        renames, aggs = {}, []
+        for a in expr.aggs:
+            old = a.name
+            a = _resolve_agg_cols(a, scope, columns)
+            if a.name != old:
+                renames[old] = a.name
+            aggs.append(a)
+        inner = expr.expr
+        if renames:
+            inner = _map_cols(inner, lambda n: renames.get(n, n))
+        inner = _map_cols(inner, lambda n: _resolve_name(n, scope, columns))
+        return PostAggItem(inner, aggs, expr._name)
+    return _map_cols(expr, lambda n: _resolve_name(n, scope, columns))
+
+
 def _lit_value(expr, what: str):
     if isinstance(expr, E.Lit):
         return expr.value
@@ -351,19 +461,29 @@ class _Parser:
                 name = self.expect("ident").value
                 self.expect("kw", "as")
                 self.expect("op", "(")
-                ctes.append((name, self.query()))
+                ctes.append((name, self.set_expr()))
                 self.expect("op", ")")
                 if not self.accept("op", ","):
                     break
-        q = self.query()
+        q = self.set_expr()
         q.ctes = ctes
-        t = self.peek()
-        if t.kind == "kw" and t.value.lower() == "union" or (
-                t.kind == "ident" and t.value.lower() in ("intersect",
-                                                          "except")):
-            raise _unsupported(f"the set operation {t.value.upper()}")
         self.expect("eof")
         return q
+
+    def set_expr(self) -> Query:
+        """``query ((UNION [ALL] | INTERSECT | EXCEPT) query)*``,
+        left-associative (no higher INTERSECT precedence, as in the JAX
+        package: parenthesise a derived table to group)."""
+        q = self.query()
+        while True:
+            if self.accept("kw", "union"):
+                op = "union_all" if self.accept("kw", "all") else "union"
+            elif self.peek().kind == "ident" and self.peek().value.lower() \
+                    in ("intersect", "except"):
+                op = self.next().value.lower()
+            else:
+                return q
+            q.unions.append((op, self.query()))
 
     def query(self) -> Query:
         self.expect("kw", "select")
@@ -373,7 +493,7 @@ class _Parser:
             items.append(self.select_item())
         if not self.accept("kw", "from"):
             raise _unsupported("a SELECT without FROM")
-        view = self.relation()
+        view, view_alias = self.relation()
         joins = []
         while True:
             j = self.join()
@@ -381,15 +501,26 @@ class _Parser:
                 break
             joins.append(j)
         where = self.parse_or() if self.accept("kw", "where") else None
-        group_by = []
+        group_by, group_mode = [], "group"
         if self.accept("kw", "group"):
             self.expect("kw", "by")
-            if self.peek().kind == "ident" and self.peek().value.lower() in (
-                    "rollup", "cube", "grouping") and self.at_call():
-                raise _unsupported(f"GROUP BY {self.peek().value.upper()}")
-            group_by.append(self.group_item())
-            while self.accept("op", ","):
+            word = self.peek().value.lower()
+            if self.peek().kind == "ident" and word in ("rollup", "cube") \
+                    and self.at_call():
+                # GROUP BY ROLLUP(a, b) / CUBE(a, b): Spark's subtotals
+                group_mode = self.next().value.lower()
+                self.expect("op", "(")
+                group_by.append(self.expect("ident").value)
+                while self.accept("op", ","):
+                    group_by.append(self.expect("ident").value)
+                self.expect("op", ")")
+            else:
+                if self.peek().kind == "ident" and word == "grouping" \
+                        and self.at_call():
+                    raise _unsupported("GROUP BY GROUPING SETS")
                 group_by.append(self.group_item())
+                while self.accept("op", ","):
+                    group_by.append(self.group_item())
         having = self.parse_or() if self.accept("kw", "having") else None
         order_by = []
         if self.accept("kw", "order"):
@@ -403,31 +534,41 @@ class _Parser:
         offset = 0
         if self.accept("ident", "offset"):
             offset = int(self.expect("number").value)
-        return Query(items, view, where, group_by, order_by, limit, joins,
-                     distinct, having, offset)
+        q = Query(items, view, where, group_by, order_by, limit, joins,
+                  distinct, having, offset)
+        q.group_mode = group_mode
+        q.view_alias = view_alias
+        return q
 
     def relation(self):
-        """A view name or a derived table, with an optional alias."""
+        """A view name or a derived table, with an optional alias:
+        ``(source, alias)``."""
         if self.peek().kind == "op" and self.peek().value == "(":
             self.next()
-            sub = self.query()
+            sub = self.set_expr()
             self.expect("op", ")")
             self.accept("kw", "as")
+            alias = None
             if self.peek().kind == "ident" and not self._clause_word():
-                self.next()
-            return DerivedTable(sub)
+                alias = self.next().value
+            return DerivedTable(sub, alias), alias
         view = self.expect("ident").value
+        alias = None
         if self.accept("kw", "as"):
-            self.expect("ident")
+            alias = self.expect("ident").value
         elif self.peek().kind == "ident" and not self._clause_word():
-            self.next()
-        return view
+            alias = self.next().value
+        return view, alias
 
     def _clause_word(self) -> bool:
         return self.peek().value.lower() in ("semi", "anti", "intersect",
                                              "except", "offset")
 
     def join(self):
+        """``[INNER|LEFT [OUTER|SEMI|ANTI]|RIGHT [OUTER]|FULL [OUTER]|
+        CROSS] JOIN relation (USING (k, ...) | ON a = b)`` -> ``(source,
+        how, keys, alias)``; a qualified ON (``ON t.k = g.k``) reduces to
+        the shared column name (the joins are USING-shaped)."""
         how = None
         for kw in ("inner", "left", "right", "full", "cross"):
             if self.accept("kw", kw):
@@ -445,7 +586,7 @@ class _Parser:
             how = "inner"
         else:
             self.expect("kw", "join")
-        view = self.relation()
+        view, alias = self.relation()
         keys = []
         if how != "cross":
             if self.accept("kw", "using"):
@@ -466,7 +607,7 @@ class _Parser:
                         f"name; got {a!r} = {b!r} (use USING or rename "
                         "first)")
                 keys.append(a_col)
-        return view, how, keys
+        return view, how, keys, alias
 
     def _dotted(self) -> str:
         name = self.expect("ident").value
@@ -516,16 +657,14 @@ class _Parser:
                 and self.at_call():
             expr = self.call()
             if isinstance(expr, _AggCall):
-                expr = expr.to_agg()
-                if self.peek().kind == "op" and self.peek().value in (
-                        "+", "-", "*", "/", "%"):
-                    expr = self.parse_add(_AggRef(expr))
-                else:
-                    return self._alias(expr)
+                expr = _AggRef(expr.to_agg())
+            if self.peek().kind == "op" and self.peek().value in (
+                    "+", "-", "*", "/", "%"):
+                expr = self.parse_add(expr)
+            elif isinstance(expr, _AggRef):
+                return self._alias(expr.agg)
         else:
             expr = self.parse_or()
-        if isinstance(expr, E.Lit):
-            raise _unsupported("a literal in the select list")
         collected: list = []
         rewritten = _rewrite_aggs(expr, collected)
         return self._alias(PostAggItem(rewritten, collected) if collected
@@ -578,7 +717,7 @@ class _Parser:
             self.expect("op", "(")
             if self.peek().kind == "kw" and \
                     self.peek().value.lower() == "select":
-                sub = self.query()
+                sub = self.set_expr()
                 self.expect("op", ")")
                 return SubqueryIn(left, sub, negated)
             values = [self.parse_or()]
@@ -655,23 +794,18 @@ class _Parser:
                     self.peek(2).value.lower() == "select":
                 self.next()
                 self.next()
-                sub = self.query()
+                sub = self.set_expr()
                 self.expect("op", ")")
                 return SubqueryExists(sub)
             if self.at_call():
                 return self.call()
-            self.next()
-            name = t.value
-            if self.peek().kind == "op" and self.peek().value == ".":
-                raise _unsupported(
-                    f"the qualified column reference {name}."
-                    f"{self.peek(1).value} (qualified names, and so "
-                    "correlated subqueries, are outside the subset)")
-            return E.Col(name)
+            # a qualified reference ``alias.col`` resolves at execution
+            # against the relation scope (a literal dotted column wins)
+            return E.Col(self._dotted())
         if self.accept("op", "("):
             if self.peek().kind == "kw" and \
                     self.peek().value.lower() == "select":
-                sub = self.query()
+                sub = self.set_expr()
                 self.expect("op", ")")
                 return ScalarSubquery(sub)
             inner = self.parse_or()
@@ -701,9 +835,9 @@ class _Parser:
         return E.CaseWhen(branches, otherwise)
 
     def call(self):
-        """``fn(args)``: an aggregate (an ``_AggCall``), a window
-        function followed by OVER (a ``WindowExpr``) or a string function
-        (an ``E.Func``)."""
+        """``fn(args)``: an aggregate (an ``_AggCall``, or for a boolean
+        aggregate an expression over one), a window function followed by
+        OVER (a ``WindowExpr``) or a string function (an ``E.Func``)."""
         fn = self.next().value
         fl = fn.lower()
         if fl in E.FUNCTIONS:
@@ -731,26 +865,54 @@ class _Parser:
         if fl in _WINDOW_FNS:
             raise ValueError(f"window function {fn}() requires an OVER "
                              "clause")
-        if distinct and (fl not in ("count", "sum") or len(args) != 1
-                         or not isinstance(args[0], E.Col)):
-            raise ValueError("DISTINCT is supported in COUNT(DISTINCT col) "
-                             "and SUM(DISTINCT col)")
-        if len(args) > 1:
-            AggExpr(fl, None)            # an unported two-column aggregate
-            raise ValueError(f"{fn}() takes one argument")
-        if not args and fl != "count":
-            raise ValueError(f"{fn} argument must be * or a column name")
-        call = _AggCall(fl, args[0] if args else None, distinct)
-        call.to_agg()                    # unported aggregates raise here
+        cols = all(isinstance(a, E.Col) for a in args)
+        if distinct:
+            if fl not in ("count", "sum") or len(args) != 1 or not cols:
+                raise ValueError("DISTINCT is supported in COUNT(DISTINCT "
+                                 "col) and SUM(DISTINCT col)")
+            return _AggCall(fl, args, distinct=True)
+        if fl in _AGG_FNS_2:
+            if len(args) != 2 or not cols:
+                raise ValueError(f"{fn}(col1, col2) takes two columns")
+            return _AggCall(fl, args)
+        if fl in _BOOL_AGGS:
+            if len(args) != 1:
+                raise ValueError(f"{fn}(predicate) takes one argument")
+            return _bool_agg(fl, args[0])
+        if fl == "approx_count_distinct":
+            if not args or not isinstance(args[0], E.Col):
+                raise ValueError(
+                    "approx_count_distinct(col[, rsd]) takes a column")
+            extra = (float(_lit_value(args[1], "rsd")) if len(args) > 1
+                     else 0.05)
+            call = _AggCall(fl, args[:1], extra=extra)
+        elif fl in _AGG_FNS_PCT:
+            if len(args) not in (2, 3) or not isinstance(args[0], E.Col) \
+                    or not isinstance(args[1], E.Lit):
+                raise ValueError(f"{fn}(col, percentage[, accuracy]) "
+                                 "requires a column and a literal "
+                                 "percentage")
+            call = _AggCall(fl, args[:1], extra=float(args[1].value))
+        else:
+            if len(args) > 1:
+                raise ValueError(f"{fn}() takes one argument")
+            if not args and fl != "count":
+                raise ValueError(f"{fn} argument must be * or a column "
+                                 "name")
+            call = _AggCall(fl, args)
+        call.to_agg()                    # validates the arguments
         return call
 
     def _window_fn(self, fl: str, args: list):
         col = args[0].name if len(args) == 1 and isinstance(
             args[0], E.Col) else None
-        if fl in _AGG_FNS:
+        if fl in _AGG_FNS_1 - {"approx_count_distinct"}:
             if col is None and not (fl == "count" and not args):
                 raise ValueError(f"{fl} argument must be * or a column name")
             return AggExpr(fl, col).over
+        if fl in _AGG_FNS:
+            raise ValueError(f"windowed {fl}() is not supported (the "
+                             "running aggregates window; Spark <= 2.x)")
         if fl == "ntile":
             if len(args) != 1 or not isinstance(args[0], E.Lit):
                 raise ValueError("ntile(n) requires an integer literal")
@@ -878,8 +1040,24 @@ def _pyval(v):
     return v.item() if hasattr(v, "item") else v
 
 
+def _execute_subquery(q, cat):
+    """A subquery run in its own scope; a reference to an outer relation
+    that no rewrite took (``_decorrelate_where``) is the JAX package's
+    "correlated subqueries are not supported" error."""
+    try:
+        return _execute(q, cat)
+    except ValueError as e:
+        if "unknown relation alias" in str(e):
+            raise ValueError(
+                "correlated subqueries are not supported (the subquery "
+                f"references an outer relation: {e}); rewrite as a join "
+                "- LEFT SEMI for EXISTS/IN, LEFT ANTI for NOT EXISTS/NOT "
+                "IN") from e
+        raise
+
+
 def _subquery_column(q, cat, what: str):
-    frame = _execute(q, cat)
+    frame = _execute_subquery(q, cat)
     if len(frame.columns) != 1:
         raise ValueError(f"{what} must select exactly one column, got "
                          f"{len(frame.columns)}: {frame.columns}")
@@ -905,7 +1083,7 @@ def _resolve_subqueries(expr, cat):
         return E.InColumn(_resolve_subqueries(expr.child, cat), col[valid],
                           expr.negated)
     if isinstance(expr, SubqueryExists):
-        return E.Lit(_execute(expr.query, cat).count() > 0)
+        return E.Lit(_execute_subquery(expr.query, cat).count() > 0)
     if isinstance(expr, PostAggItem):
         return PostAggItem(_resolve_subqueries(expr.expr, cat), expr.aggs,
                            expr._name)
@@ -915,6 +1093,143 @@ def _resolve_subqueries(expr, cat):
 def _relation(source, cat):
     return (_execute(source.query, cat) if isinstance(source, DerivedTable)
             else cat.lookup(source))
+
+
+# ---------------------------------------------------------------------------
+# Correlated EXISTS / IN: the semi/anti-join rewrite
+# ---------------------------------------------------------------------------
+
+def _conjuncts(e) -> list:
+    if isinstance(e, E.BinOp) and e.op == "&":
+        return _conjuncts(e.left) + _conjuncts(e.right)
+    return [e]
+
+
+def _conjoin(parts):
+    out = None
+    for p in parts:
+        out = p if out is None else E.BinOp("&", out, p)
+    return out
+
+
+def _relation_aliases(q: Query) -> set:
+    """The relation aliases a query's own FROM/JOIN clause binds."""
+    names = set()
+    if isinstance(q.view, str):
+        names.add((q.view_alias or q.view).lower())
+    elif isinstance(q.view, DerivedTable) and q.view.alias:
+        names.add(q.view.alias.lower())
+    for view, _how, _keys, jalias in q.joins:
+        nm = jalias or (view if isinstance(view, str) else None)
+        if nm:
+            names.add(nm.lower())
+    return names
+
+
+def _outer_refs(expr, outer_scope: dict, inner_aliases: set) -> set:
+    """Qualified names in ``expr`` whose alias binds in the outer scope
+    and not in the subquery's own relations: the correlation points."""
+    cols: set = set()
+    _referenced_cols(expr, cols)
+    return {name for name in cols
+            if "." in name and "(" not in name
+            and name.partition(".")[0].lower() in outer_scope
+            and name.partition(".")[0].lower() not in inner_aliases}
+
+
+def _unsupported_correlation(why: str) -> ValueError:
+    return ValueError(
+        f"unsupported correlated subquery ({why}); only conjunctive "
+        "equality correlation decorrelates (the Spark semi/anti-join "
+        "rewrite) - rewrite the query as an explicit JOIN")
+
+
+def _decorrelate_one(sub: Query, extra_outer_cols, outer_scope, cat):
+    """One correlated predicate subquery as the right side of a semi (or
+    anti) join: ``(right_frame, keys)``, the right frame's columns named
+    after the outer columns they equal. ``extra_outer_cols`` pairs the IN
+    form's outer column with the subquery's select item. Only conjunctive
+    equality correlation rewrites; anything else raises."""
+    inner_aliases = _relation_aliases(sub)
+    if sub.unions or sub.group_by or sub.having or sub.limit is not None \
+            or sub.offset or sub.ctes:
+        raise _unsupported_correlation(
+            "the subquery uses set ops, grouping, or limits")
+    eq_pairs, rest = [], []           # (outer flat column, inner expr)
+    for c in _conjuncts(sub.where) if sub.where is not None else []:
+        refs = _outer_refs(c, outer_scope, inner_aliases)
+        if not refs:
+            rest.append(c)
+            continue
+        if isinstance(c, E.BinOp) and c.op == "==" and isinstance(
+                c.left, E.Col) and isinstance(c.right, E.Col):
+            l_out, r_out = c.left.name in refs, c.right.name in refs
+            if l_out != r_out:
+                outer = c.left.name if l_out else c.right.name
+                eq_pairs.append((_resolve_name(outer, outer_scope, ()),
+                                 c.right if l_out else c.left))
+                continue
+        raise _unsupported_correlation(f"non-equi correlated predicate {c}")
+    for outer_expr, item in extra_outer_cols:
+        if not isinstance(outer_expr, E.Col):
+            raise _unsupported_correlation(
+                "the IN operand must be a plain column")
+        eq_pairs.append((outer_expr.name, item))
+    if not eq_pairs:
+        raise _unsupported_correlation("no equality correlation found")
+
+    def inner_key(ie):
+        # the subquery's own qualifier stripped: g.guest == guest
+        if isinstance(ie, E.Col):
+            alias, _, col = ie.name.partition(".")
+            return col if alias.lower() in inner_aliases else ie.name
+        return str(ie)
+
+    deduped: dict = {}
+    for o, ie in eq_pairs:
+        k = inner_key(ie)
+        if o in deduped and deduped[o][1] != k:
+            raise _unsupported_correlation(
+                "two different correlation keys target one outer column")
+        deduped.setdefault(o, (ie, k))
+    inner = Query([E.Alias(ie, o) for o, (ie, _) in deduped.items()],
+                  sub.view, _conjoin(rest), joins=sub.joins, distinct=True)
+    inner.view_alias = sub.view_alias
+    return _execute(inner, cat), list(deduped)
+
+
+def _decorrelate_where(where, scope: dict, cat):
+    """WHERE split into its plain conjuncts and its correlated predicate
+    subqueries, each of those a ``(right_frame, keys, how)`` semi or anti
+    join. Uncorrelated subqueries stay for ``_resolve_subqueries``, which
+    keeps their null semantics; a correlated NOT IN takes the anti join's
+    (a null key never matches, so its row stays)."""
+    keep, joins = [], []
+    for c in _conjuncts(where):
+        neg, target = False, c
+        if isinstance(c, E.Not) and isinstance(c.child, (SubqueryExists,
+                                                          SubqueryIn)):
+            neg, target = True, c.child
+        if isinstance(target, SubqueryExists):
+            sub, extra = target.query, []
+        elif isinstance(target, SubqueryIn):
+            sub = target.query
+            neg = neg != target.negated
+            if len(sub.items) != 1 or isinstance(sub.items[0],
+                                                 (str, AggExpr)):
+                keep.append(c)
+                continue
+            extra = [(target.child, sub.items[0])]
+        else:
+            keep.append(c)
+            continue
+        if sub.where is None or not _outer_refs(sub.where, scope,
+                                                _relation_aliases(sub)):
+            keep.append(c)
+            continue
+        right, keys = _decorrelate_one(sub, extra, scope, cat)
+        joins.append((right, keys, "left_anti" if neg else "left_semi"))
+    return _conjoin(keep), joins
 
 
 def _sort_with_exprs(frame, order_by, extra_drops=()):
@@ -998,13 +1313,74 @@ def _group_keys(q: Query, frame):
 
 
 def _execute(q: Query, cat):
+    """A set expression (with the WITH clause before it): its first
+    SELECT, then each UNION [ALL] / INTERSECT / EXCEPT branch, left to
+    right."""
     if q.ctes:
         cat = _OverlayCatalog(cat)
         for name, sub in q.ctes:                # later ones see earlier
             cat.register(name, _execute(sub, cat))
+    frame = _execute_single(q, cat)
+    for op, sub in q.unions:
+        rhs = _execute_single(sub, cat)
+        if op == "union_all":
+            frame = frame.union(rhs)
+        elif op == "union":
+            frame = frame.union(rhs).distinct()
+        elif op == "intersect":
+            frame = frame.intersect(rhs)
+        else:
+            frame = frame.subtract(rhs)
+    return frame
+
+
+def _scoped_source(q: Query, cat):
+    """The FROM relation joined with each JOIN, and the relation scope:
+    alias (or view name) -> {source column: output column}; a semi or
+    anti join's right side is reachable through its keys only."""
+    scope: dict = {}
     frame = _relation(q.view, cat)
-    for view, how, keys in q.joins:
-        frame = frame.join(_relation(view, cat), on=keys or None, how=how)
+    if isinstance(q.view, DerivedTable):
+        if q.view.alias:
+            scope[q.view.alias.lower()] = {c: c for c in frame.columns}
+    else:
+        scope[(q.view_alias or q.view).lower()] = {c: c for c in
+                                                   frame.columns}
+    for view, how, keys, jalias in q.joins:
+        right = _relation(view, cat)
+        pre = set(frame.columns)
+        frame = frame.join(right, on=keys or None, how=how)
+        name = jalias or (view if isinstance(view, str) else None)
+        if name:
+            post = set(frame.columns)
+            scope[name.lower()] = (
+                {k: k for k in keys} if how in ("left_semi", "left_anti")
+                else {c: (f"{c}_right" if c not in keys and c in pre
+                          and f"{c}_right" in post else c)
+                      for c in right.columns})
+    return frame, scope
+
+
+def _execute_single(q: Query, cat):
+    frame, scope = _scoped_source(q, cat)
+    cols = frame.columns
+    if q.where is not None:
+        q.where = _resolve_qualified(q.where, scope, cols)
+    if q.having is not None:
+        q.having = _resolve_qualified(q.having, scope, cols)
+    q.items = [_resolve_agg_cols(it, scope, cols) if isinstance(it, AggExpr)
+               else it if isinstance(it, str)
+               else _resolve_qualified(it, scope, cols) for it in q.items]
+    q.group_by = [_resolve_name(k, scope, cols) if isinstance(k, str) else k
+                  for k in q.group_by]
+    q.order_by = [(_resolve_name(k, scope, cols) if isinstance(k, str)
+                   else _resolve_qualified(k, scope, cols), a)
+                  for k, a in q.order_by]
+    if q.where is not None:
+        # correlated EXISTS / IN as semi and anti joins
+        q.where, corr_joins = _decorrelate_where(q.where, scope, cat)
+        for right, keys, how in corr_joins:
+            frame = frame.join(right, on=keys, how=how)
     if q.where is not None:
         q.where = _resolve_subqueries(q.where, cat)
     if q.having is not None:
@@ -1058,8 +1434,11 @@ def _execute(q: Query, cat):
         extra = [a for a in extra if a.name not in known
                  and a.name not in seen and not seen.add(a.name)]
         if q.group_by:
-            frame = frame.group_by(*q.group_by).agg(*aggs, *component_aggs,
-                                                    *extra)
+            grouped = (frame.rollup(*q.group_by) if q.group_mode == "rollup"
+                       else frame.cube(*q.group_by)
+                       if q.group_mode == "cube"
+                       else frame.group_by(*q.group_by))
+            frame = grouped.agg(*aggs, *component_aggs, *extra)
         else:
             if non_aggs:
                 raise ValueError("plain columns in an aggregate query "

@@ -157,25 +157,16 @@ def test_where_matches_jax(port, session, where):
 
 
 @pytest.mark.parametrize("sql", [
-    # set operations
-    "SELECT guest FROM v UNION SELECT guest FROM w",
-    "SELECT guest FROM v UNION ALL SELECT guest FROM w",
-    "SELECT guest FROM v INTERSECT SELECT guest FROM w",
-    "SELECT guest FROM v EXCEPT SELECT guest FROM w",
-    "WITH w AS (SELECT guest FROM v) SELECT guest FROM w UNION "
-    "SELECT guest FROM v",
-    "SELECT guest FROM v WHERE guest IN (SELECT guest FROM w UNION "
-    "SELECT guest FROM v)",
+    # statements outside the subset
+    "INSERT INTO v SELECT guest FROM w", "SHOW TABLES", "DESCRIBE v",
     # EXPLAIN
     "EXPLAIN SELECT guest FROM v", "EXPLAIN ANALYZE SELECT guest FROM v",
     "EXPLAIN WITH w AS (SELECT guest FROM v) SELECT guest FROM w",
-    # correlated subqueries
-    "SELECT guest FROM v a WHERE EXISTS (SELECT guest FROM w b WHERE "
-    "b.guest = a.guest)",
-    "SELECT guest FROM v a WHERE price > (SELECT avg(price) FROM w b "
-    "WHERE b.guest = a.guest)",
-    "SELECT guest FROM v a WHERE guest IN (SELECT guest FROM w b WHERE "
-    "b.price > a.price)"])
+    # builtin functions, operators and forms not yet ported
+    "SELECT upper(name) FROM v", "SELECT posexplode(arr) FROM v",
+    "SELECT guest || 'x' FROM v", "SELECT guest FROM v WHERE a <=> b",
+    "SELECT cast(guest AS date) FROM v", "SELECT 1",
+    "SELECT guest FROM v GROUP BY GROUPING SETS ((guest))"])
 def test_sql_outside_subset_raises(sql):
     with pytest.raises(NotImplementedError):
         parse(sql)

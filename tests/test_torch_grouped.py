@@ -307,12 +307,13 @@ def test_outside_the_subset_raises():
         t = TFrame({"s": ["a", "b"], "v": [1.0, 2.0],
                     "x": np.ones((2, 2))}, device="cpu")
         with pytest.raises(NotImplementedError, match="string"):
-            t.group_by("v").agg(TA.max("s"))
+            t.group_by("v").agg(TA.sum("s"))
         with pytest.raises(NotImplementedError, match=r"\(2, 2\)"):
             t.group_by("x").agg(TA.count())
-        for fn in ("median", "collect_list", "corr"):
-            with pytest.raises(NotImplementedError, match=fn):
-                TA.AggExpr(fn, "v")
+        with pytest.raises(ValueError, match="unknown aggregate"):
+            TA.AggExpr("percentile", "v")
+        with pytest.raises(ValueError, match="two columns"):
+            TA.AggExpr("corr", "v")
 
 
 def test_grouped_columns_stay_on_the_frame_device():
@@ -321,4 +322,5 @@ def test_grouped_columns_stay_on_the_frame_device():
         out = t.group_by("k").agg(TA.sum("v"))
         assert out.device == torch.device("cpu")
         assert out.mask.all() and out.num_slots == 2
-        assert segments.DEVICE_AGG_FNS == jax_segments.DEVICE_AGG_FNS
+        assert segments.SEGMENT_FNS == jax_segments.DEVICE_AGG_FNS
+        assert segments.DEVICE_AGG_FNS == set(JA._AGGS) - {"mean"}
