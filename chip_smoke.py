@@ -116,7 +116,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    torch.profiler, steps 2-3 bit-identical over two runs, the order
    statistics, the sampling masks and every row of the set-operation and
    correlated steps against numpy, the other results against the CPU
-   run.
+   run;
+12. the builtin function library as a DQ standardization pass over the
+   10^7-row table cleaned by one dq_rules launch (with phase 8's CASE
+   band): the numeric builtins on every clean row, fluent and as
+   selectExpr (round, bround, floor, ceil, log1p, sqrt, cbrt, pow, hypot,
+   pmod, sign, greatest/least/coalesce/nanvl over a NaN-holed column,
+   atan2); dates on every clean row (the fields, last_day, add_months,
+   months_between, trunc, datediff, date_format, date_add/date_sub) and
+   to_date of 10^6 date strings; the string builtins on the first 10^6
+   clean rows; arrays, the higher-order
+   functions, posexplode and explode on 10^5 rows; hash, xxhash64, crc32,
+   get_json_object and json_tuple on 10^5 rows; rand/randn/ids on every
+   slot and a SELECT without FROM; the timestamp family under the float64
+   policy (under float32 it must raise). The CPU float32 run first, then
+   the card with the launch counts reset just before and read just after
+   (dq_rules once), each step's median of 3 host-clock times and one run
+   under torch.profiler; every column bit for bit against the CPU float32
+   run but the transcendental ones, within 2e-6 of the CPU float64 run on
+   the same float32 prices; the hashes against the JAX package's
+   (BUILTIN_HASH_GOLDEN); the row counts Σ(guest % 5 + 1), numpy's draws
+   and the other identities.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -3007,6 +3027,503 @@ def check_report_full(guest, price) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the builtin function library at 10^7 rows
+# ---------------------------------------------------------------------------
+
+BUILTIN_HEAD = 1_000_000        # the string step's rows
+BUILTIN_SMALL = 100_000         # the array, hash and JSON steps' rows
+BUILTIN_SEED = 42
+# A NaN-holed copy of price: every seventh guest is NULL.
+HOLED = "CASE WHEN guest % 7 = 0 THEN NULL ELSE price END"
+# The step-1 columns computed by transcendental functions: held within
+# BUILTIN_RTOL to the CPU float64 run on the same (float32) prices; every
+# other column of every step is held to the CPU run in the same policy bit
+# for bit.
+BUILTIN_TRANSCENDENTAL = ("l1p", "sq", "cb", "pw", "hy", "at2")
+BUILTIN_RTOL = 2e-6
+NUMERIC_SQL = ("guest", "price", "holed", "round(price, 1) AS r1",
+               "bround(price, 1) AS b1", "floor(price) AS fl",
+               "ceil(price) AS ce", "log1p(price) AS l1p",
+               "sqrt(price) AS sq", "cbrt(price - 100) AS cb",
+               "pow(guest, 2) AS pw", "hypot(guest, price) AS hy",
+               "pmod(guest, 7) AS pm", "sign(price - 100) AS sg",
+               "greatest(holed, guest) AS gr", "least(holed, guest) AS le",
+               "coalesce(holed, price) AS co", "nanvl(holed, -1.0) AS nv",
+               "atan2(price, guest) AS at2")
+DAY0 = "(SELECT to_date('2019-01-01'))"
+DATE_SQL = (f"SELECT guest, price, d, year(d) AS y, month(d) AS m, "
+            "dayofmonth(d) AS dm, dayofweek(d) AS dw, dayofyear(d) AS dy, "
+            "weekofyear(d) AS wk, quarter(d) AS q, last_day(d) AS ld, "
+            "add_months(d, 1) AS am, months_between(d, "
+            f"{DAY0}) AS mb, trunc(d, 'MM') AS tr, datediff(d, {DAY0}) "
+            "AS dd, date_format(d, 'yyyy-MM-dd') AS ds, date_add(d, 30) AS "
+            "da, date_sub(d, 30) AS dsub FROM dated")
+STRING_SQL = ("SELECT upper(band) AS up, initcap(band) AS ic, lpad(ps, 8, "
+              "'0') AS lp, trim(concat('  ', band, ' ')) AS tr, "
+              "substring(ps, 1, 3) AS sb, regexp_replace(ps, '\\.', ',') AS "
+              "rr, regexp_extract(ps, '(\\d+)\\.(\\d+)', 2) AS rx, band || "
+              "'-' || ps AS cc, length(ps) AS ln, instr(ps, '.') AS ix, "
+              "translate(band, 'aeiou', 'AEIOU') AS tl, levenshtein(band, ps) "
+              "AS lv, md5(ps) AS m5, sha2(band, 256) AS s2, soundex(band) AS "
+              "sx FROM {view}")
+TIMESTAMP_SQL = ("SELECT ts, to_timestamp(ts) AS t1, unix_timestamp(ts) AS "
+                 "u1, from_unixtime(unix_timestamp(ts)) AS f1, "
+                 "hour(to_timestamp(ts)) AS hh, minute(ts) AS mi, "
+                 "second(to_timestamp(ts)) AS ss, date_trunc('hour', ts) AS "
+                 "dt FROM (SELECT concat(date_format((SELECT "
+                 "to_date('2019-01-01')) + guest * 7 + CAST(price AS int), "
+                 "'yyyy-MM-dd'), ' ', lpad(CAST(CAST(pmod(guest, 24) AS int) "
+                 "AS string), 2, '0'), ':30:15') AS ts, guest FROM stamped)")
+# The JAX package's hashes of the first 10^5 clean rows of full_table(10^7)
+# on the CPU with x64 off (price as float32, as on the card);
+# tests/test_torch_sql_builtins.py recomputes them.
+BUILTIN_HASH_GOLDEN = {
+    "rows": 100_000,
+    "hash_sum": -778160241222,
+    "hash_head": [1826934249, -1194975240, 488667980, -1494746737,
+                  259964254],
+    "xxhash64_sum_mod64": 14168691286192981976,
+    "crc32_sum": 231034571660311,
+}
+
+
+def builtin_tables(device: str, guest, price):
+    """A session, the table cleaned by one ``dq_rules`` launch (as
+    ``clean_table``), phase 8's CASE band over it (``banded``), and the
+    band's slots up to its 10^6-th and 10^5-th valid rows (``head``,
+    ``small``), each registered under its name."""
+    spark, clean = clean_table(device, guest, price)
+    banded = spark.sql(BAND_SQL)
+    tables = {"clean": clean, "banded": banded,
+              "head": head_of(banded, BUILTIN_HEAD),
+              "small": head_of(banded, BUILTIN_SMALL)}
+    for name, frame in tables.items():
+        frame.create_or_replace_temp_view(name)
+    return spark, tables
+
+
+def builtin_steps(spark, t):
+    """Phase 12's steps on ``builtin_tables``' frames, as (name, fn) pairs
+    returning {name: frame or host value}: (1) the numeric builtins on
+    every clean row, fluent and as selectExpr; (2) dates on every clean
+    row, and ``to_date`` of the 10^6-row head's date strings; (3) the
+    string builtins on the head; (4) arrays, the higher-order functions
+    and the generators on 10^5 rows; (5) hashes and JSON on 10^5 rows;
+    (6) the row functions on every slot and a SELECT without FROM."""
+    from sparkdq4ml_tpu_torch import functions as F
+
+    banded, head, small = t["banded"], t["head"], t["small"]
+    holed = banded.with_column("holed", F.expr(HOLED))
+
+    def numeric():
+        fluent = holed.select(
+            "guest", "price", "holed", F.round("price", 1).alias("r1"),
+            F.bround("price", 1).alias("b1"), F.floor("price").alias("fl"),
+            F.ceil("price").alias("ce"), F.log1p("price").alias("l1p"),
+            F.sqrt("price").alias("sq"),
+            F.cbrt(F.col("price") - 100).alias("cb"),
+            F.pow("guest", 2).alias("pw"), F.hypot("guest", "price").alias(
+                "hy"), F.expr("pmod(guest, 7)").alias("pm"),
+            F.signum(F.col("price") - 100).alias("sg"),
+            F.greatest("holed", "guest").alias("gr"),
+            F.least("holed", "guest").alias("le"),
+            F.coalesce("holed", "price").alias("co"),
+            F.nanvl("holed", F.lit(-1.0)).alias("nv"),
+            F.atan2("price", "guest").alias("at2"))
+        return {"fluent": fluent, "sql": holed.select_expr(*NUMERIC_SQL)}
+
+    def dates():
+        spark.sql(f"SELECT guest, price, {DAY0} + guest * 7 + CAST(price AS "
+                  "int) AS d FROM banded").create_or_replace_temp_view(
+                      "dated")
+        fields = spark.sql(DATE_SQL)
+        parsed = head_of(fields, BUILTIN_HEAD).select(
+            "d", F.to_date("ds").alias("back"))
+        return {"fields": fields, "parsed": parsed}
+
+    def strings():
+        head.select_expr("guest", "band", "CAST(price AS string) AS ps"
+                         ).create_or_replace_temp_view("hs")
+        return {"text": spark.sql(STRING_SQL.format(view="hs"))}
+
+    def arrays():
+        arr = spark.sql(
+            "SELECT guest, price, band, sequence(1, guest % 5 + 1) AS seq, "
+            "split(concat_ws(',', band, CAST(guest AS string), CAST(price "
+            "AS string)), ',') AS parts FROM small")
+        arr.create_or_replace_temp_view("arr")
+        return {"ops": spark.sql(
+                    "SELECT transform(seq, x -> x * price) AS tx, "
+                    "filter(seq, x -> x % 2 = 1) AS fo, exists(seq, x -> x > "
+                    "3) AS ex, aggregate(seq, 0, (acc, x) -> acc + x) AS ag, "
+                    "array_union(seq, sequence(2, 4)) AS au, "
+                    "array_intersect(seq, sequence(2, 4)) AS ai, "
+                    "array_except(seq, sequence(2, 4)) AS ae, "
+                    "array_join(parts, '|') AS aj, sort_array(parts) AS sa, "
+                    "size(seq) AS sz FROM arr"),
+                "posexploded": arr.select("guest", F.posexplode("seq")),
+                "exploded": arr.select("guest", F.explode("seq")),
+                "parts": arr.select("band", F.explode("parts"))}
+
+    def hashes():
+        hj = spark.sql(
+            "SELECT hash(guest, price) AS h, xxhash64(band) AS xh, "
+            "crc32(band) AS cr, concat('{\"guest\": ', CAST(guest AS "
+            "string), ', \"band\": \"', band, '\", \"p\": [', CAST(price AS "
+            "string), ']}') AS js FROM small")
+        hj.create_or_replace_temp_view("hj")
+        return {"hashes": hj,
+                "json": spark.sql("SELECT get_json_object(js, '$.band') AS "
+                                  "jb, get_json_object(js, '$.p[0]') AS jp "
+                                  "FROM hj"),
+                "tuple": hj.select(F.json_tuple("js", "guest", "band"))}
+
+    def row_functions():
+        return {"drawn": t["clean"].select(
+                    F.rand(BUILTIN_SEED).alias("r"),
+                    F.randn(BUILTIN_SEED).alias("n"),
+                    F.monotonically_increasing_id().alias("id")),
+                "by_name": spark.sql(f"SELECT rand({BUILTIN_SEED}) AS r, "
+                                     f"randn({BUILTIN_SEED}) AS n FROM clean"),
+                "one_row": spark.sql("SELECT 1 + 1, upper('a'), "
+                                     "if(true, 1, 0)")}
+
+    return [("numeric", numeric), ("dates", dates), ("strings", strings),
+            ("arrays", arrays), ("hashes", hashes),
+            ("row_functions", row_functions)]
+
+
+def run_builtins(spark, tables, times=None, runs: int = 1, names=None):
+    """Phase 12's steps (those in ``names``, all by default): {step: [each
+    run's results]}."""
+    steps = [(name, fn) for name, fn in builtin_steps(spark, tables)
+             if names is None or name in names]
+    return run_steps(steps, spark.device.type, times, runs)
+
+
+def _cell(x):
+    """A host cell as comparable data: arrays element by element, numbers
+    by type and value (NaN as a token)."""
+    if x is None:
+        return None
+    if isinstance(x, (list, tuple, np.ndarray)):
+        return tuple(_cell(e) for e in x)
+    if isinstance(x, (float, np.floating)):
+        return (type(x).__name__, "nan" if np.isnan(x) else float(x))
+    return (type(x).__name__, x)
+
+
+def _cells(v) -> list:
+    """A host column as a list of ``_cell``s; a column of strings and
+    ``None`` compares as it is."""
+    out = v.tolist()
+    if set(map(type, out)) <= {str, type(None)}:
+        return out
+    return [_cell(x) for x in out]
+
+
+def summarize_builtins(res: dict) -> dict:
+    """{step.name: {column: host values}} of every step's frames, the
+    mask as ``__mask__``: numeric columns as numpy arrays of their own
+    dtype, host columns as lists of ``_cell``s."""
+    out = {}
+    for step, results in res.items():
+        for name, frame in results.items():
+            cols = {}
+            for c, v in frame.to_pydict().items():
+                cols[c] = _cells(v) if v.dtype == object else np.asarray(v)
+            cols["__mask__"] = frame.mask.cpu().numpy()
+            out[f"{step}.{name}"] = cols
+    return out
+
+
+def same_column(a, b) -> bool:
+    """Bit for bit: numeric columns of one dtype with equal bits, host
+    columns cell for cell."""
+    if isinstance(a, list) or isinstance(b, list):
+        return a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f":
+        return np.array_equal(a.view(f"i{a.itemsize}"),
+                              b.view(f"i{b.itemsize}"))
+    return np.array_equal(a, b)
+
+
+def differing(got: dict, want: dict) -> list:
+    """The columns of two summaries of one frame that are not
+    ``same_column``."""
+    if list(got) != list(want):
+        return ["columns"]
+    return [c for c in want if not same_column(got[c], want[c])]
+
+
+def check_builtins(card: dict, cpu32: dict, cpu64: dict) -> dict:
+    """The card's float32 phase 12 against the CPU: every column bit for
+    bit against the CPU float32 run of the same code, but the
+    transcendental ones (BUILTIN_TRANSCENDENTAL, sqrt among them: the
+    card's float32 sqrt is not the CPU's correctly rounded one), held
+    within BUILTIN_RTOL of the CPU float64 run. Every column is checked
+    before it raises, naming all that fail. Returns the transcendental
+    columns' largest relative errors."""
+    errs, bad = {}, []
+    for key, want in cpu32.items():
+        got = card[key]
+        if list(got) != list(want):
+            raise AssertionError(f"{key}: columns {list(got)} vs "
+                                 f"{list(want)}")
+        for c, w in want.items():
+            where = f"{key}.{c}"
+            if key.startswith("numeric.") and c in BUILTIN_TRANSCENDENTAL:
+                g = np.asarray(got[c], np.float64)
+                w64 = np.asarray(cpu64[key][c], np.float64)
+                if not np.array_equal(np.isnan(g), np.isnan(w64)):
+                    bad.append(f"{where} (NULLs)")
+                    continue
+                ok = ~np.isnan(w64)
+                rel = np.abs(g[ok] - w64[ok]) / np.maximum(np.abs(w64[ok]),
+                                                           1e-30)
+                errs[where] = float(rel.max()) if rel.size else 0.0
+                if errs[where] > BUILTIN_RTOL:
+                    bad.append(f"{where} (relative error {errs[where]})")
+            elif not same_column(got[c], w):
+                if isinstance(w, list):
+                    n = sum(a != b for a, b in zip(got[c], w))
+                else:
+                    n = int((np.asarray(got[c]) != w).sum()) \
+                        if np.shape(got[c]) == w.shape else -1
+                bad.append(f"{where} ({n} cells)")
+    if bad:
+        raise AssertionError("differ from the CPU run in the same policy: "
+                             + ", ".join(bad))
+    return errs
+
+
+def builtin_hashes(res: dict) -> dict:
+    """The hash step's numbers that BUILTIN_HASH_GOLDEN holds."""
+    d = res["hashes"]["hashes"].to_pydict()
+    h = [int(x) for x in d["h"]]
+    return {"rows": len(h), "hash_sum": sum(h), "hash_head": h[:5],
+            "xxhash64_sum_mod64": sum(int(x) for x in d["xh"]) % (1 << 64),
+            "crc32_sum": sum(int(x) for x in d["cr"])}
+
+
+def check_builtin_identities(res: dict, tables) -> dict:
+    """What each step must give whatever the platform: the fluent and SQL
+    numeric forms bit-identical; dates parsed back equal to themselves;
+    the generators' row counts Σ(guest % 5 + 1) and three parts a row;
+    the JSON fields equal to their sources; the draws of rand/randn equal
+    to numpy's default_rng(seed) bit for bit and the ids to arange; the
+    FROM-less row [2, 'A', 1]."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_dtype, numpy_dtype
+
+    num = summarize_builtins({"n": res["numeric"]})
+    bad = differing(num["n.fluent"], num["n.sql"])
+    if bad:
+        raise AssertionError(f"fluent and selectExpr forms differ: {bad}")
+    parsed = res["dates"]["parsed"].to_pydict()
+    if not np.array_equal(parsed["d"], parsed["back"]):
+        raise AssertionError("to_date(date_format(d)) differs from d")
+    small = tables["small"].to_pydict()
+    want_rows = int((np.fmod(small["guest"], 5) + 1).sum())
+    counts = {k: res["arrays"][k].count()
+              for k in ("posexploded", "exploded", "parts")}
+    if counts["posexploded"] != want_rows or counts["exploded"] != want_rows:
+        raise AssertionError(f"generator rows {counts}, expected "
+                             f"{want_rows}")
+    if counts["parts"] != 3 * len(small["guest"]):
+        raise AssertionError(f"split parts {counts['parts']}")
+    pos = res["arrays"]["posexploded"].to_pydict()
+    seq = np.concatenate([np.arange(int(g) % 5 + 1) for g in small["guest"]])
+    if not np.array_equal(pos["pos"], seq) or \
+            not np.array_equal(pos["col"], seq + 1):
+        raise AssertionError("posexplode positions or values differ")
+    js = res["hashes"]["json"].to_pydict()
+    tup = res["hashes"]["tuple"].to_pydict()
+    if list(js["jb"]) != list(small["band"]) or \
+            list(tup["c1"]) != list(small["band"]) or \
+            list(tup["c0"]) != [str(g) for g in small["guest"]]:
+        raise AssertionError("JSON fields differ from their sources")
+    drawn = res["row_functions"]["drawn"]
+    n = drawn.num_slots
+    dt = numpy_dtype(float_dtype())
+    r = drawn._column_values("r").cpu().numpy()
+    z = drawn._column_values("n").cpu().numpy()
+    if not (np.array_equal(r, np.random.default_rng(BUILTIN_SEED).uniform(
+            size=n).astype(dt)) and np.array_equal(z, np.random.default_rng(
+                BUILTIN_SEED).standard_normal(size=n).astype(dt))):
+        raise AssertionError("rand/randn differ from numpy's draw")
+    by_name = res["row_functions"]["by_name"]
+    if not (torch.equal(by_name._column_values("r"),
+                        drawn._column_values("r"))
+            and torch.equal(by_name._column_values("n"),
+                            drawn._column_values("n"))):
+        raise AssertionError("rand/randn by name differ from the fluent "
+                             "form")
+    if not np.array_equal(drawn._column_values("id").cpu().numpy(),
+                          np.arange(n)):
+        raise AssertionError("monotonically_increasing_id is not arange")
+    one = res["row_functions"]["one_row"].collect()
+    if [tuple(r_) for r_ in one] != [(2, "A", 1)]:
+        raise AssertionError(f"SELECT without FROM gave {one}")
+    return {"generator_rows": want_rows, "split_rows": counts["parts"],
+            "drawn_slots": n}
+
+
+def timestamps(device: str, guest, price) -> dict:
+    """The timestamp family on the first BUILTIN_HEAD clean rows under the
+    float64 policy (summarized), with its identities: from_unixtime of
+    unix_timestamp gives the text back, hour is pmod(guest, 24), minute
+    30, second 15, to_timestamp equals unix_timestamp and date_trunc
+    drops 30:15. Under float32 the same query raises ValueError."""
+    spark = session(device)
+    try:
+        return _timestamps(spark, device, guest, price)
+    finally:
+        spark.stop()
+
+
+def _timestamps(spark, device: str, guest, price) -> dict:
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_policy
+    from sparkdq4ml_tpu_torch.ops.rules import dq_rules_fused
+
+    with float_policy(torch.float32):
+        raw = spark.createDataFrame({"guest": guest, "price": price})
+        keep = dq_rules_fused(raw.col("price").eval(raw),
+                              raw.col("guest").eval(raw))[2]
+        rows = np.flatnonzero(keep.cpu().numpy())[:BUILTIN_HEAD]
+        spark.createDataFrame({"guest": guest[rows], "price": price[rows]}
+                              ).create_or_replace_temp_view("stamped")
+        try:
+            spark.sql(TIMESTAMP_SQL).count()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("the timestamp family ran under float32")
+    with float_policy(torch.float64):
+        spark.createDataFrame({"guest": guest[rows], "price": price[rows]}
+                              ).create_or_replace_temp_view("stamped")
+        out = spark.sql(TIMESTAMP_SQL)
+        d = out.to_pydict()
+        for name in ("t1", "u1", "dt"):
+            col = out._column_values(name)
+            if col.dtype != torch.float64 or col.device.type != device:
+                raise AssertionError(f"timestamp column {name}: {col.dtype} "
+                                     f"on {col.device}")
+        summary = summarize_builtins({"ts": {"stamps": out}})
+    g = guest[rows].astype(np.int64)
+    if not (list(d["f1"]) == list(d["ts"])
+            and np.array_equal(d["hh"], g % 24)
+            and (d["mi"] == 30).all() and (d["ss"] == 15).all()
+            and np.array_equal(d["t1"], d["u1"])
+            and np.array_equal(d["dt"], d["t1"] - 1815.0)):
+        raise AssertionError("timestamp identities fail")
+    return summary
+
+
+def builtin_reference(guest, price) -> dict:
+    """The CPU runs phase 12 is held to: every step in float32, the
+    numeric step in float64 on the prices rounded to float32 (the inputs
+    the card computes on, so that the transcendental columns differ from
+    it by their own rounding only; the rules keep the same rows, as no
+    two-decimal price lies within a float32 rounding of a rule's bound),
+    each once, and the float64 timestamps."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_policy
+
+    out = {}
+    price32 = price.astype(np.float32).astype(np.float64)
+    for name, dtype, prices, names in (
+            ("cpu32", torch.float32, price, None),
+            ("cpu64", torch.float64, price32, ("numeric",))):
+        with float_policy(dtype):
+            spark, tables = builtin_tables("cpu", guest, prices)
+            out[name] = summarize_builtins(first_runs(run_builtins(
+                spark, tables, names=names)))
+            spark.stop()
+    out["timestamps"] = timestamps("cpu", guest, price)
+    return out
+
+
+def check_builtins_full(guest, price) -> dict:
+    """Phase 12 on the 10^7-row table: the CPU references first, then the
+    card (float32) with the launch counts set to 0 just before the table
+    is cleaned and read just after the steps (dq_rules once); every step's
+    median of 3 host-clock times and one more run under torch.profiler;
+    the numeric and date results on the card; every column against the
+    CPU float32 run bit for bit (the transcendental ones within
+    BUILTIN_RTOL of the CPU float64 run); the hashes against
+    BUILTIN_HASH_GOLDEN; the identities; the timestamp family under the
+    float64 policy against its CPU run. The string step runs on the first
+    BUILTIN_HEAD clean rows only: on every clean row it takes 34.7 s on
+    an H100 80GB HBM3 host (PERF.md §5), past the phase's 150 s with the
+    rest."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    ref = builtin_reference(guest, price)
+    cpu_s = time.perf_counter() - t0
+    spark, tables = builtin_tables("cuda", guest[:1000], price[:1000])
+    run_builtins(spark, tables)                             # warm-up
+    spark.stop()
+    times: dict = {}
+    torch.cuda.synchronize()
+    kernels.launches.reset()
+    t0 = time.perf_counter()
+    spark, tables = builtin_tables("cuda", guest, price)
+    outs = run_builtins(spark, tables, times, runs=3)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = kernels.launches.snapshot()
+    if counts["dq_rules"] != 1:
+        raise AssertionError(f"the builtin phase launched dq_rules "
+                             f"{counts['dq_rules']} times, expected 1")
+    first = first_runs(outs)
+    for step in ("numeric", "dates"):
+        for name, frame in first[step].items():
+            for c in frame.columns:
+                col = frame._column_values(c)
+                if isinstance(col, torch.Tensor) and \
+                        col.device.type != "cuda":
+                    raise AssertionError(f"{step}.{name}.{c} is not on the "
+                                         "card")
+    prof = profile_run("builtins", lambda: run_builtins(spark, tables))
+    steps_ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    log(f"builtins on the card: step ms (median) {steps_ms}; runs s "
+        f"{times}; cpu references {cpu_s:.1f} s; profile {prof}")
+    card = summarize_builtins(first)
+    errs = check_builtins(card, ref["cpu32"], ref["cpu64"])
+    hashes = builtin_hashes(first)
+    if hashes != BUILTIN_HASH_GOLDEN:
+        raise AssertionError(f"hashes {hashes} differ from the JAX "
+                             f"package's {BUILTIN_HASH_GOLDEN}")
+    identities = check_builtin_identities(first, tables)
+    spark.stop()
+    t0 = time.perf_counter()
+    stamps = timestamps("cuda", guest, price)
+    stamps_s = time.perf_counter() - t0
+    bad = differing(stamps["ts.stamps"], ref["timestamps"]["ts.stamps"])
+    if bad:
+        raise AssertionError(f"timestamps differ from the CPU run: {bad}")
+    log(f"builtins at {len(guest)} rows, card float32: step ms (median) "
+        f"{steps_ms}; runs s {times}; launches {counts}; identities "
+        f"{identities}; hashes {hashes}; profile {prof}; cpu reference "
+        f"{cpu_s:.1f} s; timestamps {stamps_s:.1f} s; errors against cpu "
+        f"float64 {errs}")
+    return {"rows": len(guest), "steps_ms": steps_ms, "runs_s": times,
+            "path_s": path_s, "launches": counts, "identities": identities,
+            "hashes": hashes, "profile": prof, "cpu_reference_s": cpu_s,
+            "timestamps_s": stamps_s, "max_rel_err": errs}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -3272,6 +3789,9 @@ def main() -> int:
     t0 = time.perf_counter()
     report = check_report_full(*full_table(FULL_ROWS))
     report_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    builtins = check_builtins_full(*full_table(FULL_ROWS))
+    builtins_s = time.perf_counter() - t0
     by_path = {"app": counts,
                **{p: selection[p]["launches"] for p in selection},
                "owlqn_dataset_full": small["owlqn"]["full"]["l-bfgs"][
@@ -3282,13 +3802,15 @@ def main() -> int:
                **{f"classifier_{name}": fit["launches"]
                   for name, fit in classifiers["fits"].items()},
                "ingest_app": ingest["launches"],
-               "dq_report": report["launches"]}
+               "dq_report": report["launches"],
+               "builtins": builtins["launches"]}
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
          "replaces": "sparkdq4ml_tpu/ops/pallas_kernels.py:237",
          "launches": counts["dq_rules"], "max_abs_err": dq_err,
          "dq_report_launches": report["launches"]["dq_rules"],
+         "builtins_launches": builtins["launches"]["dq_rules"],
          "parity": True, **dq_main, "app_size": dq_app},
         {"name": "packed_gram", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/packed_gram.cu",
@@ -3339,6 +3861,7 @@ def main() -> int:
         "classifiers": classifiers, "classifiers_phase_s": classifiers_s,
         "ingest": ingest, "ingest_phase_s": ingest_s,
         "dq_report": report, "dq_report_phase_s": report_s,
+        "builtins": builtins, "builtins_phase_s": builtins_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}

@@ -30,9 +30,10 @@ import torch
 from ..config import (config, float_dtype, int_dtype, resolve_device,
                       wide_types)
 from ..ops import strings
-from ..ops.expressions import (Alias, Col, Explode, Expr, SortOrder,
-                               is_host_column, predicate_keep_mask,
-                               spark_type_name)
+from ..ops.cells import list_column  # noqa: F401 - the package exports it
+from ..ops.expressions import (Alias, Col, Explode, Expr, JsonTuple,
+                               SortOrder, is_host_column,
+                               predicate_keep_mask, spark_type_name)
 
 _JOIN_TYPES = ("inner", "left", "right", "outer", "left_semi", "left_anti",
                "cross")
@@ -110,16 +111,6 @@ def _join_plan(lcols, rcols, li, ri, how):
         lp = np.concatenate([lp, np.full(extra.size, -1, np.int64)])
         rp = np.concatenate([rp, extra])
     return lp.astype(np.int64), rp.astype(np.int64)
-
-
-def list_column(items) -> np.ndarray:
-    """A ragged list column (a collect_list result, token lists): a 1-D
-    object array with one list a row, where ``np.asarray`` would make
-    equal-length lists one 2-D array."""
-    arr = np.empty(len(items), dtype=object)
-    for i, it in enumerate(items):
-        arr[i] = it
-    return arr
 
 
 def _as_column(values, device: torch.device):
@@ -288,10 +279,12 @@ class Frame:
     withColumns = with_columns
 
     def select(self, *exprs: Union[str, Expr]) -> "Frame":
-        """Project columns and expressions. One ``explode`` generator (a
-        bare ``Explode`` or an alias of one) may stand among them: the
-        other items are computed first, then each row repeats once for
-        every element of its array cell (Spark's rule)."""
+        """Project columns and expressions. One row generator (a bare
+        ``Explode`` or an alias of one: ``explode``, ``explode_outer``,
+        ``posexplode``) may stand among them: the other items are computed
+        first, then each row repeats once for every element of its array
+        cell (Spark's rule). A ``json_tuple`` item expands in place into
+        its c0...cN columns, with no row multiplication."""
         flat = []
         for e in exprs:
             flat.extend(e if isinstance(e, (list, tuple)) else [e])
@@ -308,6 +301,9 @@ class Frame:
                 e = Col(e)
             if any(e is g for g in gens):
                 continue
+            if isinstance(e, JsonTuple):
+                data.update(e.columns(self))
+                continue
             data[e.name] = self._eval(e)
         if not gens:
             return self._with(data=data)
@@ -319,18 +315,24 @@ class Frame:
         while tmp in data:
             tmp += "_"
         data[tmp] = inner.source_values(self)
-        return self._with(data=data).explode(tmp, g.name,
-                                             keep_nulls=inner.outer)
+        return self._with(data=data).explode(
+            tmp, g.name, keep_nulls=inner.outer,
+            position_col="pos" if inner.with_position else None)
 
     def explode(self, column: str, output_col: Optional[str] = None,
-                keep_nulls: bool = False) -> "Frame":
+                keep_nulls: bool = False,
+                position_col: Optional[str] = None) -> "Frame":
         """Spark's ``explode``: one row for each element of each valid
         row's array cell (a compact frame), the other columns repeated;
         a null or empty cell drops its row, or with ``keep_nulls``
         (``explode_outer``) gives one row with a null element. Numeric
         elements make a float column on the device, strings a host
-        column. The row plan is built on the host from the cell lengths;
-        device columns gather by ``index_select``."""
+        column. With ``position_col`` (``posexplode``), each element's
+        0-based position goes into that column, placed just before the
+        value column (Spark's (pos, col) order): int32, or the policy's
+        float with NaN where ``keep_nulls`` gave a null row. The row plan
+        is built on the host from the cell lengths; device columns gather
+        by ``index_select``."""
         arr = self._data.get(column)
         if arr is None:
             raise ValueError(f"no column {column!r}")
@@ -347,28 +349,50 @@ class Frame:
                           np.int64)
         src = np.repeat(idx, np.maximum(lens, 1) if keep_nulls else lens)
         values: list = []
+        positions: list = []
         for c, ln in zip(cells, lens):
             if ln:
                 values.extend(c)
+                positions.extend(range(ln))
             elif keep_nulls:
                 values.append(None)
+                positions.append(None)
         src_dev = torch.as_tensor(src, device=self.device)
         data: dict[str, object] = {}
         for name, col in self._data.items():
             if name != column:
                 data[name] = (col[src] if is_host_column(col)
                               else col.index_select(0, src_dev))
+        out_name = output_col or column
         non_null = [v for v in values if v is not None]
         if non_null and all(isinstance(v, (int, float, np.integer,
                                            np.floating)) for v in non_null):
-            data[output_col or column] = torch.as_tensor(
+            data[out_name] = torch.as_tensor(
                 [np.nan if v is None else float(v) for v in values],
                 dtype=float_dtype(), device=self.device)
         else:
             out = np.empty(len(values), dtype=object)
             for i, v in enumerate(values):      # a list element stays one
                 out[i] = v                      # cell, never a 2-D array
-            data[output_col or column] = out
+            data[out_name] = out
+        if position_col is not None:
+            if position_col in data:
+                raise ValueError(
+                    f"position column {position_col!r} collides with an "
+                    "existing output column")
+            if any(p is None for p in positions):
+                pos = torch.as_tensor(
+                    [np.nan if p is None else float(p) for p in positions],
+                    dtype=float_dtype(), device=self.device)
+            else:
+                pos = torch.as_tensor(np.asarray(positions, np.int32),
+                                      device=self.device)
+            ordered: dict[str, object] = {}
+            for k, v in data.items():
+                if k == out_name:
+                    ordered[position_col] = pos
+                ordered[k] = v
+            data = ordered
         return Frame(data, device=self.device)
 
     def unpivot(self, ids, values=None, variable_column_name: str = "variable",

@@ -16,7 +16,7 @@ import os
 import numpy as np
 
 from ..config import float_dtype, numpy_dtype
-from .frame import Frame
+from .frame import Frame, list_column
 
 
 def _records_from_file(path: str, multi_line: bool) -> list[dict]:
@@ -32,15 +32,6 @@ def _records_from_file(path: str, multi_line: bool) -> list[dict]:
         if not isinstance(r, dict):
             raise ValueError(f"json record is not an object: {r!r}")
     return records
-
-
-def _object_column(items) -> np.ndarray:
-    """A 1-D object array, one cell an item (``np.asarray`` would make
-    equal-length lists a 2-D array)."""
-    arr = np.empty(len(items), dtype=object)
-    for i, it in enumerate(items):
-        arr[i] = it
-    return arr
 
 
 def read_json(path: str, multi_line: bool = False, device=None) -> Frame:
@@ -80,7 +71,7 @@ def read_json(path: str, multi_line: bool = False, device=None) -> Frame:
         elif kinds <= {"bool"} and all(v is not None for v in vals):
             data[name] = np.asarray(vals, bool)
         else:
-            data[name] = _object_column(vals)
+            data[name] = list_column(vals)
     return Frame(data, device=device)
 
 

@@ -1,11 +1,25 @@
-"""Column expressions, evaluated eagerly on tensors (subset of
-``sparkdq4ml_tpu/ops/expressions.py``): column references, literals
+"""Column expressions, evaluated eagerly on tensors
+(``sparkdq4ml_tpu/ops/expressions.py``): column references, literals
 (numbers, booleans, strings, NULL), aliases, casts to int, double, float
 and string, arithmetic (``+ - * / %``, unary minus), the comparison and
 boolean operators, ``IN`` lists, ``IS [NOT] NULL``, ``LIKE``, ``CASE
-WHEN``, the string functions ``concat``, ``concat_ws`` and ``split``, the
-``explode`` generators, sort markers (``asc``/``desc``) and UDF calls. Any
-other construct raises ``NotImplementedError`` that names it.
+WHEN``, sort markers (``asc``/``desc``), UDF calls, the builtin function
+library (``Func`` over ``_BUILTIN_FNS``, 140 names), the row functions
+(``RowFunc``, ``_ROW_FNS``: ``rand``, ``randn``,
+``monotonically_increasing_id``, ``spark_partition_id``,
+``uuid``, ``typeof``), the generators (``explode``, ``explode_outer``,
+``posexplode``, ``json_tuple``), the higher-order functions
+(``transform``, ``filter``, ``exists``, ``aggregate`` over a
+``Lambda``) and ``expr``. CAST to a type outside int, double, float and
+string raises ``NotImplementedError`` that names it.
+
+The function bodies live in topic modules beside this one:
+``fn_numeric`` (numbers), ``fn_strings`` (text), ``fn_arrays`` (arrays),
+``fn_dates`` (dates and timestamps) and ``fn_hashes`` (hashes and JSON);
+``cells`` holds the helpers they share. Each name computes where the JAX
+package computes it: a jnp op becomes the torch op on the column's
+device; numpy or Python on the host stays on the host, and a numeric
+result goes to the frame's device.
 
 String and array columns are numpy object arrays on the host, as in the
 JAX package, with ``None`` as their null. Numeric predicates stay torch
@@ -15,13 +29,26 @@ the device a bool mask.
 
 from __future__ import annotations
 
+import builtins
 import re
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from ..config import float_dtype, int_dtype
+from ..config import float_dtype, int_dtype, numpy_dtype
+# the JAX package's helper names, kept here where its readers look for them
+from .cells import (_cell_is_null, _int_or_null, _is_null_cell,  # noqa: F401
+                    _null_cells, _null_mask, _require_array_cells,
+                    _scalar_int, _scalar_str, _scalar_value, _str_map,
+                    bool_or_null, evaluating_on, host_array, host_mask,
+                    host_objects, is_host_column, list_column,
+                    tensor_strings)
+from .fn_arrays import ARRAY_FNS
+from .fn_dates import DATE_FNS
+from .fn_hashes import HASH_JSON_FNS, json_tuple_columns
+from .fn_numeric import NUMERIC_FNS, _sql_divide, _sql_mod
+from .fn_strings import STRING_FNS
 
 # CAST's string target: the columns it makes are host object arrays.
 STRING = np.dtype(object)
@@ -228,18 +255,6 @@ def predicate_keep_mask(cond: torch.Tensor) -> torch.Tensor:
     return cond.to(torch.bool)
 
 
-def _sql_divide(a, b):
-    """Spark's non-ANSI division: x / 0 is NULL (0 / 0 included)."""
-    return torch.where(b == 0, torch.full((), float("nan"), dtype=a.dtype,
-                                          device=a.device), a / b)
-
-
-def _sql_mod(a, b):
-    """Spark's %: the sign follows the dividend; x % 0 is NULL."""
-    return torch.where(b == 0, torch.full((), float("nan"), dtype=a.dtype,
-                                          device=a.device), torch.fmod(a, b))
-
-
 _BIN_FNS = {
     "+": torch.add, "-": torch.sub, "*": torch.mul,
     "/": _sql_divide, "%": _sql_mod,
@@ -364,7 +379,10 @@ class Cast(Expr):
         dt = resolve_type_name(self.type_name)
         if dt is STRING:
             # the JAX package iterates a numpy array: numpy scalars print
-            # at their own precision ('23.24' for a float32 23.24)
+            # at their own precision ('23.24' for a float32 23.24); a 1-D
+            # tensor renders once per distinct value
+            if isinstance(v, torch.Tensor) and v.dim() == 1:
+                return tensor_strings(v)
             a = v if is_host_column(v) else v.cpu().numpy()
             return np.asarray(
                 [None if x is None
@@ -388,7 +406,8 @@ class Cast(Expr):
 
 class UdfCall(Expr):
     """Invocation of a registered UDF by name (``callUDF``), resolved at
-    evaluation time against the registry."""
+    evaluation time against the registry; a name the registry lacks
+    falls back to the row functions, then to the builtins."""
 
     def __init__(self, udf_name: str, args: Sequence[Expr], registry=None):
         self.udf_name = udf_name
@@ -400,8 +419,18 @@ class UdfCall(Expr):
 
         reg = self._registry if self._registry is not None \
             else default_registry()
-        fn, return_dtype = reg.lookup(self.udf_name)
-        out = fn(*[a.eval(frame) for a in self.args])
+        try:
+            fn_, return_dtype = reg.lookup(self.udf_name)
+        except KeyError:
+            # the builtins by name (SQL ``abs(x)``, ``upper(s)``): a
+            # registered UDF wins, then the row functions, then the rest
+            key = self.udf_name.lower()
+            if key in _ROW_FNS:
+                return _ROW_FNS[key](frame, self.args)
+            if key in _BUILTIN_FNS:
+                return Func(key, self.args).eval(frame)
+            raise
+        out = fn_(*[a.eval(frame) for a in self.args])
         if return_dtype is not None:
             out = out.to(return_dtype)
         return out
@@ -412,39 +441,6 @@ class UdfCall(Expr):
 
     def __str__(self):
         return self.name
-
-
-# ---------------------------------------------------------------------------
-# Host columns: strings and arrays
-# ---------------------------------------------------------------------------
-
-def is_host_column(values) -> bool:
-    """A string or array column: a numpy object array kept on the host."""
-    return isinstance(values, np.ndarray) and values.dtype == object
-
-
-def host_objects(values) -> np.ndarray:
-    """A column as a host object array; a tensor's cells become Python
-    numbers, as ``np.asarray(jax_array, object)`` gives in the JAX
-    package."""
-    if is_host_column(values):
-        return values
-    return values.cpu().numpy().astype(object)
-
-
-def host_mask(mask, frame) -> torch.Tensor:
-    """A host bool array computed from string cells, on the frame's
-    device."""
-    return torch.as_tensor(np.asarray(mask, bool), device=frame.device)
-
-
-def _is_null_cell(x) -> bool:
-    """``None`` (the string null) or a float NaN (the numeric null)."""
-    return x is None or (isinstance(x, float) and x != x)
-
-
-def _null_cells(values) -> np.ndarray:
-    return np.fromiter(map(_is_null_cell, values), bool, count=len(values))
 
 
 def _as_expr(v) -> Expr:
@@ -679,70 +675,46 @@ class CaseWhen(Expr):
         return self.name
 
 
-def _scalar_value(v):
-    """The value of a literal argument, which evaluates as a full column;
-    a column whose cells differ is refused rather than read at row 0."""
-    arr = host_objects(v).ravel()
-    if len(arr) > 1 and (arr[1:] != arr[0]).any():
-        raise ValueError("this function argument must be a literal, not a "
-                         "column (per-row values are not supported)")
-    x = arr[0]
-    return x.item() if hasattr(x, "item") else x
 
 
-def _str_map(fn, *arrays):
-    """``fn`` over the rows of host columns; a row with a null cell
-    (``None``, or NaN from a NULL literal) gives ``None``. The result is
-    one object cell a row, so list results (``split``) stay ragged cells
-    where the JAX package's ``np.asarray`` would make a 2-D array of
-    equal-length lists."""
-    out = np.empty(len(arrays[0]), dtype=object)
-    for i, row in enumerate(zip(*[host_objects(a) for a in arrays])):
-        out[i] = None if any(_is_null_cell(x) for x in row) else fn(*row)
-    return out
+# ---------------------------------------------------------------------------
+# The builtin function library
+# ---------------------------------------------------------------------------
+
+# name -> fn(*evaluated args), the JAX package's 140 builtins
+_BUILTIN_FNS = {**NUMERIC_FNS, **STRING_FNS, **ARRAY_FNS, **DATE_FNS,
+                **HASH_JSON_FNS}
 
 
-def _fn_concat(*ss):
-    """Spark's concat: NULL if any argument is null."""
-    return _str_map(lambda *row: "".join(str(x) for x in row), *ss)
-
-
-def _fn_concat_ws(sep, *ss):
-    """Spark's concat_ws: the separator between the non-null arguments
-    (it skips nulls, where concat would be NULL)."""
-    s = _scalar_value(sep)
-    return np.asarray([s.join(str(x) for x in row if not _is_null_cell(x))
-                       for row in zip(*[host_objects(a) for a in ss])],
-                      dtype=object)
-
-
-def _fn_split(s, pattern):
-    """Spark's split: an array cell of the pieces around each match of
-    the regular expression ``pattern``."""
-    pat = re.compile(_scalar_value(pattern))
-    return _str_map(pat.split, s)
-
-
-FUNCTIONS = {"concat": _fn_concat, "concat_ws": _fn_concat_ws,
-             "split": _fn_split}
+def _argument(expr, frame):
+    """A builtin's argument as a column. A string literal is one cell
+    broadcast over the frame's slots (a read-only view, no copy per
+    slot), which ``_scalar_value`` reads in O(1)."""
+    if isinstance(expr, Lit) and isinstance(expr.value, str):
+        return np.broadcast_to(np.asarray([expr.value], object),
+                               (frame.num_slots,))
+    return expr.eval(frame)
 
 
 class Func(Expr):
-    """A call of a built-in scalar function by name (the string
-    functions ``concat``, ``concat_ws`` and ``split``), computed on the
-    host over object columns."""
+    """A call of a builtin scalar function by name (the scalar set of
+    ``org.apache.spark.sql.functions``); an unknown name raises
+    ``ValueError``. The arguments evaluate as columns; a numeric function
+    runs torch ops on the frame's device, a string, array, hash or JSON
+    one runs on the host, and a numeric result it builds there lands on
+    the frame's device."""
 
     def __init__(self, fn_name: str, args: Sequence[Expr]):
         key = fn_name.lower()
-        if key not in FUNCTIONS:
-            raise NotImplementedError(
-                f"the function {fn_name}() is not in the torch port's "
-                f"subset (supported: {sorted(FUNCTIONS)})")
+        if key not in _BUILTIN_FNS:
+            raise ValueError(f"unknown function {fn_name!r}")
         self.fn_name = key
         self.args = list(args)
 
     def eval(self, frame):
-        return FUNCTIONS[self.fn_name](*[a.eval(frame) for a in self.args])
+        with evaluating_on(frame.device):
+            return _BUILTIN_FNS[self.fn_name](*[_argument(a, frame)
+                                                for a in self.args])
 
     @property
     def name(self) -> str:
@@ -752,15 +724,122 @@ class Func(Expr):
         return self.name
 
 
-class Explode(Expr):
-    """``explode(source)`` and ``explode_outer(source)``: a generator, not
-    a column. ``Frame.select`` (one a select) turns each element of an
-    array cell into a row; evaluating it as a column raises. ``source`` is
-    a column name or an array-valued expression (``split(...)``)."""
+class RowFunc(Expr):
+    """A column that knows only the frame's row count: ``rand``/``randn``
+    (numpy's ``default_rng(seed)`` drawn on the host over every row slot,
+    then copied to the frame's device, so a seed gives the JAX package's
+    stream bit for bit; a negative seed folds to 63 bits), the row ids
+    0..n-1 and the partition id 0 (one logical partition)."""
 
-    def __init__(self, source, outer: bool = False):
+    _KINDS = ("rand", "randn", "id", "partition_id")
+
+    def __init__(self, kind: str, seed=None):
+        if kind not in self._KINDS:
+            raise ValueError(f"unknown row generator {kind!r}")
+        self.kind = kind
+        self.seed = seed
+
+    def eval(self, frame):
+        n = frame.num_slots
+        if self.kind == "id":
+            return torch.arange(n, dtype=int_dtype(), device=frame.device)
+        if self.kind == "partition_id":
+            return torch.zeros(n, dtype=int_dtype(), device=frame.device)
+        seed = self.seed
+        if seed is not None and int(seed) < 0:
+            seed = int(seed) & 0x7FFFFFFFFFFFFFFF
+        rng = np.random.default_rng(seed)
+        host = (rng.uniform(size=n) if self.kind == "rand"
+                else rng.standard_normal(size=n))
+        return torch.as_tensor(host.astype(numpy_dtype(float_dtype())),
+                               device=frame.device)
+
+    @property
+    def name(self) -> str:
+        if self.kind == "id":
+            return "monotonically_increasing_id()"
+        if self.kind == "partition_id":
+            return "spark_partition_id()"
+        seed = "" if self.seed is None else str(self.seed)
+        return f"{self.kind}({seed})"
+
+    def __str__(self):
+        return self.name
+
+
+def _lit_arg(expr, what):
+    """A literal argument's value, a negated literal included."""
+    if isinstance(expr, Lit):
+        return expr.value
+    if isinstance(expr, Neg) and isinstance(expr.child, Lit):
+        return -expr.child.value
+    raise ValueError(f"{what} must be a literal")
+
+
+def _row_generator(sql_name, kind, takes_seed=False):
+    def f(frame, args):
+        if not takes_seed and args:
+            raise ValueError(f"{sql_name}() takes no arguments")
+        if args and len(args) > 1:
+            raise ValueError(f"{sql_name}([seed]) takes at most one "
+                             "argument")
+        seed = int(_lit_arg(args[0], f"{sql_name} seed")) if args else None
+        return RowFunc(kind, seed).eval(frame)
+    return f
+
+
+def _row_uuid(frame, args):
+    if args:
+        raise ValueError("uuid() takes no arguments")
+    import uuid as _uuid
+
+    return np.asarray([str(_uuid.uuid4()) for _ in range(frame.num_slots)],
+                      dtype=object)
+
+
+def _row_typeof(frame, args):
+    if len(args) != 1:
+        raise ValueError("typeof(expr) takes one argument")
+    v = args[0].eval(frame)
+    if is_host_column(v):
+        name = "string"
+    else:
+        dt = v.dtype
+        name = ("boolean" if dt == torch.bool
+                else "double" if dt.is_floating_point else "int")
+    return np.asarray([name] * frame.num_slots, dtype=object)
+
+
+# Row functions reached by name from SQL: they need the frame (its row
+# count, an argument's dtype), so they take (frame, arg exprs).
+_ROW_FNS = {
+    "monotonically_increasing_id":
+        _row_generator("monotonically_increasing_id", "id"),
+    "spark_partition_id": _row_generator("spark_partition_id",
+                                         "partition_id"),
+    "rand": _row_generator("rand", "rand", takes_seed=True),
+    "randn": _row_generator("randn", "randn", takes_seed=True),
+    "uuid": _row_uuid,
+    "typeof": _row_typeof,
+}
+
+
+# ---------------------------------------------------------------------------
+# Generators
+# ---------------------------------------------------------------------------
+
+class Explode(Expr):
+    """``explode``, ``explode_outer`` and ``posexplode``: a generator, not
+    a column. ``Frame.select`` (one a select) turns each element of an
+    array cell into a row (``posexplode`` adds its 0-based position as
+    ``pos``); evaluating it as a column raises. ``source`` is a column
+    name or an array-valued expression (``split(...)``)."""
+
+    def __init__(self, source, outer: bool = False,
+                 with_position: bool = False):
         self.source = source
         self.outer = outer
+        self.with_position = with_position
 
     def eval(self, frame):
         raise ValueError("explode() is a generator: use it inside select() "
@@ -776,9 +855,314 @@ class Explode(Expr):
         return "col"                        # Spark's generator column name
 
     def __str__(self):
-        fn = "explode_outer" if self.outer else "explode"
-        return f"{fn}({self.source})"
+        fn_ = ("posexplode" if self.with_position
+               else "explode_outer" if self.outer else "explode")
+        return f"{fn_}({self.source})"
 
+
+class JsonTuple(Expr):
+    """``json_tuple(col, 'f1', 'f2', ...)``: a generator of one string
+    column a field (c0...cN), no row multiplication; ``Frame.select``
+    expands it, and evaluating it as a column raises."""
+
+    def __init__(self, source, fields):
+        self.source = _coerce(source)
+        self.fields = [str(f) for f in fields]
+        if not self.fields:
+            raise ValueError("json_tuple needs at least one field name")
+
+    def eval(self, frame):
+        raise ValueError(
+            "json_tuple() is a generator producing multiple columns — "
+            "use it as a top-level select item")
+
+    def columns(self, frame):
+        """``[(name, object column), ...]`` for ``Frame.select``."""
+        return json_tuple_columns(self.source.eval(frame), self.fields)
+
+
+# ---------------------------------------------------------------------------
+# Higher-order functions: transform, filter, exists, aggregate
+# ---------------------------------------------------------------------------
+#
+# transform/filter/exists evaluate the lambda body once over a scope frame
+# of every element of every cell (the outer columns the body reads
+# repeated per element, numeric ones on the device); the results regroup
+# by cell length. aggregate folds by element position: one body
+# evaluation per position j over the rows whose cells reach j.
+
+
+class Lambda:
+    """``x -> body`` / ``(acc, x) -> body``: parameter names and a body in
+    which they appear as column references (the scope frame binds them,
+    shadowing outer columns as Spark does)."""
+
+    def __init__(self, params, body: Expr):
+        self.params = [str(p) for p in params]
+        self.body = body
+
+
+_LAM_COUNTER = [0]
+
+
+def _fresh_lambda(fn_, n_params):
+    """A PySpark-3 lambda: the callable gets column references to freshly
+    named parameters and returns the body."""
+    names = []
+    for _ in range(n_params):
+        names.append(f"_lam_x{_LAM_COUNTER[0]}")
+        _LAM_COUNTER[0] += 1
+    body = fn_(*[Col(n) for n in names])
+    return Lambda(names, body if isinstance(body, Expr) else Lit(body))
+
+
+def _column_from_elems(elems):
+    """An element list (``None`` allowed) as a column: strings stay host
+    objects, anything else becomes the policy's float with NaN, on the
+    evaluation device."""
+    from .cells import device_array
+
+    if any(isinstance(v, str) for v in elems):
+        return np.asarray(elems, object)
+    return device_array(np.fromiter(
+        (np.nan if v is None else float(v) for v in elems), np.float64,
+        len(elems)), float_dtype())
+
+
+def _referenced_cols(e, out: set):
+    """Column names reachable from an expression tree, by a walk over its
+    attributes (new expression kinds need no registration)."""
+    if isinstance(e, Col):
+        out.add(e.name)
+        return
+    if not isinstance(e, Expr):
+        return
+    for v in vars(e).values():
+        if isinstance(v, Expr):
+            _referenced_cols(v, out)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                if isinstance(x, (list, tuple)):
+                    for y in x:
+                        _referenced_cols(y, out)
+                else:
+                    _referenced_cols(x, out)
+
+
+_NULL_ABSORBERS = {"isnull", "isnan", "coalesce", "ifnull", "nvl", "nvl2",
+                   "nullif"}
+
+
+def _null_defined_on(body: Expr, param: str) -> bool:
+    """True when the body is non-null on a null ``param``: every reference
+    to it sits under a null-absorbing function (so ``exists`` reports its
+    computed values, where ``x > 4`` on a null element is unknown)."""
+    def ok(e) -> bool:
+        if isinstance(e, Col):
+            return e.name != param
+        if isinstance(e, Func) and e.fn_name in _NULL_ABSORBERS:
+            return True
+        if isinstance(e, IsNull):
+            return True
+        if isinstance(e, UdfCall) and e.udf_name.lower() in _NULL_ABSORBERS:
+            return True
+        if not isinstance(e, Expr):
+            return True
+        for v in vars(e).values():
+            kids = v if isinstance(v, (list, tuple)) else [v]
+            for k in kids:
+                inner = k if isinstance(k, (list, tuple)) else [k]
+                for x in inner:
+                    if isinstance(x, Expr) and not ok(x):
+                        return False
+        return True
+
+    return ok(body)
+
+
+def _scope_frame(parent, lens, bindings, needed=None):
+    """The per-element scope: the outer columns repeated by cell length
+    (device columns by ``repeat_interleave``, host ones by ``np.repeat``),
+    only those in ``needed`` when given, and the lambda's parameters
+    last, so they shadow outer names."""
+    from ..frame.frame import Frame
+
+    reps = np.asarray(lens, np.int64)
+    reps_dev = torch.as_tensor(reps, device=parent.device)
+    data = {}
+    for name, vals in parent._data.items():
+        if needed is not None and name not in needed:
+            continue
+        data[name] = (np.repeat(vals, reps, axis=0) if is_host_column(vals)
+                      else vals.repeat_interleave(reps_dev, dim=0))
+    data.update(bindings)
+    return Frame(data, device=parent.device)
+
+
+def _row_frame(parent, bindings, needed=None):
+    """The per-row scope of ``aggregate``: the outer columns as they are
+    (those in ``needed``), the parameters last."""
+    from ..frame.frame import Frame
+
+    data = {name: vals for name, vals in parent._data.items()
+            if needed is None or name in needed}
+    data.update(bindings)
+    return Frame(data, device=parent.device)
+
+
+def _elem_of(out_host, k):
+    v = out_host[k]
+    return None if _cell_is_null(v) else v
+
+
+class HigherOrder(Expr):
+    """transform / filter (an element predicate) / exists / aggregate."""
+
+    _KINDS = ("transform", "filter", "exists", "aggregate")
+
+    def __init__(self, kind, source, lam: Lambda, init: Expr = None,
+                 finish: Lambda = None):
+        if kind not in self._KINDS:
+            raise ValueError(f"unknown higher-order function {kind!r}")
+        want = 2 if kind == "aggregate" else 1
+        if len(lam.params) != want:
+            raise ValueError(
+                f"{kind}() lambda takes {want} parameter(s), "
+                f"got {len(lam.params)}")
+        self.kind = kind
+        self.source = _coerce(source)
+        self.lam = lam
+        self.init = init
+        self.finish = finish
+
+    def eval(self, frame):
+        with evaluating_on(frame.device):
+            return self._eval(frame)
+
+    def __str__(self):
+        """``transform(arr, x -> (x * 2))``: a readable default column
+        name (the JAX package's is the object's repr)."""
+        def lam(f):
+            params = ", ".join(f.params)
+            return (f"({params})" if len(f.params) > 1 else params) + \
+                f" -> {f.body}"
+        parts = [str(self.source)]
+        if self.init is not None:
+            parts.append(str(self.init))
+        parts.append(lam(self.lam))
+        if self.finish is not None:
+            parts.append(lam(self.finish))
+        return f"{self.kind}({', '.join(parts)})"
+
+    def _eval(self, frame):
+        cells = _require_array_cells(self.source.eval(frame), self.kind)
+        if self.kind == "aggregate":
+            return self._eval_aggregate(frame, cells)
+        lens = [0 if c is None else len(c) for c in cells]
+        flat = [e for c in cells if c is not None for e in c]
+        bindings = {self.lam.params[0]: _column_from_elems(flat)}
+        needed: set = set()
+        _referenced_cols(self.lam.body, needed)
+        try:
+            out = self.lam.body.eval(
+                _scope_frame(frame, lens, bindings, needed=needed))
+        except KeyError:
+            # a reference the attribute walk missed: the full scope
+            out = self.lam.body.eval(_scope_frame(frame, lens, bindings))
+        null_defined = (self.kind == "exists"
+                        and _null_defined_on(self.lam.body,
+                                             self.lam.params[0]))
+        return self._regroup(cells, lens, flat, host_array(out),
+                             null_defined)
+
+    def _regroup(self, cells, lens, flat, out_host, null_defined):
+        """The body's per-element values back into cells, by segment
+        arithmetic over the flat elements: transform's values (None where
+        null), filter's kept elements, exists' three-valued ANY."""
+        n = len(flat)
+        if out_host.dtype == object:
+            nulls = np.fromiter(map(_cell_is_null, out_host), bool, n)
+            truthy = np.fromiter((not z and bool(v) for v, z in
+                                  zip(out_host, nulls)), bool, n)
+        else:
+            nulls = (np.isnan(out_host) if out_host.dtype.kind == "f"
+                     else np.zeros(n, bool))
+            truthy = ~nulls & (out_host != 0)
+        ends = np.cumsum(np.asarray(lens, np.int64))
+        starts = ends - np.asarray(lens, np.int64)
+
+        def per_cell(mask):
+            acc = np.concatenate([[0], np.cumsum(mask)])
+            return acc[ends] - acc[starts]
+
+        if self.kind == "exists":
+            hits, null_vals = per_cell(truthy) > 0, per_cell(nulls) > 0
+            null_in = per_cell(np.fromiter(map(_cell_is_null, flat), bool,
+                                           n)) > 0
+            return bool_or_null([
+                None if c is None else True if hit
+                else None if (nv or (ni and not null_defined)) else False
+                for c, hit, nv, ni in zip(cells, hits, null_vals, null_in)])
+        if self.kind == "transform":
+            vals = list_column(list(out_host))
+            vals[nulls] = None
+            parts = np.split(vals, ends[:-1])
+        else:   # filter: the elements whose predicate holds
+            kept = list_column(flat)[truthy]
+            parts = np.split(kept, np.cumsum(per_cell(truthy))[:-1])
+        return list_column([None if c is None else p
+                            for c, p in zip(cells, parts)])
+
+    def _eval_aggregate(self, frame, cells):
+        acc_name, x_name = self.lam.params
+        acc = (self.init.eval(frame) if self.init is not None
+               else Lit(0.0).eval(frame))
+        max_len = builtins.max((0 if c is None else len(c) for c in cells),
+                               default=0)
+        needed: set = set()
+        _referenced_cols(self.lam.body, needed)
+        if self.finish is not None:
+            _referenced_cols(self.finish.body, needed)
+        needed |= {acc_name, x_name}
+        for j in range(max_len):
+            xj = [None if c is None or j >= len(c) else c[j] for c in cells]
+            bindings = {acc_name: acc, x_name: _column_from_elems(xj)}
+            try:
+                new_acc = self.lam.body.eval(
+                    _row_frame(frame, bindings, needed=needed))
+            except KeyError:   # a reference the attribute walk missed
+                needed = None
+                new_acc = self.lam.body.eval(_row_frame(frame, bindings))
+            active = [c is not None and j < len(c) for c in cells]
+            if is_host_column(acc) or is_host_column(new_acc):
+                acc = np.asarray(
+                    [n if a else o for o, n, a in
+                     zip(host_array(acc), host_array(new_acc), active)],
+                    object)
+            else:
+                acc = torch.where(torch.as_tensor(active,
+                                                  device=frame.device),
+                                  new_acc, acc)
+                if acc.is_floating_point():
+                    # numpy's where widens to float64, which the JAX
+                    # frame takes back at the policy's float
+                    acc = acc.to(float_dtype())
+        if self.finish is not None:
+            acc = self.finish.body.eval(
+                _row_frame(frame, {self.finish.params[0]: acc}))
+        null_rows = [c is None for c in cells]
+        if is_host_column(acc):
+            return np.asarray([None if nr else v
+                               for v, nr in zip(acc, null_rows)], object)
+        acc = acc.to(float_dtype())
+        return torch.where(torch.as_tensor(null_rows, device=acc.device),
+                           torch.full((), float("nan"), dtype=acc.dtype,
+                                      device=acc.device), acc)
+
+
+# ---------------------------------------------------------------------------
+# Constructors (``org.apache.spark.sql.functions``)
+# ---------------------------------------------------------------------------
 
 def _coerce(a) -> Expr:
     if isinstance(a, Expr):
@@ -799,6 +1183,15 @@ def call_udf(name: str, *args) -> UdfCall:
     return UdfCall(name, [_coerce(a) for a in args])
 
 
+callUDF = call_udf
+
+
+def fn(name: str, *args) -> Func:
+    """A builtin scalar function by name; a bare string argument is a
+    column."""
+    return Func(name, [_coerce(a) for a in args])
+
+
 def when(condition: Expr, value) -> CaseWhen:
     """``functions.when``: start a CASE chain (``.when``, ``.otherwise``;
     no ``otherwise`` is NULL)."""
@@ -809,8 +1202,43 @@ def isnull(c) -> IsNull:
     return _coerce(c).is_null()
 
 
-def concat(*cols) -> Func:
-    return Func("concat", [_coerce(c) for c in cols])
+def _make_fn(fname: str):
+    def f(*args):
+        return fn(fname, *args)
+
+    f.__name__ = fname
+    f.__qualname__ = fname
+    f.__doc__ = f"``functions.{fname}``: the builtin of that name."
+    return f
+
+
+for _name in ("sqrt", "exp", "log", "log10", "pow", "floor", "ceil",
+              "signum", "greatest", "least", "isnan", "coalesce", "md5",
+              "sha1", "sha2", "base64", "unbase64", "upper", "lower", "trim",
+              "ltrim", "rtrim", "length", "concat", "substring", "array",
+              "array_distinct", "flatten", "nanvl", "format_number",
+              "levenshtein", "sin", "cos", "tan", "asin", "acos", "atan",
+              "atan2", "sinh", "cosh", "tanh", "degrees", "radians", "cbrt",
+              "expm1", "log1p", "log2", "hypot", "rint", "repeat", "reverse",
+              "initcap", "array_union", "array_intersect", "array_except",
+              "arrays_overlap", "array_min", "array_max", "arrays_zip",
+              "datediff", "year", "month", "dayofmonth", "dayofweek",
+              "dayofyear", "quarter", "hour", "minute", "second",
+              "weekofyear", "last_day", "factorial", "hex", "unhex", "bin",
+              "ascii", "crc32", "soundex", "bit_length", "octet_length",
+              "hash", "xxhash64", "nullif", "nvl2", "ifnull"):
+    globals()[_name] = _make_fn(_name)
+del _name
+
+sql_abs = _make_fn("abs")
+sql_round = _make_fn("round")
+nvl = _make_fn("coalesce")          # Spark: nvl(a, b) is coalesce(a, b)
+
+
+def _lit_or_expr(v) -> Expr:
+    """A value argument: an expression, else a literal (never a column
+    name)."""
+    return v if isinstance(v, Expr) else Lit(v)
 
 
 def concat_ws(sep: str, *cols) -> Func:
@@ -823,6 +1251,223 @@ def split(col_, pattern: str) -> Func:
     return Func("split", [_coerce(col_), Lit(pattern)])
 
 
+def regexp_replace(col_, pattern: str, replacement: str) -> Func:
+    return Func("regexp_replace",
+                [_coerce(col_), Lit(pattern), Lit(replacement)])
+
+
+def regexp_extract(col_, pattern: str, idx: int) -> Func:
+    return Func("regexp_extract", [_coerce(col_), Lit(pattern), Lit(idx)])
+
+
+def instr(col_, substr: str) -> Func:
+    return Func("instr", [_coerce(col_), Lit(substr)])
+
+
+def locate(substr: str, col_, pos: int = 1) -> Func:
+    return Func("locate", [Lit(substr), _coerce(col_), Lit(pos)])
+
+
+def lpad(col_, length: int, pad: str) -> Func:
+    return Func("lpad", [_coerce(col_), Lit(length), Lit(pad)])
+
+
+def rpad(col_, length: int, pad: str) -> Func:
+    return Func("rpad", [_coerce(col_), Lit(length), Lit(pad)])
+
+
+def translate(col_, matching: str, replace: str) -> Func:
+    return Func("translate", [_coerce(col_), Lit(matching), Lit(replace)])
+
+
+def format_string(fmt: str, *cols) -> Func:
+    """printf formatting; the format is a literal."""
+    return fn("format_string", Lit(fmt), *cols)
+
+
+def array_contains(col_, value) -> Func:
+    """The value is a literal (or an expression), never a column name."""
+    return Func("array_contains", [_coerce(col_), _lit_or_expr(value)])
+
+
+def element_at(col_, index: int) -> Func:
+    return Func("element_at", [_coerce(col_), Lit(int(index))])
+
+
+def size(col_) -> Func:
+    return Func("size", [_coerce(col_)])
+
+
+def sort_array(col_, asc: bool = True) -> Func:
+    """Nulls first ascending, last descending."""
+    return fn("sort_array", col_, Lit(bool(asc)))
+
+
+def array_join(col_, delimiter: str, null_replacement=None) -> Func:
+    """Nulls dropped unless a replacement is given."""
+    if null_replacement is None:
+        return fn("array_join", col_, Lit(delimiter))
+    return fn("array_join", col_, Lit(delimiter), Lit(null_replacement))
+
+
+def slice(col_, start: int, length: int) -> Func:  # noqa: A001 - Spark name
+    return fn("slice", col_, Lit(int(start)), Lit(int(length)))
+
+
+def array_position(col_, value) -> Func:
+    return Func("array_position", [_coerce(col_), _lit_or_expr(value)])
+
+
+def array_remove(col_, element) -> Func:
+    return Func("array_remove", [_coerce(col_), _lit_or_expr(element)])
+
+
+def array_repeat(col_, count: int) -> Func:
+    return Func("array_repeat", [_coerce(col_), Lit(int(count))])
+
+
+def sequence(start, stop, step=None) -> Func:
+    """The inclusive range of each row."""
+    args = [_coerce(start), _coerce(stop)]
+    if step is not None:
+        args.append(_coerce(step))
+    return Func("sequence", args)
+
+
+def shuffle(col_, seed: int = None) -> Func:
+    """A random permutation of each cell; the seed is an extension."""
+    return Func("shuffle",
+                [_coerce(col_), Lit(-1 if seed is None else int(seed))])
+
+
+def _with_format(name):
+    def f(col_, fmt: str = None) -> Func:
+        return Func(name, [_coerce(col_)] + ([Lit(fmt)] if fmt is not None
+                                             else []))
+    f.__name__ = name
+    return f
+
+
+to_date = _with_format("to_date")
+unix_timestamp = _with_format("unix_timestamp")
+from_unixtime = _with_format("from_unixtime")
+to_timestamp = _with_format("to_timestamp")
+
+
+def date_format(col_, fmt: str) -> Func:
+    return Func("date_format", [_coerce(col_), Lit(fmt)])
+
+
+def date_add(col_, n: int) -> Func:
+    return Func("date_add", [_coerce(col_), Lit(n)])
+
+
+def date_sub(col_, n: int) -> Func:
+    return Func("date_sub", [_coerce(col_), Lit(n)])
+
+
+def add_months(col_, n: int) -> Func:
+    return Func("add_months", [_coerce(col_), Lit(int(n))])
+
+
+def months_between(end, start, roundOff: bool = True) -> Func:  # noqa: N803
+    return Func("months_between",
+                [_coerce(end), _coerce(start), Lit(bool(roundOff))])
+
+
+def next_day(col_, day_of_week: str) -> Func:
+    return Func("next_day", [_coerce(col_), Lit(str(day_of_week))])
+
+
+def trunc(col_, fmt: str) -> Func:
+    return Func("trunc", [_coerce(col_), Lit(str(fmt))])
+
+
+def date_trunc(fmt: str, col_) -> Func:
+    return Func("date_trunc", [Lit(str(fmt)), _coerce(col_)])
+
+
+def current_date() -> Expr:
+    """Today as epoch days (the host clock, read at call time)."""
+    import datetime as _dt
+
+    return Lit(float((_dt.date.today() - _dt.date(1970, 1, 1)).days))
+
+
+def current_timestamp() -> Expr:
+    """Now as whole epoch seconds (the host clock, read at call time);
+    exact under the float64 policy only."""
+    import time as _time
+
+    return Lit(float(int(_time.time())))
+
+
+def bround(col_, scale: int = 0) -> Func:
+    return Func("bround", [_coerce(col_), Lit(int(scale))])
+
+
+def conv(col_, from_base: int, to_base: int) -> Func:
+    return Func("conv", [_coerce(col_), Lit(int(from_base)),
+                         Lit(int(to_base))])
+
+
+def shiftleft(col_, n: int) -> Func:
+    return Func("shiftleft", [_coerce(col_), Lit(int(n))])
+
+
+def shiftright(col_, n: int) -> Func:
+    return Func("shiftright", [_coerce(col_), Lit(int(n))])
+
+
+def shiftrightunsigned(col_, n: int) -> Func:
+    return Func("shiftrightunsigned", [_coerce(col_), Lit(int(n))])
+
+
+def bitwiseNOT(col_) -> Func:  # noqa: N802 - Spark name
+    return Func("bitwise_not", [_coerce(col_)])
+
+
+def substring_index(col_, delim: str, count: int) -> Func:
+    return Func("substring_index",
+                [_coerce(col_), Lit(str(delim)), Lit(int(count))])
+
+
+def encode(col_, charset: str) -> Func:
+    return Func("encode", [_coerce(col_), Lit(str(charset))])
+
+
+def decode(col_, charset: str) -> Func:
+    return Func("decode", [_coerce(col_), Lit(str(charset))])
+
+
+def get_json_object(col_, path: str) -> Func:
+    return Func("get_json_object", [_coerce(col_), Lit(str(path))])
+
+
+def json_tuple(col_, *fields) -> JsonTuple:
+    return JsonTuple(col_, fields)
+
+
+def rand(seed=None) -> RowFunc:
+    """Uniform [0, 1); reproducible for a seed."""
+    return RowFunc("rand", seed)
+
+
+def randn(seed=None) -> RowFunc:
+    """Standard normal; reproducible for a seed."""
+    return RowFunc("randn", seed)
+
+
+def monotonically_increasing_id() -> RowFunc:
+    """Row ids 0..n-1 (one logical partition makes them consecutive)."""
+    return RowFunc("id")
+
+
+def spark_partition_id() -> RowFunc:
+    """Always 0: one logical partition."""
+    return RowFunc("partition_id")
+
+
 def explode(col_) -> Explode:
     return Explode(col_)
 
@@ -830,3 +1475,55 @@ def explode(col_) -> Explode:
 def explode_outer(col_) -> Explode:
     """``explode``, but a null or empty cell gives one null row."""
     return Explode(col_, outer=True)
+
+
+def posexplode(col_) -> Explode:
+    """``explode`` plus the element's 0-based position, ``pos``."""
+    return Explode(col_, with_position=True)
+
+
+def transform(col_, f) -> HigherOrder:
+    """``transform(col, x -> ...)``: ``f`` a Python callable over a
+    column reference, or a ``Lambda``."""
+    lam = f if isinstance(f, Lambda) else _fresh_lambda(f, 1)
+    return HigherOrder("transform", col_, lam)
+
+
+def filter(col_, f) -> HigherOrder:  # noqa: A001 - Spark name
+    """Keep the elements whose predicate holds (a null one drops)."""
+    lam = f if isinstance(f, Lambda) else _fresh_lambda(f, 1)
+    return HigherOrder("filter", col_, lam)
+
+
+def exists(col_, f) -> HigherOrder:
+    """Three-valued ANY over the elements."""
+    lam = f if isinstance(f, Lambda) else _fresh_lambda(f, 1)
+    return HigherOrder("exists", col_, lam)
+
+
+def aggregate(col_, initial_value, merge, finish=None) -> HigherOrder:
+    """``aggregate(col, init, (acc, x) -> ...[, acc -> ...])``: a fold per
+    cell, vectorized across rows by element position."""
+    lam = merge if isinstance(merge, Lambda) else _fresh_lambda(merge, 2)
+    fin = None
+    if finish is not None:
+        fin = finish if isinstance(finish, Lambda) \
+            else _fresh_lambda(finish, 1)
+    return HigherOrder("aggregate", col_, lam, init=_lit_or_expr(
+        initial_value), finish=fin)
+
+
+def expr(sql_text: str) -> Expr:
+    """Spark's ``F.expr``: one SQL expression (a ``selectExpr`` item:
+    CAST, arithmetic, functions, lambdas, AS alias); aggregates and window
+    items are not scalar expressions."""
+    from ..sql.parser import _Parser, tokenize
+
+    p = _Parser(tokenize(sql_text))
+    item = p.select_item()
+    p.expect("eof")
+    if not isinstance(item, Expr):
+        raise ValueError(
+            f"expr({sql_text!r}) is not a scalar expression; use "
+            "selectExpr()/session.sql() for aggregates and window items")
+    return item

@@ -1,11 +1,11 @@
-"""The SQL subset of the torch port (``sparkdq4ml_tpu/sql/parser.py``
-without EXPLAIN, the optimizer and the builtin function library)::
+"""The SQL of the torch port (``sparkdq4ml_tpu/sql/parser.py`` without
+EXPLAIN and the optimizer)::
 
     statement := [WITH name AS '(' set ')', ...] set
                  | CREATE [OR REPLACE] [TEMP[ORARY]] VIEW name AS statement
                  | DROP [TEMP[ORARY]] VIEW [IF EXISTS] name
     set      := query ((UNION [ALL] | INTERSECT | EXCEPT) query)*
-    query    := SELECT [DISTINCT] item, ... FROM relation join*
+    query    := SELECT [DISTINCT] item, ... [FROM relation join*]
                 [WHERE pred] [GROUP BY key, ... | GROUP BY ROLLUP|CUBE
                 '(' col, ... ')'] [HAVING pred]
                 [ORDER BY key [ASC|DESC] [NULLS FIRST|LAST], ...]
@@ -18,36 +18,48 @@ without EXPLAIN, the optimizer and the builtin function library)::
     window   := '(' [PARTITION BY col, ...] [ORDER BY col [ASC|DESC], ...]
                 [(ROWS|RANGE) BETWEEN bound AND bound] ')'
 
-Set operations are left-associative (no higher INTERSECT precedence, as in
-the JAX package). Expressions: columns, qualified ``alias.col`` (resolved
-against the FROM/JOIN scope: the alias, else the view name; the right
-side's duplicate column as ``<name>_right``; a column literally named so
-first), numeric, boolean and string literals, NULL, ``cast(x AS
-int|integer|double|float|string)``, ``+ - * / %``, unary minus,
-comparisons, AND/OR/NOT and parentheses; ``[NOT] IN (list)``, ``[NOT]
-BETWEEN a AND b``, ``[NOT] LIKE 'pattern'``, ``IS [NOT] NULL``, ``CASE
-[operand] WHEN ... THEN ... [ELSE ...] END``; the string functions
-``concat``, ``concat_ws`` and ``split``; subqueries: a scalar ``(SELECT
-...)`` (read once to the host as a literal), ``[NOT] IN (SELECT ...)`` (a
-semi join against the subquery's values, planned on the device) and
-``EXISTS (SELECT ...)``, and a correlated ``[NOT] EXISTS`` / ``[NOT] IN``
-whose correlation is a conjunction of equalities, rewritten to a LEFT SEMI
-or LEFT ANTI join (a correlated NOT IN keeps the anti join's null rule);
-any other correlation raises the JAX package's ValueError. Aggregates:
-every one of ``frame/aggregates.py`` (``COUNT(*)``, ``COUNT(DISTINCT x)``,
-``SUM(DISTINCT x)``, ``PERCENTILE_APPROX(col, p)``, ``CORR(a, b)``,
-``MAX_BY(v, ord)``, ``APPROX_COUNT_DISTINCT(col[, rsd])``, ...) and the
-boolean ones (``count_if``, ``any``/``some``/``bool_or``,
-``every``/``bool_and``) desugared over a 0/1 flag; expressions over
-aggregates in the select list, HAVING and ORDER BY; the window functions
-of ``frame/window.py`` with OVER. GROUP BY and ORDER BY keys are names,
-1-based select-item positions or expressions. ``WITH`` names shadow temp
-views for one statement (``_OverlayCatalog``).
+A SELECT without FROM projects over one anonymous row (``SELECT 1 + 1,
+upper('a')``). Set operations are left-associative (no higher INTERSECT
+precedence, as in the JAX package). Expressions: columns, qualified
+``alias.col`` (resolved against the FROM/JOIN scope: the alias, else the
+view name; the right side's duplicate column as ``<name>_right``; a
+column literally named so first), numeric, boolean and string literals,
+NULL, ``cast(x AS int|integer|double|float|string)``, ``+ - * / %``,
+``||`` (concat), unary minus, comparisons, AND/OR/NOT and parentheses;
+``[NOT] IN (list)``, ``[NOT] BETWEEN a AND b``, ``[NOT] LIKE 'pattern'``,
+``IS [NOT] NULL``, ``CASE [operand] WHEN ... THEN ... [ELSE ...] END``,
+``if(c, a, b)``; every builtin function and row function by name
+(``upper(s)``, ``round(x, 2)``, ``rand(42)``; a registered UDF of the
+same name wins), ``extract(FIELD FROM x)`` over the date and time
+fields, ``LEFT(s, n)``/``RIGHT(s, n)`` in call position; the higher-order
+functions ``transform``/``filter``/``exists(arr, x -> ...)`` and
+``aggregate(arr, init, (acc, x) -> ...[, acc -> ...])`` with SQL lambdas;
+subqueries: a scalar ``(SELECT ...)`` (read once to the host as a
+literal), ``[NOT] IN (SELECT ...)`` (a semi join against the subquery's
+values, planned on the device) and ``EXISTS (SELECT ...)`` (kept apart
+from the array ``EXISTS(arr, x -> ...)``), and a correlated ``[NOT]
+EXISTS`` / ``[NOT] IN`` whose correlation is a conjunction of
+equalities, rewritten to a LEFT SEMI or LEFT ANTI join (a correlated NOT
+IN keeps the anti join's null rule); any other correlation raises the JAX
+package's ValueError. Aggregates: every one of ``frame/aggregates.py``
+(``COUNT(*)``, ``COUNT(DISTINCT x)``, ``SUM(DISTINCT x)``,
+``PERCENTILE_APPROX(col, p)``, ``CORR(a, b)``, ``MAX_BY(v, ord)``,
+``APPROX_COUNT_DISTINCT(col[, rsd])``, ...) and the boolean ones
+(``count_if``, ``any``/``some``/``bool_or``, ``every``/``bool_and``)
+desugared over a 0/1 flag; expressions over aggregates in the select
+list, HAVING and ORDER BY; the window functions of ``frame/window.py``
+with OVER. GROUP BY and ORDER BY keys are names, 1-based select-item
+positions or expressions. ``WITH`` names shadow temp views for one
+statement (``_OverlayCatalog``).
 
-``EXPLAIN``, a SELECT without FROM, GROUPING SETS and function calls
-outside the list above raise ``NotImplementedError`` naming what was met.
-The executor follows the JAX package's ``_execute_single`` without its
-cost-based optimizer (whose rewrites never change a result).
+Out of scope, raising ``NotImplementedError`` naming what was met:
+``EXPLAIN [ANALYZE]``, ``GROUP BY GROUPING SETS``, the ``<=>`` operator,
+CAST to a type outside the four above, and statements other than SELECT
+and the temp-view DDL. A function name that is neither a UDF, a row
+function nor a builtin raises the registry's KeyError when the query
+runs, as in the JAX package. The executor follows the JAX package's
+``_execute_single`` without its cost-based optimizer (whose rewrites
+never change a result).
 """
 
 from __future__ import annotations
@@ -91,7 +103,7 @@ _AGG_FNS = _AGG_FNS_1 | _AGG_FNS_PCT | _AGG_FNS_2 | _BOOL_AGGS
 _WINDOW_FNS = {"row_number", "rank", "dense_rank", "percent_rank",
                "cume_dist", "ntile", "lag", "lead", "first_value",
                "last_value", "nth_value"}
-_SUBSET = ("the torch port's SQL subset ([WITH ...] SELECT ... FROM ... "
+_SUBSET = ("the torch port's SQL subset ([WITH ...] SELECT ... [FROM ...] "
            "[JOIN] [WHERE] [GROUP BY [ROLLUP|CUBE]] [HAVING] [ORDER BY] "
            "[LIMIT] [UNION|INTERSECT|EXCEPT ...], with subqueries; "
            "CREATE/DROP TEMP VIEW)")
@@ -317,6 +329,15 @@ def _map_expr(expr, fn):
                           else fn(expr.otherwise_expr))
     if isinstance(expr, E.Func):
         return E.Func(expr.fn_name, [fn(a) for a in expr.args])
+    if isinstance(expr, E.UdfCall):
+        return E.UdfCall(expr.udf_name, [fn(a) for a in expr.args],
+                         expr._registry)
+    if isinstance(expr, E.HigherOrder):
+        def lam(x):
+            return None if x is None else E.Lambda(x.params, fn(x.body))
+        return E.HigherOrder(expr.kind, fn(expr.source), lam(expr.lam),
+                             None if expr.init is None else fn(expr.init),
+                             lam(expr.finish))
     if isinstance(expr, E.Alias):
         return E.Alias(fn(expr.child), expr.name)
     if isinstance(expr, E.SortOrder):
@@ -491,15 +512,15 @@ class _Parser:
         items = [self.select_item()]
         while self.accept("op", ","):
             items.append(self.select_item())
-        if not self.accept("kw", "from"):
-            raise _unsupported("a SELECT without FROM")
-        view, view_alias = self.relation()
-        joins = []
-        while True:
-            j = self.join()
-            if j is None:
-                break
-            joins.append(j)
+        # a SELECT without FROM projects over one anonymous row
+        view, view_alias, joins = None, None, []
+        if self.accept("kw", "from"):
+            view, view_alias = self.relation()
+            while True:
+                j = self.join()
+                if j is None:
+                    break
+                joins.append(j)
         where = self.parse_or() if self.accept("kw", "where") else None
         group_by, group_mode = [], "group"
         if self.accept("kw", "group"):
@@ -732,7 +753,7 @@ class _Parser:
             return E.Not(expr) if negated else expr
         if self.accept("kw", "like"):
             return E.StringMatch(left, self.expect("string").value, negated)
-        if t.kind == "op" and t.value in ("<=>", "||", "->"):
+        if t.kind == "op" and t.value in ("<=>", "->"):
             raise _unsupported(f"the operator {t.value}")
         return left
 
@@ -743,6 +764,9 @@ class _Parser:
                 left = E.BinOp("+", left, self.parse_mul())
             elif self.accept("op", "-"):
                 left = E.BinOp("-", left, self.parse_mul())
+            elif self.accept("op", "||"):
+                # SQL || is concat (null-propagating)
+                left = E.UdfCall("concat", [left, self.parse_mul()])
             else:
                 return left
 
@@ -788,6 +812,25 @@ class _Parser:
             return E.Cast(inner, tname)
         if self.accept("kw", "case"):
             return self.case()
+        if t.kind == "ident" and t.value.lower() == "extract" \
+                and self.at_call():
+            # extract(FIELD FROM x): the field functions' sugar
+            self.next()
+            self.expect("op", "(")
+            field = self.expect("ident").value.lower()
+            field = {"day": "dayofmonth", "dow": "dayofweek",
+                     "doy": "dayofyear", "week": "weekofyear"}.get(field,
+                                                                   field)
+            self.expect("kw", "from")
+            inner = self.parse_or()
+            self.expect("op", ")")
+            return E.UdfCall(field, [inner])
+        if t.kind == "kw" and t.value.lower() in ("left", "right") \
+                and self.at_call():
+            # LEFT(s, n) / RIGHT(s, n): the string functions named by join
+            # keywords, in call position only
+            self.next()
+            return E.UdfCall(t.value.lower(), self._call_args())
         if t.kind == "ident":
             if t.value.lower() == "exists" and self.at_call() and \
                     self.peek(2).kind == "kw" and \
@@ -834,23 +877,37 @@ class _Parser:
         self.expect("kw", "end")
         return E.CaseWhen(branches, otherwise)
 
+    def _call_args(self) -> list:
+        """``'(' [expr, ...] ')'``."""
+        self.expect("op", "(")
+        args = []
+        if not self.accept("op", ")"):
+            args.append(self.parse_or())
+            while self.accept("op", ","):
+                args.append(self.parse_or())
+            self.expect("op", ")")
+        return args
+
     def call(self):
         """``fn(args)``: an aggregate (an ``_AggCall``, or for a boolean
         aggregate an expression over one), a window function followed by
-        OVER (a ``WindowExpr``) or a string function (an ``E.Func``)."""
+        OVER (a ``WindowExpr``), ``if(c, a, b)`` (a CASE), a higher-order
+        function (an ``E.HigherOrder``), or any other name as an
+        ``E.UdfCall``, which resolves at evaluation to a registered UDF, a
+        row function or a builtin."""
         fn = self.next().value
         fl = fn.lower()
-        if fl in E.FUNCTIONS:
+        if fl == "if":
+            args = self._call_args()
+            if len(args) != 3:
+                raise ValueError(f"if(cond, a, b) takes 3 arguments, got "
+                                 f"{len(args)}")
+            return E.CaseWhen([(args[0], args[1])], args[2])
+        if fl in ("transform", "filter", "exists", "aggregate"):
             self.expect("op", "(")
-            args = []
-            if not self.accept("op", ")"):
-                args.append(self.parse_or())
-                while self.accept("op", ","):
-                    args.append(self.parse_or())
-                self.expect("op", ")")
-            return E.Func(fl, args)
+            return self.higher_order(fl)
         if fl not in _AGG_FNS | _WINDOW_FNS:
-            raise _unsupported(f"the function {fn}()")
+            return E.UdfCall(fn, self._call_args())
         self.expect("op", "(")
         args, distinct = [], False
         if not self.accept("op", ")"):
@@ -902,6 +959,38 @@ class _Parser:
             call = _AggCall(fl, args)
         call.to_agg()                    # validates the arguments
         return call
+
+    def lambda_(self) -> E.Lambda:
+        """``x -> expr`` or ``(acc, x) -> expr``: the parameters appear as
+        column references in the body, bound by the higher-order
+        function's scope frame."""
+        params = []
+        if self.accept("op", "("):
+            params.append(self.expect("ident").value)
+            while self.accept("op", ","):
+                params.append(self.expect("ident").value)
+            self.expect("op", ")")
+        else:
+            params.append(self.expect("ident").value)
+        self.expect("op", "->")
+        return E.Lambda(params, self.parse_or())
+
+    def higher_order(self, fn: str):
+        """``transform``/``filter``/``exists`` ``(arr, lambda)`` and
+        ``aggregate(arr, init, merge[, finish])``; '(' is consumed."""
+        source = self.parse_or()
+        self.expect("op", ",")
+        if fn == "aggregate":
+            init = self.parse_or()
+            self.expect("op", ",")
+            merge = self.lambda_()
+            finish = self.lambda_() if self.accept("op", ",") else None
+            self.expect("op", ")")
+            return E.HigherOrder("aggregate", source, merge, init=init,
+                                 finish=finish)
+        lam = self.lambda_()
+        self.expect("op", ")")
+        return E.HigherOrder(fn, source, lam)
 
     def _window_fn(self, fl: str, args: list):
         col = args[0].name if len(args) == 1 and isinstance(
@@ -1338,7 +1427,12 @@ def _scoped_source(q: Query, cat):
     """The FROM relation joined with each JOIN, and the relation scope:
     alias (or view name) -> {source column: output column}; a semi or
     anti join's right side is reachable through its keys only."""
+    from ..frame.frame import Frame
+
     scope: dict = {}
+    if q.view is None:
+        # OneRowRelation: one anonymous row for the projection
+        return Frame({"__one_row__": [0.0]}).drop("__one_row__"), scope
     frame = _relation(q.view, cat)
     if isinstance(q.view, DerivedTable):
         if q.view.alias:
