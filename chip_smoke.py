@@ -136,7 +136,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    run but the transcendental ones, within 2e-6 of the CPU float64 run on
    the same float32 prices; the hashes against the JAX package's
    (BUILTIN_HASH_GOLDEN); the row counts Σ(guest % 5 + 1), numpy's draws
-   and the other identities.
+   and the other identities;
+13. the model zoo: (a) the tour's zoo (examples/ml_pipeline_tour.py: 95-124)
+   on dataset-full, float32, against ZOO_TOUR_GOLDEN (the JAX package's output)
+   and the tour's asserts; (b) on the 10^7-row table cleaned by one dq_rules
+   launch, a gamma/log GLM, GBTRegressor(20, depth 3, step 0.2),
+   RandomForestClassifier(10 trees, depth 4) on guest > 25,
+   DecisionTreeRegressor() (its depth-5 level takes the sorted segment sum),
+   KMeans(k=3, seed=7) with the silhouette, GaussianMixture(k=3) and
+   BisectingKMeans(k=4), and PIC on a seeded 4,096-node graph of three planted
+   communities, each on the card twice (bit-identical) with the launch counts
+   reset just before and read just after, one GBT fit under torch.profiler; (c)
+   against the float64 run of the same steps on the same rows (the trees and
+   the GMM on the card under the float64 policy, the rest on the CPU): GLM
+   coefficients within 1e-4 and deviance within 1e-5 with masked_gram
+   launched once an IRLS iteration and once more, every tree split whose
+   float64 gain leads its runner-up by more than 1e-4 (the nearer ties
+   printed), RMSE and accuracy within 1e-4, KMeans sizes exact and centers
+   and silhouette within 1e-5, the GMM log-likelihood within 1e-4, PIC's
+   partition the CPU run's and the planted one; torch.argmax's first maximum on the card; the segment sums at
+   the histogram, k-slot and PIC affinity shapes against their plain version,
+   timed.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -680,6 +700,12 @@ def edge_segment_cases(device: str, seed: int = 0):
                     x, seg, size))
         out.append((f"sorted n={n} size={size} C={cols}",
                     "sorted_segment_sum", x, torch.sort(seg).values, size))
+    # ids outside [0, size): the kernel drops them, as its plain version
+    for n, size in ((4097, 5), (65_537, 300)):
+        x = torch.as_tensor(rng.normal(size=(n, 2)), device=device)
+        seg = torch.as_tensor(rng.integers(-3, size + 3, n), device=device)
+        out.append((f"dense n={n} size={size} ids outside",
+                    "dense_segment_sum", x, seg, size))
     return out
 
 
@@ -3524,6 +3550,550 @@ def check_builtins_full(guest, price) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the model zoo
+# ---------------------------------------------------------------------------
+
+# The tour's model zoo (examples/ml_pipeline_tour.py:95-124) on
+# dataset-full: the JAX package's output on the CPU under its default
+# float32 policy (tests/test_torch_ml_tour_zoo.py holds these constants to
+# it). The card's float32 run is held within ZOO_RTOL of the floats, the
+# GLM's iterations within ZOO_ITERATION_SLACK, the accuracy and the sizes
+# exactly.
+ZOO_TOUR_GOLDEN = {
+    "glm": {"deviance": 19.532018661499023, "aic": 8231.742370546057,
+            "coef": 0.05274194851517677, "intercept": 3.6421897411346436,
+            "iterations": 8},
+    "gbt_rmse": 1.912324170249196, "rf_accuracy": 1.0,
+    "silhouette": 0.7620003623580078, "kmeans_sizes": [298, 349, 377],
+}
+ZOO_RTOL = 1e-4
+ZOO_ITERATION_SLACK = 1
+# Phase 13(c)'s bounds against the CPU float64 run of the same steps.
+ZOO_COEF_RTOL = 1e-4          # GLM coefficients and intercept
+ZOO_DEVIANCE_RTOL = 1e-5      # GLM deviance
+ZOO_METRIC_TOL = 1e-4         # GBT and tree RMSE (relative), RF accuracy
+ZOO_CENTER_RTOL = 1e-5        # KMeans centers and silhouette
+ZOO_LL_RTOL = 1e-4            # GMM log-likelihood
+# A tree's split is held where the float64 run's best gain leads its
+# runner-up by more than this, relative: a nearer tie may flip when the
+# card's float32 histograms add in another order (printed, not held).
+ZOO_SPLIT_MARGIN = 1e-4
+# The float64 reference of these four fits runs on the card under the
+# float64 policy: the same port code as the CPU run, its sums through the
+# float64 segment-sum kernels, which check_segment_sum holds within 1e-12
+# Σ|x| of their plain version at these fits' shapes. Their CPU float64 run
+# at full size took 188 s on the card machine's host (PERF.md §6), past
+# the phase's budget; the others' reference stays on the CPU.
+ZOO_CARD_REFERENCE = ("gbt", "rf", "dt", "gmm")
+PIC_NODES = 4096
+PIC_COMMUNITIES = 3
+PIC_DEGREE = 16
+
+
+def zoo_tour(device: str) -> dict:
+    """The tour's model zoo section through TorchSession on dataset-full:
+    a gamma/log GLM, GBTRegressor(20, depth 3, step 0.2), RMSE;
+    RandomForestClassifier(10 trees, depth 4) on guest > 25, accuracy;
+    KMeans(k=3, seed=7) and its silhouette; the tour's own asserts."""
+    from sparkdq4ml_tpu_torch.models import (ClusteringEvaluator,
+                                             GBTRegressor,
+                                             GeneralizedLinearRegression,
+                                             KMeans, RandomForestClassifier,
+                                             RegressionEvaluator)
+
+    spark = session(device)
+    fdf = dq_clean(spark, read_dataset(spark, "full"))
+    ldf = fdf.with_column("label", (fdf.col("guest") > 25).cast("double"))
+    glm = GeneralizedLinearRegression(family="gamma", link="log").fit(fdf)
+    gbt = GBTRegressor(max_iter=20, max_depth=3, step_size=0.2).fit(fdf)
+    gbt_rmse = RegressionEvaluator(metric_name="rmse").evaluate(
+        gbt.transform(fdf))
+    rf = RandomForestClassifier(num_trees=10, max_depth=4).fit(ldf)
+    out = rf.transform(ldf).to_pydict()
+    rf_acc = float(np.mean(out["prediction"] == out["label"]))
+    km = KMeans(k=3, seed=7, features_col="features").fit(fdf)
+    sil = ClusteringEvaluator(features_col="features").evaluate(
+        km.transform(fdf))
+    spark.stop()
+    if not (gbt_rmse < 4.0 and rf_acc > 0.95 and sil > 0.5):
+        raise AssertionError(f"the tour's asserts: GBT RMSE {gbt_rmse}, RF "
+                             f"accuracy {rf_acc}, silhouette {sil}")
+    return {"glm": {"deviance": glm.summary.deviance,
+                    "aic": glm.summary.aic,
+                    "coef": float(glm.coefficients[0]),
+                    "intercept": glm.intercept,
+                    "iterations": glm.summary.num_iterations},
+            "gbt_rmse": gbt_rmse, "rf_accuracy": rf_acc,
+            "silhouette": sil,
+            "kmeans_sizes": sorted(km.summary.cluster_sizes)}
+
+
+def check_zoo_tour_golden(device: str) -> dict:
+    """Phase 13(a): ``zoo_tour`` against ZOO_TOUR_GOLDEN."""
+    got = zoo_tour(device)
+    want = ZOO_TOUR_GOLDEN
+    bad = [f"glm {k} {got['glm'][k]} vs {v}"
+           for k, v in want["glm"].items() if k != "iterations"
+           and abs(got["glm"][k] - v) > ZOO_RTOL * abs(v)]
+    if abs(got["glm"]["iterations"] - want["glm"]["iterations"]) > \
+            ZOO_ITERATION_SLACK:
+        bad.append(f"glm iterations {got['glm']['iterations']}")
+    for k in ("gbt_rmse", "silhouette"):
+        if abs(got[k] - want[k]) > ZOO_RTOL * abs(want[k]):
+            bad.append(f"{k} {got[k]} vs {want[k]}")
+    for k in ("rf_accuracy", "kmeans_sizes"):
+        if got[k] != want[k]:
+            bad.append(f"{k} {got[k]} vs {want[k]}")
+    if bad:
+        raise AssertionError(f"the tour's model zoo on dataset-full: {bad}")
+    log(f"tour model zoo on dataset-full, {device} float32: {got}")
+    return got
+
+
+def zoo_frames(clean):
+    """The clean table assembled ([guest]) with the tour's two labels:
+    ``fdf`` (label = price) and ``ldf`` (label = guest > 25)."""
+    from sparkdq4ml_tpu_torch.models import VectorAssembler
+
+    fdf = VectorAssembler(["guest"], "features").transform(
+        clean.with_column("label", clean.col("price")))
+    return fdf, fdf.with_column("label",
+                                (fdf.col("guest") > 25).cast("double"))
+
+
+def _valid_share(frame, pred: str, label: str) -> float:
+    """The share of valid rows whose ``pred`` equals ``label``, on the
+    frame's device."""
+    hit = frame._column_values(pred) == frame._column_values(label)
+    return float((hit & frame.mask).sum()) / float(frame.mask.sum())
+
+
+def zoo_fits():
+    """(name, fn(fdf, ldf) -> host results) of phase 13(b), in order."""
+    from sparkdq4ml_tpu_torch.models import (BisectingKMeans,
+                                             ClusteringEvaluator,
+                                             DecisionTreeRegressor,
+                                             GaussianMixture, GBTRegressor,
+                                             GeneralizedLinearRegression,
+                                             KMeans, RandomForestClassifier,
+                                             RegressionEvaluator)
+
+    def trees(m):
+        return {f: np.array(getattr(m, f))
+                for f in ("feature", "threshold", "is_leaf", "value",
+                          "gain")}
+
+    def rmse(m, fdf):
+        return RegressionEvaluator(metric_name="rmse").evaluate(
+            m.transform(fdf))
+
+    def glm(fdf, ldf):
+        m = GeneralizedLinearRegression(family="gamma", link="log").fit(fdf)
+        return {"coef": [float(c) for c in m.coefficients],
+                "intercept": m.intercept, "deviance": m.summary.deviance,
+                "iterations": m.summary.num_iterations}
+
+    def gbt(fdf, ldf):
+        m = GBTRegressor(max_iter=20, max_depth=3, step_size=0.2).fit(fdf)
+        return {"rmse": rmse(m, fdf), **trees(m)}
+
+    def rf(fdf, ldf):
+        m = RandomForestClassifier(num_trees=10, max_depth=4).fit(ldf)
+        return {"accuracy": _valid_share(m.transform(ldf), "prediction",
+                                         "label"), **trees(m)}
+
+    def dt(fdf, ldf):
+        m = DecisionTreeRegressor().fit(fdf)
+        return {"rmse": rmse(m, fdf), **trees(m)}
+
+    def kmeans(fdf, ldf):
+        m = KMeans(k=3, seed=7).fit(fdf)
+        return {"sizes": list(m.cluster_sizes),
+                "centers": [float(c) for c in np.ravel(m.centers)],
+                "cost": m.training_cost, "iterations": m.num_iters,
+                "silhouette": ClusteringEvaluator().evaluate(
+                    m.transform(fdf))}
+
+    def gmm(fdf, ldf):
+        m = GaussianMixture(k=3).fit(fdf)
+        return {"log_likelihood": m.log_likelihood,
+                "iterations": m.num_iters,
+                "weights": [float(w) for w in m.weights],
+                "means": [float(v) for v in np.ravel(m.means)]}
+
+    def bisecting(fdf, ldf):
+        m = BisectingKMeans(k=4).fit(fdf)
+        return {"sizes": list(m.cluster_sizes), "cost": m.training_cost}
+
+    return [("glm", glm), ("gbt", gbt), ("rf", rf), ("dt", dt),
+            ("kmeans", kmeans), ("gmm", gmm), ("bisecting", bisecting)]
+
+
+def pic_graph(nodes: int = PIC_NODES, seed: int = 0) -> dict:
+    """A similarity graph of ``PIC_COMMUNITIES`` planted communities:
+    ``PIC_DEGREE`` edges a node to random members of its own community
+    (weights in [0.5, 1), duplicates and self-loops included) and one weak
+    edge in 16 across communities (weights below 0.01). Returns the graph
+    and each node's community."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, PIC_COMMUNITIES, nodes)
+    members = np.argsort(comm, kind="stable")
+    size = np.bincount(comm, minlength=PIC_COMMUNITIES)
+    start = np.concatenate([[0], np.cumsum(size)[:-1]])
+    src = np.repeat(np.arange(nodes), PIC_DEGREE)
+    pick = (rng.random(src.size) * size[comm[src]]).astype(np.int64)
+    dst = members[start[comm[src]] + pick]
+    weak = nodes // 16
+    src = np.concatenate([src, rng.integers(0, nodes, weak)])
+    dst = np.concatenate([dst, rng.integers(0, nodes, weak)])
+    w = np.concatenate([rng.uniform(0.5, 1.0, nodes * PIC_DEGREE),
+                        rng.uniform(0.0, 0.01, weak)])
+    return {"src": src, "dst": dst, "weight": w}, comm
+
+
+def partition(labels) -> np.ndarray:
+    """Cluster labels renamed in order of first appearance: two
+    clusterings are the same partition when these are equal."""
+    labels = np.asarray(labels)
+    _, first = np.unique(labels, return_index=True)
+    rename = np.empty(len(first), np.int64)
+    rename[np.argsort(first)] = np.arange(len(first))
+    return rename[np.searchsorted(np.unique(labels), labels)]
+
+
+def pic_run(device: str, graph: dict) -> np.ndarray:
+    """PowerIterationClustering(k=PIC_COMMUNITIES) on ``graph``; the
+    assignments in the order of the ids."""
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+    from sparkdq4ml_tpu_torch.models import PowerIterationClustering
+
+    out = PowerIterationClustering(k=PIC_COMMUNITIES, seed=0).assign_clusters(
+        Frame(dict(graph), device=device)).to_pydict()
+    return np.asarray(out["cluster"])
+
+
+def same_results(a, b) -> list:
+    """The keys where two results of one fit differ in any bit."""
+    bad = []
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            bad.append(k)
+    return bad
+
+
+def split_gate(card: dict, cpu: dict, margins: list, sequential: bool):
+    """Each tree's splits against the float64 run: at every node whose
+    ancestors split alike and whose float64 best gain leads the runner-up
+    by more than ZOO_SPLIT_MARGIN relative (or that float64 did not
+    split), the card's leaf flag, split feature and threshold must equal
+    the float64 run's; where float64 did not split but the card did, with
+    a gain under ZOO_SPLIT_MARGIN of its root's (float32 rounding over a
+    pure node), the node is printed, not held. ``margins`` holds the
+    float64 run's two best gains a node, one (m, 2) array a tree and level
+    in fit order. In a GBT
+    (``sequential``) every tree after one with a near tie is left out: its
+    gradients follow the tie. Returns (nodes held, near ties printed)."""
+    feat_f, thr_f, leaf_f = cpu["feature"], cpu["threshold"], cpu["is_leaf"]
+    T, N = feat_f.shape
+    levels = int(np.log2(N + 1)) - 1
+    held, ties = 0, []
+    for t in range(T):
+        ok = {0}
+        for level in range(levels):
+            top = margins[t * levels + level]
+            base = 2 ** level - 1
+            for j in range(2 ** level):
+                node = base + j
+                if node not in ok:
+                    continue
+                best, second = (float(top[j, 0]),
+                                float(top[j, 1]) if top.shape[1] > 1
+                                else -1e30)
+                lead = (best - second) / max(abs(best), 1e-300)
+                if not leaf_f[t, node] and lead <= ZOO_SPLIT_MARGIN:
+                    ties.append({"tree": t, "node": node, "lead": lead})
+                    continue
+                if leaf_f[t, node] and not card["is_leaf"][t, node] and \
+                        card["gain"][t, node] <= ZOO_SPLIT_MARGIN * abs(
+                            card["gain"][t, 0]):
+                    # float64 found no gain (a pure node); the card's
+                    # float32 impurities round to a gain of nothing
+                    ties.append({"tree": t, "node": node, "lead": lead,
+                                 "card_gain": float(card["gain"][t, node])})
+                    continue
+                same = (card["is_leaf"][t, node] == leaf_f[t, node]) and (
+                    leaf_f[t, node] or (
+                        card["feature"][t, node] == feat_f[t, node]
+                        and card["threshold"][t, node]
+                        == np.float32(thr_f[t, node])))
+                if not same:
+                    raise AssertionError(
+                        f"tree {t} node {node}: the card's split (leaf "
+                        f"{card['is_leaf'][t, node]}, feature "
+                        f"{card['feature'][t, node]}, threshold "
+                        f"{card['threshold'][t, node]}) is not float64's "
+                        f"({leaf_f[t, node]}, {feat_f[t, node]}, "
+                        f"{thr_f[t, node]}), whose gain leads by {lead}")
+                held += 1
+                if not leaf_f[t, node]:
+                    ok.update((2 * node + 1, 2 * node + 2))
+        if sequential and any(tie["tree"] == t for tie in ties):
+            break
+    return held, ties
+
+
+def check_zoo(card: dict, ref: dict, launches: dict) -> dict:
+    """Phase 13(c)'s gates against the float64 reference ``ref``; returns
+    the trees' held nodes and near ties."""
+    bad = []
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-300)
+
+    g, w = card["glm"], ref["glm"]
+    for a, b in zip(g["coef"] + [g["intercept"]],
+                    w["coef"] + [w["intercept"]]):
+        if rel(a, b) > ZOO_COEF_RTOL:
+            bad.append(f"glm coefficients {g} vs {w}")
+    if rel(g["deviance"], w["deviance"]) > ZOO_DEVIANCE_RTOL:
+        bad.append(f"glm deviance {g['deviance']} vs {w['deviance']}")
+    if launches["glm"]["masked_gram"] != g["iterations"] + 1:
+        bad.append(f"glm masked_gram launches {launches['glm']}, "
+                   f"{g['iterations']} iterations")
+    for name in ("gbt", "dt"):
+        if rel(card[name]["rmse"], ref[name]["rmse"]) > ZOO_METRIC_TOL:
+            bad.append(f"{name} RMSE {card[name]['rmse']} vs "
+                       f"{ref[name]['rmse']}")
+    if abs(card["rf"]["accuracy"] - ref["rf"]["accuracy"]) > ZOO_METRIC_TOL:
+        bad.append(f"rf accuracy {card['rf']['accuracy']} vs "
+                   f"{ref['rf']['accuracy']}")
+    k, kw = card["kmeans"], ref["kmeans"]
+    if k["sizes"] != kw["sizes"]:
+        bad.append(f"kmeans sizes {k['sizes']} vs {kw['sizes']}")
+    if any(rel(a, b) > ZOO_CENTER_RTOL
+           for a, b in zip(k["centers"], kw["centers"])) or \
+            rel(k["silhouette"], kw["silhouette"]) > ZOO_CENTER_RTOL:
+        bad.append(f"kmeans {k} vs {kw}")
+    if rel(card["gmm"]["log_likelihood"],
+           ref["gmm"]["log_likelihood"]) > ZOO_LL_RTOL:
+        bad.append(f"gmm log-likelihood {card['gmm']} vs {ref['gmm']}")
+    if card["bisecting"]["sizes"] != ref["bisecting"]["sizes"]:
+        bad.append(f"bisecting sizes {card['bisecting']} vs "
+                   f"{ref['bisecting']}")
+    # the k-means seeding of PIC's embedding draws by float32 or float64
+    # distances, which may name the clusters differently: the assignments
+    # are held as partitions, to the CPU run's and to the planted one
+    if not (np.array_equal(partition(card["pic"]["assignments"]),
+                           partition(ref["pic"]["assignments"]))
+            and np.array_equal(partition(ref["pic"]["assignments"]),
+                               partition(ref["pic"]["planted"]))):
+        bad.append("pic assignments differ from the CPU float64 run's or "
+                   "the planted communities")
+    for name in ("gbt", "rf", "dt", "kmeans", "bisecting"):
+        segs = launches[name]["dense_segment_sum"] + \
+            launches[name]["sorted_segment_sum"]
+        if segs == 0:
+            bad.append(f"{name} launched no segment sum: {launches[name]}")
+    if launches["dt"]["sorted_segment_sum"] == 0:
+        bad.append(f"dt never took the sorted route: {launches['dt']}")
+    if bad:
+        raise AssertionError(f"phase 13 gates: {bad}")
+    splits = {}
+    for name in ("gbt", "rf", "dt"):
+        held, ties = split_gate(card[name], ref[name],
+                                ref[name]["margins"], name == "gbt")
+        splits[name] = {"nodes_held": held, "near_ties": ties}
+    return splits
+
+
+def check_zoo_full(rows: int = FULL_ROWS) -> dict:
+    """Phase 13(b)-(c): the seven fits on the DQ-clean 10^7-row table
+    (cleaned by one dq_rules launch) and PIC on a PIC_NODES-node graph, on
+    the card in float32 twice each (bit-identical), each with the launch
+    counts set to 0 just before it and read just after, and one GBT fit
+    under torch.profiler; then the float64 run of the same steps on the
+    same rows (ZOO_CARD_REFERENCE on the card, the others and PIC on the
+    CPU), recording the two best split gains of every node, and the
+    gates."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_policy
+    from sparkdq4ml_tpu_torch.models import tree as port_tree
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    fits = zoo_fits()
+    guest, price = full_table(rows)
+    graph, planted = pic_graph()
+    t_card = time.perf_counter()
+    spark, clean = clean_table("cuda", guest[:20_000], price[:20_000])
+    fdf, ldf = zoo_frames(clean)
+    for _, fn in fits:                                      # warm-up
+        fn(fdf, ldf)
+    spark.stop()
+    torch.cuda.synchronize()
+    kernels.launches.reset()
+    spark, clean = clean_table("cuda", guest, price)
+    torch.cuda.synchronize()
+    clean_counts = kernels.launches.snapshot()
+    kept = clean.count()
+    fdf, ldf = zoo_frames(clean)
+    card, launches, fit_ms, differ = {}, {}, {}, {}
+    for name, fn in fits:
+        card[name], launches[name], s1 = driven(fn, fdf, ldf)
+        again, _, s2 = driven(fn, fdf, ldf)
+        differ[name] = same_results(card[name], again)
+        fit_ms[name] = [1e3 * s1, 1e3 * s2]
+    profiles = {"gbt": profile_run("zoo_gbt",
+                                   lambda: dict(fits)["gbt"](fdf, ldf))}
+    pic, launches["pic"], s1 = driven(pic_run, "cuda", graph)
+    again, _, s2 = driven(pic_run, "cuda", graph)
+    card["pic"] = {"assignments": pic}
+    differ["pic"] = [] if np.array_equal(pic, again) else ["assignments"]
+    fit_ms["pic"] = [1e3 * s1, 1e3 * s2]
+    spark.stop()
+    card_s = time.perf_counter() - t_card
+    bad = {k: v for k, v in differ.items() if v}
+    if bad:
+        raise AssertionError(f"phase 13 fits differ between two card runs: "
+                             f"{bad}")
+    if clean_counts["dq_rules"] != 1:
+        raise AssertionError(f"the zoo table: {clean_counts}")
+
+    margins = []
+    real = port_tree._split_gains
+
+    def recording(*args, **kwargs):
+        flat = real(*args, **kwargs)
+        margins.append(torch.topk(flat, min(2, flat.shape[1]),
+                                  dim=1).values.cpu().numpy())
+        return flat
+
+    ref, ref_kept, ref_s = {}, {}, {}
+    port_tree._split_gains = recording
+    try:
+        with float_policy(torch.float64):
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                spark, ref_clean = clean_table(dev, guest, price)
+                rfdf, rldf = zoo_frames(ref_clean)
+                for name, fn in fits:
+                    if (name in ZOO_CARD_REFERENCE) != (dev == "cuda"):
+                        continue
+                    first = len(margins)
+                    ref[name] = fn(rfdf, rldf)
+                    ref[name]["margins"] = margins[first:]
+                ref_kept[dev] = ref_clean.count()
+                spark.stop()
+                if dev == "cpu":
+                    ref["pic"] = {"assignments": pic_run("cpu", graph),
+                                  "planted": planted}
+                ref_s[dev] = time.perf_counter() - t0
+    finally:
+        port_tree._split_gains = real
+    if set(ref_kept.values()) != {kept}:
+        raise AssertionError(f"clean rows card {kept}, float64 {ref_kept}")
+    splits = check_zoo(card, ref, launches)
+    summary = {name: {k: v for k, v in res.items()
+                      if not isinstance(v, np.ndarray)}
+               for name, res in card.items() if name != "pic"}
+    summary["pic"] = {"sizes": np.bincount(pic).tolist()}
+    reference = {name: {k: v for k, v in res.items()
+                        if not isinstance(v, np.ndarray) and k != "margins"}
+                 for name, res in ref.items()}
+    segment_launches = {name: {k: c[k] for k in ("dense_segment_sum",
+                                                 "sorted_segment_sum")}
+                        for name, c in launches.items()}
+    log(f"model zoo at {rows} rows ({kept} clean), card float32: "
+        f"{json.dumps(summary, default=str)}; fit ms {fit_ms}; segment-sum "
+        f"launches {segment_launches}; masked_gram launches "
+        f"{launches['glm']['masked_gram']} for "
+        f"{card['glm']['iterations']} IRLS iterations; splits held and "
+        f"near ties {json.dumps(splits)}; profiles {profiles}; float64 "
+        f"reference s {ref_s} (card: {list(ZOO_CARD_REFERENCE)})")
+    return {"rows": rows, "clean_rows": kept, "fits": summary,
+            "float64_reference": reference, "fit_ms": fit_ms,
+            "launches": launches, "splits": splits, "profiles": profiles,
+            "float64_on_card": ZOO_CARD_REFERENCE,
+            "pic_nodes": PIC_NODES, "card_s": card_s,
+            "card_float64_reference_s": ref_s["cuda"],
+            "cpu_float64_reference_s": ref_s["cpu"]}
+
+
+def argmax_first_on_card() -> None:
+    """torch.argmax takes the first of tied maxima on the card, as
+    jnp.argmax does (the tree splits rely on it): along rows of a split
+    table and over a long vector."""
+    import torch
+
+    gains = torch.zeros((64, 31 * 3), device="cuda")
+    gains[:, 5] = gains[:, 40] = gains[:, 92] = 1.0
+    long = torch.zeros(10_000_000, device="cuda")
+    long[[123, 4_567_890, 9_999_999]] = 2.0
+    if not (bool((torch.argmax(gains, dim=1) == 5).all())
+            and int(torch.argmax(long)) == 123
+            and int(torch.argmin(-long)) == 123):
+        raise AssertionError("torch.argmax/argmin on the card does not take "
+                             "the first of tied extremes")
+
+
+def zoo_segment_cases():
+    """(name, kernel, x, seg, size) at the model zoo's segment-sum shapes
+    on the DQ-clean full table: GBT's histograms at depth 2 and at its last
+    level, depth 3 (8 nodes x 32 bins, [w, wg, wg², wh]), the forest's at
+    depth 3 and at its last level, depth 4 (16 nodes, two class counts
+    under Poisson bootstrap weights), the tree's depth-5 level past shared
+    memory (1,024 slots, sorted route: the ids sorted first, as
+    ops/segments.py does), KMeans' k = 3 slots ([x·w, w, cost]), and PIC's
+    affinity: the values and slots of ``pic_graph``'s 2·65,792 entries
+    onto PIC_NODES² slots, as PowerIterationClustering.affinity_entries
+    makes them, sorted as ops/segments.py sorts them."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+    from sparkdq4ml_tpu_torch.models import PowerIterationClustering
+
+    guest, price = clean_columns()
+    n = guest.shape[0]
+    g = torch.clamp(guest - 1, 0, 31)
+    rng = np.random.default_rng(0)
+    node = torch.as_tensor(rng.integers(0, 16, n), device=guest.device)
+    p = price
+    one = torch.ones_like(p)
+    grad = p - p.mean()
+    label = (guest > 25).to(p.dtype)
+    boot = torch.as_tensor(rng.poisson(1.0, n), device=guest.device).to(
+        p.dtype)
+    deep = torch.as_tensor(rng.integers(0, 32, n), device=guest.device)
+    order = torch.sort(deep * 32 + g, stable=True)
+    graph, _ = pic_graph()
+    ids, vals, slots = PowerIterationClustering(
+        k=PIC_COMMUNITIES).affinity_entries(Frame(dict(graph),
+                                                  device="cuda"))
+    by_slot = torch.sort(slots, stable=True)
+    return [("gbt level 2", "dense_segment_sum",
+             torch.stack([one, p, p * p, one], dim=1), (node % 4) * 32 + g,
+             128),
+            ("gbt level 3", "dense_segment_sum",
+             torch.stack([one, grad, grad * grad, one], dim=1),
+             (node % 8) * 32 + g, 256),
+            ("forest level 3", "dense_segment_sum",
+             torch.stack([one, label], dim=1), (node % 8) * 32 + g, 256),
+            ("forest level 4", "dense_segment_sum",
+             torch.stack([boot * (1 - label), boot * label], dim=1),
+             node * 32 + g, 512),
+            ("tree level 5 (sorted)", "sorted_segment_sum",
+             torch.stack([one, p, p * p], dim=1).index_select(
+                 0, order.indices), order.values, 1024),
+            ("kmeans k=3", "dense_segment_sum",
+             torch.stack([guest.to(p.dtype), one, p], dim=1),
+             (guest % 3).to(torch.int64), 3),
+            ("pic affinity (sorted)", "sorted_segment_sum",
+             vals.index_select(0, by_slot.indices), by_slot.values,
+             len(ids) ** 2)]
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -3792,6 +4362,19 @@ def main() -> int:
     t0 = time.perf_counter()
     builtins = check_builtins_full(*full_table(FULL_ROWS))
     builtins_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    argmax_first_on_card()
+    zoo_tour_res = check_zoo_tour_golden("cuda")
+    zoo = check_zoo_full()
+    zoo_s = time.perf_counter() - t0
+    zoo_cases = zoo_segment_cases()
+    zoo_errs = check_segment_sum(zoo_cases)
+    zoo_times = {c[0]: {**segsum_times(*c), "kernel": c[1],
+                        "max_abs_err": zoo_errs[c[0]]} for c in zoo_cases}
+    del zoo_cases
+    zoo_launches = {name: zoo["launches"][name]
+                    for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
+                                 "bisecting", "pic")}
     by_path = {"app": counts,
                **{p: selection[p]["launches"] for p in selection},
                "owlqn_dataset_full": small["owlqn"]["full"]["l-bfgs"][
@@ -3803,7 +4386,8 @@ def main() -> int:
                   for name, fit in classifiers["fits"].items()},
                "ingest_app": ingest["launches"],
                "dq_report": report["launches"],
-               "builtins": builtins["launches"]}
+               "builtins": builtins["launches"],
+               **{f"zoo_{name}": c for name, c in zoo_launches.items()}}
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
@@ -3823,6 +4407,8 @@ def main() -> int:
          "source": "sparkdq4ml_tpu_torch/ops/csrc/masked_gram.cu",
          "replaces": "sparkdq4ml_tpu/ops/pallas_kernels.py:113",
          "launches": selection["cv"]["launches"]["masked_gram"],
+         "zoo_glm_launches": zoo_launches["glm"]["masked_gram"],
+         "zoo_glm_irls_iterations": zoo["fits"]["glm"]["iterations"],
          "max_abs_err": masked_errs[(FULL_ROWS, 1)],
          "parity": True, **masked_main, "app_size": masked_app,
          "largest": masked_big},
@@ -3832,6 +4418,10 @@ def main() -> int:
                      "(jax.ops.segment_sum, an XLA scatter, no pallas_call)",
          "launches": sql_core["launches"]["dense_segment_sum"],
          "dq_report_launches": report["launches"]["dense_segment_sum"],
+         "zoo_launches": {name: c["dense_segment_sum"]
+                          for name, c in zoo_launches.items()},
+         "zoo_shapes": {k: v for k, v in zoo_times.items()
+                        if v["kernel"] == "dense_segment_sum"},
          "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
          "bit_identical_runs": True, **seg_dense, "one_slot": seg_one},
         {"name": "sorted_segment_sum", "route": "cuda", "port_only": True,
@@ -3840,6 +4430,10 @@ def main() -> int:
                      "(jax.ops.segment_sum, an XLA scatter, no pallas_call)",
          "launches": sql_core["launches"]["sorted_segment_sum"],
          "dq_report_launches": report["launches"]["sorted_segment_sum"],
+         "zoo_launches": {name: c["sorted_segment_sum"]
+                          for name, c in zoo_launches.items()},
+         "zoo_shapes": {k: v for k, v in zoo_times.items()
+                        if v["kernel"] == "sorted_segment_sum"},
          "max_abs_err": seg_errs["sorted price groups"], "parity": True,
          "bit_identical_runs": True, **seg_sorted,
          "long_segments": seg_long},
@@ -3862,6 +4456,8 @@ def main() -> int:
         "ingest": ingest, "ingest_phase_s": ingest_s,
         "dq_report": report, "dq_report_phase_s": report_s,
         "builtins": builtins, "builtins_phase_s": builtins_s,
+        "zoo_tour_dataset_full": zoo_tour_res, "zoo": zoo,
+        "zoo_phase_s": zoo_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}

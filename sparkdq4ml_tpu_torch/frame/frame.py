@@ -268,6 +268,146 @@ class Frame:
 
     withColumnRenamed = with_column_renamed
 
+    def with_columns_renamed(self, mapping: Mapping[str, str]) -> "Frame":
+        """Spark 3.4's ``withColumnsRenamed``: a batch rename; absent keys
+        are no-ops. A target that collides with a column keeping its name
+        raises (the frame cannot hold two columns of one name); swaps are
+        legal."""
+        renamed_away = {k for k, new in mapping.items()
+                        if k in self._data and new != k}
+        data: dict = {}
+        for k, v in self._data.items():
+            nk = mapping.get(k, k)
+            if nk in data or (nk != k and nk in self._data
+                              and nk not in renamed_away):
+                raise ValueError(
+                    f"withColumnsRenamed: rename target {nk!r} collides "
+                    "with an existing column; the engine cannot hold "
+                    "duplicate column names (rename or drop the other "
+                    f"{nk!r} first)")
+            data[nk] = v
+        return self._with(data=data)
+
+    withColumnsRenamed = with_columns_renamed
+
+    def to_df(self, *names: str) -> "Frame":
+        """``toDF``: rename every column by position; names must be
+        unique."""
+        if len(names) != len(self.columns):
+            raise ValueError(f"toDF expects {len(self.columns)} names, "
+                             f"got {len(names)}")
+        if len(set(names)) != len(names):
+            raise ValueError(f"toDF names must be unique, got {list(names)}")
+        return self._with(data={new: self._data[old]
+                                for new, old in zip(names, self.columns)})
+
+    toDF = to_df
+
+    def transform(self, func, *args, **kwargs) -> "Frame":
+        """Spark's ``df.transform(fn)``: chainable function application."""
+        out = func(self, *args, **kwargs)
+        if not isinstance(out, Frame):
+            raise TypeError("transform function must return a Frame, got "
+                            f"{type(out).__name__}")
+        return out
+
+    def replace(self, to_replace, value=None, subset=None) -> "Frame":
+        """``df.replace``: substitute exact values in the ``subset``
+        columns; a scalar pair, a list and a scalar, two lists, or a
+        ``{old: new}`` dict. String keys apply to string columns, numeric
+        keys to numeric ones; a None or float replacement widens an int
+        column to the policy's float dtype (the JAX package's rule)."""
+        if isinstance(to_replace, dict):
+            mapping = to_replace
+        elif isinstance(to_replace, (list, tuple)):
+            if isinstance(value, (list, tuple)):
+                if len(value) != len(to_replace):
+                    raise ValueError(
+                        f"replace: value list length {len(value)} != "
+                        f"to_replace length {len(to_replace)}")
+                mapping = dict(zip(to_replace, value))
+            else:
+                mapping = {v: value for v in to_replace}
+        else:
+            mapping = {to_replace: value}
+        data = dict(self._data)
+        for name in (subset if subset is not None else self.columns):
+            arr = self._data[name]
+            if is_host_column(arr):
+                str_map = {k: v for k, v in mapping.items()
+                           if isinstance(k, str)}
+                if str_map:
+                    data[name] = np.asarray(
+                        [str_map.get(x, x) for x in arr], dtype=object)
+                continue
+            num_map = {k: v for k, v in mapping.items()
+                       if isinstance(k, (int, float))
+                       and not isinstance(k, bool)}
+            if not num_map:
+                continue
+            col = arr            # every key is matched against the source
+            if any(v is None or isinstance(v, float)
+                   for v in num_map.values()) and not arr.is_floating_point():
+                col = col.to(float_dtype())
+            for old, new in num_map.items():
+                new = float("nan") if new is None else new
+                col = torch.where(arr == old, torch.tensor(
+                    new, device=col.device).to(col.dtype), col)
+            data[name] = col
+        return self._with(data=data)
+
+    def col_regex(self, pattern: str) -> list:
+        """Spark's ``colRegex``: the columns whose names match the regex
+        (backticks allowed), for ``select``."""
+        import re
+
+        pat = pattern.strip()
+        if pat.startswith("`") and pat.endswith("`"):
+            pat = pat[1:-1]
+        rx = re.compile(pat)
+        return [Col(c) for c in self.columns if rx.fullmatch(c)]
+
+    colRegex = col_regex
+
+    @property
+    def schema(self) -> list[tuple[str, str]]:
+        """``[(name, spark type name)]``, the pairs of ``dtypes()``."""
+        return self.dtypes()
+
+    def alias(self, name: str) -> "Frame":
+        """Record a frame alias on this frame (Spark ``alias``); derived
+        frames do not inherit it."""
+        out = self._with()
+        out._alias = name
+        return out
+
+    # -- no-ops for API parity: one device, no partitions, no lineage -------
+    def cache(self) -> "Frame":
+        """Wait for the frame's device work, so that ``cache()`` bounds a
+        timing as in the JAX package (which blocks until ready)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    persist = cache
+
+    def unpersist(self, blocking: bool = False) -> "Frame":
+        return self
+
+    def repartition(self, num_partitions: int, *cols) -> "Frame":
+        return self
+
+    def coalesce(self, num_partitions: int) -> "Frame":
+        return self
+
+    def hint(self, name: str, *parameters) -> "Frame":
+        return self
+
+    def checkpoint(self, eager: bool = True) -> "Frame":
+        return self
+
+    localCheckpoint = local_checkpoint = checkpoint
+
     def with_columns(self, cols_map: Mapping[str, object]) -> "Frame":
         """``withColumns``: every expression resolves against the input
         frame (Spark semantics)."""
@@ -1008,6 +1148,11 @@ class Frame:
         """Number of valid (unmasked) rows."""
         return int(self._mask.sum())
 
+    def is_empty(self) -> bool:
+        return self.count() == 0
+
+    isEmpty = is_empty
+
     def _host_mask(self) -> np.ndarray:
         return self._mask.cpu().numpy()
 
@@ -1025,6 +1170,50 @@ class Frame:
 
     def first(self):
         return self.head(1)
+
+    def tail(self, n: int) -> list:
+        """The last ``n`` valid rows (Spark ``tail``)."""
+        rows = self.collect()
+        return rows[-n:] if n > 0 else []
+
+    def to_json(self) -> list[str]:
+        """One JSON object string per valid row (Spark ``toJSON``, as a
+        list); NaN and None become null, numpy scalars Python ones."""
+        import json
+        import math
+
+        def coerce(v):
+            if v is None:
+                return None
+            if isinstance(v, (np.floating, float)):
+                f = float(v)
+                return None if math.isnan(f) else f
+            if isinstance(v, (np.integer, int)):
+                return int(v)
+            if isinstance(v, (np.bool_, bool)):
+                return bool(v)
+            if isinstance(v, np.ndarray):
+                return [coerce(x) for x in v.tolist()]
+            return v
+
+        cols = self.columns
+        return [json.dumps({c: coerce(v) for c, v in zip(cols, row)})
+                for row in self.collect()]
+
+    toJSON = to_json
+
+    def foreach(self, f) -> None:
+        """Apply ``f`` to every valid row on the host (Spark
+        ``foreach``)."""
+        for row in self.collect():
+            f(row)
+
+    def foreach_partition(self, f) -> None:
+        """Apply ``f`` to an iterator over all valid rows (one
+        partition)."""
+        f(iter(self.collect()))
+
+    foreachPartition = foreach_partition
 
     def to_pydict(self, limit: Optional[int] = None) -> dict:
         """The valid rows on the host, as numpy arrays; ``limit`` gathers
@@ -1134,6 +1323,25 @@ class Frame:
 
     createOrReplaceTempView = create_or_replace_temp_view
 
+    def create_temp_view(self, name: str) -> None:
+        """``createTempView``: as the or-replace form, but a taken name
+        raises."""
+        from ..sql.catalog import default_catalog
+
+        cat = default_catalog()
+        if cat.table_exists(name):
+            raise ValueError(f"temp view {name!r} already exists "
+                             "(use createOrReplaceTempView)")
+        cat.register(name, self)
+
+    createTempView = create_temp_view
+
+    def to_csv(self, path: str, header: bool = False,
+               delimiter: str = ",") -> None:
+        from .writer import write_csv
+
+        write_csv(self, path, header=header, delimiter=delimiter)
+
     # -- writer --------------------------------------------------------------
     @property
     def write(self):
@@ -1198,7 +1406,8 @@ def pandas_result(outs: list, fields: list, device, what: str) -> Frame:
 
 
 class _NAFunctions:
-    """``df.na`` (Spark's ``DataFrameNaFunctions``): ``fill`` and ``drop``."""
+    """``df.na`` (Spark's ``DataFrameNaFunctions``): ``fill``, ``drop`` and
+    ``replace``."""
 
     def __init__(self, frame: Frame):
         self._frame = frame
@@ -1208,3 +1417,6 @@ class _NAFunctions:
 
     def drop(self, how="any", thresh=None, subset=None) -> Frame:
         return self._frame.dropna(how=how, thresh=thresh, subset=subset)
+
+    def replace(self, to_replace, value=None, subset=None) -> Frame:
+        return self._frame.replace(to_replace, value=value, subset=subset)

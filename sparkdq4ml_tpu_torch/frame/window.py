@@ -1,4 +1,4 @@
-"""Window functions over numeric columns (port of
+"""Window functions (port of
 ``sparkdq4ml_tpu/frame/window.py``): ``Window.partitionBy(...).orderBy(...)``
 with the ranking, offset, value and windowed-aggregate functions.
 
@@ -10,8 +10,11 @@ is evaluated vectorised per partition and the result is scattered back to
 the frame's row slots as a tensor on the frame's device, so masked rows stay
 masked. A string partition or ascending order key enters the plan as
 its int32 codes (``ops/strings.py``: nulls first, as the JAX package's
-host lexsort puts them); a string value column, a descending string key
-and vector columns raise.
+host lexsort puts them). A string value column takes ``lag``/``lead``,
+``first_value``/``last_value``/``nth_value`` and ``COUNT`` on its codes,
+decoded once into a host string column; another aggregate over strings
+raises ``ValueError``, as in the JAX package. A descending string key and
+vector columns raise.
 
 Frames follow Spark: ordered windows default to ``RANGE BETWEEN UNBOUNDED
 PRECEDING AND CURRENT ROW`` (running aggregates include peer rows);
@@ -329,25 +332,39 @@ class WindowExpr(Expr):
         idx, order, starts, ends, peer = _window_plan(frame, spec)
         nv = len(idx)
         pulled: dict = {}
+        words: dict = {}
 
         def host(name):
+            """A value column's valid rows on the host; a string column as
+            its dictionary codes (its words in ``words``)."""
             if name not in pulled:
-                pulled[name] = _host_column(frame, name)[idx]
+                arr = frame._column_values(name)
+                if is_host_column(arr):
+                    codes, words[name] = strings.codes(arr)
+                    pulled[name] = codes[idx]
+                else:
+                    pulled[name] = _host_column(frame, name)[idx]
             return pulled[name]
 
         # -- evaluate per partition (vectorized inside each slice) ---------
         vals_sorted, fill = self._compute(
-            frame, func, host, order, starts, ends, peer, nv)
+            frame, func, host, words, order, starts, ends, peer, nv)
 
-        # -- scatter back to the original slots, on the frame's device -----
+        # -- scatter back to the original slots, on the frame's device (a
+        # string result as a host column) ----------------------------------
         tmp = np.empty(nv, dtype=vals_sorted.dtype)
         tmp[order] = vals_sorted
         out = np.full(frame.num_slots, fill, dtype=vals_sorted.dtype)
         out[idx] = tmp
+        if out.dtype == object:
+            return out
         return torch.as_tensor(out, device=frame.device)
 
-    def _compute(self, frame, func, host, order, starts, ends, peer, nv):
-        """Returns (values in sorted domain, masked-slot fill)."""
+    def _compute(self, frame, func, host, words, order, starts, ends, peer,
+                 nv):
+        """Returns (values in sorted domain, masked-slot fill). A string
+        value column (``lag``/``lead``, the value functions, ``COUNT``)
+        works on its codes and decodes once at the end."""
         fn = func.fn
         fdt = numpy_dtype(float_dtype())
         idt = numpy_dtype(int_dtype())
@@ -397,10 +414,20 @@ class WindowExpr(Expr):
         if fn in _OFFSET_FNS:
             v = host(func.column)[order]
             off = func.offset if fn == "lag" else -func.offset
-            if not np.issubdtype(v.dtype, np.floating):
-                v = v.astype(fdt)      # int lag needs a null (NaN) slot
-            out = np.full(nv, np.nan, dtype=v.dtype)
-            default = np.nan if func.default is None else func.default
+            text = words.get(func.column)
+            if text is not None:
+                null = strings.NULL_CODE
+                default = null
+                if func.default is not None:     # the default gets a code
+                    text = list(text) + [func.default]
+                    default = len(text) - 1
+                v = v.astype(np.int64)
+            else:
+                if not np.issubdtype(v.dtype, np.floating):
+                    v = v.astype(fdt)  # int lag needs a null (NaN) slot
+                null = np.nan
+                default = np.nan if func.default is None else func.default
+            out = np.full(nv, null, dtype=v.dtype)
             for s, e in zip(starts, ends):
                 seg = v[s:e]
                 if off == 0:           # lag/lead 0 = the current row (Spark)
@@ -412,16 +439,21 @@ class WindowExpr(Expr):
                 elif off < 0 and e - s > -off:
                     shifted[:off] = seg[-off:]
                 out[s:e] = shifted
+            if text is not None:
+                return strings.decode(out, text), None
             return out, np.nan
 
         if fn in _VALUE_FNS:
-            v = host(func.column)[order].astype(np.float64)
+            v = host(func.column)[order]
+            text = words.get(func.column)
+            null = strings.NULL_CODE if text is not None else np.nan
+            v = v.astype(np.int64 if text is not None else np.float64)
             ordered = bool(self.spec.order_cols)
             frame_spec = self.spec.frame
             _require_order_for_frame(frame_spec, ordered)
             if fn == "nth_value" and int(func.n) < 1:
                 raise ValueError("nth_value requires a positive offset")
-            out = np.full(nv, np.nan, np.float64)
+            out = np.full(nv, null, v.dtype)
             for s, e in zip(starts, ends):
                 n = e - s
                 if n == 0:
@@ -449,7 +481,9 @@ class WindowExpr(Expr):
                     empty = empty | (pick > hi)
                 seg = v[s:e]
                 vals = seg[np.clip(pick, 0, n - 1)]
-                out[s:e] = np.where(empty, np.nan, vals)
+                out[s:e] = np.where(empty, null, vals)
+            if text is not None:
+                return strings.decode(out, text), None
             return out.astype(fdt), np.nan
 
         if fn in _AGG_FNS:
@@ -458,6 +492,13 @@ class WindowExpr(Expr):
             if counting_all:
                 v = np.ones(nv, fdt)
                 null = np.zeros(nv, bool)
+            elif func.column in words or is_host_column(
+                    frame._column_values(func.column)):
+                if agg != "count":       # COUNT alone is dtype-agnostic
+                    raise ValueError(f"windowed {fn}() over a string "
+                                     "column is not supported")
+                null = host(func.column)[order] == strings.NULL_CODE
+                v = np.ones(nv, np.float64)
             else:
                 v = host(func.column)[order].astype(np.float64)
                 null = np.isnan(v)

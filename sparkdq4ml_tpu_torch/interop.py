@@ -8,7 +8,13 @@ A fitted classifier crosses as its constructor arguments:
 :func:`classifier_to_numpy` reads them off a model of either package (the
 two share attribute names), and :func:`classifier_from_numpy` builds the
 port's model from them; the JAX package's class of the same name takes
-them as keyword arguments."""
+them as keyword arguments.
+
+The model zoo crosses the same way: :func:`glm_model_from_numpy`,
+:func:`tree_model_from_numpy`, :func:`kmeans_model_from_numpy` and
+:func:`gmm_model_from_numpy` build the port's model from a JAX model's
+fitted parameters as numpy arrays, so one fitted model scores in both
+packages."""
 
 from __future__ import annotations
 
@@ -17,10 +23,13 @@ from typing import Mapping, Optional
 import numpy as np
 
 from .frame.frame import Frame
+from .models.clustering import GaussianMixtureModel, KMeansModel
 from .models.classification import (LinearSVCModel,
                                     LogisticRegressionModel,
                                     NaiveBayesModel, OneVsRestModel)
+from .models.glm import GeneralizedLinearRegressionModel
 from .models.regression import LinearRegressionModel
+from .models import tree as _tree
 from .models.tuning import CrossValidatorModel
 
 
@@ -122,3 +131,61 @@ def classifier_from_numpy(state: dict):
         kwargs["models"] = [classifier_from_numpy(m)
                             for m in kwargs["models"]]
     return _CLASSIFIERS[state["class"]](**kwargs)
+
+
+def glm_model_from_numpy(coefficients, intercept: float,
+                         params: Optional[dict] = None
+                         ) -> GeneralizedLinearRegressionModel:
+    """A ``GeneralizedLinearRegressionModel`` from host coefficients and
+    the JAX model's ``_params`` (family, link, the column names)."""
+    return GeneralizedLinearRegressionModel(np.asarray(coefficients),
+                                            float(intercept), params)
+
+
+_TREE_MODELS = {c.__name__: c for c in (
+    _tree.DecisionTreeRegressionModel, _tree.RandomForestRegressionModel,
+    _tree.DecisionTreeClassificationModel,
+    _tree.RandomForestClassificationModel, _tree.GBTRegressionModel,
+    _tree.GBTClassificationModel)}
+
+
+def tree_model_from_numpy(kind: str, trees, num_features: int,
+                          max_depth: int, params: Optional[dict] = None, *,
+                          num_classes: Optional[int] = None,
+                          f0: Optional[float] = None,
+                          step_size: Optional[float] = None):
+    """The port's tree model named ``kind`` (the JAX class name, such as
+    ``"RandomForestClassificationModel"``) from the ``TreeArrays`` fields
+    of one tree or a stacked ensemble (``feature``, ``threshold``,
+    ``is_leaf``, ``value``, ``gain``; a tuple, a ``TreeArrays`` of either
+    package or any object with those attributes, leading axis the trees),
+    the classifiers' ``num_classes`` and the GBTs' ``f0`` and
+    ``step_size``."""
+    cls = _TREE_MODELS[kind]
+    fields = _tree.TreeArrays._fields
+    arrays = ([np.asarray(getattr(trees, f)) for f in fields]
+              if hasattr(trees, "feature")
+              else [np.asarray(t) for t in trees])
+    if arrays[0].ndim == 1:            # one tree: the stacked (1, N) form
+        arrays = [a[None] for a in arrays]
+    if "Classification" in kind and "GBT" not in kind:
+        return cls(*arrays, num_features, max_depth, num_classes, params)
+    if "GBT" in kind:
+        return cls(*arrays, num_features, max_depth, f0, step_size, params)
+    return cls(*arrays, num_features, max_depth, params)
+
+
+def kmeans_model_from_numpy(centers, features_col: str = "features",
+                            prediction_col: str = "prediction"
+                            ) -> KMeansModel:
+    """A ``KMeansModel`` from a JAX model's (k, d) ``centers``."""
+    return KMeansModel(np.asarray(centers), features_col, prediction_col)
+
+
+def gmm_model_from_numpy(weights, means, covs,
+                         params: Optional[dict] = None
+                         ) -> GaussianMixtureModel:
+    """A ``GaussianMixtureModel`` from a JAX model's ``weights`` (k,),
+    ``means`` (k, d), ``covs`` (k, d, d) and ``_params``."""
+    return GaussianMixtureModel(np.asarray(weights), np.asarray(means),
+                                np.asarray(covs), params)

@@ -9,13 +9,25 @@ from .classification import (BinaryLogisticRegressionSummary,
                              LogisticRegressionSummary,
                              LogisticRegressionTrainingSummary, NaiveBayes,
                              NaiveBayesModel, OneVsRest, OneVsRestModel)
-from .evaluation import (BinaryClassificationEvaluator, Evaluator,
-                         MulticlassClassificationEvaluator,
+from .clustering import (BisectingKMeans, BisectingKMeansModel,
+                         GaussianMixture, GaussianMixtureModel,
+                         GaussianMixtureSummary, KMeans, KMeansModel,
+                         KMeansSummary, PowerIterationClustering)
+from .evaluation import (BinaryClassificationEvaluator, ClusteringEvaluator,
+                         Evaluator, MulticlassClassificationEvaluator,
                          RegressionEvaluator)
 from .feature import VectorAssembler
+from .glm import (GeneralizedLinearRegression,
+                  GeneralizedLinearRegressionModel, GlmTrainingSummary)
 from .linalg import Vectors
 from .regression import (LinearRegression, LinearRegressionModel,
                          LinearRegressionSummary,
                          LinearRegressionTrainingSummary)
+from .tree import (DecisionTreeClassificationModel, DecisionTreeClassifier,
+                   DecisionTreeRegressionModel, DecisionTreeRegressor,
+                   GBTClassificationModel, GBTClassifier,
+                   GBTRegressionModel, GBTRegressor,
+                   RandomForestClassificationModel, RandomForestClassifier,
+                   RandomForestRegressionModel, RandomForestRegressor)
 from .tuning import (CrossValidator, CrossValidatorModel, ParamGridBuilder,
                      TrainValidationSplit, TrainValidationSplitModel)

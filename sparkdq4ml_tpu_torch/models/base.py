@@ -19,6 +19,8 @@ from typing import Sequence
 
 import numpy as np
 
+from ..config import float_dtype
+
 _STAGE_REGISTRY: dict[str, type] = {}
 
 
@@ -82,6 +84,9 @@ def load_stage(path: str):
     obj = cls.__new__(cls)
     for k, v in meta["data"].items():
         setattr(obj, k, _from_jsonable(v))
+    post = getattr(obj, "_post_load", None)
+    if post is not None:        # derived state (BisectingKMeansModel)
+        post()
     return obj
 
 
@@ -115,6 +120,20 @@ class _Writer:
 
     def save(self, path: str) -> None:
         save_stage(self._stage, path)
+
+
+def no_mesh(mesh, what: str) -> None:
+    """Fits take no mesh in the port: one device."""
+    if mesh is not None:
+        raise NotImplementedError(f"{what}: fits over a mesh are not "
+                                  "ported; the port fits on one device")
+
+
+def feature_matrix(frame, name: str):
+    """A features column as an (n, d) tensor in the policy's float dtype,
+    on the frame's device (a 1-D column is one feature)."""
+    X = frame._column_values(name).to(float_dtype())
+    return X[:, None] if X.ndim == 1 else X
 
 
 class Transformer(_Persist):

@@ -45,6 +45,7 @@ from ..config import float_dtype
 from ..frame.frame import Frame
 from ..ops import kernels
 from .base import Estimator, Model, persistable, read_json, write_json
+from .base import no_mesh as _no_mesh
 from .evaluation import _share, _valid, pr_points, roc_points
 from .evaluation import area_under_roc as _area_under_roc
 from .regression import _extract_xy
@@ -76,12 +77,6 @@ class SoftmaxFitResult(NamedTuple):
     iterations: object
     objective_history: object
     converged: object
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{what}: fits over a mesh are not "
-                                  "ported; the port fits on one device")
 
 
 def _rows_matvec(A, v):

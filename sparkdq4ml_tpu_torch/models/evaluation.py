@@ -1,5 +1,5 @@
 """Evaluators: the MLlib ``ml.evaluation`` surface of the port (port of
-``sparkdq4ml_tpu/models/evaluation.py`` without ``ClusteringEvaluator``).
+``sparkdq4ml_tpu/models/evaluation.py``).
 
 The classification metrics run where the scores live. The threshold
 sweep behind every ROC and PR curve is one stable descending sort and
@@ -8,6 +8,8 @@ only the points at distinct scores to the host (39 points for 10⁷ rows
 scored from one integer feature), where the trapezoid runs in float64.
 The multiclass counts are integer counts on the device, read once.
 Regression metrics are float64 on the host, over the frame's valid rows.
+The silhouette is float64 on the frame's device, its per-cluster sums
+through the fixed-order segment sum.
 """
 
 from __future__ import annotations
@@ -248,3 +250,72 @@ class MulticlassClassificationEvaluator(Evaluator):
                 scores = np.where(prec + rec == 0, 0.0,
                                   2 * prec * rec / (prec + rec))
         return float(np.average(scores, weights=true_c / n))
+
+
+class ClusteringEvaluator(Evaluator):
+    """MLlib ``ClusteringEvaluator``: the mean silhouette coefficient with
+    squared-Euclidean distance, over the frame's valid rows, in float64 on
+    the frame's device whatever the policy (the reference computes it in
+    float64 on the host). Per-cluster means and squared norms make each
+    point's mean distance to a cluster one (n, k) product, Spark's
+    optimization for this metric; the per-cluster sums go through the
+    fixed-order segment sum."""
+
+    def __init__(self, features_col: str = "features",
+                 prediction_col: str = "prediction",
+                 metric_name: str = "silhouette"):
+        if metric_name != "silhouette":
+            raise ValueError(f"unknown metric {metric_name!r}")
+        self.features_col = features_col
+        self.prediction_col = prediction_col
+        self.metric_name = metric_name
+
+    def set_features_col(self, v):
+        self.features_col = v
+        return self
+
+    setFeaturesCol = set_features_col
+
+    def set_prediction_col(self, v):
+        self.prediction_col = v
+        return self
+
+    setPredictionCol = set_prediction_col
+
+    def evaluate(self, frame: Frame) -> float:
+        from ..ops.segments import _seg_sum
+
+        X = _valid(frame, self.features_col).to(torch.float64)
+        if X.ndim == 1:
+            X = X[:, None]
+        # float64, then truncated toward zero (numpy's astype(int))
+        labels = _valid(frame, self.prediction_col).to(torch.float64) \
+            .to(torch.int64)
+        uniq = torch.unique(labels)
+        k = uniq.numel()
+        if k < 2:
+            return float("nan")
+        lab = torch.searchsorted(uniq, labels)
+        n = lab.shape[0]
+        x_sq = torch.sum(X * X, dim=1)
+        table = _seg_sum(torch.cat([X, x_sq[:, None],
+                                    torch.ones_like(x_sq)[:, None]], dim=1),
+                         lab, k)
+        d = X.shape[1]
+        sums, sq_sums, counts = table[:, :d], table[:, d], table[:, d + 1]
+        means = sums / counts[:, None]
+        # mean squared distance from point i to all of cluster c:
+        #   E_c‖x_i − y‖² = ‖x_i‖² − 2·x_i·mean_c + E_c‖y‖²
+        msd = x_sq[:, None] - 2.0 * (X @ means.T) + (sq_sums / counts)[None, :]
+        rows = torch.arange(n, device=X.device)
+        c_own = counts[lab]
+        own = msd[rows, lab]
+        zero = torch.zeros((), dtype=X.dtype, device=X.device)
+        # a(i): mean distance to the own cluster, self excluded
+        a = torch.where(c_own > 1, own * c_own / torch.clamp(c_own - 1,
+                                                             min=1), zero)
+        msd[rows, lab] = float("inf")
+        b = torch.min(msd, dim=1).values              # nearest other cluster
+        s = torch.where(c_own > 1, (b - a) / torch.clamp(
+            torch.maximum(a, b), min=1e-300), zero)
+        return float(torch.mean(s))

@@ -36,7 +36,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import float_dtype, int_dtype, numpy_dtype
+from ..config import float_dtype, int_dtype, numpy_dtype, wide_types
 # the JAX package's helper names, kept here where its readers look for them
 from .cells import (_cell_is_null, _int_or_null, _is_null_cell,  # noqa: F401
                     _null_cells, _null_mask, _require_array_cells,
@@ -56,10 +56,17 @@ STRING = np.dtype(object)
 _TYPE_NAMES = {
     "int": int_dtype,
     "integer": int_dtype,
+    # int64 only under the float64 policy, as JAX gives int64 only in x64
+    "long": lambda: torch.int64 if wide_types() else torch.int32,
     "float": lambda: torch.float32,
     "double": float_dtype,
+    "boolean": lambda: torch.bool,
     "string": lambda: STRING,
 }
+
+# the word literals a string -> boolean CAST reads (the JAX package's)
+_BOOL_TRUE = frozenset(("true", "t", "yes", "y", "1"))
+_BOOL_FALSE = frozenset(("false", "f", "no", "n", "0"))
 
 _SPARK_TYPE = {torch.int32: "integer", torch.int16: "integer",
                torch.int8: "integer", torch.int64: "long",
@@ -98,6 +105,8 @@ class Expr:
     def cast(self, type_name: str) -> "Cast":
         return Cast(self, type_name)
 
+    astype = cast   # PySpark alias
+
     def isin(self, *values) -> "InList":
         """Membership test, ``col.isin(1, 2, 3)`` or SQL ``IN (...)``."""
         if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
@@ -111,6 +120,43 @@ class Expr:
     def like(self, pattern: str) -> "StringMatch":
         """SQL LIKE: ``%`` any run, ``_`` one character."""
         return StringMatch(self, pattern)
+
+    def rlike(self, pattern: str) -> "StringMatch":
+        """Regex search (Spark ``rlike``)."""
+        return StringMatch(self, pattern, kind="rlike")
+
+    def contains(self, sub: str) -> "StringMatch":
+        return StringMatch(self, sub, kind="contains")
+
+    def startswith(self, prefix: str) -> "StringMatch":
+        return StringMatch(self, prefix, kind="startswith")
+
+    def endswith(self, suffix: str) -> "StringMatch":
+        return StringMatch(self, suffix, kind="endswith")
+
+    def ilike(self, pattern: str) -> "StringMatch":
+        """Case-insensitive LIKE (Spark ``ilike``): both sides lowered."""
+        return StringMatch(fn("lower", self), pattern.lower())
+
+    def eq_null_safe(self, other) -> "Expr":
+        """Null-safe equality (Spark ``eqNullSafe``): true when both sides
+        are null, false when one is."""
+        other = _as_expr(other)
+        return (self == other) | (self.is_null() & other.is_null())
+
+    eqNullSafe = eq_null_safe
+
+    def substr(self, startPos, length) -> "Func":
+        """Spark ``col.substr(pos, len)`` (1-based), ``substring``'s
+        method form; ``pos`` and ``len`` may be ints or columns."""
+        return fn("substring", self, _as_expr(startPos), _as_expr(length))
+
+    def get_item(self, key: int) -> "Func":
+        """Spark ``getItem``: the 0-based array element; a negative or
+        out-of-range ordinal is null."""
+        return fn("get_item", self, Lit(int(key)))
+
+    getItem = get_item
 
     def is_null(self) -> "IsNull":
         return IsNull(self)
@@ -323,6 +369,17 @@ def _cast_strings(v, dt, device):
     an int column; otherwise it truncates toward zero into a float column
     with NaN for NULL. Underscores (Python syntax, not SQL) do not
     parse."""
+    if dt == torch.bool:
+        vals = []
+        for x in v:
+            t = None if x is None else str(x).strip().lower()
+            vals.append(True if t in _BOOL_TRUE else
+                        False if t in _BOOL_FALSE else None)
+        if any(b is None for b in vals):
+            return torch.as_tensor([np.nan if b is None else float(b)
+                                    for b in vals], dtype=float_dtype(),
+                                   device=device)
+        return torch.as_tensor(np.asarray(vals, np.bool_), device=device)
     int_target = not dt.is_floating_point
     parsed = np.empty(len(v), np.float64)
     exact = np.zeros(len(v), np.int64)
@@ -349,24 +406,31 @@ def _cast_strings(v, dt, device):
             parsed[i] = np.nan
     if int_target:
         if all_exact_int:
-            return torch.as_tensor(exact.astype(np.int32), device=device)
+            return torch.as_tensor(exact.astype(numpy_dtype(dt)),
+                                   device=device)
         whole = np.where(np.isfinite(parsed), np.trunc(parsed), np.nan)
         return torch.as_tensor(whole, dtype=float_dtype(), device=device)
     return torch.as_tensor(parsed, dtype=dt, device=device)
 
 
-def _float_to_int32(v: torch.Tensor) -> torch.Tensor:
-    """XLA's float -> int32 conversion: truncate toward zero, NaN -> 0,
-    saturate out of range (every int32 bound is exact in float64)."""
+def _float_to_int(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """XLA's float -> int32/int64 conversion: truncate toward zero,
+    NaN -> 0, saturate out of range. The lower bound -2^(bits-1) is exact
+    in float64; the upper one need not be (2^63 - 1 is not), so a value
+    at or past 2^(bits-1) is set to it apart."""
+    info = torch.iinfo(dt)
     v = torch.nan_to_num(v.to(torch.float64), nan=0.0)
-    info = torch.iinfo(torch.int32)
-    return v.clamp(info.min, info.max).trunc().to(torch.int32)
+    top = v >= 2.0 ** (info.bits - 1)
+    out = torch.where(top, torch.zeros_like(v), v).clamp(min=info.min)
+    out = out.trunc().to(dt)
+    return torch.where(top, torch.full_like(out, info.max), out)
 
 
 class Cast(Expr):
-    """CAST(expr AS int|double|float|string): double -> int truncates
-    toward zero; a number becomes its text (NULL stays NULL); a string is
-    trimmed and parsed, and what does not parse is NULL (an int target
+    """CAST(expr AS int|long|double|float|boolean|string): double -> int
+    truncates toward zero (NaN 0, out of range saturated, as XLA); a
+    number becomes its text (NULL stays NULL); a string is trimmed and
+    parsed, and what does not parse is NULL (an int or boolean target
     then yields a float column with NaN, as the JAX package does)."""
 
     def __init__(self, child: Expr, type_name: str):
@@ -390,11 +454,10 @@ class Cast(Expr):
                  else str(x) for x in a], dtype=object)
         if is_host_column(v):
             return _cast_strings(v, dt, frame.device)
-        if v.is_floating_point() and not dt.is_floating_point:
-            if dt != torch.int32:
-                raise NotImplementedError(f"CAST of a float to {dt}")
-            return _float_to_int32(v)
-        return v.to(dt)
+        if v.is_floating_point() and not dt.is_floating_point \
+                and dt != torch.bool:
+            return _float_to_int(v, dt)
+        return v.to(dt)          # to boolean: nonzero (NaN too) is true
 
     @property
     def name(self) -> str:
@@ -572,33 +635,52 @@ class InColumn(Expr):
 
 
 class StringMatch(Expr):
-    """``expr [NOT] LIKE pattern``: ``%`` matches any run, ``_`` one
-    character; matched on the host, a null row fails both forms."""
+    """``expr [NOT] LIKE pattern`` (``%`` matches any run, ``_`` one
+    character) and the Column methods ``rlike`` (a regex search),
+    ``contains``, ``startswith`` and ``endswith``; matched on the host once
+    per distinct string, a null row fails both forms."""
 
-    def __init__(self, child: Expr, pattern: str, negated: bool = False):
+    def __init__(self, child: Expr, pattern: str, negated: bool = False,
+                 kind: str = "like"):
         self.child = child
         self.pattern = pattern
         self.negated = negated
+        self.kind = kind
+
+    def _matcher(self):
+        pat = self.pattern
+        if self.kind == "like":
+            rx = re.compile(re.escape(pat).replace("%", ".*")
+                            .replace("_", "."), re.DOTALL)
+            return lambda s: rx.fullmatch(s) is not None
+        if self.kind == "rlike":
+            rx = re.compile(pat)
+            return lambda s: rx.search(s) is not None
+        if self.kind == "contains":
+            return lambda s: pat in s
+        if self.kind == "startswith":
+            return lambda s: s.startswith(pat)
+        if self.kind == "endswith":
+            return lambda s: s.endswith(pat)
+        raise ValueError(self.kind)
 
     def eval(self, frame):
         from . import strings
 
-        rx = re.compile(re.escape(self.pattern).replace("%", ".*")
-                        .replace("_", "."), re.DOTALL)
+        match = self._matcher()
         v = self.child.eval(frame)
         if is_host_column(v):
             # one match a distinct string, then a lookup a row by code
             codes, words = strings.codes(v)
-            keep = np.asarray([(rx.fullmatch(w) is not None) != self.negated
-                               for w in words] + [False], bool)
+            keep = np.asarray([match(w) != self.negated for w in words]
+                              + [False], bool)
             return host_mask(keep[codes], frame)   # NULL_CODE: no row
-        hit = np.asarray([rx.fullmatch(str(x)) is not None
-                          for x in host_objects(v)], bool)
+        hit = np.asarray([match(str(x)) for x in host_objects(v)], bool)
         return host_mask(~hit if self.negated else hit, frame)
 
     def __str__(self):
         neg = "NOT " if self.negated else ""
-        return f"({self.child} {neg}LIKE {self.pattern!r})"
+        return f"({self.child} {neg}{self.kind.upper()} {self.pattern!r})"
 
 
 class CaseWhen(Expr):

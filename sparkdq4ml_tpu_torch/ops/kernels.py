@@ -428,12 +428,22 @@ def segment_sum_reference(x: torch.Tensor, seg: torch.Tensor,
     """Plain version of both segment sums: ``index_add_`` into zeros (the
     order of XLA's scatter-add on the CPU); one segment is a plain
     ``sum`` (pairwise, as XLA's reduce, where a row-order float32 sum of
-    millions of rows would drift by 1e-4 and more)."""
+    millions of rows would drift by 1e-4 and more). A row whose id lies
+    outside ``[0, size)`` is dropped, as the dense kernel drops it: it
+    adds a zero to slot 0 (no host read decides it)."""
+    keep = (seg >= 0) & (seg < size)
+    x = torch.where(keep.view((-1,) + (1,) * (x.ndim - 1)), x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
     if size == 1:
         return x.sum(0, keepdim=True)
-    out = torch.zeros((size,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    return out.index_add_(0, seg, x)
+    seg = torch.where(keep, seg, 0)
+    cols = math.prod(x.shape[1:])
+    flat = x.reshape(x.shape[0], cols)
+    # one column at a time: each slot takes its rows' adds in row order
+    out = torch.zeros((cols, size), dtype=x.dtype, device=x.device)
+    for c in range(cols):
+        out[c].index_add_(0, seg, flat[:, c])
+    return out.T.reshape((size,) + tuple(x.shape[1:]))
 
 
 def dense_segment_fits(size: int, columns: int, elem_bytes: int) -> bool:
@@ -465,11 +475,12 @@ def _segment_args(name: str, x: torch.Tensor, seg: torch.Tensor):
 
 def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor,
                       size: int) -> torch.Tensor:
-    """``out[s] = Σ x[i] over seg[i] == s`` for slot ids ``seg`` in
-    ``[0, size)`` in any order: shape ``(size,) + x.shape[1:]``. On the
-    card the order of the adds is fixed by ``dense_segment_plan``, so the
-    result is bit-identical from run to run; the table must pass
-    ``dense_segment_fits``."""
+    """``out[s] = Σ x[i] over seg[i] == s`` for slot ids ``seg`` in any
+    order: shape ``(size,) + x.shape[1:]``. A row whose id lies outside
+    ``[0, size)`` is dropped, by the kernel and by the plain version
+    alike. On the card the order of the adds is fixed by
+    ``dense_segment_plan``, so the result is bit-identical from run to
+    run; the table must pass ``dense_segment_fits``."""
     _segment_args("dense_segment_sum", x, seg)
     if not _route("dense_segment_sum", x, seg):
         return segment_sum_reference(x, seg, size)

@@ -3,6 +3,15 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+
+class Table(NamedTuple):
+    """Spark ``catalog.listTables()`` row shape (temp views only here)."""
+
+    name: str
+    isTemporary: bool = True
+
 
 class Catalog:
     def __init__(self):
@@ -31,6 +40,14 @@ class Catalog:
 
     def list_views(self) -> list:
         return sorted(self._views)
+
+    def list_tables(self) -> list:
+        """Spark's ``catalog.listTables()`` shape: ``Table`` rows with
+        ``.name`` and ``.isTemporary`` (always True: this catalog holds
+        only temp views)."""
+        return [Table(name=n, isTemporary=True) for n in sorted(self._views)]
+
+    listTables = list_tables
 
     def clear(self) -> None:
         self._views.clear()

@@ -107,7 +107,8 @@ _SUBSET = ("the torch port's SQL subset ([WITH ...] SELECT ... [FROM ...] "
            "[JOIN] [WHERE] [GROUP BY [ROLLUP|CUBE]] [HAVING] [ORDER BY] "
            "[LIMIT] [UNION|INTERSECT|EXCEPT ...], with subqueries; "
            "CREATE/DROP TEMP VIEW)")
-_CAST_TYPES = ("int", "integer", "double", "float", "string")
+_CAST_TYPES = ("int", "integer", "long", "double", "float", "boolean",
+               "string")
 _DDL_RE = re.compile(
     r"^\s*create\s+(?:or\s+replace\s+)?(?:temp(?:orary)?\s+)?view\s+"
     r"([A-Za-z_][A-Za-z_0-9]*)\s+as\s+(.*)$", re.IGNORECASE | re.DOTALL)
@@ -322,7 +323,8 @@ def _map_expr(expr, fn):
         return E.InList(fn(expr.child), [fn(v) for v in expr.values],
                         expr.negated)
     if isinstance(expr, E.StringMatch):
-        return E.StringMatch(fn(expr.child), expr.pattern, expr.negated)
+        return E.StringMatch(fn(expr.child), expr.pattern, expr.negated,
+                             expr.kind)
     if isinstance(expr, E.CaseWhen):
         return E.CaseWhen([(fn(c), fn(v)) for c, v in expr.branches],
                           None if expr.otherwise_expr is None

@@ -317,6 +317,26 @@ def test_segment_sums_plain_versions_on_the_cpu(dtype):
         else 1e-12)
 
 
+@pytest.mark.parametrize("size", [1, 17])
+@pytest.mark.parametrize("cols", [None, 3])
+def test_dense_segment_sum_drops_ids_outside_the_table(size, cols):
+    """The dense kernel skips a row whose id lies outside [0, size)
+    (csrc/segment_sum.cu), and its plain version drops it too: the sum
+    equals that of the in-range rows alone, NaN in a dropped row
+    included."""
+    rng = np.random.default_rng(5)
+    shape = (500,) if cols is None else (500, cols)
+    x = torch.as_tensor(rng.normal(size=shape))
+    seg = torch.as_tensor(rng.integers(-4, size + 4, 500))
+    x[seg < 0] = float("nan")
+    keep = (seg >= 0) & (seg < size)
+    got = kernels.dense_segment_sum(x, seg, size)
+    want = kernels.dense_segment_sum(x[keep], seg[keep], size)
+    assert got.shape == want.shape and not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
 def test_segment_sums_reject_bad_arguments():
     x = torch.ones(4)
     with pytest.raises(ValueError, match="int64"):

@@ -226,8 +226,8 @@ def test_show_text_matches(views, capsys):
 
 
 @pytest.mark.parametrize("sql,match", [
-    ("SELECT cast(guest AS boolean) FROM clean", "boolean"),
-    ("SELECT cast(guest AS long) FROM clean", "long"),
+    ("SELECT cast(guest AS bigint) FROM clean", "bigint"),
+    ("SELECT cast(guest AS timestamp) FROM clean", "timestamp"),
     ("SELECT guest <=> price FROM clean", "<=>"),
     ("SELECT guest FROM clean GROUP BY GROUPING SETS ((guest))", "SETS"),
     ("CREATE TABLE p AS SELECT guest FROM clean", "CREATE"),
