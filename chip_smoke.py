@@ -22,7 +22,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    sum at one slot) and bit-identical over two runs, at ragged edges and
    at the 10^7-row table's shapes (9,611,537 clean rows onto 39 guest
    slots, onto 20,556 price groups, onto 39 long segments; the 10^7 slots
-   of the global sums onto one slot, three stacked columns and one);
+   of the global sums onto one slot, three stacked columns and one, with
+   an all-zero id column and without ids, the whole-table form the global
+   sums take); each float32 dense call one launch and one device kernel
+   (the kernel nodes of a CUDA graph captured from the call);
 4. golden app: the reference application (CSV -> DQ rules -> SQL ->
    VectorAssembler -> Lasso fit -> predict(40)) on the three datasets
    through ``TorchSession`` (each read by the native CSV engine), in
@@ -38,7 +41,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    on dataset-full against the JAX package's float64 output, and the app's
    fit with solver="l-bfgs" (OWL-QN) against FISTA on the three datasets;
 6. times: each kernel, its plain version and the library call with CUDA
-   events (median of 25 runs after warm-up), the app phase (median of
+   events (median of 25 runs after warm-up; for the segment sums also the
+   device time of single calls of the kernel and of the library call from
+   a torch.profiler trace, and the wrapper's host path, the first less the
+   second), the app phase (median of
    5 runs; the counts come from the first), the model-selection paths
    (three runs each, the counted one first), and one more run of the app
    phase and of each model-selection path under torch.profiler for the
@@ -666,7 +672,9 @@ def one_slot_cases():
     of the full table onto one slot, the rows dq_rules drops weighted 0.
     stat.corr/cov stack (weight, weighted a, weighted b) into one launch
     (frame/stat.py:_sums), describe, summary and avg sum one column
-    (frame/aggregates.py:global_agg's fsum)."""
+    (frame/aggregates.py:global_agg's fsum); both pass no id column (seg
+    None, the whole-table form), and the same sums with an all-zero id
+    column hold the form that reads ids at one slot."""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
@@ -676,14 +684,23 @@ def one_slot_cases():
     g = torch.as_tensor(guest, device="cuda").to(torch.float32)
     w = kernels.dq_rules(p, g)[2].to(torch.float32)
     one_slot = torch.zeros(FULL_ROWS, dtype=torch.int64, device="cuda")
-    return [("dense one slot C=3", "dense_segment_sum",
-             torch.stack([w, p * w, p * p * w], dim=1), one_slot, 1),
-            ("dense one slot C=1", "dense_segment_sum", p * w, one_slot, 1)]
+    stacked = torch.stack([w, p * w, p * p * w], dim=1)
+    return [("dense one slot C=3", "dense_segment_sum", stacked, one_slot, 1),
+            ("dense one slot C=1", "dense_segment_sum", p * w, one_slot, 1),
+            ("dense one slot no ids C=3", "dense_segment_sum", stacked, None,
+             1),
+            ("dense one slot no ids C=1", "dense_segment_sum", p * w, None,
+             1)]
 
 
 def edge_segment_cases(device: str, seed: int = 0):
     """Small and ragged shapes: no row, one row, tile and block edges,
-    the largest float32 table that fits shared memory, runs of one row."""
+    a float32 table of exactly 48 KB of per-warp tables (the default
+    shared-memory ceiling), the largest float32 table that fits shared
+    memory, runs of one row; the whole form (no ids) at one block and at
+    many, with a last chunk whole or partial, at one to SEGSUM_REG_COLS
+    columns; views off the 16-byte grid, which each form reads value by
+    value."""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
@@ -693,7 +710,8 @@ def edge_segment_cases(device: str, seed: int = 0):
     out = []
     for n, size, cols in ((0, 3, 1), (1, 1, 1), (31, 4, 2), (32, 4, 1),
                           (33, 2, 3), (4097, 5, 1), (65_537, 300, 2),
-                          (100_003, biggest, 1), (100_003, 90_000, 1)):
+                          (65_537, 1536, 1), (100_003, biggest, 1),
+                          (100_003, 90_000, 1)):
         x = torch.as_tensor(rng.normal(size=(n, cols)), device=device)
         seg = torch.as_tensor(rng.integers(0, size, n), device=device)
         out.append((f"dense n={n} size={size} C={cols}", "dense_segment_sum",
@@ -706,14 +724,51 @@ def edge_segment_cases(device: str, seed: int = 0):
         seg = torch.as_tensor(rng.integers(-3, size + 3, n), device=device)
         out.append((f"dense n={n} size={size} ids outside",
                     "dense_segment_sum", x, seg, size))
+    # without ids: one block up to 8,191 rows, a partial last chunk where n
+    # is odd, the global sums' 9,611,537 clean rows
+    for n in (0, 1, 27, 33, 4097, 65_537, 9_611_537):
+        for cols in (1, 2, 3):
+            x = torch.as_tensor(rng.normal(size=(n, cols)), device=device)
+            out.append((f"dense n={n} C={cols} no ids", "dense_segment_sum",
+                        x if cols > 1 else x[:, 0].contiguous(), None, 1))
+    x = torch.as_tensor(rng.normal(size=(65_537, kernels.SEGSUM_REG_COLS)),
+                        device=device)
+    out.append((f"dense n=65537 C={kernels.SEGSUM_REG_COLS} no ids",
+                "dense_segment_sum", x, None, 1))
+    # views that start off the 16-byte grid (the kernel's scalar loads)
+    x = torch.as_tensor(rng.normal(size=(65_538, 3)), device=device)
+    x1 = torch.as_tensor(rng.normal(size=65_538), device=device)
+    for size in (1, 5, 300):
+        seg = torch.as_tensor(rng.integers(0, size, 65_538), device=device)
+        out.append((f"dense offset view n=65537 size={size} C=3",
+                    "dense_segment_sum", x[1:], seg[1:], size))
+    out.append(("dense offset view n=65537 C=3 no ids", "dense_segment_sum",
+                x[1:], None, 1))
+    out.append(("dense offset view n=65537 C=1 no ids", "dense_segment_sum",
+                x1[1:], None, 1))
+    return out
+
+
+def at_offset(x, dtype):
+    """``x`` in ``dtype`` at the same storage offset, so that a view off
+    the 16-byte grid stays off it in either type."""
+    import torch
+
+    off = x.storage_offset()
+    if x.dtype == dtype or off == 0:
+        return x.to(dtype)
+    flat = torch.empty(off + x.numel(), dtype=dtype, device=x.device)
+    out = flat[off:].view(x.shape)
+    out.copy_(x)
     return out
 
 
 def check_segment_sum(cases) -> dict:
     """Each case in float32 and float64: two kernel runs bit-identical,
     the float32 kernel within 1e-5 Σ|x| of the float64 plain version
-    (index_add_; sum at one slot) per segment, the float64 kernel within
-    1e-12 Σ|x| of it.
+    (index_add_; sum at one slot and without ids) per segment, the float64
+    kernel within 1e-12 Σ|x| of it; each dense call one launch and one
+    device kernel in either type (none at n = 0; check_one_kernel).
     A dense case whose table does not fit takes the sorted kernel after a
     stable sort, as ops/segments.py does. Returns {name: max |float32
     kernel - float64 plain|}."""
@@ -721,14 +776,17 @@ def check_segment_sum(cases) -> dict:
 
     from sparkdq4ml_tpu_torch.ops import kernels
 
-    errs = {}
+    errs, per_call = {}, {}
     for name, kernel, x, seg, size in cases:
-        want = kernels.segment_sum_reference(x.double().cpu(), seg.cpu(),
-                                             size)
-        bound = kernels.segment_sum_reference(x.double().abs().cpu(),
-                                              seg.cpu(), size)
+        xs = x.double().cpu()
+        sc = None if seg is None else seg.cpu()
+        want = kernels.dense_segment_sum(xs, None, 1) if seg is None \
+            else kernels.segment_sum_reference(xs, sc, size)
+        bound = kernels.dense_segment_sum(xs.abs(), None, 1) if seg is None \
+            else kernels.segment_sum_reference(xs.abs(), sc, size)
+        del xs
         for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            xd, sd, fn = x.to(dtype), seg, getattr(kernels, kernel)
+            xd, sd, fn = at_offset(x, dtype), seg, getattr(kernels, kernel)
             if kernel == "dense_segment_sum" and \
                     not kernels.dense_segment_fits(
                         size, x.shape[1] if x.ndim == 2 else 1,
@@ -747,16 +805,108 @@ def check_segment_sum(cases) -> dict:
                     f"{float((diff - rel * bound).max())}")
             if dtype == torch.float32:
                 errs[name] = float(diff.max()) if diff.numel() else 0.0
+            if fn is kernels.dense_segment_sum:
+                per_call[f"{name} {str(dtype)[6:]}"] = \
+                    check_one_kernel(xd, sd, size)
     log(f"segment sums: bit-identical over two runs and within bounds: "
-        f"{errs}")
+        f"{errs}; dense device kernels and host launches a call: "
+        f"{per_call}")
     return errs
+
+
+def graph_kernels(fn) -> int:
+    """The kernel nodes of a CUDA graph captured from one call of ``fn`` on
+    a side stream, after a warm-up call there: the device kernels a call
+    runs, counted without the profiler, which has lost the device events
+    of single-call traces late in this script."""
+    import ctypes
+
+    import torch
+
+    cudart = ctypes.CDLL("libcudart.so.12", mode=os.RTLD_NOLOAD | os.RTLD_LAZY)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)    # never replayed
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cudart.cudaGraphGetNodes(handle, None, ctypes.byref(count)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cudart.cudaGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kernel_nodes = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cudart.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernel_nodes += kind.value == 0            # cudaGraphNodeTypeKernel
+    graph.reset()
+    return kernel_nodes
+
+
+def check_one_kernel(x, seg, size) -> tuple:
+    """(device kernels, launches) of one dense_segment_sum call on these
+    inputs: the kernel nodes of a CUDA graph captured from the call
+    (``graph_kernels``) and the wrapper's launch count; raises unless both
+    are 1 (0 at n = 0, where the wrapper launches nothing)."""
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    def launched():
+        return kernels.launches.snapshot()["dense_segment_sum"]
+
+    fn = lambda: kernels.dense_segment_sum(x, seg, size)
+    before = launched()
+    if x.shape[0] == 0:
+        fn()
+        got = (0, launched() - before)
+    else:
+        nodes = graph_kernels(fn)     # a warm-up call, then the captured one
+        got = (nodes, (launched() - before) // 2)
+    want = (0, 0) if x.shape[0] == 0 else (1, 1)
+    if got != want:
+        raise AssertionError(f"dense_segment_sum at {tuple(x.shape)} onto "
+                             f"{size} slots: {got} (device kernels, "
+                             f"launches), expected {want} a call")
+    return got
+
+
+# Single calls that traced_calls traces, each under a trace of its own.
+TRACED_CALLS = 5
+
+
+def traced_calls(fn, calls: int = TRACED_CALLS) -> dict:
+    """``calls`` single calls of ``fn`` after a warm-up, each traced alone
+    (``trace_call``): the median of their device times (ms) over the
+    traces that kept a device event (None if none did), and the most
+    device events and kernel launches a call made."""
+    import torch
+
+    fn()                                                # warm-up
+    torch.cuda.synchronize()
+    traces = [trace_call(fn) for _ in range(calls)]
+    kept = [t["device_ms"] for t in traces if t["device_kernels"]]
+    return {"device_ms": float(np.median(kept)) if kept else None,
+            "device_events": max(t["device_kernels"] for t in traces),
+            "host_launches": max(t["host_launches"] for t in traces),
+            "traces_kept": len(kept),
+            "names": sorted({n for t in traces for n in t["names"]})}
+
+
+# Rounds of (library, wrapper, wrapper, library) segsum_times takes.
+SEGSUM_TURNS = 3
 
 
 def segsum_times(name, kernel, x, seg, size) -> dict:
     """One segment-sum kernel, its plain version (index_add_ into zeros;
     sum at one slot) and the library call (index_add_ for slot ids, sum
     over the rows at one slot, torch.segment_reduce for contiguous
-    segments) at one of segment_cases' or one_slot_cases' shapes."""
+    segments) at one of segment_cases' or one_slot_cases' shapes: the
+    medians of CUDA-event-timed wrapper and library calls, taken in turns,
+    and the device time of single calls of the kernel and of the library
+    call from a profiler trace; the wrapper's host path is the first less
+    the second. (One kernel a dense call is asserted by check_one_kernel.)"""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
@@ -775,14 +925,84 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
         lengths = torch.bincount(seg, minlength=size)
         library = lambda: torch.segment_reduce(x, "sum", lengths=lengths)
         call = "torch.segment_reduce(lengths=...)"
-    moved = n * (8 + 4 * cols) + size * cols * 4
+    id_bytes = 0 if seg is None else 8
+    moved = n * (id_bytes + 4 * cols) + size * cols * 4
+    plain = ((lambda: x.sum(0, keepdim=True)) if seg is None
+             else (lambda: kernels.segment_sum_reference(x, seg, size)))
+    # the wrapper and the library call in turns (library, wrapper, wrapper,
+    # library, SEGSUM_TURNS times), each the median of its medians: host
+    # time varies between moments of one run, and at one slot the wrapper
+    # takes little more than its host path
+    turns = {"kernel": [], "library": []}
+    for who in ("library", "kernel", "kernel", "library") * SEGSUM_TURNS:
+        turns[who].append(median_ms(library if who == "library"
+                                    else lambda: fn(x, seg, size)))
+    ms, library_ms = (float(np.median(turns[k]))
+                      for k in ("kernel", "library"))
+    traced = traced_calls(lambda: fn(x, seg, size))
+    library_traced = traced_calls(library)
+    device_ms = traced["device_ms"]
     return {"case": name, "n": n, "size": size, "columns": cols,
-            "dtype": "float32",
-            "ms": median_ms(lambda: fn(x, seg, size)),
-            "plain_ms": median_ms(
-                lambda: kernels.segment_sum_reference(x, seg, size)),
-            "library_ms": median_ms(library), "library_call": call,
+            "dtype": "float32", "ids": seg is not None,
+            "ms": ms, "device_ms": device_ms,
+            "traces_kept": traced["traces_kept"],
+            "host_path_ms": None if device_ms is None else ms - device_ms,
+            "kernel_names": traced["names"],
+            "plain_ms": median_ms(plain),
+            "library_ms": library_ms, "library_call": call,
+            "turns_ms": turns,
+            "library_device_ms": library_traced["device_ms"],
+            "library_device_events": library_traced["device_events"],
             "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+def host_us(fn, calls: int = 2000, rounds: int = 5) -> float:
+    """The host time of one call of ``fn`` (us): the median over
+    ``rounds`` of ``calls`` calls in a row, timed on the host's clock, the
+    device synchronized between rounds."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter_ns() - t0) / calls / 1e3)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
+def segsum_host_path(cases) -> dict:
+    """At one_slot_cases' column counts without ids: the host time of a
+    call of the wrapper, of ``sum``, of the output's allocation by
+    torch.empty and of the view the wrapper takes from its stream's batch
+    (``kernels._one_slot_output``) instead: what the batch buys. On the
+    first 4,096 rows, so that the device keeps up with the calls."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    out = {}
+    for name, _, x, seg, size in cases:
+        if seg is not None:
+            continue
+        x = x[:4096]
+        shape = (1,) + tuple(x.shape[1:])
+        state = kernels._stream_state(x.device, kernels._raw_stream(x.device),
+                                      0)
+        out[name] = {
+            "wrapper_us": host_us(lambda: kernels.dense_segment_sum(x, None,
+                                                                    1), 500),
+            "sum_us": host_us(lambda: x.sum(0, keepdim=True), 500),
+            "empty_us": host_us(lambda: torch.empty(shape, dtype=x.dtype,
+                                                    device=x.device)),
+            "batch_view_us": host_us(lambda: kernels._one_slot_output(
+                state, shape, x.dtype, x.device))}
+    log(f"dense_segment_sum host path at one slot, us a call: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4175,7 +4395,7 @@ def masked_times(n: int, d: int) -> dict:
 KERNEL_NAMES = {"dq_rules": ("dq_rules_kernel",),
                 "packed_gram": ("PackedDesign",),
                 "masked_gram": ("MaskedDesign",),
-                "dense_segment_sum": ("dense_partials",),
+                "dense_segment_sum": ("dense_regs", "dense_table"),
                 "sorted_segment_sum": ("sorted_tiles",)}
 
 
@@ -4218,40 +4438,55 @@ def profile_run(name: str, fn) -> dict:
                 if any(p in listed for p in parts))}
 
 
-# Traces of one wrapper call that device_kernels_per_call takes at most:
-# the profiler has been seen to drop one kernel of a two-kernel call.
+# Traces of one wrapper call that trace_call takes at most: the profiler
+# has been seen to drop one kernel of a two-kernel call, and, late in the
+# script, the kernel of a one-kernel call.
 PROFILE_RETRACES = 3
 
 
-def device_kernels_per_call(name: str, *args) -> dict:
-    """The device kernels that one call of the wrapper ``name`` on ``args``
-    runs, and the kernel launches its host side makes, from a
-    torch.profiler trace of that call alone. A trace that holds fewer
-    device kernels than host launches lost events: the call is traced
-    again, up to ``PROFILE_RETRACES`` times, and ``traces`` says how many
-    were taken."""
+def trace_call(fn) -> dict:
+    """One call of ``fn`` under a torch.profiler trace of its own: the
+    device events it runs, the kernel launches its host side makes, and
+    the device time of those events (ms). A trace that holds fewer device
+    events than host launches lost events: the call is traced again, up
+    to ``PROFILE_RETRACES`` times, and ``traces`` says how many were
+    taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sparkdq4ml_tpu_torch.ops import kernels
-
-    fn = getattr(kernels, name)
-    fn(*args)                                           # warm-up
-    torch.cuda.synchronize()
     for taken in range(1, PROFILE_RETRACES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn(*args)
+            fn()
             torch.cuda.synchronize()
         events = prof.events()
-        on_device = [e.name for e in events
+        on_device = [e for e in events
                      if str(getattr(e, "device_type", "")).endswith("CUDA")]
         launched = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                   "cudaLaunchKernelExC") for e in events)
         if len(on_device) >= launched:
             break
     return {"device_kernels": len(on_device), "host_launches": launched,
-            "names": sorted(set(on_device)), "traces": taken}
+            "names": sorted({e.name for e in on_device}), "traces": taken,
+            "device_ms": 1e-3 * sum(e.time_range.elapsed_us()
+                                    for e in on_device)}
+
+
+def device_kernels_per_call(name: str, *args) -> dict:
+    """The device kernels that one call of the wrapper ``name`` on ``args``
+    runs, and the kernel launches its host side makes, from a
+    torch.profiler trace of that call alone (``trace_call``), after a
+    warm-up call."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    fn = getattr(kernels, name)
+    fn(*args)                                           # warm-up
+    torch.cuda.synchronize()
+    got = trace_call(lambda: fn(*args))
+    return {k: got[k] for k in ("device_kernels", "host_launches", "names",
+                                "traces")}
 
 
 def gram_kernel_counts() -> dict:
@@ -4333,6 +4568,7 @@ def main() -> int:
     seg_dense, seg_sorted, seg_long = (segsum_times(*c) for c in seg_cases)
     seg_one = {c[0]: {**segsum_times(*c), "max_abs_err": one_errs[c[0]]}
                for c in one_cases}
+    seg_host = segsum_host_path(one_cases)
     del seg_cases, one_cases
     prof = profile_app()
     log(f"profile of the app phase: {prof}")
@@ -4388,6 +4624,10 @@ def main() -> int:
                "dq_report": report["launches"],
                "builtins": builtins["launches"],
                **{f"zoo_{name}": c for name, c in zoo_launches.items()}}
+    one_slot_launches = {path: c.get("dense_segment_sum_one_slot", 0)
+                         for path, c in by_path.items()}
+    log(f"dense_segment_sum launches onto one slot, by path: "
+        f"{one_slot_launches}")
     kernels_line = {"kernels": [
         {"name": "dq_rules", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_rules.cu",
@@ -4422,8 +4662,10 @@ def main() -> int:
                           for name, c in zoo_launches.items()},
          "zoo_shapes": {k: v for k, v in zoo_times.items()
                         if v["kernel"] == "dense_segment_sum"},
+         "one_slot_launches": one_slot_launches,
          "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
-         "bit_identical_runs": True, **seg_dense, "one_slot": seg_one},
+         "bit_identical_runs": True, **seg_dense, "one_slot": seg_one,
+         "one_slot_host_path": seg_host},
         {"name": "sorted_segment_sum", "route": "cuda", "port_only": True,
          "source": "sparkdq4ml_tpu_torch/ops/csrc/segment_sum.cu",
          "replaces": "sparkdq4ml_tpu/ops/segments.py:1026 "

@@ -332,11 +332,11 @@ def global_agg(frame, aggs: list):
     out: dict = {}
     deferred = []          # (name, non-null count, value, NULL result)
     hosted = []            # (agg, string column?) for global_values
-    one_group = torch.zeros(frame.num_slots, dtype=torch.int64, device=dev)
 
     def fsum(x):
-        """A float sum in the fixed order of the segment-sum kernels."""
-        return _seg_sum(x, one_group, 1)[0]
+        """A float sum in the fixed order of the segment-sum kernels (the
+        whole-table form: no id column)."""
+        return _seg_sum(x, None, 1)[0]
 
     for agg in aggs:
         if agg.fn == "count" and agg.column is None:

@@ -23,10 +23,9 @@ from ..ops.segments import _seg_sum
 
 
 def _sums(cols: list) -> torch.Tensor:
-    """Σ of each 1-D column, in one fixed-order segment-sum launch."""
-    x = torch.stack(cols, dim=1)
-    seg = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
-    return _seg_sum(x, seg, 1)[0]
+    """Σ of each 1-D column, in one fixed-order segment-sum launch that
+    reads no id column."""
+    return _seg_sum(torch.stack(cols, dim=1), None, 1)[0]
 
 
 def _corr_cov(a, b, w):

@@ -38,6 +38,7 @@ this module needs no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -46,6 +47,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -59,6 +61,9 @@ SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu",
 # The wrappers that launch a kernel, each with its launch count.
 KERNELS = ("dq_rules", "packed_gram", "masked_gram", "dense_segment_sum",
            "sorted_segment_sum")
+# Launches counted again by what they were given: dense_segment_sum onto a
+# table of one slot (the global sums), with slot ids or without.
+SUBCOUNTS = ("dense_segment_sum_one_slot",)
 
 # Stage-1 form of both Gramian kernels (csrc/gram_common.cuh): D <=
 # GRAM_SMALL_MAX_D keeps the D x D sum in registers, one block per chunk;
@@ -70,25 +75,42 @@ GRAM_TILE = 64
 # rows and writes A itself: one launch, no partials. On the card one block
 # was as fast as the chunked plan or faster up to about this size.
 GRAM_ONE_CHUNK_ROWS = 16384
-# The dense segment sum's plan: contiguous row ranges of at least this many
-# rows, at most SEGSUM_MAX_BLOCKS of them (eight an SM: on the card 1056
-# blocks took half the time of 264 at 9.6 M rows, and 2112 more), and
-# per-warp tables of at most SEGSUM_SMEM_BYTES of shared memory a block
-# (eight warps, each with a table and 32 rows of staging); a larger table
-# takes the sorted kernel after a stable sort of the slot ids
-# (ops/segments.py).
+# The dense segment sum's plan (csrc/segment_sum.cu, dense_segment_plan):
+# rows in chunks of one 16-byte vector per column (4 float rows, 2 double
+# rows); contiguous chunk ranges of at least SEGSUM_MIN_ROWS_PER_BLOCK rows,
+# at most SEGSUM_MAX_BLOCKS of them for a table in registers (two a Hopper
+# SM) and SEGSUM_TABLE_BLOCKS for a table in shared memory (three an SM,
+# whose rows take longer each); one launch a call. A table of at most
+# SEGSUM_REG_ENTRIES entries (slots x columns, at most SEGSUM_REG_COLS
+# columns) lives in each thread's registers; a larger one in a table per
+# warp (SEGSUM_WARPS) in shared memory, up to SEGSUM_SMEM_BYTES a block
+# with room for 32 rows more (dense_segment_fits: the rule that sends a
+# table to this kernel); past that a table takes the sorted kernel after a
+# stable sort of the slot ids (ops/segments.py). The blocks' partial tables
+# are added by the last block to finish (a table in registers), or by the
+# last block of each group of SEGSUM_GROUP and then the last group. The
+# block counts were chosen on an H100 (PERF.md section 6); they are fixed
+# numbers, so the order of the adds does not depend on the card.
 SEGSUM_MIN_ROWS_PER_BLOCK = 4096
-SEGSUM_MAX_BLOCKS = 1056
+SEGSUM_MAX_BLOCKS = 264
+SEGSUM_TABLE_BLOCKS = 396
 SEGSUM_WARPS = 8
 SEGSUM_SMEM_BYTES = 96 << 10
+SEGSUM_REG_ENTRIES = 32
+SEGSUM_REG_COLS = 4         # the column counts segment_sum.cu compiles for
+SEGSUM_GROUP = 16
 # Rows a thread of the sorted kernel sums in row order. The kernels read
-# SEGSUM_WARPS and SEGSUM_TILE from the nvcc flags below.
+# SEGSUM_WARPS, SEGSUM_TILE, SEGSUM_REG_ENTRIES, SEGSUM_GROUP and
+# SEGSUM_SMEM_BYTES from the nvcc flags below.
 SEGSUM_TILE = 32
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC",
               f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}",
               f"-DGRAM_TILE={GRAM_TILE}", f"-DSEGSUM_WARPS={SEGSUM_WARPS}",
-              f"-DSEGSUM_TILE={SEGSUM_TILE}")
+              f"-DSEGSUM_TILE={SEGSUM_TILE}",
+              f"-DSEGSUM_REG_ENTRIES={SEGSUM_REG_ENTRIES}",
+              f"-DSEGSUM_GROUP={SEGSUM_GROUP}",
+              f"-DSEGSUM_SMEM_BYTES={SEGSUM_SMEM_BYTES}")
 # Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
 # chunk at D = 514 in float64, so at most 15 chunks there).
 GRAM_PARTIAL_BYTES = 32 << 20
@@ -97,20 +119,22 @@ GRAM_MIN_ROWS_PER_CHUNK = 256
 
 
 class LaunchCounts:
-    """How many times each wrapper launched its kernel. A call that runs
-    the plain version, or launches nothing (n = 0), does not count."""
+    """How many times each wrapper launched its kernel, and the launches
+    of ``SUBCOUNTS``. A call that runs the plain version, or launches
+    nothing (n = 0), does not count."""
 
     def __init__(self):
-        self._counts = dict.fromkeys(KERNELS, 0)
+        self._counts = dict.fromkeys(KERNELS + SUBCOUNTS, 0)
         self._lock = threading.Lock()
 
-    def add(self, name: str) -> None:
+    def add(self, *names: str) -> None:
         with self._lock:
-            self._counts[name] += 1
+            for name in names:
+                self._counts[name] += 1
 
     def reset(self) -> None:
         with self._lock:
-            self._counts = dict.fromkeys(KERNELS, 0)
+            self._counts = dict.fromkeys(KERNELS + SUBCOUNTS, 0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -222,7 +246,7 @@ def _bind(name: str, lib) -> dict:
     else:
         groups = [({("dense", f32): lib.dense_segment_sum_f32,
                     ("dense", f64): lib.dense_segment_sum_f64},
-                   [P, P, P, P, LL, I, I, I, LL, P]),
+                   [P, P, P, P, ctypes.POINTER(_DenseArgs), I, P]),
                   ({("sorted", f32): lib.sorted_segment_sum_f32,
                     ("sorted", f64): lib.sorted_segment_sum_f64},
                    [P, P, P, P, P, P, P, LL, I, LL, P])]
@@ -250,10 +274,11 @@ def _check(name: str, err: int) -> None:
 def _route(name: str, *tensors: torch.Tensor) -> bool:
     """True for the kernel (CUDA tensors), False for the plain version (CPU
     tensors); raises for anything else."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs on several devices {devices}")
-    dev = devices.pop()
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on several devices "
+                             f"{[u.device for u in tensors]}")
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":
@@ -453,58 +478,234 @@ def dense_segment_fits(size: int, columns: int, elem_bytes: int) -> bool:
             <= SEGSUM_SMEM_BYTES)
 
 
-def dense_segment_plan(n: int) -> tuple[int, int]:
-    """``(blocks, rows_per_block)`` of the dense kernel for n >= 1 rows
-    (n = 0 launches nothing): contiguous row
-    ranges of at least ``SEGSUM_MIN_ROWS_PER_BLOCK`` rows, at most
-    ``SEGSUM_MAX_BLOCKS`` of them, no empty one. The summation order
-    follows from it, so it depends on n alone."""
-    blocks = max(1, min(SEGSUM_MAX_BLOCKS, n // SEGSUM_MIN_ROWS_PER_BLOCK))
-    rows = -(-n // blocks)
-    return -(-n // rows), rows
+# The dense kernel's forms, numbered as csrc/segment_sum.cu numbers them.
+DENSE_FORMS = ("whole", "regs", "table")
+# Counters a stream's scratch keeps for the dense kernel's tickets: one a
+# group of blocks and one more (the plan asserts it is enough).
+SEGSUM_TICKETS = 1024
+
+
+class DensePlan(NamedTuple):
+    """One launch of the dense kernel: its form (and the form's number in
+    ``DENSE_FORMS``, as the kernel takes it), ``blocks`` blocks that each
+    take ``chunks_per_block`` consecutive chunks of ``rows_per_chunk`` rows
+    (the last block fewer), and the cross-block step: none with one block,
+    one level (``groups`` 1) for a table of at most ``SEGSUM_REG_ENTRIES``
+    entries, else ``groups`` groups of ``SEGSUM_GROUP`` blocks; the bytes
+    of a stream's scratch it needs (ticket counters, then the partial
+    tables)."""
+    form: str
+    form_index: int
+    blocks: int
+    chunks_per_block: int
+    rows_per_chunk: int
+    groups: int
+    scratch_bytes: int
+
+
+def dense_segment_plan(n: int, size: int, cols: int, elem_bytes: int,
+                       ids: bool = True) -> DensePlan:
+    """The dense kernel's plan for n >= 1 rows (n = 0 launches nothing) of
+    ``cols`` columns of ``elem_bytes`` bytes onto ``size`` slots, with slot
+    ids or (``ids=False``, ``size`` 1, at most ``SEGSUM_REG_COLS``
+    columns) without. The form: ``whole`` without ids, ``regs`` for a table
+    of at most ``SEGSUM_REG_ENTRIES`` entries, ``table`` otherwise. Rows go
+    in chunks of one 16-byte vector per column, chunks in
+    contiguous ranges of at least ``SEGSUM_MIN_ROWS_PER_BLOCK`` rows, at
+    most ``SEGSUM_MAX_BLOCKS`` of them (``SEGSUM_TABLE_BLOCKS`` in the
+    table form), none empty. The order of every add follows from the plan
+    and the ids, so the plan depends on its arguments alone. Raises for a
+    table that does not fit (``dense_segment_fits``)."""
+    if not ids and (size != 1 or cols > SEGSUM_REG_COLS):
+        raise ValueError(f"dense_segment_plan: without ids the table has "
+                         f"one slot and at most {SEGSUM_REG_COLS} columns")
+    if not dense_segment_fits(size, cols, elem_bytes):
+        raise ValueError(f"dense_segment_sum: a table of {size} slots and "
+                         f"{cols} columns does not fit shared memory")
+    if not ids:
+        form = "whole"
+    elif cols <= SEGSUM_REG_COLS and size * cols <= SEGSUM_REG_ENTRIES:
+        form = "regs"
+    else:
+        form = "table"
+    rows_per_chunk = 16 // elem_bytes
+    chunks = -(-n // rows_per_chunk)
+    most = SEGSUM_TABLE_BLOCKS if form == "table" else SEGSUM_MAX_BLOCKS
+    blocks = max(1, min(most, n // SEGSUM_MIN_ROWS_PER_BLOCK, chunks))
+    per_block = -(-chunks // blocks)
+    blocks = -(-chunks // per_block)
+    entries = size * cols
+    if blocks == 1:
+        groups = 0
+    elif entries <= SEGSUM_REG_ENTRIES:
+        groups = 1
+    else:
+        groups = -(-blocks // SEGSUM_GROUP)
+    if groups + 1 > SEGSUM_TICKETS:
+        raise ValueError(f"dense_segment_plan: {groups} groups of blocks "
+                         f"need more than {SEGSUM_TICKETS} tickets")
+    scratch = _TICKET_BYTES + (
+        (blocks + groups) * entries * elem_bytes if blocks > 1 else 0)
+    return DensePlan(form, DENSE_FORMS.index(form), blocks, per_block,
+                     rows_per_chunk, groups, scratch)
+
+
+class _DenseArgs(ctypes.Structure):
+    """A launch's arguments that follow from its plan alone, as
+    csrc/segment_sum.cu's DenseArgs lays them out: passed as one pointer,
+    they save the launch about a microsecond of argument conversion."""
+    _fields_ = [("n", ctypes.c_longlong),
+                ("chunks_per_block", ctypes.c_longlong),
+                ("C", ctypes.c_int), ("slots", ctypes.c_int),
+                ("form", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("ticket_bytes", ctypes.c_longlong)]
+
+
+@functools.lru_cache(maxsize=4096)
+def _dense_call(n: int, size: int, cols: int, elem_bytes: int,
+                ids: bool) -> tuple:
+    """The plan of one launch and its arguments as the launcher takes
+    them."""
+    plan = dense_segment_plan(n, size, cols, elem_bytes, ids)
+    return plan, _DenseArgs(n, plan.chunks_per_block, cols, size,
+                            plan.form_index, plan.blocks, _TICKET_BYTES)
+
+
+# Each (device, stream) keeps its own scratch for the dense kernel:
+# SEGSUM_TICKETS zeroed ticket counters, which every call leaves at zero,
+# then the partial tables. A call runs on its stream's scratch, after every
+# earlier call there, so two calls never share a counter or a table.
+_TICKET_BYTES = 4 * SEGSUM_TICKETS
+# Outputs of one slot and at most SEGSUM_REG_COLS columns (the global
+# sums) are views of a batch of SEGSUM_OUTPUTS made at once, a new view a
+# call: there the kernel takes about as long as the host path, and an
+# allocation a call (5-10 us on the card's host; PERF.md section 6) lost
+# the race with `sum`. A stream keeps at most one batch for each of these
+# (2 x (SEGSUM_REG_COLS + 1)) shapes and dtypes, each of at most 1 KiB;
+# every other output is allocated by its call.
+SEGSUM_OUTPUTS = 32
+
+
+class _StreamState:
+    __slots__ = ("scratch", "tickets", "nbytes", "outputs")
+
+    def __init__(self):
+        self.scratch, self.tickets, self.nbytes = None, 0, 0
+        self.outputs: dict = {}
+
+
+_streams: dict = {}
+
+
+def _stream_state(device: torch.device, stream: int,
+                  nbytes: int) -> _StreamState:
+    """The state of (``device``, ``stream``), its scratch at least
+    ``nbytes`` long (made anew, zeroed on this stream before the launch
+    that needs it, when it is shorter)."""
+    state = _streams.get((device.index, stream))
+    if state is None:
+        state = _streams[(device.index, stream)] = _StreamState()
+    if state.nbytes < nbytes:
+        state.scratch = torch.zeros(max(nbytes, _TICKET_BYTES + (1 << 16)),
+                                    dtype=torch.uint8, device=device)
+        state.tickets = state.scratch.data_ptr()
+        state.nbytes = state.scratch.numel()
+    return state
+
+
+def _one_slot_output(state: _StreamState, shape: tuple, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """A new output of one slot: a view of the stream's batch for this
+    shape and dtype, made anew when it is used up."""
+    pool = state.outputs.get((shape, dtype))
+    if not pool:
+        pool = state.outputs[(shape, dtype)] = list(torch.empty(
+            (SEGSUM_OUTPUTS,) + shape, dtype=dtype, device=device).unbind(0))
+    return pool.pop()
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle (torch's
+    raw getter: ``torch.cuda.current_stream`` builds a Stream object, a few
+    microseconds that the one-slot sums would show)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _segment_args(name: str, x: torch.Tensor, seg: torch.Tensor):
-    if x.ndim not in (1, 2) or seg.shape != x.shape[:1] \
-            or seg.dtype != torch.int64:
+    if x.ndim not in (1, 2) or not isinstance(seg, torch.Tensor) \
+            or seg.shape != x.shape[:1] or seg.dtype != torch.int64:
         raise ValueError(f"{name}: x must be (n,) or (n, C) and seg an "
                          "int64 (n,) tensor")
-    if x.dtype not in (torch.float32, torch.float64):
+    if x.dtype not in _FLOATS:
         raise ValueError(f"{name}: x must be float32 or float64")
 
 
-def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor,
+_FLOATS = (torch.float32, torch.float64)
+
+
+def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor | None,
                       size: int) -> torch.Tensor:
     """``out[s] = Σ x[i] over seg[i] == s`` for slot ids ``seg`` in any
     order: shape ``(size,) + x.shape[1:]``. A row whose id lies outside
     ``[0, size)`` is dropped, by the kernel and by the plain version
-    alike. On the card the order of the adds is fixed by
-    ``dense_segment_plan``, so the result is bit-identical from run to
-    run; the table must pass ``dense_segment_fits``."""
-    _segment_args("dense_segment_sum", x, seg)
-    if not _route("dense_segment_sum", x, seg):
-        return segment_sum_reference(x, seg, size)
-    n = x.shape[0]
-    x2 = (x if x.ndim == 2 else x[:, None]).contiguous()
-    C = x2.shape[1]
-    if not dense_segment_fits(size, C, x.element_size()):
-        raise ValueError(f"dense_segment_sum: a table of {size} slots and "
-                         f"{C} columns does not fit shared memory")
-    shape = (size,) + tuple(x.shape[1:])
+    alike. ``seg=None`` (with ``size`` 1 and at most ``SEGSUM_REG_COLS``
+    columns) sums every row into one slot and reads no ids: the plain
+    version is then ``x.sum(0, keepdim=True)``.
+    On the card the order of the adds is fixed by ``dense_segment_plan``
+    and the ids, so the result is bit-identical from run to run; the table
+    must pass ``dense_segment_fits``. One launch a call."""
+    if seg is None:
+        if size != 1:
+            raise ValueError("dense_segment_sum: without slot ids the "
+                             "table has one slot (size 1)")
+        if x.ndim not in (1, 2) or x.dtype not in _FLOATS:
+            raise ValueError("dense_segment_sum: x must be a float32 or "
+                             "float64 (n,) or (n, C) tensor")
+        if x.ndim == 2 and x.shape[1] > SEGSUM_REG_COLS:
+            raise ValueError(f"dense_segment_sum: without slot ids at most "
+                             f"{SEGSUM_REG_COLS} columns")
+        if x.device.type != "cuda" and not _route("dense_segment_sum", x):
+            return x.sum(0, keepdim=True)
+    else:
+        _segment_args("dense_segment_sum", x, seg)
+        if not _route("dense_segment_sum", x, seg):
+            return segment_sum_reference(x, seg, size)
+    shape = x.shape
+    n, C = shape[0], (shape[1] if len(shape) == 2 else 1)
+    dtype, dev = x.dtype, x.device
+    elem = x.element_size()
     if n == 0 or C == 0:
-        return torch.zeros(shape, dtype=x.dtype, device=x.device)
-    fn = _launcher("segment_sum", ("dense", x.dtype))
-    seg = seg.contiguous()
-    out = torch.empty((size, C), dtype=x.dtype, device=x.device)
-    blocks, rows = dense_segment_plan(n)
-    part = (torch.empty((blocks, size, C), dtype=x.dtype, device=x.device)
-            if blocks > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check("dense_segment_sum", fn(x2.data_ptr(), seg.data_ptr(),
-                                   _ptr(part), out.data_ptr(), n, C, size,
-                                   blocks, rows, stream))
-    launches.add("dense_segment_sum")
-    return out.reshape(shape)
+        if not dense_segment_fits(size, C, elem):
+            raise ValueError(f"dense_segment_sum: a table of {size} slots "
+                             f"and {C} columns does not fit shared memory")
+        return torch.zeros((size,) + shape[1:], dtype=dtype, device=dev)
+    plan, args = _dense_call(n, size, C, elem, seg is not None)
+    fn = _launcher("segment_sum", ("dense", dtype))
+    if not x.is_contiguous():
+        x = x.contiguous()
+    sp = 0
+    if seg is not None:
+        if not seg.is_contiguous():
+            seg = seg.contiguous()
+        sp = seg.data_ptr()
+    stream = _raw_stream(dev)
+    state = _streams.get((dev.index, stream))
+    if state is None or state.nbytes < plan.scratch_bytes:
+        state = _stream_state(dev, stream, plan.scratch_bytes)
+    if size == 1 and C <= SEGSUM_REG_COLS:
+        out = _one_slot_output(state, (1,) + shape[1:], dtype, dev)
+    else:
+        out = torch.empty((size,) + shape[1:], dtype=dtype, device=dev)
+    xp = x.data_ptr()
+    err = fn(xp, sp, state.tickets, out.data_ptr(), args,
+             (xp | sp) % 16 == 0, stream)
+    if err:
+        _check("dense_segment_sum", err)
+    if size == 1:
+        launches.add("dense_segment_sum", "dense_segment_sum_one_slot")
+    else:
+        launches.add("dense_segment_sum")
+    return out
 
 
 def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,

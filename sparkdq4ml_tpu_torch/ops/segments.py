@@ -204,8 +204,12 @@ def _seg_sum(x, seg, size: int, contiguous: bool = False):
     run on ``index_add_`` (exact in any order); float sums in a fixed
     order through the segment-sum kernels: the sorted kernel for the
     nondecreasing ids of the sorted program (``contiguous``), the dense
-    kernel for a table that fits its shared memory, else the sorted
-    kernel after a stable sort of the ids."""
+    kernel for a table that fits its shared memory, else the sorted kernel
+    after a stable sort of the ids. ``seg=None`` (``size`` 1, float
+    ``x``): every row into one slot, through the dense kernel's form that
+    reads no ids."""
+    if seg is None:
+        return kernels.dense_segment_sum(x, None, 1)
     if not x.is_floating_point():
         out = torch.zeros((size,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)

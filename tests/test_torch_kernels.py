@@ -77,10 +77,12 @@ def test_cpu_tensors_count_no_launch():
                         torch.ones(4, dtype=torch.bool))
     seg = torch.tensor([0, 1, 1, 2])
     kernels.dense_segment_sum(torch.ones(4, dtype=torch.float64), seg, 3)
+    kernels.dense_segment_sum(torch.ones(4, dtype=torch.float64), None, 1)
     kernels.sorted_segment_sum(torch.ones(4, dtype=torch.float64), seg, 3)
     assert kernels.launches.snapshot() == {
         "dq_rules": 0, "packed_gram": 0, "masked_gram": 0,
-        "dense_segment_sum": 0, "sorted_segment_sum": 0}
+        "dense_segment_sum": 0, "sorted_segment_sum": 0,
+        "dense_segment_sum_one_slot": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -276,18 +278,98 @@ def test_the_tile_width_reaches_the_kernels_through_the_flags(monkeypatch):
 # The segment sums (port-only kernels of csrc/segment_sum.cu)
 # ---------------------------------------------------------------------------
 
+# (size, cols, elem, ids) of each form: whole (no ids), regs, table, and
+# the whole form at its most columns (SEGSUM_REG_COLS) in float64
+PLAN_SHAPES = [(1, 3, 4, False), (3, 3, 8, True), (41, 3, 4, True),
+               (1, 4, 8, False)]
+
+
+def _plan_chunks(plan, n):
+    """Each chunk's (block, thread, step) under ``plan``, as the kernel
+    maps them (csrc/segment_sum.cu: block b takes chunks b * per_block ..,
+    its thread t the chunks t, t + threads, .. of them, in order)."""
+    threads = 32 * kernels.SEGSUM_WARPS
+    chunk = np.arange(-(-n // plan.rows_per_chunk))
+    block = chunk // plan.chunks_per_block
+    local = chunk - block * plan.chunks_per_block
+    return block, local % threads, local // threads
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=["whole", "regs", "table", "whole-4-cols"])
 @pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 65_537, 1_081_344,
                                9_611_537, 10**9])
-def test_dense_segment_plan_covers_rows_in_fixed_ranges(n):
-    """Contiguous row ranges, at most SEGSUM_MAX_BLOCKS, none empty, at
-    least SEGSUM_MIN_ROWS_PER_BLOCK rows each but the last; the plan (and
-    so the order of the adds) depends on n alone."""
-    blocks, rows = kernels.dense_segment_plan(n)
-    assert 1 <= blocks <= kernels.SEGSUM_MAX_BLOCKS
-    assert blocks * rows >= n and (blocks - 1) * rows < max(n, 1)
+def test_dense_segment_plan_covers_rows_in_fixed_ranges(n, shape):
+    """Chunks of one 16-byte vector per column, in contiguous ranges, at
+    most SEGSUM_MAX_BLOCKS (SEGSUM_TABLE_BLOCKS in the table form), none
+    empty, at least SEGSUM_MIN_ROWS_PER_BLOCK rows each but the last; every
+    row in exactly one chunk and every chunk in exactly one (block, thread,
+    step); one level of the cross-block step for a table of at most
+    SEGSUM_REG_ENTRIES entries, groups of SEGSUM_GROUP blocks past it; the
+    plan (and so the order of the adds) depends on its arguments alone."""
+    size, cols, elem, ids = shape
+    plan = kernels.dense_segment_plan(n, size, cols, elem, ids)
+    assert plan.rows_per_chunk * elem == 16
+    chunks = -(-n // plan.rows_per_chunk)
+    blocks, per = plan.blocks, plan.chunks_per_block
+    assert blocks >= 1 and blocks * per >= chunks and (blocks - 1) * per < chunks
+    most = (kernels.SEGSUM_TABLE_BLOCKS if plan.form == "table"
+            else kernels.SEGSUM_MAX_BLOCKS)
+    assert blocks <= most
+    entries = size * cols
     if blocks > 1:
-        assert rows >= kernels.SEGSUM_MIN_ROWS_PER_BLOCK
-    assert kernels.dense_segment_plan(n) == (blocks, rows)
+        assert per * plan.rows_per_chunk >= kernels.SEGSUM_MIN_ROWS_PER_BLOCK
+        assert plan.groups == (1 if entries <= kernels.SEGSUM_REG_ENTRIES
+                               else -(-blocks // kernels.SEGSUM_GROUP))
+        assert plan.scratch_bytes == kernels._TICKET_BYTES + \
+            (blocks + plan.groups) * entries * elem
+    else:
+        assert plan.groups == 0 and plan.scratch_bytes == kernels._TICKET_BYTES
+    assert plan.groups + 1 <= kernels.SEGSUM_TICKETS
+    if chunks <= 3_000_000:
+        block, thread, step = _plan_chunks(plan, n)
+        assert block.max() == blocks - 1
+        assert len(set(zip(block.tolist(), thread.tolist(),
+                           step.tolist()))) == chunks
+        rows = np.arange(chunks)[:, None] * plan.rows_per_chunk + \
+            np.arange(plan.rows_per_chunk)
+        rows = rows[rows < n]
+        assert np.array_equal(np.sort(rows), np.arange(n))
+    assert kernels.dense_segment_plan(n, size, cols, elem, ids) == plan
+
+
+@pytest.mark.parametrize("n,size,cols,elem,ids,form", [
+    (10_000_000, 1, 1, 4, False, "whole"),     # global_agg's fsum
+    (10_000_000, 1, 3, 4, False, "whole"),     # stat._sums (corr, cov)
+    (10_000_000, 1, 1, 4, True, "regs"),       # one slot with ids
+    (10_000_000, 1, 3, 4, True, "regs"),
+    (9_611_537, 3, 3, 4, True, "regs"),        # KMeans' Lloyd sums
+    (9_611_537, 3, 3, 8, True, "regs"),        # the silhouette, float64
+    (9_611_537, 41, 3, 4, True, "table"),      # the dense GROUP BY
+    (9_611_537, 128, 4, 4, True, "table"),     # GBT's histograms
+    (9_611_537, 256, 4, 4, True, "table"),
+    (9_611_537, 256, 2, 4, True, "table"),     # the forest's
+    (9_611_537, 512, 2, 4, True, "table"),
+    (31, 4, 2, 8, True, "regs"),               # edge cases
+    (65_537, 300, 2, 8, True, "table"),
+    (100, 1, 4, 4, False, "whole"),
+    (100, 8, 5, 4, True, "table")])
+def test_dense_segment_plan_form_at_held_shapes(n, size, cols, elem, ids,
+                                                form):
+    """Without ids the whole form; a table of at most SEGSUM_REG_ENTRIES
+    entries and SEGSUM_REG_COLS columns in registers; else per-warp tables
+    in shared memory."""
+    assert kernels.dense_segment_plan(n, size, cols, elem, ids).form == form
+    assert form in kernels.DENSE_FORMS
+
+
+def test_dense_segment_plan_without_ids_has_one_slot():
+    """The whole form has one slot and at most SEGSUM_REG_COLS columns."""
+    with pytest.raises(ValueError, match="one slot"):
+        kernels.dense_segment_plan(100, 2, 1, 4, False)
+    with pytest.raises(ValueError, match="at most 4 columns"):
+        kernels.dense_segment_plan(100, 1, kernels.SEGSUM_REG_COLS + 1, 4,
+                                   False)
 
 
 @pytest.mark.parametrize("size,cols,elem,fits", [
@@ -353,21 +435,106 @@ def test_segment_sums_reject_bad_arguments():
 
 
 def test_segment_sum_plan_reaches_the_kernel_through_the_flags(monkeypatch):
-    """The warp count and the tile size size the wrapper's scratch, so
-    both reach nvcc and the build key; the kernel has its own library."""
+    """The plan's compiled constants (the warp count, the sorted kernel's
+    tile, the register table, the group of blocks the cross-block step
+    adds, the shared-memory ceiling) reach nvcc and the build key; the
+    kernel has its own library."""
     assert kernels.SOURCES["segment_sum"] == "segment_sum.cu"
     for flag in (f"-DSEGSUM_WARPS={kernels.SEGSUM_WARPS}",
-                 f"-DSEGSUM_TILE={kernels.SEGSUM_TILE}"):
+                 f"-DSEGSUM_TILE={kernels.SEGSUM_TILE}",
+                 f"-DSEGSUM_REG_ENTRIES={kernels.SEGSUM_REG_ENTRIES}",
+                 f"-DSEGSUM_GROUP={kernels.SEGSUM_GROUP}",
+                 f"-DSEGSUM_SMEM_BYTES={kernels.SEGSUM_SMEM_BYTES}"):
         assert flag in kernels.NVCC_FLAGS
     key = kernels.build_key("segment_sum")
     assert key not in {kernels.build_key(n) for n in kernels.SOURCES
                        if n != "segment_sum"}
-    monkeypatch.setattr(kernels, "NVCC_FLAGS", tuple(
-        f.replace(f"={kernels.SEGSUM_TILE}", "=64") if "SEGSUM_TILE" in f
-        else f for f in kernels.NVCC_FLAGS))
-    assert kernels.build_key("segment_sum") != key
+    for name, value in (("SEGSUM_TILE", 64), ("SEGSUM_REG_ENTRIES", 16),
+                        ("SEGSUM_GROUP", 8)):
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "NVCC_FLAGS", tuple(
+                f"-D{name}={value}" if f.startswith(f"-D{name}=") else f
+                for f in kernels.NVCC_FLAGS))
+            assert kernels.build_key("segment_sum") != key
     src = (kernels.CSRC / "segment_sum.cu").read_text()
-    # no float atomic: the one atomic numbers the sorted kernel's owner list
+    # no float atomic: the integer ones number the sorted kernel's owner
+    # list and hand out the dense kernel's tickets
     atomics = [line for line in src.splitlines()
                if "atomic" in line and not line.lstrip().startswith("//")]
-    assert atomics and all("atomicAdd(n_owners, 1)" in a for a in atomics)
+    assert atomics and all("atomicAdd(n_owners, 1)" in a
+                           or "atomicAdd(counter, 1u)" in a
+                           for a in atomics)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cols", [None, 1, 3, 4])
+def test_dense_segment_sum_without_ids_on_the_cpu(dtype, cols):
+    """dense_segment_sum(x, None, 1) is x.sum(0, keepdim=True) bit for bit
+    on a CPU tensor, and the id route with all-zero ids gives the same
+    bits (NaN and -0.0 included)."""
+    rng = np.random.default_rng(11)
+    shape = (1000,) if cols is None else (1000, cols)
+    x = torch.as_tensor(rng.normal(size=shape), dtype=dtype)
+    x[7] = -0.0
+    x[500] = float("nan")
+    got = kernels.dense_segment_sum(x, None, 1)
+    want = x.sum(0, keepdim=True)
+    assert got.shape == (1,) + shape[1:]
+    assert torch.equal(got.view(torch.int8), want.view(torch.int8))
+    zero = kernels.dense_segment_sum(x, torch.zeros(1000, dtype=torch.int64),
+                                     1)
+    assert torch.equal(got.view(torch.int8), zero.view(torch.int8))
+    empty = kernels.dense_segment_sum(x[:0], None, 1)
+    assert empty.shape == got.shape and not empty.any()
+
+
+def test_dense_segment_sum_without_ids_rejects_bad_arguments():
+    x = torch.ones(4)
+    with pytest.raises(ValueError, match="one slot"):
+        kernels.dense_segment_sum(x, None, 2)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kernels.dense_segment_sum(torch.ones(4, dtype=torch.int64), None, 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kernels.dense_segment_sum(torch.ones((4, 2, 2)), None, 1)
+    with pytest.raises(ValueError, match="at most 4 columns"):
+        kernels.dense_segment_sum(torch.ones((4, 5)), None, 1)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.dense_segment_sum(x, [0, 0, 0, 0], 1)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.dense_segment_sum(x, torch.zeros(3, dtype=torch.int64), 1)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.dense_segment_sum(x, torch.zeros((4, 1), dtype=torch.int64),
+                                  1)
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.dense_segment_sum(meta, None, 1)
+
+
+def test_dense_scratch_is_kept_per_stream(monkeypatch):
+    """Each (device, stream) has its own scratch, whose ticket counters
+    start at zero, and its own batches of one-slot outputs; a larger plan
+    grows the scratch, a smaller one reuses it; each one-slot output is a
+    new view, and a stream keeps one batch a shape and dtype."""
+    monkeypatch.setattr(kernels, "_streams", {})
+    dev = torch.device("cpu")
+    a = kernels._stream_state(dev, 1, 100)
+    b = kernels._stream_state(dev, 2, 100)
+    assert a is not b and a.tickets != b.tickets
+    assert a.tickets == a.scratch.data_ptr()
+    assert a.nbytes >= kernels._TICKET_BYTES
+    assert not a.scratch[:kernels._TICKET_BYTES].any()
+    assert kernels._stream_state(dev, 1, 50).tickets == a.tickets
+    big = kernels._stream_state(dev, 1, a.nbytes + 1)
+    assert big is a and a.nbytes >= a.scratch.numel() > 0
+    assert not a.scratch[:kernels._TICKET_BYTES].any()
+    outs = [kernels._one_slot_output(a, (1, 3), torch.float32, dev)
+            for _ in range(2 * kernels.SEGSUM_OUTPUTS + 1)]
+    assert len({o.data_ptr() for o in outs}) == len(outs)
+    assert all(o.shape == (1, 3) and o.is_contiguous() for o in outs)
+    assert list(a.outputs) == [((1, 3), torch.float32)]
+    assert not b.outputs
+
+
+def test_dense_segment_plan_rejects_a_table_past_shared_memory():
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.dense_segment_plan(100, 5000, 4, 4)
