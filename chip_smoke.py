@@ -24,8 +24,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    slots, onto 20,556 price groups, onto 39 long segments; the 10^7 slots
    of the global sums onto one slot, three stacked columns and one, with
    an all-zero id column and without ids, the whole-table form the global
-   sums take); each float32 dense call one launch and one device kernel
-   (the kernel nodes of a CUDA graph captured from the call);
+   sums take; the sorted kernel's stage and block edges, one segment over
+   9,611,537 rows, runs of one row, ids outside the table, sparse ids,
+   five and seven columns, views off the 16-byte grid); each call of
+   either, in either type, one launch, one device kernel and at most one
+   memset (the nodes of a CUDA graph captured from the call); both kernels
+   on two streams at once, bit for bit against one stream;
 4. golden app: the reference application (CSV -> DQ rules -> SQL ->
    VectorAssembler -> Lasso fit -> predict(40)) on the three datasets
    through ``TorchSession`` (each read by the native CSV engine), in
@@ -746,7 +750,122 @@ def edge_segment_cases(device: str, seed: int = 0):
                 x[1:], None, 1))
     out.append(("dense offset view n=65537 C=1 no ids", "dense_segment_sum",
                 x1[1:], None, 1))
+    return out + sorted_edge_cases(device, rng)
+
+
+def sorted_edge_cases(device: str, rng):
+    """The sorted kernel's edges (sorted_segment_plan), each case run in
+    float32 and float64 by check_segment_sum: runs that end on a block's
+    or a stage's first row and a row either side of it, under both types'
+    plans; one segment over the 9,611,537 clean rows' count (every block
+    a middle one), and one that leaves two empty slots before it; runs of
+    one row; fewer rows than a block takes; ids below 0 at the start and at
+    size and past it at the end; 1,000 ids spread over 10^7 slots (gaps of
+    about 10^4 slots, zeroed by a memset) and 2,000,000 onto 70,000 slots
+    whose first 65,000 the first block zeroes alone; five and seven
+    columns (a count known only when the kernel runs) and 10,000 (read in
+    slabs of columns); views off the 16-byte grid, which it copies value
+    by value."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    def case(name, x, seg, size):
+        return (f"sorted {name}", "sorted_segment_sum",
+                torch.as_tensor(x, device=device),
+                torch.as_tensor(seg, device=device), size)
+
+    out = []
+    n = 1_200_000
+    for cols in (1, 3):
+        edges = set()
+        for elem in (4, 8):
+            plan = kernels.sorted_segment_plan(n, cols, elem, n)
+            for b in range(plan.blocks):
+                r0 = b * plan.rows_per_block
+                for k in range(-(-plan.rows_per_block // plan.stage_rows)):
+                    edges.update((r0 + k * plan.stage_rows + d
+                                  for d in (-1, 0, 1)))
+        cuts = np.asarray(sorted(e for e in edges if 0 < e < n))
+        seg = np.searchsorted(cuts, np.arange(n), "right")
+        out.append(case(f"stage and block edges n={n} C={cols}",
+                        rng.normal(size=(n, cols)), seg, int(seg[-1]) + 1))
+    whole = 9_611_537
+    out.append(case(f"one segment n={whole}", rng.normal(size=whole),
+                    np.zeros(whole, np.int64), 1))
+    out.append(case(f"one segment after two empty n={whole} C=2",
+                    rng.normal(size=(whole, 2)), np.full(whole, 2), 3))
+    out.append(case("runs of one row n=65537 C=2",
+                    rng.normal(size=(65_537, 2)), np.arange(65_537), 65_537))
+    for n, size, cols in ((100, 7, 3), (1023, 40, 1), (2049, 40, 2)):
+        out.append(case(f"n={n} size={size} C={cols} (few blocks)",
+                        rng.normal(size=(n, cols)),
+                        np.sort(rng.integers(0, size, n)), size))
+    for n, size in ((4097, 5), (65_537, 300)):
+        out.append(case(f"n={n} size={size} ids outside",
+                        rng.normal(size=(n, 2)),
+                        np.sort(rng.integers(-3, size + 3, n)), size))
+    out.append(case("sparse 1000 ids onto 10^7 slots (memset)",
+                    rng.normal(size=1000),
+                    np.sort(rng.choice(10**7, 1000, replace=False)), 10**7))
+    # under the memset's ratio: the first block zeroes 65,000 slots alone
+    out.append(case("n=2000000 size=70000 ids in the top 5000",
+                    rng.normal(size=2_000_000),
+                    np.sort(rng.integers(65_000, 70_000, 2_000_000)),
+                    70_000))
+    # rows past a stage's width, read in slabs of columns
+    out.append(case("wide rows n=3000 C=10000",
+                    rng.normal(size=(3000, 10_000)),
+                    np.sort(rng.integers(0, 5, 3000)), 5))
+    for cols in (5, 7):
+        out.append(case(f"n=65537 size=300 C={cols}",
+                        rng.normal(size=(65_537, cols)),
+                        np.sort(rng.integers(0, 300, 65_537)), 300))
+    # views that start off the 16-byte grid (value-by-value copies)
+    x = torch.as_tensor(rng.normal(size=(65_538, 3)), device=device)
+    x1 = torch.as_tensor(rng.normal(size=65_538), device=device)
+    seg = torch.as_tensor(np.sort(rng.integers(0, 300, 65_538)),
+                          device=device)
+    out.append(("sorted offset view n=65537 size=300 C=3",
+                "sorted_segment_sum", x[1:], seg[1:], 300))
+    out.append(("sorted offset view n=65537 size=300 C=1",
+                "sorted_segment_sum", x1[1:], seg[1:], 300))
     return out
+
+
+def check_two_streams(seed: int = 1) -> dict:
+    """Sorted and dense segment sums queued on two streams at once, each
+    stream with its own ticket counters and partials (kernels.
+    _stream_state), against the same calls on one stream, bit for bit."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    n = 2_000_000
+    x = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                        device="cuda")
+    seg = torch.as_tensor(np.sort(rng.integers(0, 5000, n)), device="cuda")
+    slots = torch.as_tensor(rng.integers(0, 41, n), device="cuda")
+    calls = [lambda: kernels.sorted_segment_sum(x, seg, 5000),
+             lambda: kernels.sorted_segment_sum(x[:, 0], seg, 5000),
+             lambda: kernels.dense_segment_sum(x, slots, 41)]
+    want = [f() for f in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append([f() for f in calls])
+    torch.cuda.synchronize()
+    bad = sum(not same_bits(g, w) for per in got for run in per
+              for g, w in zip(run, want))
+    if bad:
+        raise AssertionError(f"segment sums on two streams: {bad} results "
+                             "differ from one stream's")
+    return {"streams": 2, "rounds": 8, "calls": 2 * 8 * len(calls)}
 
 
 def at_offset(x, dtype):
@@ -767,8 +886,9 @@ def check_segment_sum(cases) -> dict:
     """Each case in float32 and float64: two kernel runs bit-identical,
     the float32 kernel within 1e-5 Σ|x| of the float64 plain version
     (index_add_; sum at one slot and without ids) per segment, the float64
-    kernel within 1e-12 Σ|x| of it; each dense call one launch and one
-    device kernel in either type (none at n = 0; check_one_kernel).
+    kernel within 1e-12 Σ|x| of it; each call one launch, one device
+    kernel and no more than one memset in either type (none at n = 0;
+    check_one_kernel).
     A dense case whose table does not fit takes the sorted kernel after a
     stable sort, as ops/segments.py does. Returns {name: max |float32
     kernel - float64 plain|}."""
@@ -805,20 +925,20 @@ def check_segment_sum(cases) -> dict:
                     f"{float((diff - rel * bound).max())}")
             if dtype == torch.float32:
                 errs[name] = float(diff.max()) if diff.numel() else 0.0
-            if fn is kernels.dense_segment_sum:
-                per_call[f"{name} {str(dtype)[6:]}"] = \
-                    check_one_kernel(xd, sd, size)
+            per_call[f"{name} {str(dtype)[6:]}"] = \
+                check_one_kernel(fn.__name__, xd, sd, size)
     log(f"segment sums: bit-identical over two runs and within bounds: "
-        f"{errs}; dense device kernels and host launches a call: "
+        f"{errs}; device kernels, memsets and host launches a call: "
         f"{per_call}")
     return errs
 
 
-def graph_kernels(fn) -> int:
-    """The kernel nodes of a CUDA graph captured from one call of ``fn`` on
-    a side stream, after a warm-up call there: the device kernels a call
-    runs, counted without the profiler, which has lost the device events
-    of single-call traces late in this script."""
+def graph_kernels(fn) -> tuple:
+    """The kernel nodes and the memset nodes of a CUDA graph captured from
+    one call of ``fn`` on a side stream, after a warm-up call there: the
+    device kernels and fills a call runs, counted without the profiler,
+    which has lost the device events of single-call traces late in this
+    script."""
     import ctypes
 
     import torch
@@ -837,38 +957,45 @@ def graph_kernels(fn) -> int:
         raise RuntimeError("cudaGraphGetNodes failed")
     nodes = (ctypes.c_void_p * count.value)()
     cudart.cudaGraphGetNodes(handle, nodes, ctypes.byref(count))
-    kernel_nodes = 0
+    kernel_nodes = memset_nodes = 0
     for node in nodes:
         kind = ctypes.c_int(-1)
         cudart.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
         kernel_nodes += kind.value == 0            # cudaGraphNodeTypeKernel
+        memset_nodes += kind.value == 2            # cudaGraphNodeTypeMemset
     graph.reset()
-    return kernel_nodes
+    return kernel_nodes, memset_nodes
 
 
-def check_one_kernel(x, seg, size) -> tuple:
-    """(device kernels, launches) of one dense_segment_sum call on these
-    inputs: the kernel nodes of a CUDA graph captured from the call
-    (``graph_kernels``) and the wrapper's launch count; raises unless both
-    are 1 (0 at n = 0, where the wrapper launches nothing)."""
+def check_one_kernel(kernel, x, seg, size) -> tuple:
+    """(device kernels, memset nodes, launches) of one call of the segment
+    sum ``kernel`` on these inputs: the kernel and memset nodes of a CUDA
+    graph captured from the call (``graph_kernels``) and the wrapper's
+    launch count; raises unless they are one kernel, at most one memset
+    and one launch (none at n = 0, where the wrapper launches nothing)."""
     from sparkdq4ml_tpu_torch.ops import kernels
 
     def launched():
-        return kernels.launches.snapshot()["dense_segment_sum"]
+        return kernels.launches.snapshot()[kernel]
 
-    fn = lambda: kernels.dense_segment_sum(x, seg, size)
+    wrapper = getattr(kernels, kernel)
+    fn = lambda: wrapper(x, seg, size)
     before = launched()
     if x.shape[0] == 0:
         fn()
-        got = (0, launched() - before)
+        got = (0, 0, launched() - before)
     else:
-        nodes = graph_kernels(fn)     # a warm-up call, then the captured one
-        got = (nodes, (launched() - before) // 2)
-    want = (0, 0) if x.shape[0] == 0 else (1, 1)
-    if got != want:
-        raise AssertionError(f"dense_segment_sum at {tuple(x.shape)} onto "
-                             f"{size} slots: {got} (device kernels, "
-                             f"launches), expected {want} a call")
+        nodes, memsets = graph_kernels(fn)   # a warm-up call, then the
+        got = (nodes, memsets, (launched() - before) // 2)   # captured one
+    if x.shape[0] == 0:
+        ok = got == (0, 0, 0)
+    else:
+        ok = got[0] == 1 and got[1] <= 1 and got[2] == 1
+    if not ok:
+        raise AssertionError(f"{kernel} at {tuple(x.shape)} onto {size} "
+                             f"slots: {got} (device kernels, memsets, "
+                             f"launches), expected one kernel, at most one "
+                             f"memset and one launch a call")
     return got
 
 
@@ -954,6 +1081,96 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
             "library_device_ms": library_traced["device_ms"],
             "library_device_events": library_traced["device_events"],
             "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+def graph_ms(fn, calls: int = 20, rounds: int = 5) -> float:
+    """The device time of one call of ``fn`` (ms): ``calls`` calls captured
+    in one CUDA graph on a side stream, after a warm-up call there, and
+    the median of ``rounds`` replays timed by CUDA events, over ``calls``:
+    the kernels and memsets a call runs, without the host path."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    graph.reset()
+    return float(np.median(times))
+
+
+def sorted_zero_forms(seed: int = 3) -> dict:
+    """The sorted kernel's two ways to zero the slots no row reaches, on
+    the same launch: the blocks' own zeros and a memset before the launch
+    (kernels.sorted_segment_plan picks the memset where the output passes
+    1 / SEGSUM_SORTED_ZERO_RATIO of the rows' bytes). Float32, one column,
+    at shapes either side of that rule: 9,611,537 rows onto 20,556 slots,
+    and onto 900,000 (just under it) with ids spread and with ids in the
+    top sixteenth (the first block zeroes the rest alone); 131,584 ids
+    onto PIC's 16,777,216 slots, an eighth of them, and 1,000 ids onto
+    10^7 slots (one block). Each form's device time a call (graph_ms), in
+    turns (blocks, memset, memset, blocks), both forms bit for bit alike;
+    with the form the plan picks and the byte bound."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    rows = 9_611_537
+    spread = np.sort(rng.integers(0, 900_000, rows))
+    pic = 16_777_216
+    shapes = [
+        ("9,611,537 rows onto 20,556 slots",
+         np.sort(rng.integers(0, 20_556, rows)), 20_556),
+        ("9,611,537 rows onto 900,000 slots", spread, 900_000),
+        ("9,611,537 rows onto 900,000 slots, ids in the top sixteenth",
+         843_750 + spread // 16, 900_000),
+        ("131,584 ids onto 16,777,216 slots",
+         np.sort(rng.choice(pic, 131_584, replace=False)), pic),
+        ("16,448 ids onto 16,777,216 slots",
+         np.sort(rng.choice(pic, 16_448, replace=False)), pic),
+        ("1,000 ids onto 10^7 slots",
+         np.sort(rng.choice(10**7, 1000, replace=False)), 10**7)]
+    out = {}
+    for name, ids, size in shapes:
+        n = len(ids)
+        x = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                            device="cuda")
+        seg = torch.as_tensor(ids, device="cuda")
+        plan, args = kernels._sorted_call(n, 1, 4, size)
+        forms = {}
+        for form, memset in (("blocks", 0), ("memset", 1)):
+            a = kernels._SortedArgs.from_buffer_copy(args)
+            a.memset = memset
+            forms[form] = (lambda a=a: kernels._sorted_launch(
+                x, seg, size, plan.scratch_bytes, a))
+        if not same_bits(forms["blocks"](), forms["memset"]()):
+            raise AssertionError(f"sorted zero forms differ at {name}")
+        times = {"blocks": [], "memset": []}
+        for form in ("blocks", "memset", "memset", "blocks"):
+            times[form].append(graph_ms(forms[form]))
+        out[name] = {"n": n, "size": size, "blocks": plan.blocks,
+                     "plan": "memset" if plan.memset else "blocks",
+                     **{f"{f}_ms": float(np.median(t))
+                        for f, t in times.items()},
+                     "turns_ms": times,
+                     "bound_ms": 1e3 * (n * 12 + size * 4) / HBM_BYTES_PER_S}
+    log(f"sorted segment sum's zero forms: {out}")
+    return out
 
 
 def host_us(fn, calls: int = 2000, rounds: int = 5) -> float:
@@ -4396,7 +4613,7 @@ KERNEL_NAMES = {"dq_rules": ("dq_rules_kernel",),
                 "packed_gram": ("PackedDesign",),
                 "masked_gram": ("MaskedDesign",),
                 "dense_segment_sum": ("dense_regs", "dense_table"),
-                "sorted_segment_sum": ("sorted_tiles",)}
+                "sorted_segment_sum": ("sorted_segments",)}
 
 
 def profile_run(name: str, fn) -> dict:
@@ -4448,9 +4665,9 @@ def trace_call(fn) -> dict:
     """One call of ``fn`` under a torch.profiler trace of its own: the
     device events it runs, the kernel launches its host side makes, and
     the device time of those events (ms). A trace that holds fewer device
-    events than host launches lost events: the call is traced again, up
-    to ``PROFILE_RETRACES`` times, and ``traces`` says how many were
-    taken."""
+    events than host launches and memsets lost events: the call is traced
+    again, up to ``PROFILE_RETRACES`` times, and ``traces`` says how many
+    were taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4464,7 +4681,8 @@ def trace_call(fn) -> dict:
                      if str(getattr(e, "device_type", "")).endswith("CUDA")]
         launched = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                   "cudaLaunchKernelExC") for e in events)
-        if len(on_device) >= launched:
+        memsets = sum(e.name == "cudaMemsetAsync" for e in events)
+        if len(on_device) >= launched + memsets:
             break
     return {"device_kernels": len(on_device), "host_launches": launched,
             "names": sorted({e.name for e in on_device}), "traces": taken,
@@ -4542,6 +4760,8 @@ def main() -> int:
     gram_errs = check_packed_gram("cuda")
     masked_errs = check_masked_gram("cuda")
     check_segment_sum(edge_segment_cases("cuda"))
+    two_streams = check_two_streams()
+    log(f"segment sums on two streams: {two_streams}")
     seg_cases = segment_cases(*clean_columns())
     seg_errs = check_segment_sum(seg_cases)
     one_cases = one_slot_cases()
@@ -4569,6 +4789,7 @@ def main() -> int:
     seg_one = {c[0]: {**segsum_times(*c), "max_abs_err": one_errs[c[0]]}
                for c in one_cases}
     seg_host = segsum_host_path(one_cases)
+    zero_forms = sorted_zero_forms()
     del seg_cases, one_cases
     prof = profile_app()
     log(f"profile of the app phase: {prof}")
@@ -4677,8 +4898,9 @@ def main() -> int:
          "zoo_shapes": {k: v for k, v in zoo_times.items()
                         if v["kernel"] == "sorted_segment_sum"},
          "max_abs_err": seg_errs["sorted price groups"], "parity": True,
-         "bit_identical_runs": True, **seg_sorted,
-         "long_segments": seg_long},
+         "bit_identical_runs": True, "two_streams": two_streams,
+         "zero_forms": zero_forms,
+         **seg_sorted, "long_segments": seg_long},
     ], "launches_by_path": by_path,
         "device_kernels_per_call": per_call,
         "app_phase_s": float(np.median(app_s)), "app_phase_runs_s": app_s,

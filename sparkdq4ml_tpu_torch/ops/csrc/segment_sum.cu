@@ -7,11 +7,10 @@
 // adds float atomics in no fixed order on the card, so a GROUP BY sum, and
 // every comparison with it, could change from run to run. Neither kernel
 // here adds a float with an atomic: each sum runs in an order set by the
-// launch plan (`ops/kernels.py: dense_segment_plan`, and the fixed tile
-// size below) and by the rows' slot ids, never by timing, so one input
-// gives one result. (The integer atomics number the entries of the sorted
-// kernel's work list and hand out the dense kernel's tickets; neither
-// reaches the order of a sum.)
+// launch plan (`ops/kernels.py: dense_segment_plan`, `sorted_segment_plan`)
+// and by the rows' slot ids, never by timing, so one input gives one
+// result. (The one integer atomic hands out both kernels' tickets; it
+// decides which block adds the partials, never the order of a sum.)
 //
 // dense_*: unsorted slot ids into a table small enough for shared memory
 //   (a GROUP BY's slots, a tree level's histogram, k-means' clusters), or
@@ -49,22 +48,46 @@
 //   call, and the wrapper gives each stream its own (ops/kernels.py:
 //   _stream_state), so concurrent calls on two streams never share one.
 // sorted_*: nondecreasing segment ids (the sorted GROUP BY program, whose
-//   segments are contiguous after the stable sort). A warp stages 32 tiles
-//   of kTile consecutive rows in shared memory; each lane sums the runs of
-//   its tile in row order and writes a run that lies inside its tile
-//   straight to the result. A run that crosses a tile edge leaves a
-//   partial per tile; a warp for each segment's first tile adds the later
-//   tiles' partials, lane by lane in tile order and then across the lanes
-//   in a fixed butterfly.
+//   segments are contiguous after the stable sort; a table past the dense
+//   kernel's shared memory after a stable sort of its ids), any number of
+//   columns. One launch a call (ops/kernels.py: sorted_segment_plan). Each
+//   block takes a fixed, contiguous range of rows and reads it once, in
+//   stages: the stage's ids and its rows' values (all columns, one flat
+//   span) are copied into shared memory with cp.async, as 16-byte vectors
+//   where both inputs lie on the 16-byte grid and value by value where a
+//   view does not, while the stage before is added (two stage buffers).
+//   Rows wider than a stage's share of a thread are read in slabs of
+//   columns, the range once a slab, so that shared memory does not grow
+//   with the column count. In a stage, thread t
+//   adds rows t * K .. t * K + K - 1 in row order (K odd, so that the lanes
+//   read different banks) and writes a run that starts and ends among them
+//   straight to its slot. A scan by segments over the threads (shuffles by
+//   doubling distance over the lanes, then the warps in order) adds the
+//   threads' parts of a run that crosses threads; the thread where the run
+//   ends writes it, and the stage's last run is carried to the next stage
+//   in shared memory. Only a run that crosses the block's two edges leaves
+//   the block: its first run, when it began in the block before, and its
+//   last, when it goes on into the next, as two partials in the stream's
+//   scratch. The last block to finish (an integer ticket, as in the dense
+//   kernel) adds each crossing run's partials in block order with the same
+//   scan over the blocks and writes its slot. Empty slots: where the
+//   output has few bytes beside the rows', each block first writes zeros
+//   over its own slots, from past the id before its first row to its last
+//   id (from slot 0 in the first block, to the last slot in the last), and
+//   the sums over them after a barrier; where it has many (sparse ids, as
+//   PIC's affinity), a memset on the stream before the launch zeroes it,
+//   at the card's whole rate where a few blocks would zero long gaps alone.
 //   A segment id outside [0, size) is never written (memory stays safe
 //   whatever the ids; ids that decrease give wrong sums, not faults).
 //
 // Bound: bytes. Each row's segment id (8 bytes, none in the whole form)
 // and its C values are read once and the tables are small, so the card's
 // memory rate is the limit (about 0.06 ms for 9.6 M rows and three float32
-// columns, 0.012 ms for 10^7 float32 values without ids). The dense kernel
-// reads every row as 16-byte vectors with a few chunks in flight a thread;
-// the sorted kernel reads each thread's tile from consecutive addresses.
+// columns, 0.012 ms for 10^7 float32 values without ids; for the sorted
+// kernel the output's bytes too, 64 MiB for PIC's 16.8 M slots). The dense
+// kernel reads every row as 16-byte vectors with a few chunks in flight a
+// thread; the sorted kernel keeps one stage in flight a block, two blocks
+// an SM, in float32 and float64 and at any column count alike.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,12 +99,16 @@ namespace {
 #ifndef SEGSUM_WARPS
 #error "build with -DSEGSUM_WARPS (ops/kernels.py: NVCC_FLAGS)"
 #endif
-#ifndef SEGSUM_TILE
-#error "build with -DSEGSUM_TILE (ops/kernels.py: NVCC_FLAGS)"
+#ifndef SEGSUM_STAGE_BYTES
+#error "build with -DSEGSUM_STAGE_BYTES (ops/kernels.py: NVCC_FLAGS)"
+#endif
+#ifndef SEGSUM_SORTED_SMEM_BYTES
+#error "build with -DSEGSUM_SORTED_SMEM_BYTES (ops/kernels.py: NVCC_FLAGS)"
 #endif
 constexpr int kWarps = SEGSUM_WARPS;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = SEGSUM_TILE;
+constexpr int kStageBytes = SEGSUM_STAGE_BYTES;
+constexpr int kSortedSmemBytes = SEGSUM_SORTED_SMEM_BYTES;
 
 #ifndef SEGSUM_REG_ENTRIES
 #error "build with -DSEGSUM_REG_ENTRIES (ops/kernels.py: NVCC_FLAGS)"
@@ -429,124 +456,363 @@ __global__ void __launch_bounds__(kThreads, 2)
   finish(part, part + (size_t)gridDim.x * entries, tickets, out, entries);
 }
 
-// The first row of [lo, n) whose segment is above s (seg nondecreasing).
-__device__ int64_t segment_end(const int64_t* __restrict__ seg, int64_t lo,
-                               int64_t n, int64_t s) {
-  int64_t hi = n;
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (seg[mid] <= s) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// cp.async: copies from global to shared memory that the thread does not
+// wait for. copy16 reads `bytes` (at most 16) and fills the rest of the 16
+// with zeros; copy_one reads one value of B bytes.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+template <int B>
+__device__ __forceinline__ void copy_one(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src), "n"(B)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage 1 of the sorted kernel. A warp stages the 32 tiles of its chunk
-// (32 * kTile rows) in shared memory with coalesced loads, then each lane
-// sums the runs of its own tile in row order. A tile's row j sits at
-// lane * (kTile + 1) + j: the pad keeps the lanes on different banks.
-// A lane whose last run starts in its tile and goes on past it is the
-// segment's owner and enters the owner list (an integer counter: the
-// list's order may vary, each owner's sum does not).
+// Rows a thread of the sorted kernel adds in one stage at C columns known
+// when compiled: as many as fill a stage of kStageBytes, made odd. The
+// plan (ops/kernels.py: sorted_segment_plan) computes the same number.
+template <typename T, int C>
+__host__ __device__ constexpr int sorted_rows_per_thread() {
+  const int k =
+      kStageBytes / (kThreads * (int)(sizeof(int64_t) + C * sizeof(T)));
+  return k < 1 ? 1 : (k % 2 ? k : k - 1);
+}
+
+// The first slot past id s, in [0, size].
+__device__ __forceinline__ int64_t slot_after(int64_t s, int64_t size) {
+  return s < 0 ? 0 : (s >= size ? size : s + 1);
+}
+
+// Copies rows [a, a + rows) of columns [c0, c0 + w) into a stage buffer:
+// their ids first, then, after stage_rows ids, their values, w a row. With
+// `vec` (both inputs on the 16-byte grid; a is a multiple of 16 / sizeof(T)
+// rows, so both spans start on it) the ids as 16-byte vectors, and the
+// values too when the stage holds whole rows (one flat span); else value
+// by value. One commit group.
 template <typename T>
-__global__ void sorted_tiles(const T* __restrict__ x,
-                             const int64_t* __restrict__ seg,
-                             T* __restrict__ out, T* __restrict__ head,
-                             T* __restrict__ tail, int* __restrict__ owners,
-                             int* __restrict__ n_owners, int64_t n, int C,
-                             int64_t tiles, int64_t size) {
-  constexpr int kPitch = kTile + 1;
+__device__ void stage_copy(unsigned char* buf, int stage_rows,
+                           const T* __restrict__ x,
+                           const int64_t* __restrict__ seg, int64_t a,
+                           int rows, int cols, int c0, int w, bool vec) {
+  int64_t* ids = reinterpret_cast<int64_t*>(buf);
+  T* vals = reinterpret_cast<T*>(buf + (size_t)stage_rows * sizeof(int64_t));
+  const int count = rows * w;
+  if (vec) {
+    const char* gi = reinterpret_cast<const char*>(seg + a);
+    const int ib = rows * (int)sizeof(int64_t);
+    for (int o = 16 * threadIdx.x; o < ib; o += 16 * kThreads)
+      copy16(reinterpret_cast<char*>(ids) + o, gi + o, min(16, ib - o));
+  } else {
+    for (int i = threadIdx.x; i < rows; i += kThreads)
+      copy_one<8>(ids + i, seg + a + i);
+  }
+  if (vec && w == cols) {
+    const char* gv = reinterpret_cast<const char*>(x + a * cols);
+    const int vb = count * (int)sizeof(T);
+    for (int o = 16 * threadIdx.x; o < vb; o += 16 * kThreads)
+      copy16(reinterpret_cast<char*>(vals) + o, gv + o, min(16, vb - o));
+  } else {
+    for (int i = threadIdx.x; i < count; i += kThreads) {
+      const int r = i / w;
+      copy_one<(int)sizeof(T)>(vals + i, x + (a + r) * cols + c0 + i - r * w);
+    }
+  }
+  copy_commit();
+}
+
+// An inclusive scan by segments of G values a thread over the block's
+// threads in thread order: a segment starts at each thread whose `start`
+// is set, and the threads before the first start go on from `carry` (0
+// when null). On return v holds the sum of its segment up to this thread,
+// and prev the same for the thread before (for thread 0 the carry). The
+// lanes add by doubling distance, five steps of shuffles, then each thread
+// folds the warps before its own in order: one fixed order of adds. Every
+// thread of the block calls it; s_warp and s_start are read again until
+// the caller's next barrier.
+template <typename T, int G>
+__device__ void segmented_scan(bool start, T (&v)[G], T (&prev)[G],
+                               const T* carry, T* s_warp, bool* s_start) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned starts = __ballot_sync(kFull, start);
+  const unsigned upto = starts & (kFull >> (31 - lane));  // lanes <= lane
+  const int first = upto ? 31 - __clz(upto) : 0;  // this segment's first lane
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2)
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const T o = __shfl_up_sync(kFull, v[q], d);
+      if (lane - d >= first) v[q] = o + v[q];
+    }
+  if (lane == 31) {
+#pragma unroll
+    for (int q = 0; q < G; ++q) s_warp[warp * G + q] = v[q];
+    s_start[warp] = starts != 0;
+  }
+  __syncthreads();
+  T p[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) p[q] = carry ? carry[q] : T(0);
+  for (int w = 0; w < warp; ++w) {
+    const bool restart = s_start[w];
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+      p[q] = restart ? s_warp[w * G + q] : p[q] + s_warp[w * G + q];
+  }
+  if (upto == 0)
+#pragma unroll
+    for (int q = 0; q < G; ++q) v[q] = p[q] + v[q];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const T o = __shfl_up_sync(kFull, v[q], 1);
+    prev[q] = lane > 0 ? o : p[q];
+  }
+}
+
+// Columns a thread adds together when the count is known only at run
+// time: one pass over the stage's rows for each group of them.
+constexpr int kSortedGroup = 4;
+
+// The sorted kernel (see the head of this file). C > 0 is the column count,
+// known when compiled; C = 0 takes `cols` at run time, and a stage holds
+// `width` of them (all, or a slab of them: the block then reads its rows
+// once a slab, its ids again each time). part holds two partials of cols
+// values a block (the head, then the tail); the dynamic shared memory two
+// stage buffers of stage_rows rows of width values, then two carries of
+// width values rounded up to whole groups. With `zero` the block writes
+// the zeros of its empty slots (else a memset before the launch did).
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 2)
+    sorted_segments(const T* __restrict__ x, const int64_t* __restrict__ seg,
+                    T* __restrict__ part, unsigned* __restrict__ ticket,
+                    T* __restrict__ out, int64_t n, int64_t size, int cols,
+                    int width, int64_t rows_per_block, int stage_rows,
+                    int per_thread, bool zero, bool vec) {
+  constexpr int G = C > 0 ? C : kSortedGroup;
+  constexpr int KC = C > 0 ? sorted_rows_per_thread<T, C>() : 1;
+  const int cc = C > 0 ? C : cols;
+  const int wd = C > 0 ? C : width;
+  const int K = C > 0 ? KC : per_thread;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int64_t* s_seg = reinterpret_cast<int64_t*>(smem_raw) +
-                   (size_t)warp * 32 * kPitch;
-  T* s_x = reinterpret_cast<T*>(reinterpret_cast<int64_t*>(smem_raw) +
-                                (size_t)kWarps * 32 * kPitch) +
-           (size_t)warp * 32 * kPitch;
-  const int64_t chunk = (int64_t)blockIdx.x * kWarps + warp;
-  const int64_t base = chunk * 32 * kTile;
-  if (base >= n) return;                    // the whole warp leaves
-  const int64_t t = chunk * 32 + lane;
-  for (int i = 0; i < kTile; ++i) {         // row base + i * 32 + lane
-    const int64_t r = base + (int64_t)i * 32 + lane;
-    const int local = i * 32 + lane;
-    if (r < n) s_seg[(local / kTile) * kPitch + local % kTile] = seg[r];
-  }
-  const int64_t r0 = t * kTile, r1 = min(n, r0 + kTile);
-  const bool active = t < tiles;
-  bool first_starts = false, last_ends = false;
-  if (active) {
-    first_starts = r0 == 0 || seg[r0 - 1] != seg[r0];
-    last_ends = r1 == n || seg[r1] != seg[r1 - 1];
-  }
-  const int64_t* my_seg = s_seg + (size_t)lane * kPitch;
-  for (int c = 0; c < C; ++c) {
-    __syncwarp();
-    for (int i = 0; i < kTile; ++i) {
-      const int64_t r = base + (int64_t)i * 32 + lane;
-      const int local = i * 32 + lane;
-      if (r < n) s_x[(local / kTile) * kPitch + local % kTile] = x[r * C + c];
-    }
-    __syncwarp();
-    if (!active) continue;
-    const T* my_x = s_x + (size_t)lane * kPitch;
-    const int rows = (int)(r1 - r0);
-    int run_start = 0;
-    int64_t run_seg = my_seg[0];
-    T acc = T(0);
-    for (int j = 0; j <= rows; ++j) {
-      const bool done = j == rows;
-      const int64_t sj = done ? -1 : my_seg[j];
-      if (done || sj != run_seg) {
-        const bool starts = run_start != 0 || first_starts;
-        const bool ends = !done || last_ends;
-        if (!starts) {
-          head[t * C + c] = acc;
-        } else if (!ends) {
-          tail[t * C + c] = acc;
-          if (c == 0) owners[atomicAdd(n_owners, 1)] = (int)t;
-        } else if (run_seg >= 0 && run_seg < size) {
-          out[run_seg * C + c] = acc;
-        }
-        if (done) break;
-        run_start = j;
-        run_seg = sj;
-        acc = T(0);
-      }
-      acc += my_x[j];
-    }
-  }
-}
+  __shared__ T s_warp[kWarps * G];
+  __shared__ bool s_start[kWarps];
+  __shared__ int64_t s_carry_id[2];
+  const size_t stage_bytes =
+      (size_t)stage_rows * (sizeof(int64_t) + (size_t)wd * sizeof(T));
+  const int carry_len = (wd + G - 1) / G * G;
+  T* s_carry = reinterpret_cast<T*>(smem_raw + 2 * stage_bytes);
 
-// Stage 2: a warp a listed owner. The lanes add the partials of the
-// later tiles of the owner's segment, lane l taking tiles t + 1 + l,
-// t + 33 + l, ... in turn; a butterfly of shuffles adds the lanes in a
-// fixed pattern, and the owner's own partial comes first.
-template <typename T>
-__global__ void sorted_carry(const int64_t* __restrict__ seg,
-                             const T* __restrict__ head,
-                             const T* __restrict__ tail,
-                             const int* __restrict__ owners,
-                             const int* __restrict__ n_owners,
-                             T* __restrict__ out, int64_t n, int C,
-                             int64_t size) {
-  const int lane = threadIdx.x % 32;
-  const int warps = gridDim.x * (blockDim.x / 32);
-  const int count = *n_owners;
-  for (int k = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32; k < count;
-       k += warps) {
-    const int64_t t = owners[k];
-    const int64_t r1 = min(n, (t + 1) * kTile);
-    const int64_t s = seg[r1 - 1];
-    if (s < 0 || s >= size) continue;
-    const int64_t last_tile = (segment_end(seg, r1, n, s) - 1) / kTile;
-    for (int c = 0; c < C; ++c) {
-      T acc = T(0);
-      for (int64_t u = t + 1 + lane; u <= last_tile; u += 32)
-        acc += head[u * C + c];
-      for (int off = 16; off > 0; off /= 2)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) out[s * C + c] = tail[t * C + c] + acc;
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t r1 = min(n, r0 + rows_per_block);
+  const int stages = (int)((r1 - r0 + stage_rows - 1) / stage_rows);
+  const int slabs = C > 0 ? 1 : (cc + wd - 1) / wd;  // one at C known
+  const int steps = stages * slabs;
+  // Step t (stage t % stages of slab t / stages) into its buffer of the
+  // two, one commit group (an empty one past the last step, so that the
+  // groups count the steps).
+  auto issue = [&](int t) {
+    if (t < steps) {
+      const int slab = slabs == 1 ? 0 : t / stages;
+      const int64_t a = r0 + (int64_t)(t - slab * stages) * stage_rows;
+      stage_copy<T>(smem_raw + (t & 1) * stage_bytes, stage_rows, x, seg, a,
+                    (int)min((int64_t)stage_rows, r1 - a), cc, slab * wd,
+                    min(wd, cc - slab * wd), vec);
+    } else {
+      copy_commit();
     }
+  };
+  issue(0);  // one step ahead
+
+  // The block's first id, and whether its first run began in the block
+  // before (then the run leaves as the head partial). Its slots, zeroed
+  // before any sum is written: from past the id before its first row to
+  // its last id, clipped to [0, size); slot 0 on in the first block, to the
+  // last slot in the last.
+  const int64_t first = __ldg(seg + r0);
+  const int64_t before = r0 > 0 ? __ldg(seg + r0 - 1) : 0;
+  const int64_t after = r1 < n ? __ldg(seg + r1) : 0;  // for the block's end
+  const bool open_start = r0 > 0 && before == first;
+  if (zero) {  // as 16-byte vectors between a ragged head and tail
+    const int64_t lo = r0 > 0 ? slot_after(before, size) : 0;
+    const int64_t hi = r1 < n ? slot_after(__ldg(seg + r1 - 1), size) : size;
+    constexpr int V = Vec<T>::rows;
+    T* z = out + lo * cc;
+    const int64_t count = hi > lo ? (hi - lo) * cc : 0;
+    const int64_t head = min(
+        count, (int64_t)(((16 - ((size_t)z & 15)) & 15) / sizeof(T)));
+    const int64_t body = (count - head) / V;
+    typename Vec<T>::type* zv =
+        reinterpret_cast<typename Vec<T>::type*>(z + head);
+    for (int64_t e = threadIdx.x; e < head; e += kThreads) z[e] = T(0);
+    for (int64_t e = threadIdx.x; e < body; e += kThreads)
+      zv[e] = typename Vec<T>::type{};
+    for (int64_t e = head + body * V + threadIdx.x; e < count; e += kThreads)
+      z[e] = T(0);
+  }
+
+  T* head_part = part + (size_t)blockIdx.x * 2 * cc;
+  T* tail_part = head_part + cc;
+  // A run of id s that ended: the head partial when it began in the block
+  // before, else its slot (none for an id outside [0, size)). Columns c0
+  // .. c0 + m - 1.
+  auto emit = [&](int64_t s, const T* v, int c0, int m) {
+    if (open_start && s == first) {
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+        if (q < m) head_part[c0 + q] = v[q];
+    } else if (s >= 0 && s < size) {
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+        if (q < m) out[s * cc + c0 + q] = v[q];
+    }
+  };
+
+  for (int t = 0; t < steps; ++t) {
+    const int slab = slabs == 1 ? 0 : t / stages, k = t - slab * stages;
+    const int c_lo = slab * wd, w = C > 0 ? C : min(wd, cc - c_lo);
+    const int rows =
+        (int)min((int64_t)stage_rows, r1 - r0 - (int64_t)k * stage_rows);
+    copy_wait<0>();   // step t is in, for every thread after the
+    __syncthreads();  // barrier, and step t - 1 is added:
+    issue(t + 1);     // its buffer takes the next step
+    const unsigned char* buf = smem_raw + (t & 1) * stage_bytes;
+    const int64_t* ids = reinterpret_cast<const int64_t*>(buf);
+    const T* vals =
+        reinterpret_cast<const T*>(buf + (size_t)stage_rows * sizeof(int64_t));
+    const int j0 = threadIdx.x * K, j1 = min(j0 + K, rows);
+    const bool has = j0 < rows;
+    const int last = (rows - 1) / K;  // the thread of the stage's last row
+    const int64_t fid = has ? ids[j0] : 0, lid = has ? ids[j1 - 1] : 0;
+    // Whether the thread's first run goes on from the thread (or stage)
+    // before, and its last run into the next thread; the stage's last run
+    // is always carried.
+    const bool open_in =
+        has && (threadIdx.x > 0 ? ids[j0 - 1] == fid
+                                : k > 0 && s_carry_id[k & 1] == fid);
+    const bool open_out = has && ((int)threadIdx.x == last || ids[j1] == lid);
+    const T* carry = k > 0 ? s_carry + (k & 1) * carry_len : nullptr;
+    T* next_carry = s_carry + ((k + 1) & 1) * carry_len;
+    if (threadIdx.x == 0 && k > 0 && !open_in)  // the carried run ended
+      for (int c0 = 0; c0 < w; c0 += G)
+        emit(s_carry_id[k & 1], carry + c0, c_lo + c0, min(G, w - c0));
+    for (int c0 = 0; c0 < w; c0 += G) {
+      const int m = C > 0 ? G : min(G, w - c0);
+      T head[G], acc[G], prev[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) head[q] = acc[q] = T(0);
+      bool brk = false;  // a run ends inside the thread
+      int64_t run = fid;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int j = j0 + i;
+        if (j >= j1) break;
+        const int64_t s = ids[j];
+        if (s != run) {
+          if (brk) {
+            emit(run, acc, c_lo + c0, m);  // a run inside the thread
+          } else {
+#pragma unroll
+            for (int q = 0; q < G; ++q) head[q] = acc[q];
+          }
+          brk = true;
+          run = s;
+#pragma unroll
+          for (int q = 0; q < G; ++q) acc[q] = T(0);
+        }
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          if (q < m) acc[q] += vals[(size_t)j * w + c0 + q];
+      }
+      // acc: the thread's part of its last run; after the scan, that run's
+      // sum from its start (the carry included), and prev the same for the
+      // thread before.
+      segmented_scan<T, G>(has && (brk || !open_in), acc, prev,
+                           carry ? carry + c0 : nullptr, s_warp, s_start);
+      if (has) {
+        if (brk) {  // the thread's first run ends inside it
+          if (open_in)
+#pragma unroll
+            for (int q = 0; q < G; ++q) head[q] = prev[q] + head[q];
+          emit(fid, head, c_lo + c0, m);
+        }
+        if (!open_out) {
+          emit(lid, acc, c_lo + c0, m);
+        } else if ((int)threadIdx.x == last) {
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            if (q < m) next_carry[c0 + q] = acc[q];
+          if (c0 == 0) s_carry_id[(k + 1) & 1] = lid;
+        }
+      }
+      if (C == 0) __syncthreads();  // s_warp again in the next group
+    }
+    if (k < stages - 1) continue;
+    // The slab's last stage: the block's last run, carried out of it, is a
+    // tail partial when it goes on into the next block (a head partial
+    // when it also began in the block before), else it ended here.
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const T* v = s_carry + (stages & 1) * carry_len;
+      const int64_t s = s_carry_id[stages & 1];
+      const bool open_end = r1 < n && after == s;
+      if (open_end && !(open_start && s == first)) {
+        for (int c = 0; c < w; ++c) tail_part[c_lo + c] = v[c];
+      } else {
+        for (int c0 = 0; c0 < w; c0 += G)
+          emit(s, v + c0, c_lo + c0, min(G, w - c0));
+      }
+    }
+  }
+  if (gridDim.x == 1 || !arrive(ticket, gridDim.x)) return;
+
+  // The last block, thread b for block b. A run that crosses blocks left
+  // a tail partial in the block where it began and a head partial in each
+  // later block it reaches (the whole block's sum in a block it goes
+  // through). The scan by segments over the blocks, in block order, adds
+  // them; the block where the run ends writes its slot.
+  const int b = threadIdx.x;
+  const bool valid = b < (int)gridDim.x;
+  int64_t fb = 0, lb = 0;
+  bool bos = false, boe = false;
+  if (valid) {
+    const int64_t b0 = (int64_t)b * rows_per_block;
+    const int64_t b1 = min(n, b0 + rows_per_block);
+    fb = __ldg(seg + b0);
+    lb = __ldg(seg + b1 - 1);
+    bos = b0 > 0 && __ldg(seg + b0 - 1) == fb;
+    boe = b1 < n && __ldg(seg + b1) == lb;
+  }
+  const bool through = bos && fb == lb;  // one run from end to end
+  const bool ends = valid && bos && (!boe || fb != lb) && fb >= 0 && fb < size;
+  const T* bp = part + (size_t)b * 2 * cc;
+  for (int c0 = 0; c0 < cc; c0 += G) {
+    const int m = C > 0 ? G : min(G, cc - c0);
+    T v[G], prev[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+      v[q] = valid && boe && q < m ? __ldcg(bp + (through ? 0 : cc) + c0 + q)
+                                   : T(0);
+    segmented_scan<T, G>(!through, v, prev, nullptr, s_warp, s_start);
+    if (ends)
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+        if (q < m) out[fb * cc + c0 + q] = prev[q] + __ldcg(bp + c0 + q);
+    __syncthreads();
   }
 }
 
@@ -642,33 +908,77 @@ int dense_launch(const T* x, const int64_t* seg, T* part, unsigned* tickets,
   }
 }
 
+template <typename T, int C>
+cudaError_t launch_sorted(const T* x, const int64_t* seg, T* part,
+                          unsigned* ticket, T* out, long long n,
+                          long long size, int cols, int width, int blocks,
+                          long long rows_per_block, int stage_rows,
+                          int per_thread, int smem, bool memset, bool vec,
+                          cudaStream_t s) {
+  // the plan's rows a thread are the ones this instance adds
+  if (C > 0 && per_thread != sorted_rows_per_thread<T, C>())
+    return cudaErrorInvalidValue;
+  // raised once per device for each instance, to the most a plan takes
+  static bool raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !raised[dev]) {
+    err = cudaFuncSetAttribute(sorted_segments<T, C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSortedSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) raised[dev] = true;
+  }
+  if (memset) {
+    err = cudaMemsetAsync(out, 0, (size_t)size * cols * sizeof(T), s);
+    if (err != cudaSuccess) return err;
+  }
+  sorted_segments<T, C><<<blocks, kThreads, smem, s>>>(
+      x, seg, part, ticket, out, (int64_t)n, (int64_t)size, cols, width,
+      (int64_t)rows_per_block, stage_rows, per_thread, !memset, vec);
+  return cudaGetLastError();
+}
+
+// One launch of the sorted kernel (after a memset of the output when the
+// plan says so). part holds two partials of C values a block; ticket one
+// zeroed counter.
 template <typename T>
-int sorted_launch(const T* x, const int64_t* seg, T* head, T* tail,
-                  int* owners, int* n_owners, T* out, long long n, int C,
-                  long long size, void* stream) {
-  if (n <= 0) return 0;
+int sorted_launch(const T* x, const int64_t* seg, T* part, unsigned* ticket,
+                  T* out, long long n, long long size, int C, int width,
+                  int blocks, long long rows_per_block, int stage_rows,
+                  int per_thread, int smem, int memset, int vec,
+                  void* stream) {
+  if (n <= 0 || C <= 0) return 0;
+  // the last block adds the partials a thread a block
+  if (blocks < 1 || blocks > kThreads || smem > kSortedSmemBytes ||
+      size < 0 || seg == nullptr || width < 1 || width > C ||
+      (C <= 4 && width != C))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long tiles = (n + kTile - 1) / kTile;
-  const long long chunks = (tiles + 31) / 32;
-  const unsigned grid = (unsigned)((chunks + kWarps - 1) / kWarps);
-  const size_t smem =
-      (sizeof(int64_t) + sizeof(T)) * (size_t)kWarps * 32 * (kTile + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      sorted_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sorted_tiles<T><<<grid, kThreads, smem, s>>>(
-      x, seg, out, head, tail, owners, n_owners, (int64_t)n, C,
-      (int64_t)tiles, (int64_t)size);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // one warp a listed owner, at most one owner a chunk of 32 tiles each
-  const long long carry_blocks = (chunks + kWarps - 1) / kWarps;
-  const unsigned carry_grid =
-      (unsigned)(carry_blocks < 2048 ? carry_blocks : 2048);
-  sorted_carry<T><<<carry_grid, kThreads, 0, s>>>(
-      seg, head, tail, owners, n_owners, out, (int64_t)n, C, (int64_t)size);
-  return (int)cudaGetLastError();
+  const bool m = memset != 0, v = vec != 0;
+  switch (C) {
+    case 1:
+      return (int)launch_sorted<T, 1>(x, seg, part, ticket, out, n, size, C,
+                                      width, blocks, rows_per_block,
+                                      stage_rows, per_thread, smem, m, v, s);
+    case 2:
+      return (int)launch_sorted<T, 2>(x, seg, part, ticket, out, n, size, C,
+                                      width, blocks, rows_per_block,
+                                      stage_rows, per_thread, smem, m, v, s);
+    case 3:
+      return (int)launch_sorted<T, 3>(x, seg, part, ticket, out, n, size, C,
+                                      width, blocks, rows_per_block,
+                                      stage_rows, per_thread, smem, m, v, s);
+    case 4:
+      return (int)launch_sorted<T, 4>(x, seg, part, ticket, out, n, size, C,
+                                      width, blocks, rows_per_block,
+                                      stage_rows, per_thread, smem, m, v, s);
+    default:
+      return (int)launch_sorted<T, 0>(x, seg, part, ticket, out, n, size, C,
+                                      width, blocks, rows_per_block,
+                                      stage_rows, per_thread, smem, m, v, s);
+  }
 }
 
 }  // namespace
@@ -707,19 +1017,43 @@ extern "C" int dense_segment_sum_f64(const double* x, const int64_t* seg,
       a->chunks_per_block, vec, stream);
 }
 
+// The sorted kernel's arguments that follow from its plan alone (ops/
+// kernels.py: _SortedArgs): rows, rows a block, the bytes of ticket
+// counters at the head of the stream's scratch (the partials follow them),
+// columns, the columns a stage holds, blocks, rows a stage, rows a thread
+// in a stage, the dynamic shared memory, and whether a memset zeroes the
+// output before the launch (else the blocks zero their empty slots).
+struct SortedArgs {
+  long long n;
+  long long rows_per_block;
+  long long ticket_bytes;
+  int C;
+  int width;
+  int blocks;
+  int stage_rows;
+  int per_thread;
+  int smem;
+  int memset;
+};
+
 extern "C" int sorted_segment_sum_f32(const float* x, const int64_t* seg,
-                                      float* head, float* tail, int* owners,
-                                      int* n_owners, float* out, long long n,
-                                      int C, long long size, void* stream) {
-  return sorted_launch<float>(x, seg, head, tail, owners, n_owners, out, n,
-                              C, size, stream);
+                                      void* scratch, float* out,
+                                      const SortedArgs* a, long long size,
+                                      int vec, void* stream) {
+  return sorted_launch<float>(
+      x, seg, reinterpret_cast<float*>((char*)scratch + a->ticket_bytes),
+      (unsigned*)scratch, out, a->n, size, a->C, a->width, a->blocks,
+      a->rows_per_block, a->stage_rows, a->per_thread, a->smem, a->memset,
+      vec, stream);
 }
 
 extern "C" int sorted_segment_sum_f64(const double* x, const int64_t* seg,
-                                      double* head, double* tail,
-                                      int* owners, int* n_owners,
-                                      double* out, long long n, int C,
-                                      long long size, void* stream) {
-  return sorted_launch<double>(x, seg, head, tail, owners, n_owners, out, n,
-                               C, size, stream);
+                                      void* scratch, double* out,
+                                      const SortedArgs* a, long long size,
+                                      int vec, void* stream) {
+  return sorted_launch<double>(
+      x, seg, reinterpret_cast<double*>((char*)scratch + a->ticket_bytes),
+      (unsigned*)scratch, out, a->n, size, a->C, a->width, a->blocks,
+      a->rows_per_block, a->stage_rows, a->per_thread, a->smem, a->memset,
+      vec, stream);
 }

@@ -99,18 +99,42 @@ SEGSUM_SMEM_BYTES = 96 << 10
 SEGSUM_REG_ENTRIES = 32
 SEGSUM_REG_COLS = 4         # the column counts segment_sum.cu compiles for
 SEGSUM_GROUP = 16
-# Rows a thread of the sorted kernel sums in row order. The kernels read
-# SEGSUM_WARPS, SEGSUM_TILE, SEGSUM_REG_ENTRIES, SEGSUM_GROUP and
-# SEGSUM_SMEM_BYTES from the nvcc flags below.
-SEGSUM_TILE = 32
+# The sorted segment sum's plan (csrc/segment_sum.cu, sorted_segment_plan):
+# blocks of SEGSUM_WARPS warps, each a contiguous range of rows (a
+# multiple of 16 bytes' worth, so that every range starts on the 16-byte
+# grid), at least SEGSUM_SORTED_MIN_ROWS rows each and at most
+# SEGSUM_SORTED_BLOCKS of them (about two an H100 SM; the last block adds
+# the cross-block partials a thread a block, so at most a block's
+# threads). A block reads its range in stages of at most
+# SEGSUM_STAGE_BYTES of ids and values, two stage buffers in its shared
+# memory: one stage in flight while the one before is added. A stage holds
+# whole rows up to the columns that leave a thread one row of it (24
+# float32, 12 float64), else slabs of that many columns, so that shared
+# memory stays under SEGSUM_SORTED_SMEM_BYTES (the ceiling raised once a
+# device) at any column count. On an H100 (PERF.md section 6) stages of
+# 26 KB ran faster than 13 and 52 KB, two buffers no slower than three or
+# four, and 256 blocks faster than 128-224. An output of more than
+# 1 / SEGSUM_SORTED_ZERO_RATIO of the rows' bytes is zeroed by a memset
+# before the launch; a smaller one by the blocks, each over its own empty
+# slots, where one block may have to zero them all. The numbers are fixed,
+# so the order of the adds does not depend on the card.
+# The kernels read SEGSUM_WARPS, SEGSUM_REG_ENTRIES, SEGSUM_GROUP,
+# SEGSUM_SMEM_BYTES, SEGSUM_STAGE_BYTES and SEGSUM_SORTED_SMEM_BYTES from
+# the nvcc flags below; the block counts are launch arguments.
+SEGSUM_SORTED_BLOCKS = 256
+SEGSUM_SORTED_MIN_ROWS = 1024
+SEGSUM_STAGE_BYTES = 26 << 10
+SEGSUM_SORTED_SMEM_BYTES = 56 << 10
+SEGSUM_SORTED_ZERO_RATIO = 32
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC",
               f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}",
               f"-DGRAM_TILE={GRAM_TILE}", f"-DSEGSUM_WARPS={SEGSUM_WARPS}",
-              f"-DSEGSUM_TILE={SEGSUM_TILE}",
               f"-DSEGSUM_REG_ENTRIES={SEGSUM_REG_ENTRIES}",
               f"-DSEGSUM_GROUP={SEGSUM_GROUP}",
-              f"-DSEGSUM_SMEM_BYTES={SEGSUM_SMEM_BYTES}")
+              f"-DSEGSUM_SMEM_BYTES={SEGSUM_SMEM_BYTES}",
+              f"-DSEGSUM_STAGE_BYTES={SEGSUM_STAGE_BYTES}",
+              f"-DSEGSUM_SORTED_SMEM_BYTES={SEGSUM_SORTED_SMEM_BYTES}")
 # Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
 # chunk at D = 514 in float64, so at most 15 chunks there).
 GRAM_PARTIAL_BYTES = 32 << 20
@@ -249,7 +273,7 @@ def _bind(name: str, lib) -> dict:
                    [P, P, P, P, ctypes.POINTER(_DenseArgs), I, P]),
                   ({("sorted", f32): lib.sorted_segment_sum_f32,
                     ("sorted", f64): lib.sorted_segment_sum_f64},
-                   [P, P, P, P, P, P, P, LL, I, LL, P])]
+                   [P, P, P, P, ctypes.POINTER(_SortedArgs), LL, I, P])]
     fns = {}
     for group, argtypes in groups:
         for key, fn in group.items():
@@ -480,8 +504,9 @@ def dense_segment_fits(size: int, columns: int, elem_bytes: int) -> bool:
 
 # The dense kernel's forms, numbered as csrc/segment_sum.cu numbers them.
 DENSE_FORMS = ("whole", "regs", "table")
-# Counters a stream's scratch keeps for the dense kernel's tickets: one a
-# group of blocks and one more (the plan asserts it is enough).
+# Counters a stream's scratch keeps for the segment sums' tickets: the
+# dense kernel's one a group of blocks and one more (the plan asserts it is
+# enough), the sorted kernel's the first.
 SEGSUM_TICKETS = 1024
 
 
@@ -571,7 +596,93 @@ def _dense_call(n: int, size: int, cols: int, elem_bytes: int,
                             plan.form_index, plan.blocks, _TICKET_BYTES)
 
 
-# Each (device, stream) keeps its own scratch for the dense kernel:
+class SortedPlan(NamedTuple):
+    """One launch of the sorted kernel: ``blocks`` blocks of
+    ``rows_per_block`` consecutive rows each (the last fewer), read in
+    stages of ``stage_rows`` rows of ``width`` columns (all of them, or a
+    slab), ``rows_per_thread`` consecutive rows a thread in a stage; the
+    dynamic shared memory a block (two stages and two carries of the
+    stage's columns, rounded up to whole groups of ``SORTED_GROUP``), the
+    bytes of a stream's scratch (the ticket counters, then two partials of
+    the columns a block), and whether a memset zeroes the output before
+    the launch (else the blocks zero their empty slots)."""
+    blocks: int
+    rows_per_block: int
+    stage_rows: int
+    rows_per_thread: int
+    width: int
+    smem_bytes: int
+    scratch_bytes: int
+    memset: bool
+
+
+# Columns the sorted kernel adds together when their count is known only
+# when it runs (more than SEGSUM_REG_COLS): csrc/segment_sum.cu,
+# kSortedGroup.
+SORTED_GROUP = 4
+
+
+def sorted_segment_plan(n: int, cols: int, elem_bytes: int,
+                        size: int) -> SortedPlan:
+    """The sorted kernel's plan for n >= 1 rows (n = 0 launches nothing) of
+    ``cols`` columns of ``elem_bytes`` bytes with nondecreasing int64 ids
+    onto ``size`` slots. A stage's columns: all, up to as many whole groups
+    as leave a thread one row of a stage of ``SEGSUM_STAGE_BYTES`` (id and
+    values), else slabs of that many. Rows a thread: as many as fill a
+    stage, made odd so that the lanes' rows in shared memory fall on
+    different banks (the kernel computes the same number for one to
+    ``SEGSUM_REG_COLS`` columns and refuses a plan that differs). Blocks:
+    contiguous ranges of a multiple of 16 bytes' worth of rows, at least
+    ``SEGSUM_SORTED_MIN_ROWS`` rows, at most ``SEGSUM_SORTED_BLOCKS`` of
+    them, none empty. A memset where the output's bytes pass the rows'
+    over ``SEGSUM_SORTED_ZERO_RATIO``. The order of every add follows from
+    the plan and the ids, so the plan depends on its arguments alone."""
+    threads = 32 * SEGSUM_WARPS
+    grain = 16 // elem_bytes          # rows of a 16-byte vector
+    slab = max(SORTED_GROUP, (SEGSUM_STAGE_BYTES // threads - 8)
+               // elem_bytes // SORTED_GROUP * SORTED_GROUP)
+    width = cols if cols <= slab else slab
+    row = 8 + width * elem_bytes
+    per_thread = max(1, SEGSUM_STAGE_BYTES // (threads * row))
+    per_thread -= 1 - per_thread % 2
+    blocks = max(1, min(SEGSUM_SORTED_BLOCKS, n // SEGSUM_SORTED_MIN_ROWS))
+    per_block = -(-(-(-n // blocks)) // grain) * grain
+    blocks = -(-n // per_block)
+    stage = min(per_thread * threads, per_block)
+    group = cols if cols <= SEGSUM_REG_COLS else SORTED_GROUP
+    smem = 2 * stage * row + 2 * -(-width // group) * group * elem_bytes
+    scratch = _TICKET_BYTES + (2 * blocks * cols * elem_bytes
+                               if blocks > 1 else 0)
+    memset = (size * cols * elem_bytes * SEGSUM_SORTED_ZERO_RATIO
+              > n * (8 + cols * elem_bytes))
+    return SortedPlan(blocks, per_block, stage, per_thread, width, smem,
+                      scratch, memset)
+
+
+class _SortedArgs(ctypes.Structure):
+    """The sorted kernel's launch arguments that follow from its plan
+    alone, as csrc/segment_sum.cu's SortedArgs lays them out."""
+    _fields_ = [("n", ctypes.c_longlong),
+                ("rows_per_block", ctypes.c_longlong),
+                ("ticket_bytes", ctypes.c_longlong),
+                ("C", ctypes.c_int), ("width", ctypes.c_int),
+                ("blocks", ctypes.c_int), ("stage_rows", ctypes.c_int),
+                ("per_thread", ctypes.c_int), ("smem", ctypes.c_int),
+                ("memset", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=4096)
+def _sorted_call(n: int, cols: int, elem_bytes: int, size: int) -> tuple:
+    """The plan of one launch of the sorted kernel and its arguments as
+    the launcher takes them."""
+    plan = sorted_segment_plan(n, cols, elem_bytes, size)
+    return plan, _SortedArgs(n, plan.rows_per_block, _TICKET_BYTES, cols,
+                             plan.width, plan.blocks, plan.stage_rows,
+                             plan.rows_per_thread, plan.smem_bytes,
+                             plan.memset)
+
+
+# Each (device, stream) keeps its own scratch for both segment-sum kernels:
 # SEGSUM_TICKETS zeroed ticket counters, which every call leaves at zero,
 # then the partial tables. A call runs on its stream's scratch, after every
 # earlier call there, so two calls never share a counter or a table.
@@ -711,31 +822,49 @@ def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor | None,
 def sorted_segment_sum(x: torch.Tensor, seg: torch.Tensor,
                        size: int) -> torch.Tensor:
     """The segment sum of ``dense_segment_sum`` for nondecreasing ids
-    ``seg`` in ``[0, size)`` (contiguous segments), any number of them.
-    Each segment is summed in row order inside fixed tiles of rows, then
-    over its tiles in a fixed order: bit-identical from run to run."""
+    ``seg`` (contiguous segments), any number of slots and columns: shape
+    ``(size,) + x.shape[1:]``. A row whose id lies outside ``[0, size)``
+    is dropped, by the kernel and by the plain version alike. On the card
+    one launch a call (``sorted_segment_plan``): each block adds its
+    contiguous range of rows in stages (wide rows in slabs of columns), a
+    run inside the block in a fixed order (row order in a thread, then a
+    scan by segments over the threads), and the last block to finish adds
+    the runs that cross blocks in block order; every slot without a row is
+    zeroed by the block whose ids surround it, or, for an output large
+    beside the rows, by a memset before the launch. Bit-identical from run
+    to run. Bound: bytes (each row's id and values read once, the output
+    written once)."""
     _segment_args("sorted_segment_sum", x, seg)
     if not _route("sorted_segment_sum", x, seg):
         return segment_sum_reference(x, seg, size)
-    n = x.shape[0]
-    x2 = (x if x.ndim == 2 else x[:, None]).contiguous()
-    C = x2.shape[1]
-    out = torch.zeros((size, C), dtype=x.dtype, device=x.device)
+    shape = x.shape
+    n, C = shape[0], (shape[1] if len(shape) == 2 else 1)
     if n == 0 or C == 0:
-        return out.reshape((size,) + tuple(x.shape[1:]))
-    fn = _launcher("segment_sum", ("sorted", x.dtype))
-    seg = seg.contiguous()
-    tiles = -(-n // SEGSUM_TILE)
-    head = torch.empty((tiles, C), dtype=x.dtype, device=x.device)
-    tail = torch.empty((tiles, C), dtype=x.dtype, device=x.device)
-    # the tiles where a segment that goes on past them starts, and their
-    # number (an integer counter)
-    owners = torch.empty(tiles, dtype=torch.int32, device=x.device)
-    n_owners = torch.zeros(1, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check("sorted_segment_sum", fn(x2.data_ptr(), seg.data_ptr(),
-                                    head.data_ptr(), tail.data_ptr(),
-                                    owners.data_ptr(), n_owners.data_ptr(),
-                                    out.data_ptr(), n, C, size, stream))
+        return torch.zeros((size,) + shape[1:], dtype=x.dtype,
+                           device=x.device)
+    plan, args = _sorted_call(n, C, x.element_size(), size)
+    return _sorted_launch(x, seg, size, plan.scratch_bytes, args)
+
+
+def _sorted_launch(x: torch.Tensor, seg: torch.Tensor, size: int,
+                   scratch_bytes: int, args: _SortedArgs) -> torch.Tensor:
+    """One launch of the sorted kernel on card tensors with the launch
+    arguments of a plan, on the current stream's scratch."""
+    dtype, dev = x.dtype, x.device
+    fn = _launcher("segment_sum", ("sorted", dtype))
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not seg.is_contiguous():
+        seg = seg.contiguous()
+    stream = _raw_stream(dev)
+    state = _streams.get((dev.index, stream))
+    if state is None or state.nbytes < scratch_bytes:
+        state = _stream_state(dev, stream, scratch_bytes)
+    out = torch.empty((size,) + x.shape[1:], dtype=dtype, device=dev)
+    xp, sp = x.data_ptr(), seg.data_ptr()
+    err = fn(xp, sp, state.tickets, out.data_ptr(), args, size,
+             (xp | sp) % 16 == 0, stream)
+    if err:
+        _check("sorted_segment_sum", err)
     launches.add("sorted_segment_sum")
-    return out.reshape((size,) + tuple(x.shape[1:]))
+    return out

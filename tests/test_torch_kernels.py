@@ -435,35 +435,35 @@ def test_segment_sums_reject_bad_arguments():
 
 
 def test_segment_sum_plan_reaches_the_kernel_through_the_flags(monkeypatch):
-    """The plan's compiled constants (the warp count, the sorted kernel's
-    tile, the register table, the group of blocks the cross-block step
-    adds, the shared-memory ceiling) reach nvcc and the build key; the
-    kernel has its own library."""
+    """The plan's compiled constants (the warp count, the register table,
+    the group of blocks the cross-block step adds, the dense and the
+    sorted shared-memory ceilings, the sorted kernel's stage) reach nvcc
+    and the build key; the kernel has its own library."""
     assert kernels.SOURCES["segment_sum"] == "segment_sum.cu"
     for flag in (f"-DSEGSUM_WARPS={kernels.SEGSUM_WARPS}",
-                 f"-DSEGSUM_TILE={kernels.SEGSUM_TILE}",
                  f"-DSEGSUM_REG_ENTRIES={kernels.SEGSUM_REG_ENTRIES}",
                  f"-DSEGSUM_GROUP={kernels.SEGSUM_GROUP}",
-                 f"-DSEGSUM_SMEM_BYTES={kernels.SEGSUM_SMEM_BYTES}"):
+                 f"-DSEGSUM_SMEM_BYTES={kernels.SEGSUM_SMEM_BYTES}",
+                 f"-DSEGSUM_STAGE_BYTES={kernels.SEGSUM_STAGE_BYTES}",
+                 "-DSEGSUM_SORTED_SMEM_BYTES="
+                 f"{kernels.SEGSUM_SORTED_SMEM_BYTES}"):
         assert flag in kernels.NVCC_FLAGS
     key = kernels.build_key("segment_sum")
     assert key not in {kernels.build_key(n) for n in kernels.SOURCES
                        if n != "segment_sum"}
-    for name, value in (("SEGSUM_TILE", 64), ("SEGSUM_REG_ENTRIES", 16),
-                        ("SEGSUM_GROUP", 8)):
+    for name, value in (("SEGSUM_STAGE_BYTES", 32768),
+                        ("SEGSUM_REG_ENTRIES", 16), ("SEGSUM_GROUP", 8)):
         with monkeypatch.context() as m:
             m.setattr(kernels, "NVCC_FLAGS", tuple(
                 f"-D{name}={value}" if f.startswith(f"-D{name}=") else f
                 for f in kernels.NVCC_FLAGS))
             assert kernels.build_key("segment_sum") != key
     src = (kernels.CSRC / "segment_sum.cu").read_text()
-    # no float atomic: the integer ones number the sorted kernel's owner
-    # list and hand out the dense kernel's tickets
+    # no float atomic: the one integer atomic hands out both kernels'
+    # tickets
     atomics = [line for line in src.splitlines()
                if "atomic" in line and not line.lstrip().startswith("//")]
-    assert atomics and all("atomicAdd(n_owners, 1)" in a
-                           or "atomicAdd(counter, 1u)" in a
-                           for a in atomics)
+    assert atomics and all("atomicAdd(counter, 1u)" in a for a in atomics)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -538,3 +538,372 @@ def test_dense_scratch_is_kept_per_stream(monkeypatch):
 def test_dense_segment_plan_rejects_a_table_past_shared_memory():
     with pytest.raises(ValueError, match="does not fit"):
         kernels.dense_segment_plan(100, 5000, 4, 4)
+
+
+# ---------------------------------------------------------------------------
+# The sorted segment sum's plan, and a walk of it on the CPU
+# ---------------------------------------------------------------------------
+
+THREADS = 32 * kernels.SEGSUM_WARPS
+# An H100 SM's shared memory and what each block reserves beside its own
+# (the CUDA occupancy rules), and the sorted kernel's static shared memory
+# at most (warp totals of four doubles, flags, two carried ids, a ticket
+# flag), to show two blocks an SM.
+SM_SHARED, BLOCK_RESERVED, SORTED_STATIC = 228 << 10, 1 << 10, 512
+
+# (cols, elem): the held shapes (float32 C = 1 and C = 3, float64 C = 1 and
+# C = 3, the Lloyd sums' d + 2 past the dense table at d = 1 and d = 3),
+# the compiled column counts at their ends, counts known only at run
+# time, whole rows a stage, and rows read in slabs of columns (past 24
+# float32 or 12 float64 columns), up to 20,000 columns.
+SORTED_SHAPES = [(1, 4), (3, 4), (1, 8), (3, 8), (2, 4), (4, 8), (5, 4),
+                 (5, 8), (24, 4), (12, 8), (25, 4), (60, 8), (3000, 8),
+                 (20_000, 8), (20_000, 4)]
+
+
+def _sorted_blocks(plan, n):
+    """Each block's (first row, end row)."""
+    starts = np.arange(plan.blocks, dtype=np.int64) * plan.rows_per_block
+    return starts, np.minimum(starts + plan.rows_per_block, n)
+
+
+@pytest.mark.parametrize("cols,elem", SORTED_SHAPES)
+@pytest.mark.parametrize("n", [1, 3, 1023, 1024, 1025, 131_584, 1_081_344,
+                               9_611_537, 10**9])
+def test_sorted_segment_plan_covers_rows_in_fixed_ranges(n, cols, elem):
+    """Contiguous ranges of a whole number of 16-byte vectors of rows (so
+    that each block's ids and values start on the grid), at least
+    SEGSUM_SORTED_MIN_ROWS rows each but the last, at most
+    SEGSUM_SORTED_BLOCKS of them and so at most a block's threads (the
+    last block adds the partials a thread a block), none empty; stages of
+    whole rows, or of slabs of whole groups of columns past a thread's
+    share of a stage, an odd number of rows a thread, at most a block's
+    rows, whole vectors; two stages and two carries in shared memory, two
+    blocks an SM at any column count in either type; scratch for the
+    tickets and two partials a block; the plan depends on its arguments
+    alone."""
+    plan = kernels.sorted_segment_plan(n, cols, elem, 100)
+    grain = 16 // elem
+    starts, ends = _sorted_blocks(plan, n)
+    assert 1 <= plan.blocks <= kernels.SEGSUM_SORTED_BLOCKS <= THREADS
+    assert plan.rows_per_block % grain == 0
+    assert ends[-1] == n and (ends > starts).all()
+    assert (starts[1:] == ends[:-1]).all() and starts[0] == 0
+    if plan.blocks > 1:
+        assert plan.rows_per_block >= kernels.SEGSUM_SORTED_MIN_ROWS
+    K, R, W = plan.rows_per_thread, plan.stage_rows, plan.width
+    assert K % 2 == 1 and R % grain == 0 and 0 < R <= plan.rows_per_block
+    assert R == min(K * THREADS, plan.rows_per_block)
+    row = 8 + W * elem
+    # a thread's share of a stage holds a row: 24 float32 or 12 float64
+    # values beside its id
+    slab = (kernels.SEGSUM_STAGE_BYTES // THREADS - 8) // elem
+    assert W == (cols if cols <= slab else slab)
+    assert W == cols or W % kernels.SORTED_GROUP == 0
+    k = kernels.SEGSUM_STAGE_BYTES // (THREADS * row)   # the kernel's
+    assert k >= 1 and K == (k if k % 2 else k - 1)     # constexpr count
+    group = cols if cols <= kernels.SEGSUM_REG_COLS else kernels.SORTED_GROUP
+    assert plan.smem_bytes == 2 * R * row + 2 * (
+        -(-W // group) * group * elem)
+    assert plan.smem_bytes <= kernels.SEGSUM_SORTED_SMEM_BYTES
+    assert 2 * (plan.smem_bytes + SORTED_STATIC + BLOCK_RESERVED) <= SM_SHARED
+    assert plan.scratch_bytes == kernels._TICKET_BYTES + (
+        2 * plan.blocks * cols * elem if plan.blocks > 1 else 0)
+    assert kernels.sorted_segment_plan(n, cols, elem, 100) == plan
+
+
+def test_sorted_segment_plan_at_held_shapes():
+    """The held shapes: 9,611,537 rows take every block in stages of 7 / 5
+    rows a thread (float32, one / three columns) and 5 / 3 (float64), the
+    blocks zeroing their empty slots; PIC's 131,584 entries take 128
+    blocks of 1,028 rows, one stage each, after a memset of its 64 MiB
+    output; 1,000 ids onto 10^7 slots one block after a memset."""
+    for cols, elem, k, size in ((1, 4, 7, 20_556), (3, 4, 5, 1024),
+                                (1, 8, 5, 39), (3, 8, 3, 1024)):
+        plan = kernels.sorted_segment_plan(9_611_537, cols, elem, size)
+        assert plan.blocks == kernels.SEGSUM_SORTED_BLOCKS
+        assert plan.rows_per_thread == k and plan.stage_rows == k * THREADS
+        assert plan.width == cols and not plan.memset
+    pic = kernels.sorted_segment_plan(131_584, 1, 4, 16_777_216)
+    assert (pic.blocks, pic.rows_per_block, pic.stage_rows) == (128, 1028,
+                                                                1028)
+    assert pic.memset
+    sparse = kernels.sorted_segment_plan(1000, 1, 4, 10**7)
+    assert sparse.blocks == 1 and sparse.memset
+
+
+@pytest.mark.parametrize("n,cols,elem,size,memset", [
+    (9_611_537, 1, 4, 901_000, False), (9_611_537, 1, 4, 901_200, True),
+    (100, 3, 8, 0, False), (100, 3, 8, 100, True), (1, 1, 4, 1, True)])
+def test_sorted_segment_plan_memset_past_the_ratio(n, cols, elem, size,
+                                                   memset):
+    """A memset zeroes the output once its bytes pass the rows' (an id and
+    the values) over SEGSUM_SORTED_ZERO_RATIO: the blocks' zeros below."""
+    plan = kernels.sorted_segment_plan(n, cols, elem, size)
+    assert plan.memset == memset
+    assert (size * cols * elem * kernels.SEGSUM_SORTED_ZERO_RATIO
+            > n * (8 + cols * elem)) == memset
+
+
+def _slot_after(s, size):
+    return 0 if s < 0 else (size if s >= size else s + 1)
+
+
+def _scan(start, v, carry):
+    """csrc/segment_sum.cu's segmented_scan over a block's threads, in its
+    order: lanes by doubling distance, then the warps folded in order.
+    Returns (v, prev)."""
+    T, G = v.shape
+    lanes = np.arange(32)
+    starts = start.reshape(-1, 32)
+    at = np.maximum.accumulate(np.where(starts, lanes, -1), axis=1)
+    upto = (at >= 0).reshape(T)
+    first = np.maximum(at, 0)[:, :, None]
+    vv = v.reshape(-1, 32, G)
+    for d in (1, 2, 4, 8, 16):                            # __shfl_up_sync
+        up = np.concatenate([vv[:, :d], vv[:, :-d]], axis=1)
+        vv = np.where(lanes[None, :, None] - d >= first, up + vv, vv)
+    v = vv.reshape(T, G)
+    totals, restart = vv[:, 31], starts.any(1)
+    p = np.empty((T // 32, G))
+    acc = np.zeros(G) if carry is None else np.asarray(carry, float)
+    for w in range(T // 32):
+        p[w] = acc
+        acc = totals[w] if restart[w] else acc + totals[w]
+    pw = p[np.arange(T) // 32]
+    v = np.where(upto[:, None], v, pw + v)
+    prev = np.where((np.arange(T) % 32 > 0)[:, None],
+                    np.concatenate([v[:1], v[:-1]]), pw)
+    return v, prev
+
+
+def walk_sorted_plan(x, seg, size, plan):
+    """The sorted kernel's work under ``plan`` on the CPU, step by step as
+    csrc/segment_sum.cu does it: each block zeroes its own slots (unless a
+    memset zeroed the output), reads its rows in stages, one slab of
+    columns after another, adds a thread's rows in row order, writes a run
+    that lies among them, scans the threads' parts by segments, carries
+    the stage's last run, leaves the runs that cross its edges as head and
+    tail partials; the last block scans the partials over the blocks. (The
+    kernel adds a slab's columns in groups; each column's adds are the same
+    in any grouping, so the walk adds the slab's columns together.) Without
+    the memset the output starts as NaN, so a slot no step writes shows.
+    Asserts that the blocks' zeroed slots tile [0, size) once, that each
+    block writes only its own slots, and that no slot is written twice."""
+    n, C = x.shape
+    K, R, rpb, W = (plan.rows_per_thread, plan.stage_rows,
+                    plan.rows_per_block, plan.width)
+    out = np.zeros((size, C)) if plan.memset else np.full((size, C), np.nan)
+    zeroed, written = np.zeros(size, int), np.zeros(size, int)
+    part = np.full((plan.blocks, 2, C), np.nan)
+    tid = np.arange(THREADS)
+    for b in range(plan.blocks):
+        r0, r1 = b * rpb, min(n, (b + 1) * rpb)
+        first = seg[r0]
+        open_start = r0 > 0 and seg[r0 - 1] == first
+        lo = _slot_after(seg[r0 - 1], size) if r0 > 0 else 0
+        hi = _slot_after(seg[r1 - 1], size) if r1 < n else size
+        if not plan.memset:
+            out[lo:hi] = 0.0
+            zeroed[lo:hi] += 1
+
+        def emit(s, v, c0):
+            if open_start and s == first:
+                part[b, 0, c0:c0 + len(v)] = v
+            elif 0 <= s < size:
+                assert lo <= s < hi, (b, s, lo, hi)
+                out[s, c0:c0 + len(v)] = v
+                written[s] += c0 == 0
+
+        for c_lo in range(0, C, W):
+            cols = slice(c_lo, min(c_lo + W, C))
+            carry = carry_id = None
+            for k in range(-(-(r1 - r0) // R)):
+                a = r0 + k * R
+                rows = min(R, r1 - a)
+                ids, vals = seg[a:a + rows], x[a:a + rows, cols]
+                j0 = tid * K
+                j1 = np.minimum(j0 + K, rows)
+                has = j0 < rows
+                last = (rows - 1) // K
+                fid = np.where(has, ids[np.minimum(j0, rows - 1)], 0)
+                lid = np.where(has, ids[np.maximum(j1 - 1, 0)], 0)
+                open_in = has & np.where(
+                    tid > 0, ids[np.clip(j0 - 1, 0, rows - 1)] == fid,
+                    k > 0 and carry_id == fid[0])
+                open_out = has & ((tid == last)
+                                  | (ids[np.minimum(j1, rows - 1)] == lid))
+                if k > 0 and not open_in[0]:      # the carried run ended
+                    emit(carry_id, carry, c_lo)
+                m = vals.shape[1]
+                head, acc = np.zeros((THREADS, m)), np.zeros((THREADS, m))
+                brk = np.zeros(THREADS, bool)
+                for t in range(last + 1):
+                    run = fid[t]
+                    for j in range(j0[t], j1[t]):
+                        if ids[j] != run:
+                            if brk[t]:
+                                emit(run, acc[t].copy(), c_lo)
+                            else:
+                                head[t] = acc[t]
+                            brk[t], run, acc[t] = True, ids[j], 0.0
+                        acc[t] += vals[j]
+                acc, prev = _scan(has & (brk | ~open_in), acc,
+                                  None if k == 0 else carry)
+                for t in range(last + 1):
+                    if brk[t]:
+                        emit(fid[t], prev[t] + head[t] if open_in[t]
+                             else head[t], c_lo)
+                    if not open_out[t]:
+                        emit(lid[t], acc[t], c_lo)
+                carry, carry_id = acc[last].copy(), lid[last]
+            # the slab's last stage: the block's last run
+            open_end = r1 < n and seg[r1] == carry_id
+            if open_end and not (open_start and carry_id == first):
+                part[b, 1, cols] = carry
+            else:
+                emit(carry_id, carry, c_lo)
+    if plan.blocks > 1:                       # the last block's stitch
+        starts, ends = _sorted_blocks(plan, n)
+        pad = np.arange(THREADS) < plan.blocks
+        bidx = np.minimum(np.arange(THREADS), plan.blocks - 1)
+        s0, s1 = starts[bidx], ends[bidx]
+        fb, lb = seg[s0], seg[s1 - 1]
+        bos = pad & (s0 > 0) & (seg[np.maximum(s0 - 1, 0)] == fb)
+        boe = pad & (s1 < n) & (seg[np.minimum(s1, n - 1)] == lb)
+        through = bos & (fb == lb)
+        done = bos & (~boe | (fb != lb)) & (fb >= 0) & (fb < size)
+        v = np.where(boe[:, None], part[bidx, np.where(through, 0, 1)], 0.0)
+        _, prev = _scan(~through, v, None)
+        for e in np.nonzero(done)[0]:
+            out[fb[e]] = prev[e] + part[e, 0]
+            written[fb[e]] += 1
+    assert (zeroed == (0 if plan.memset else 1)).all()
+    assert (written <= 1).all()
+    return out
+
+
+def _sorted_case(name, rng, n, size, cols, edges=()):
+    """Sorted ids and integer values of one edge case."""
+    if name == "random":
+        seg = np.sort(rng.integers(0, size, n))
+    elif name == "edges":     # a run ends at each edge, and a row past it
+        cuts = sorted({e + d for e in edges for d in (-1, 0, 1)
+                       if 0 < e + d < n})
+        seg = np.searchsorted(np.asarray(cuts), np.arange(n), "right")
+        size = int(seg[-1]) + 1
+    elif name == "one segment":
+        seg = np.full(n, size - 1)
+    elif name == "runs of one row":
+        seg, size = np.arange(n), n
+    elif name == "ids outside":
+        seg = np.sort(rng.integers(-3, size + 3, n))
+    elif name == "sparse":
+        seg = np.sort(rng.choice(size, n, replace=False))
+    x = rng.integers(-1000, 1000, (n, cols)).astype(np.float64)
+    return x, seg.astype(np.int64), size
+
+
+def _walk_plans(n, cols, elem, monkeypatch):
+    """The plan as built, and one of small stages and blocks (SEGSUM_
+    STAGE_BYTES and SEGSUM_SORTED_MIN_ROWS cut), which gives a few stages
+    a block and a few blocks at a few thousand rows; each with the blocks'
+    zeros and with a memset."""
+    plans = [kernels.sorted_segment_plan(n, cols, elem, 1)]
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "SEGSUM_STAGE_BYTES", THREADS * 3 * (8 + cols
+                                                                 * elem))
+        m.setattr(kernels, "SEGSUM_SORTED_MIN_ROWS", 1000)
+        plans.append(kernels.sorted_segment_plan(n, cols, elem, 1))
+    return [p._replace(memset=z) for p in plans for z in (False, True)]
+
+
+@pytest.mark.parametrize("cols,elem", [(1, 4), (3, 4), (3, 8), (5, 4),
+                                       (6, 8)])
+@pytest.mark.parametrize("case,n,size", [
+    ("random", 6000, 40), ("random", 6000, 3000), ("edges", 5000, None),
+    ("one segment", 5000, 3), ("runs of one row", 2500, None),
+    ("ids outside", 6000, 50), ("sparse", 700, 100_000),
+    ("random", 1, 5), ("random", 33, 4), ("ids outside", 40, 3)])
+def test_sorted_plan_walk_equals_reference(case, n, size, cols, elem,
+                                           monkeypatch):
+    """The kernel's order of adds, walked on integer-valued float64 values
+    (every order exact), gives segment_sum_reference's bits at each edge:
+    runs ending on a stage or block edge and a row either side of it, one
+    segment over every block, runs of one row, a block's rows and fewer,
+    ids below 0 and at size and past it, sparse ids with gaps of hundreds
+    of slots; compiled and run-time column counts; the blocks' zeros and a
+    memset."""
+    rng = np.random.default_rng(n + cols)
+    for plan in _walk_plans(n, cols, elem, monkeypatch):
+        starts = np.arange(plan.blocks) * plan.rows_per_block
+        edges = np.concatenate([starts + k * plan.stage_rows for k in range(
+            -(-plan.rows_per_block // plan.stage_rows))])
+        x, seg, sz = _sorted_case(case, rng, n, size or n, cols, edges)
+        got = walk_sorted_plan(x, seg, sz, plan)
+        want = kernels.segment_sum_reference(torch.as_tensor(x),
+                                             torch.as_tensor(seg), sz)
+        np.testing.assert_array_equal(got, want.numpy())
+    assert plan.blocks > 1 or n < 1000
+
+
+@pytest.mark.parametrize("elem", [4, 8])
+@pytest.mark.parametrize("case,size", [("random", 5), ("one segment", 3),
+                                       ("ids outside", 4)])
+def test_sorted_plan_walk_of_wide_rows_in_slabs(case, size, elem,
+                                                monkeypatch):
+    """20,000 columns (far past a stage's whole rows, and past any shared
+    memory a block has for them): the plan reads them in slabs of 24
+    float32 or 12 float64 columns, two stages and two carries of a slab in
+    shared memory, and its walk over three blocks (SEGSUM_SORTED_MIN_ROWS
+    cut), slab by slab, gives segment_sum_reference's bits, with the
+    blocks' zeros and with a memset (the plan's own, a memset at these
+    sizes, past the random case)."""
+    n, cols = 48, 20_000
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "SEGSUM_SORTED_MIN_ROWS", 16)
+        plan = kernels.sorted_segment_plan(n, cols, elem, size)
+    assert plan.blocks == 3 and plan.width == 96 // elem and plan.memset
+    assert plan.smem_bytes <= kernels.SEGSUM_SORTED_SMEM_BYTES
+    rng = np.random.default_rng(elem)
+    x, seg, sz = _sorted_case(case, rng, n, size, cols)
+    want = kernels.segment_sum_reference(torch.as_tensor(x),
+                                         torch.as_tensor(seg), sz)
+    for memset in (False, True) if case == "random" else (plan.memset,):
+        got = walk_sorted_plan(x, seg, sz, plan._replace(memset=memset))
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cols", [None, 1, 3, 6])
+def test_sorted_segment_sum_matches_jax_segment_sum(dtype, cols):
+    """On CPU tensors sorted_segment_sum is its plain version, and matches
+    jax.ops.segment_sum (what the JAX package's sorted program calls,
+    sparkdq4ml_tpu/ops/segments.py) on the same seeded sorted ids, any
+    column count (past SEGSUM_REG_COLS too), both types: within 1e-12
+    Σ|x| a slot in float64 and 1e-5 Σ|x| in float32, the bounds the card
+    holds the kernel to. Ids below 0 and at size and past it are dropped by
+    both, and a NaN in a dropped row reaches no slot."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(12 + (cols or 0))
+    shape = (3000,) if cols is None else (3000, cols)
+    x = rng.normal(size=shape) * 100.0
+    seg = np.sort(rng.integers(-3, 53, 3000))
+    x[seg < 0] = np.nan
+    xt = torch.as_tensor(x).to(dtype)
+    got = kernels.sorted_segment_sum(xt, torch.as_tensor(seg), 50)
+    assert got.dtype == dtype and got.shape == (50,) + shape[1:]
+    assert torch.equal(got, kernels.segment_sum_reference(
+        xt, torch.as_tensor(seg), 50))
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.float64
+    want = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(x, jdtype), jnp.asarray(seg), num_segments=50,
+        indices_are_sorted=True), np.float64)
+    keep = (seg >= 0) & (seg < 50)
+    bound = np.zeros((50,) + shape[1:])
+    np.add.at(bound, seg[keep], np.abs(x[keep]))
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    assert not np.isnan(want).any() and not torch.isnan(got).any()
+    assert (np.abs(got.double().numpy() - want) <= rel * bound).all()

@@ -6,9 +6,10 @@ stddev, variance; behind describe and summary) and ``frame/stat.py:_sums``
 with all-zero ids that they used before. A recorder wraps
 ``kernels.dense_segment_sum``. Their results against the JAX package are
 held by ``tests/test_torch_stat.py`` and ``tests/test_torch_aggregates_
-extra.py``, unchanged. Last, the wrapper's launch path on CPU tensors
+extra.py``, unchanged. Last, both wrappers' launch paths on CPU tensors
 with a fake launcher in place of the CUDA one: the plan's arguments, the
-stream's scratch, a fresh output a call, the launch counts."""
+stream's scratch, a fresh output a call (the sorted wrapper's one
+allocation), the launch counts."""
 
 import numpy as np
 import pytest
@@ -185,3 +186,104 @@ def test_dense_wrapper_launch_path(fake_launch):
     assert not calls[-1]["vec"]
     kernels.dense_segment_sum(x[:, :2].T.contiguous().T, seg, 41)
     assert calls[-1]["xp"] != x.data_ptr()
+
+
+@pytest.fixture
+def fake_sorted_launch(monkeypatch):
+    """The sorted wrapper's launch path on CPU tensors, with a launcher
+    that records its arguments and writes the plain sum to ``out``."""
+    import ctypes
+
+    calls, log = [], []
+
+    def launcher(xp, sp, scratch, outp, args, size, vec, stream):
+        n, C = args.n, args.C
+        log.append(("launch",))
+        calls.append(dict(xp=xp, sp=sp, scratch=scratch, out=outp, n=n, C=C,
+                          size=size, blocks=args.blocks,
+                          rows_per_block=args.rows_per_block,
+                          width=args.width, memset=args.memset,
+                          stage_rows=args.stage_rows,
+                          per_thread=args.per_thread, smem=args.smem,
+                          ticket_bytes=args.ticket_bytes, vec=vec,
+                          stream=stream))
+        x = torch.empty((n, C), dtype=torch.float64)
+        ctypes.memmove(x.data_ptr(), xp, x.numel() * 8)
+        seg = torch.empty(n, dtype=torch.int64)
+        ctypes.memmove(seg.data_ptr(), sp, n * 8)
+        want = kernels.segment_sum_reference(x, seg, size).contiguous()
+        ctypes.memmove(outp, want.data_ptr(), want.numel() * 8)
+        return 0
+
+    monkeypatch.setattr(kernels, "_route", lambda name, *t: True)
+    monkeypatch.setattr(kernels, "_raw_stream", lambda dev: 7)
+    real = kernels._launcher
+    monkeypatch.setattr(kernels, "_launcher", lambda name, key: (
+        launcher if key == ("sorted", torch.float64) else real(name, key)))
+    monkeypatch.setattr(kernels, "_streams", {})
+    kernels.launches.reset()
+    return calls, log
+
+
+def test_sorted_wrapper_launch_path(fake_sorted_launch, monkeypatch):
+    """One launch a call with the plan's arguments and the slot count, the
+    scratch of its stream (ticket counters first, two partials a block
+    after them) reused from call to call with no scratch allocation, a
+    fresh output every call (the only allocation), n = 0 and no columns
+    launching nothing."""
+    calls, log = fake_sorted_launch
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.normal(size=(50_000, 3)))
+    seg = torch.as_tensor(np.sort(rng.integers(0, 900, 50_000)))
+    a = kernels.sorted_segment_sum(x, seg, 900)
+    state = kernels._streams[(None, 7)]
+    scratch = state.scratch
+    # the wrapper's allocations before its launch
+    log.clear()
+    real_zeros, real_empty = torch.zeros, torch.empty
+    monkeypatch.setattr(torch, "zeros", lambda *s, **k: (
+        log.append(("zeros", s)), real_zeros(*s, **k))[1])
+    monkeypatch.setattr(torch, "empty", lambda *s, **k: (
+        log.append(("empty", s)), real_empty(*s, **k))[1])
+    b = kernels.sorted_segment_sum(x, seg, 900)
+    monkeypatch.setattr(torch, "zeros", real_zeros)
+    monkeypatch.setattr(torch, "empty", real_empty)
+    assert log[:log.index(("launch",))] == [("empty", ((900, 3),))]
+    assert kernels._streams[(None, 7)].scratch is scratch
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+    assert torch.equal(a, kernels.segment_sum_reference(x, seg, 900))
+    plan = kernels.sorted_segment_plan(50_000, 3, 8, 900)
+    first = calls[0]
+    assert (first["n"], first["C"], first["size"], first["blocks"],
+            first["rows_per_block"], first["width"], first["stage_rows"],
+            first["per_thread"], first["smem"], first["memset"]) == (
+        50_000, 3, 900, plan.blocks, plan.rows_per_block, 3,
+        plan.stage_rows, plan.rows_per_thread, plan.smem_bytes, 0)
+    assert first["xp"] == x.data_ptr() and first["sp"] == seg.data_ptr()
+    assert first["vec"] and first["stream"] == 7
+    assert first["ticket_bytes"] == kernels._TICKET_BYTES
+    assert first["scratch"] == scratch.data_ptr()
+    assert state.nbytes >= plan.scratch_bytes
+    assert kernels.launches.snapshot()["sorted_segment_sum"] == 2
+    # (n,) values, an unaligned view (value-by-value copies), a copy of a
+    # non-contiguous x, and no rows or no columns: zeros, no launch
+    one = kernels.sorted_segment_sum(x[:, 0].contiguous(), seg, 900)
+    assert one.shape == (900,) and calls[-1]["C"] == 1
+    kernels.sorted_segment_sum(x[1:], seg[1:], 900)
+    assert not calls[-1]["vec"]
+    kernels.sorted_segment_sum(x[:, :2].T.contiguous().T, seg, 900)
+    assert calls[-1]["xp"] != x.data_ptr()
+    for empty in (x[:0], x[:, :0]):
+        got = kernels.sorted_segment_sum(empty, seg[:empty.shape[0]], 900)
+        assert got.shape == (900,) + empty.shape[1:] and not got.any()
+    # an output large beside the rows: the plan's memset reaches the
+    # launcher, and so do slabs of wide rows
+    kernels.sorted_segment_sum(x[:10, 0].contiguous(), seg[:10], 900)
+    assert calls[-1]["memset"] == 1 and calls[-1]["width"] == 1
+    wide = torch.as_tensor(rng.normal(size=(2000, 50)))
+    got = kernels.sorted_segment_sum(wide, seg[:2000], 900)
+    assert calls[-1]["width"] == 12 and calls[-1]["C"] == 50
+    assert torch.equal(got, kernels.segment_sum_reference(wide, seg[:2000],
+                                                          900))
+    assert len(calls) == 7
+    assert kernels.launches.snapshot()["sorted_segment_sum"] == 7
