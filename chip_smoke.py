@@ -86,10 +86,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    after (masked_gram once per binomial Newton iteration), the median of
    3 host-clock fit times, its evaluation's time, its synchronizing calls
    and one run under torch.profiler, held against the CPU float64 run of
-   the same code (the FISTA and LinearSVC fits held on the first 10^6
-   clean rows, on the card as on the CPU; OneVsRest's two nearly
-   separable binary fits by their objectives, not their iterations and
-   coefficients);
+   the same code (the FISTA, LinearSVC, multinomial and OneVsRest fits
+   held on the first 10^6 clean rows, on the card as on the CPU; OneVsRest's
+   two nearly separable binary fits by their objectives, not their
+   iterations and coefficients);
 10. ingest and IO: which optional modules (pandas, pyarrow) the machine
    has; examples/io_tour.py on dataset-full through the session on the
    card (CSV, Parquet and JSON round trips, unpivot, applyInPandas,
@@ -167,6 +167,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    partition the CPU run's and the planted one; torch.argmax's first maximum on the card; the segment sums at
    the histogram, k-slot and PIC affinity shapes against their plain version,
    timed.
+14. the ML tour's second half: (a) the tour's :125-224 (LinearSVC, FMClassifier
+   on the XOR quadrants, IsotonicRegression, AFTSurvivalRegression, FPGrowth,
+   Word2Vec's synonyms, the LSH 3-NN, LDA, PIC, PrefixSpan) on dataset-full,
+   float32, against TOUR_REST_GOLDEN (the JAX package's output): exact, or
+   isotonic's predict(30) within 1e-9, the floats within 1e-4; (b) at the
+   sizes users run, each fit twice on the card (bit-identical) with the launch
+   counts reset just before and read just after: FMClassifier (400 Adam steps)
+   and FMRegressor (200) on 10^7 XOR rows, AFTSurvivalRegression (300) on 10^7
+   survival rows, IsotonicRegression guest -> price (isotonic, antitonic,
+   weighted by guest % 3 + 1) on the table cleaned by one dq_rules launch,
+   FPGrowth on 10^5 baskets, PrefixSpan on 10^4 sessions, Word2Vec (100
+   dimensions, batch 4,096) on 10^5 topical Zipf documents with its transform
+   and the synonyms of its 20 most frequent words, 10 nearest-neighbor queries
+   of BucketedRandomProjectionLSH over the 10^7 XOR points, a 10^4 x 10^4
+   similarity join at bucket length 0.05, MinHashLSH on 10^4 binary rows, LDA
+   (k = 10) by EM and online on 10^5 documents of 1,024 terms, each with its
+   log perplexity and top terms; one Word2Vec fit under torch.profiler; (c)
+   against the float64 run of FM, AFT, Word2Vec and LDA on the card with the
+   float32 run's draws, and independent numpy code for the rest (isotonic by
+   argsort, reduceat and PAVA, brute-force itemsets and patterns, LSH hashes,
+   neighbors and join, MinHash, Word2Vec's negatives by numpy's threefry); the
+   segment sums at Word2Vec's and isotonic's shapes against their plain
+   version, timed.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -1053,7 +1076,8 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
         library = lambda: torch.segment_reduce(x, "sum", lengths=lengths)
         call = "torch.segment_reduce(lengths=...)"
     id_bytes = 0 if seg is None else 8
-    moved = n * (id_bytes + 4 * cols) + size * cols * 4
+    elem = x.element_size()
+    moved = n * (id_bytes + elem * cols) + size * cols * elem
     plain = ((lambda: x.sum(0, keepdim=True)) if seg is None
              else (lambda: kernels.segment_sum_reference(x, seg, size)))
     # the wrapper and the library call in turns (library, wrapper, wrapper,
@@ -1070,7 +1094,7 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
     library_traced = traced_calls(library)
     device_ms = traced["device_ms"]
     return {"case": name, "n": n, "size": size, "columns": cols,
-            "dtype": "float32", "ids": seg is not None,
+            "dtype": str(x.dtype)[6:], "ids": seg is not None,
             "ms": ms, "device_ms": device_ms,
             "traces_kept": traced["traces_kept"],
             "host_path_ms": None if device_ms is None else ms - device_ms,
@@ -2119,11 +2143,12 @@ UNRESOLVED_IN_FLOAT32 = {"ovr_band": (0, 2)}
 # the other two: its block's coefficients are held against their largest.
 BLOCK_SCALED = ("softmax_band",)
 # The CPU float64 reference of the FISTA fits took 35-40 s each at full
-# size on the card's host, which the script's time cannot hold: those two
-# are held on the first HEAD_ROWS clean rows, on the card as on the CPU,
-# and timed on the card at full size.
+# size on the card's host, and that of the multinomial and OneVsRest fits
+# 22-24 s each, which the script's time cannot hold: those four are held
+# on the first HEAD_ROWS clean rows, on the card as on the CPU, and timed
+# on the card at full size.
 HEAD_ROWS = 1_000_000
-HELD_ON_HEAD = ("fista_l2", "svc_l2")
+HELD_ON_HEAD = ("fista_l2", "svc_l2", "softmax_band", "ovr_band")
 
 
 def tour_classifier(device: str) -> dict:
@@ -4531,6 +4556,1001 @@ def zoo_segment_cases():
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the ML tour's second half
+# ---------------------------------------------------------------------------
+
+# The tour's second half (examples/ml_pipeline_tour.py:125-224) on
+# dataset-full: the JAX package's output under its default float32 policy
+# (x64 off); tests/test_torch_ml_tour_rest.py holds these constants to it.
+TOUR_REST_GOLDEN = {
+    "svc_accuracy": 1.0, "fm_accuracy": 0.995,
+    "fm_intercept": -0.7972393035888672,
+    "iso_predict_30": 171.61420962685034, "iso_boundaries": 35,
+    "aft": {"coef": 0.2750423848628998, "intercept": 1.095998764038086,
+            "scale": 0.4076243042945862},
+    "fpgrowth": {"itemsets": [[["beer"], 2], [["cheese"], 3], [["chips"], 2],
+                              [["wine"], 3], [["beer", "chips"], 2],
+                              [["cheese", "wine"], 3]],
+                 "antecedent": [["chips"], ["beer"], ["wine"], ["cheese"]],
+                 "consequent": [["beer"], ["chips"], ["cheese"], ["wine"]],
+                 "confidence": [1.0, 1.0, 1.0, 1.0]},
+    "synonyms": {"words": ["grapes", "cheese"],
+                 "similarity": [0.9999932646751404, 0.9978628754615784]},
+    "lsh_distances": [0.0, 0.12042682617902756, 0.1338137984275818],
+    "lda_top_terms": [[0, 3, 2], [8, 6, 10]],
+    "lda_log_perplexity": 1.8785404459635417,
+    "pic_clusters": [1, 1, 1, 0, 0, 0],
+    "prefixspan": {"sequences": [[["cart"]], [["home"]], [["home"], ["cart"]],
+                                 [["home"], ["search"]],
+                                 [["home"], ["search"], ["cart"]],
+                                 [["search"]], [["search"], ["cart"]]],
+                   "freq": [4, 3, 3, 2, 2, 3, 3]},
+}
+# Held exactly; isotonic's predict(30) within REST_PREDICT_ATOL (float64 on
+# both sides); the rest within REST_ATOL of the JAX package's float32 output.
+REST_EXACT = ("svc_accuracy", "fm_accuracy", "iso_boundaries", "fpgrowth",
+              "lda_top_terms", "pic_clusters", "prefixspan")
+REST_PREDICT_ATOL = 1e-9
+REST_ATOL = 1e-4
+# Phase 14(b)'s sizes.
+W2V_DOCS, W2V_WORDS, W2V_TOPICS = 100_000, 2000, 20
+FP_BASKETS, FP_ITEMS = 100_000, 50
+PS_SESSIONS, PS_PAGES = 10_000, 20
+LSH_JOIN_ROWS, LSH_HASH_ROWS, ANN_QUERIES = 10_000, 1_000_000, 10
+MINHASH_ROWS, MINHASH_COLS = 10_000, 256
+LDA_DOCS, LDA_TERMS, LDA_TOPICS, LDA_TOKENS = 100_000, 1024, 10, 100
+W2V_NEGATIVE_STEPS = 8          # steps whose negatives numpy redraws
+# The profiled Word2Vec fit runs on the first this many documents (about
+# 170 steps of the same shapes): a trace of every step of the whole fit
+# takes over a minute to gather.
+W2V_PROFILED_DOCS = 10_000
+# Phase 14(c)'s gates against the float64 run of the same steps.
+FM_LOSS_RTOL, FM_ACCURACY_TOL = 1e-4, 1e-3
+AFT_TOL = 1e-3
+ISO_PREDICT_TOL = 1e-9
+W2V_LOSS_RTOL, W2V_MARGIN = 1e-3, 1e-3
+LSH_EDGE, LSH_DIST_TOL = 1e-5, 1e-5
+LDA_RTOL, LDA_MARGIN = 1e-4, 1e-4    # λ relative to its topic's largest
+
+
+def rest_tour(device: str) -> dict:
+    """The tour's second half through TorchSession on dataset-full, in
+    the tour's order and with its one numpy generator: LinearSVC's
+    accuracy, FMClassifier on the XOR quadrants, IsotonicRegression guest →
+    price, AFTSurvivalRegression, FPGrowth, Word2Vec's synonyms of "wine",
+    BucketedRandomProjectionLSH's 3-NN, LDA (em), PIC over two triangles
+    and PrefixSpan."""
+    import sparkdq4ml_tpu_torch as dq
+    from sparkdq4ml_tpu_torch import Frame
+    from sparkdq4ml_tpu_torch.models import (AFTSurvivalRegression,
+                                             BucketedRandomProjectionLSH,
+                                             FMClassifier, FPGrowth,
+                                             IsotonicRegression, LDA,
+                                             LinearSVC,
+                                             PowerIterationClustering,
+                                             PrefixSpan, VectorAssembler,
+                                             Word2Vec)
+
+    spark = session(device)
+    fdf = dq_clean(spark, read_dataset(spark, "full"))
+    ldf = fdf.with_column("label", (fdf.col("guest") > 25).cast("double"))
+    out = {}
+    so = LinearSVC(max_iter=100, reg_param=0.01).fit(ldf).transform(
+        ldf).to_pydict()
+    out["svc_accuracy"] = float(np.mean(so["prediction"] == so["label"]))
+    rng = np.random.default_rng(0)
+    Xf = rng.normal(size=(400, 2))
+    yf = (Xf[:, 0] * Xf[:, 1] > 0).astype(np.float64)
+    fm_df = VectorAssembler(["a", "b"], "features").transform(
+        Frame({"a": Xf[:, 0], "b": Xf[:, 1], "label": yf}))
+    fm = FMClassifier(factor_size=4, max_iter=400, step_size=0.05,
+                      seed=1).fit(fm_df)
+    out["fm_accuracy"] = float(np.mean(np.asarray(
+        fm.transform(fm_df).to_pydict()["prediction"]) == yf))
+    out["fm_intercept"] = fm.intercept
+    d = fdf.to_pydict()
+    iso = IsotonicRegression().fit(Frame({
+        "features": np.asarray(d["guest"], np.float64),
+        "label": np.asarray(d["price"], np.float64)}))
+    out["iso_predict_30"] = iso.predict(30.0)
+    out["iso_boundaries"] = len(iso.boundaries)
+    t = np.exp(1.0 + 0.3 * Xf[:, 0]
+               + 0.4 * np.log(rng.exponential(size=400)))
+    aft = AFTSurvivalRegression(max_iter=300).fit(
+        VectorAssembler(["a"], "features").transform(Frame({
+            "a": Xf[:, 0], "label": t,
+            "censor": (rng.random(400) > 0.2).astype(np.float64)})))
+    out["aft"] = {"coef": float(aft.coefficients[0]),
+                  "intercept": aft.intercept, "scale": aft.scale}
+    fp = FPGrowth(min_support=0.4, min_confidence=0.7).fit(Frame({
+        "items": dq.list_column([["wine", "cheese"],
+                                 ["wine", "cheese", "bread"],
+                                 ["beer", "chips"],
+                                 ["wine", "cheese", "grapes"],
+                                 ["beer", "chips", "salsa"]])}))
+    rules = fp.association_rules.to_pydict()
+    out["fpgrowth"] = {
+        "itemsets": [[list(s), int(c)] for s, c in fp.itemsets],
+        "antecedent": [list(a) for a in rules["antecedent"]],
+        "consequent": [list(c) for c in rules["consequent"]],
+        "confidence": [float(c) for c in rules["confidence"]]}
+    docs = Frame({"toks": dq.list_column(
+        [list(rng.choice(["wine", "cheese", "grapes"], 6))
+         if rng.random() < 0.5 else
+         list(rng.choice(["beer", "chips", "salsa"], 6))
+         for _ in range(200)])})
+    w2v = Word2Vec(vector_size=8, min_count=1, max_iter=8, window_size=3,
+                   batch_size=256, seed=1, input_col="toks",
+                   output_col="vec").fit(docs)
+    syn = w2v.find_synonyms("wine", 2).to_pydict()
+    out["synonyms"] = {"words": [str(w) for w in syn["word"]],
+                       "similarity": [float(s) for s in syn["similarity"]]}
+    lsh = BucketedRandomProjectionLSH(bucket_length=2.0, num_hash_tables=4,
+                                      seed=3).fit(fm_df)
+    nn = lsh.approx_nearest_neighbors(fm_df, Xf[0], 3)
+    out["lsh_distances"] = [float(v) for v in np.sort(np.asarray(
+        nn.to_pydict()["distCol"]))]
+    topics = Frame({"features": np.stack(
+        [np.bincount(rng.integers(0, 6, 40), minlength=12).astype(np.float64)
+         if rng.random() < 0.5 else
+         np.bincount(rng.integers(6, 12, 40), minlength=12).astype(
+             np.float64) for _ in range(60)])})
+    lda = LDA(k=2, max_iter=25, optimizer="em", seed=1).fit(topics)
+    out["lda_top_terms"] = [list(map(int, t)) for t in
+                            lda.describe_topics(3).to_pydict()["termIndices"]]
+    out["lda_log_perplexity"] = lda.log_perplexity(topics)
+    ring = Frame({
+        "src": np.asarray([0, 1, 2, 3, 4, 5, 0, 3], np.int64),
+        "dst": np.asarray([1, 2, 0, 4, 5, 3, 2, 5], np.int64),
+        "weight": np.ones(8, np.float64)})
+    out["pic_clusters"] = PowerIterationClustering(
+        k=2, max_iter=20).assign_clusters(ring).to_pydict()["cluster"].tolist()
+    visits = Frame({"sequence": dq.list_column(
+        [[["home"], ["search"], ["cart"]],
+         [["home"], ["search"], ["cart"], ["buy"]],
+         [["home"], ["cart"]],
+         [["search"], ["cart"]]])})
+    ps = PrefixSpan(min_support=0.5).find_frequent_sequential_patterns(
+        visits).to_pydict()
+    out["prefixspan"] = {"sequences": [[list(i) for i in s]
+                                       for s in ps["sequence"]],
+                         "freq": [int(f) for f in ps["freq"]]}
+    spark.stop()
+    return out
+
+
+def rest_tour_errors(got: dict, want: dict = TOUR_REST_GOLDEN) -> dict:
+    """Each float of ``rest_tour`` against the golden: |got − want|."""
+    pairs = [("fm_intercept", got["fm_intercept"], want["fm_intercept"])]
+    pairs += [(f"aft {k}", got["aft"][k], want["aft"][k])
+              for k in ("coef", "intercept", "scale")]
+    pairs += [(f"lsh {i}", a, b) for i, (a, b) in enumerate(
+        zip(got["lsh_distances"], want["lsh_distances"]))]
+    pairs += [(f"synonym {i}", a, b) for i, (a, b) in enumerate(
+        zip(got["synonyms"]["similarity"], want["synonyms"]["similarity"]))]
+    pairs.append(("lda log perplexity", got["lda_log_perplexity"],
+                  want["lda_log_perplexity"]))
+    return {name: abs(a - b) for name, a, b in pairs}
+
+
+def check_rest_tour_golden(device: str) -> dict:
+    """Phase 14(a): ``rest_tour`` against TOUR_REST_GOLDEN."""
+    got = rest_tour(device)
+    want = TOUR_REST_GOLDEN
+    bad = [f"{k} {got[k]} vs {want[k]}" for k in REST_EXACT
+           if got[k] != want[k]]
+    if got["synonyms"]["words"][0] != want["synonyms"]["words"][0]:
+        bad.append(f"top synonym {got['synonyms']}")
+    if abs(got["iso_predict_30"] - want["iso_predict_30"]) > \
+            REST_PREDICT_ATOL:
+        bad.append(f"isotonic predict(30) {got['iso_predict_30']}")
+    errs = rest_tour_errors(got)
+    bad += [f"{k} off by {e}" for k, e in errs.items() if e > REST_ATOL]
+    log(f"tour's second half on dataset-full, {device} float32: {got}; "
+        f"errors against the JAX package {errs}")
+    if bad:
+        raise AssertionError(f"the tour's second half on dataset-full: {bad}")
+    return {"result": got, "errors": errs}
+
+
+def _zipf(m: int, s: float = 1.0) -> np.ndarray:
+    p = 1.0 / np.arange(1, m + 1) ** s
+    return p / p.sum()
+
+
+def _ragged(rng, lengths, pool, p) -> list:
+    """Lists of ``lengths`` draws from ``pool`` with probabilities ``p``."""
+    flat = rng.choice(pool, size=int(lengths.sum()), p=p)
+    return [list(x) for x in np.split(flat, np.cumsum(lengths)[:-1])]
+
+
+def w2v_docs() -> list:
+    """W2V_DOCS documents of 8-20 tokens over a W2V_WORDS-word vocabulary
+    of W2V_TOPICS topics: a document draws its tokens from one topic's
+    words (those equal to it modulo W2V_TOPICS) by Zipf rank. A corpus
+    with no topics (one Zipf over all words) makes the SGD steps diverge
+    at batch 4,096, in the JAX package's algorithm as in the port: its
+    most frequent word takes about 500 summed updates a step."""
+    rng = np.random.default_rng(4)
+    words = np.array([f"w{j:04d}" for j in range(W2V_WORDS)], object)
+    per = W2V_WORDS // W2V_TOPICS
+    lens = rng.integers(8, 21, W2V_DOCS)
+    topic = rng.integers(0, W2V_TOPICS, W2V_DOCS)
+    ranks = rng.choice(per, size=int(lens.sum()), p=_zipf(per))
+    ids = ranks * W2V_TOPICS + np.repeat(topic, lens)
+    return [list(x) for x in np.split(words[ids], np.cumsum(lens)[:-1])]
+
+
+def rest_data(rows: int = FULL_ROWS) -> dict:
+    """Phase 14(b)'s seeded inputs, on the host: the tour's XOR points
+    (two N(0, 1) columns, label x0·x1 > 0, target x0·x1 + N(0, 0.1)), its
+    survival rows (20% censored), baskets of 2-6 of 50 Zipf items,
+    sessions of 3-8 page itemsets (one page, or two in one of five) over 20
+    pages, documents of 8-20 tokens (``w2v_docs``),
+    binary rows for MinHash, and term counts of LDA_TOKENS tokens a
+    document from LDA_TOPICS planted topics (each nine tenths on its own
+    block of terms)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(rows, 2))
+    xor = {"features": X, "label": (X[:, 0] * X[:, 1] > 0).astype(
+        np.float64), "target": X[:, 0] * X[:, 1] + rng.normal(0.0, 0.1, rows)}
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=rows)
+    surv = {"features": a[:, None],
+            "label": np.exp(1.0 + 0.3 * a + 0.4 * np.log(
+                rng.exponential(size=rows))),
+            "censor": (rng.random(rows) > 0.2).astype(np.float64)}
+    rng = np.random.default_rng(2)
+    items = np.array([f"i{j:02d}" for j in range(FP_ITEMS)], object)
+    baskets = _ragged(rng, rng.integers(2, 7, FP_BASKETS), items,
+                      _zipf(FP_ITEMS))
+    rng = np.random.default_rng(3)
+    pages = np.array([f"p{j:02d}" for j in range(PS_PAGES)], object)
+    lens = rng.integers(3, 9, PS_SESSIONS)
+    first = _ragged(rng, lens, pages, _zipf(PS_PAGES, 0.8))
+    total = int(lens.sum())
+    two = rng.random(total) < 0.2
+    second = rng.choice(pages, size=total, p=_zipf(PS_PAGES, 0.8))
+    flat = [sorted({f} | ({s} if t else set()))
+            for f, s, t in zip((f for fs in first for f in fs), second, two)]
+    sessions = [flat[s:e] for s, e in zip(np.cumsum(lens) - lens,
+                                           np.cumsum(lens))]
+    docs = w2v_docs()
+    rng = np.random.default_rng(5)
+    binary = rng.random((MINHASH_ROWS, MINHASH_COLS)) < 0.1
+    binary[np.arange(MINHASH_ROWS),
+           rng.integers(0, MINHASH_COLS, MINHASH_ROWS)] = True
+    rng = np.random.default_rng(6)
+    topic = rng.integers(0, LDA_TOPICS, LDA_DOCS)
+    block = LDA_TERMS // LDA_TOPICS
+    counts = np.zeros((LDA_DOCS, LDA_TERMS), np.int16)
+    for k in range(LDA_TOPICS):
+        p = np.full(LDA_TERMS, 0.1 / LDA_TERMS)
+        p[k * block:(k + 1) * block] += 0.9 / block
+        rows_k = np.flatnonzero(topic == k)
+        terms = rng.choice(LDA_TERMS, size=(rows_k.size, LDA_TOKENS),
+                           p=p / p.sum())
+        counts[rows_k] = np.bincount(
+            (np.arange(rows_k.size)[:, None] * LDA_TERMS + terms).ravel(),
+            minlength=rows_k.size * LDA_TERMS).reshape(rows_k.size,
+                                                       LDA_TERMS)
+    return {"xor": xor, "surv": surv, "baskets": baskets,
+            "sessions": sessions, "docs": docs,
+            "binary": binary.astype(np.float64), "lda": counts,
+            "planted_topics": topic}
+
+
+def rest_frames(data: dict, clean, device: str) -> dict:
+    """The frames of phase 14(b) on ``device`` in the float policy in
+    force: the XOR rows (classification and regression), the survival
+    rows, the clean table (if given) with isotonic's weight guest % 3 + 1,
+    baskets,
+    sessions, documents, the join's two halves, the binary rows and the
+    LDA counts."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+    from sparkdq4ml_tpu_torch.ops.cells import list_column
+
+    x = data["xor"]
+    xor = Frame({"features": x["features"], "label": x["label"]},
+                device=device)
+    join = x["features"][:2 * LSH_JOIN_ROWS]
+    frames = {} if clean is None else {"iso": clean.with_column(
+        "w", (clean.col("guest") % 3 + 1).cast("double"))}
+    return {**frames,
+        "xor": xor,
+        "xor_reg": xor.with_column("label", x["target"]),
+        "surv": Frame(dict(data["surv"]), device=device),
+        "baskets": Frame({"items": list_column(data["baskets"])},
+                         device=device),
+        "sessions": Frame({"sequence": list_column(data["sessions"])},
+                          device=device),
+        "docs": Frame({"toks": list_column(data["docs"])}, device=device),
+        "join_a": Frame({"features": join[:LSH_JOIN_ROWS]}, device=device),
+        "join_b": Frame({"features": join[LSH_JOIN_ROWS:]}, device=device),
+        "binary": Frame({"features": data["binary"]}, device=device),
+        "lda": Frame({"features": torch.as_tensor(
+            data["lda"], device=device)}, device=device)}
+
+
+def rest_fits(data: dict):
+    """(name, fn(frames) -> host results) of phase 14(b), in order."""
+    from sparkdq4ml_tpu_torch.models import (AFTSurvivalRegression,
+                                             BucketedRandomProjectionLSH,
+                                             FMClassifier, FMRegressor,
+                                             FPGrowth, IsotonicRegression,
+                                             LDA, MinHashLSH, PrefixSpan,
+                                             Word2Vec)
+
+    def fm(est, frame, accuracy):
+        m = est.fit(frame)
+        out = {"intercept": m.intercept, "linear": m.linear,
+               "factors": m.factors, "loss": m.loss_history[-1]}
+        if accuracy:
+            out["accuracy"] = _valid_share(m.transform(frame), "prediction",
+                                           "label")
+        return out
+
+    def iso(f, **kw):
+        m = IsotonicRegression(features_col="guest", label_col="price",
+                               **kw).fit(f["iso"])
+        return {"boundaries": m.boundaries, "predictions": m.predictions}
+
+    def w2v(f):
+        m = Word2Vec(vector_size=100, window_size=5, min_count=5, max_iter=1,
+                     batch_size=4096, seed=1, input_col="toks",
+                     output_col="vec").fit(f["docs"])
+        means = m.transform(f["docs"])._column_values("vec")
+        out = {"vectors": m.vectors, "loss": np.asarray(m.loss_history),
+               "means_sum": float(means.double().abs().sum()),
+               "vocabulary": np.asarray(m.vocabulary)}
+        for w in m.vocabulary[:20]:
+            s = m.find_synonyms(w, 2).to_pydict()
+            out[f"syn {w}"] = np.asarray([m._index[v] for v in s["word"]])
+            out[f"sim {w}"] = np.asarray(s["similarity"])
+        return out
+
+    def ann(f):
+        m = BucketedRandomProjectionLSH(bucket_length=2.0, num_hash_tables=4,
+                                        seed=3).fit(f["xor"])
+        X = data["xor"]["features"]
+        out = {"hashes": m.transform(f["xor"])._column_values("hashes")[
+            :LSH_HASH_ROWS].cpu().numpy(), "projections": m.projections}
+        for q in range(ANN_QUERIES):
+            r = m.approx_nearest_neighbors(f["xor"], X[q], 5).to_pydict()
+            order = np.argsort(r["distCol"], kind="stable")
+            out[f"dist {q}"] = np.asarray(r["distCol"])[order]
+        return out
+
+    def join(f):
+        m = BucketedRandomProjectionLSH(bucket_length=0.05, num_hash_tables=4,
+                                        seed=3).fit(f["join_a"])
+        r = m.approx_similarity_join(f["join_a"], f["join_b"], 0.01
+                                     ).to_pydict()
+        return {"idA": r["idA"], "idB": r["idB"], "dist": r["distCol"],
+                "hashes_a": m.transform(f["join_a"])._column_values(
+                    "hashes").cpu().numpy(),
+                "hashes_b": m.transform(f["join_b"])._column_values(
+                    "hashes").cpu().numpy(), "projections": m.projections}
+
+    def minhash(f):
+        m = MinHashLSH(num_hash_tables=4, seed=3).fit(f["binary"])
+        r = m.approx_nearest_neighbors(f["binary"], data["binary"][0], 5
+                                       ).to_pydict()
+        return {"hashes": m.transform(f["binary"])._column_values(
+            "hashes").cpu().numpy(), "dist": np.sort(r["distCol"]),
+            "coeff_a": m.coeff_a, "coeff_b": m.coeff_b}
+
+    def lda(f, optimizer, max_iter):
+        m = LDA(k=LDA_TOPICS, max_iter=max_iter, optimizer=optimizer,
+                seed=1).fit(f["lda"])
+        return {"topics": m.topics, "perplexity": m.log_perplexity(f["lda"]),
+                "top_terms": np.stack(m.describe_topics(5).to_pydict()[
+                    "termIndices"])}
+
+    return [
+        ("fm_classifier", lambda f: fm(FMClassifier(
+            factor_size=4, max_iter=400, step_size=0.05, seed=1),
+            f["xor"], True)),
+        ("fm_regressor", lambda f: fm(FMRegressor(factor_size=4,
+                                                  max_iter=200),
+                                      f["xor_reg"], False)),
+        ("aft", lambda f: (lambda m: {
+            "coef": m.coefficients, "intercept": m.intercept,
+            "scale": m.scale, "loss": m.loss_history[-1]})(
+                AFTSurvivalRegression(max_iter=300).fit(f["surv"]))),
+        ("isotonic", lambda f: iso(f)),
+        ("isotonic_antitonic", lambda f: iso(f, isotonic=False)),
+        ("isotonic_weighted", lambda f: iso(f, weight_col="w")),
+        ("fpgrowth", lambda f: (lambda m: {
+            "itemsets": np.asarray([" ".join(s) for s, _ in m.itemsets]),
+            "counts": np.asarray([c for _, c in m.itemsets]),
+            "rules": len(m.association_rules.to_pydict()["confidence"])})(
+                FPGrowth(min_support=0.01, min_confidence=0.5).fit(
+                    f["baskets"]))),
+        ("prefixspan", lambda f: (lambda d: {
+            "patterns": np.asarray(["|".join(" ".join(i) for i in s)
+                                    for s in d["sequence"]]),
+            "freq": np.asarray(d["freq"])})(PrefixSpan(
+                min_support=0.05).find_frequent_sequential_patterns(
+                    f["sessions"]).to_pydict())),
+        ("word2vec", w2v),
+        ("lsh_ann", ann),
+        ("lsh_join", join),
+        ("minhash", minhash),
+        ("lda_em", lambda f: lda(f, "em", 25)),
+        ("lda_online", lambda f: lda(f, "online", 50)),
+    ]
+
+
+# The fits whose float64 reference runs on the card under the float64
+# policy (the others are held against independent numpy code).
+REST_CARD_REFERENCE = ("fm_classifier", "fm_regressor", "aft", "word2vec",
+                       "lda_em", "lda_online")
+
+
+class float32_draws:
+    """Within the block, the random draws of the float64 reference are the
+    float32 run's: JAX's normal and gamma drawn in float32 and widened,
+    randint in int32, and Word2Vec's negatives from float32 uniforms into
+    the float32 CDF (x64 would draw other numbers from the same keys)."""
+
+    def __enter__(self):
+        import torch
+
+        from sparkdq4ml_tpu_torch.models import word2vec
+        from sparkdq4ml_tpu_torch.utils import prng
+
+        self.saved = [(prng, "normal", prng.normal),
+                      (prng, "gamma", prng.gamma),
+                      (prng, "randint", prng.randint),
+                      (word2vec, "step_negatives", word2vec.step_negatives)]
+        normal, gamma, randint, negatives = (s[2] for s in self.saved)
+        prng.normal = lambda key, shape=(), dtype=torch.float32: normal(
+            key, shape, torch.float32).to(dtype)
+        prng.gamma = lambda key, a, shape, dtype=torch.float32: gamma(
+            key, a, shape, torch.float32).to(dtype)
+        prng.randint = lambda key, shape, lo, hi, dtype=torch.int32: \
+            randint(key, shape, lo, hi, torch.int32).to(dtype)
+        word2vec.step_negatives = lambda cdf, *a: negatives(
+            cdf.to(torch.float32), *a[:-1], torch.float32)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def _np_threefry(k1, k2, x0, x1):
+    """Threefry-2x32 in numpy uint32 (20 rounds): JAX's PRNG hash."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    ks = (np.uint32(k1), np.uint32(k2),
+          np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
+    x = [x0 + ks[0], x1 + ks[1]]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+            x[1] = x[0] ^ x[1]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x
+
+
+def numpy_negatives(cdf32, seed: int, step: int, shape) -> np.ndarray:
+    """One Word2Vec step's negatives in numpy: ``fold_in(PRNGKey(seed),
+    step)``, JAX's float32 uniforms of ``shape`` under that key, and
+    ``searchsorted`` into the float32 CDF."""
+    with np.errstate(over="ignore"):
+        k = _np_threefry((seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF,
+                         np.uint32([0]), np.uint32([step]))
+        n = int(np.prod(shape))
+        idx = np.arange(n, dtype=np.uint64)
+        b1, b2 = _np_threefry(k[0][0], k[1][0],
+                              (idx >> np.uint64(32)).astype(np.uint32),
+                              (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
+    u = bits.view(np.float32) - np.float32(1.0)
+    return np.searchsorted(cdf32, u).reshape(shape)
+
+
+def numpy_isotonic(x, y, w, isotonic: bool = True, order=None):
+    """Isotonic regression in numpy float64: a stable argsort (``order``
+    if given), the weighted sums by distinct value with
+    ``np.add.reduceat``, then pool-adjacent-violators as a list of merged
+    blocks. Returns (boundaries, predictions)."""
+    sign = 1.0 if isotonic else -1.0
+    if order is None:
+        order = np.argsort(x, kind="stable")
+    xs, ys, ws = x[order], sign * y[order], w[order]
+    start = np.flatnonzero(np.concatenate([[True], xs[1:] != xs[:-1]]))
+    uniq = xs[start]
+    wsum = np.add.reduceat(ws, start)
+    ysum = np.add.reduceat(ws * ys, start)
+    keep = wsum > 0
+    blocks = []                     # [value, weight, low x, high x]
+    for xv, yv, wv in zip(uniq[keep], ysum[keep] / wsum[keep], wsum[keep]):
+        blocks.append([yv, wv, xv, xv])
+        while len(blocks) > 1 and blocks[-2][0] > blocks[-1][0]:
+            b = blocks.pop()
+            a = blocks[-1]
+            a[0] = (a[0] * a[1] + b[0] * b[1]) / (a[1] + b[1])
+            a[1] += b[1]
+            a[3] = b[3]
+    bx = [v for a in blocks for v in ((a[2], a[3]) if a[3] != a[2]
+                                      else (a[2],))]
+    by = [a[0] for a in blocks for _ in range(1 + (a[3] != a[2]))]
+    return np.asarray(bx), sign * np.asarray(by)
+
+
+def numpy_itemsets(baskets, min_support: float) -> dict:
+    """Every frequent itemset's support, by brute force on a basket × item
+    matrix: the sets grow one item at a time (items in name order), and a
+    set is counted as the number of baskets holding all its items."""
+    names = sorted({i for b in baskets for i in b})
+    col = {n: j for j, n in enumerate(names)}
+    M = np.zeros((len(baskets), len(names)), np.float32)
+    for r, b in enumerate(baskets):
+        M[r, [col[i] for i in b]] = 1.0
+    min_count = max(1, int(np.ceil(min_support * len(baskets))))
+    out, frontier = {}, [((), np.ones(len(baskets), np.float32))]
+    while frontier:
+        nxt = []
+        for items, rows in frontier:
+            counts = rows @ M
+            last = col[items[-1]] if items else -1
+            for j in range(last + 1, len(names)):
+                if counts[j] >= min_count:
+                    s = items + (names[j],)
+                    out[" ".join(s)] = int(counts[j])
+                    nxt.append((s, rows * M[:, j]))
+        frontier = nxt
+    return out
+
+
+def numpy_sequences(sessions, min_support: float, max_len: int = 10):
+    """Every frequent sequential pattern's support, by brute force: a
+    pattern is contained in a session where its itemsets are subsets of
+    the session's itemsets at increasing positions (earliest match), each
+    page held as a bit mask of the positions a session has it at; the
+    patterns grow by a new itemset or by a page past the last itemset's
+    largest."""
+    pages = sorted({p for s in sessions for i in s for p in i})
+    L = max(len(s) for s in sessions)
+    if L > 62:
+        raise ValueError("numpy_sequences: sessions of at most 62 itemsets")
+    at = {p: np.zeros(len(sessions), np.int64) for p in pages}
+    for r, s in enumerate(sessions):
+        for q, items in enumerate(s):
+            for p in set(items):
+                at[p][r] |= 1 << q
+    min_count = max(1, int(np.ceil(min_support * len(sessions))))
+
+    def support(pattern):
+        after = np.zeros(len(sessions), np.int64)      # positions still open
+        after -= 1
+        for items in pattern:
+            hit = after.copy()
+            for p in items:
+                hit &= at[p]
+            first = hit & -hit                         # lowest position left
+            after = np.where(hit != 0, ~((first << 1) - 1), 0)
+        return int((after != 0).sum() if pattern else 0)
+
+    out, frontier = {}, [[]]
+    while frontier:
+        nxt = []
+        for pattern in frontier:
+            if sum(len(i) for i in pattern) >= max_len:
+                continue
+            grown = [pattern + [[p]] for p in pages]
+            if pattern:
+                grown += [pattern[:-1] + [pattern[-1] + [p]] for p in pages
+                          if p > pattern[-1][-1]]
+            for g in grown:
+                c = support(g)
+                if c >= min_count:
+                    out["|".join(" ".join(i) for i in g)] = c
+                    nxt.append(g)
+        frontier = nxt
+    return out
+
+
+def numpy_pairs(ha, hb) -> np.ndarray:
+    """The (a, b) row pairs that share a bucket in any table, as the keys
+    a·len(b) + b, unique and ascending: per table both sides sorted by
+    bucket and each a row paired with the b rows of its bucket."""
+    keys = []
+    for t in range(ha.shape[1]):
+        oa = np.argsort(ha[:, t], kind="stable")
+        ob = np.argsort(hb[:, t], kind="stable")
+        ka, kb = ha[oa, t], hb[ob, t]
+        lo = np.searchsorted(kb, ka, "left")
+        cnt = np.searchsorted(kb, ka, "right") - lo
+        within = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt,
+                                                       cnt)
+        keys.append(np.repeat(oa, cnt) * len(hb) + ob[np.repeat(lo, cnt)
+                                                      + within])
+    keys = np.sort(np.concatenate(keys))
+    return keys[np.concatenate([[True], keys[1:] != keys[:-1]])]
+
+
+def over(err, tol) -> bool:
+    """True where ``err`` exceeds ``tol`` or is NaN."""
+    return not err <= tol
+
+
+def rel_gap(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))) \
+        if a.size else 0.0
+
+
+def rest_reference_checks(card: dict, data: dict, clean_cols: tuple,
+                          device: str = "cuda") -> dict:
+    """Phase 14(c)'s gates against independent code: numpy for isotonic's
+    three fits, FPGrowth's itemsets and PrefixSpan's patterns and counts,
+    the LSH join and MinHash; plain torch float64 on ``device`` for the LSH
+    hashes and nearest neighbors over the 10^7 points (in numpy they took
+    11 s of the card's host)."""
+    import torch
+
+    bad, notes = [], {"seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        notes["seconds"][name] = now - mark[0]
+        mark[0] = now
+
+    guest, price = (np.asarray(c, np.float64) for c in clean_cols)
+    order = np.argsort(guest, kind="stable")
+    for name, kw in (("isotonic", {}), ("isotonic_antitonic",
+                                        {"isotonic": False}),
+                     ("isotonic_weighted", {"w": guest % 3 + 1})):
+        w = kw.pop("w", np.ones_like(guest))
+        bx, by = numpy_isotonic(guest, price, w, order=order, **kw)
+        got = card[name]
+        if not np.array_equal(got["boundaries"], bx):
+            bad.append(f"{name} boundaries {got['boundaries']} vs {bx}")
+        elif over(np.max(np.abs(got["predictions"] - by)),
+                  ISO_PREDICT_TOL):
+            bad.append(f"{name} predictions off by "
+                       f"{np.max(np.abs(got['predictions'] - by))}")
+        notes[name] = {"boundaries": int(bx.size)}
+    lap("isotonic")
+    want = numpy_itemsets(data["baskets"], 0.01)
+    got = dict(zip(card["fpgrowth"]["itemsets"].tolist(),
+                   card["fpgrowth"]["counts"].tolist()))
+    if got != want:
+        bad.append(f"fpgrowth itemsets: {len(got)} vs numpy's {len(want)}")
+    notes["fpgrowth"] = {"itemsets": len(want),
+                         "rules": card["fpgrowth"]["rules"]}
+    lap("itemsets")
+    want = numpy_sequences(data["sessions"], 0.05)
+    got = dict(zip(card["prefixspan"]["patterns"].tolist(),
+                   card["prefixspan"]["freq"].tolist()))
+    if got != want:
+        bad.append(f"prefixspan patterns: {len(got)} vs numpy's {len(want)}")
+    notes["prefixspan"] = {"patterns": len(want)}
+    lap("patterns")
+
+    X = torch.as_tensor(data["xor"]["features"], device=device)
+    ann = card["lsh_ann"]
+    length = torch.tensor(2.0, dtype=torch.float64, device=device)
+    proj = X @ torch.as_tensor(ann["projections"], device=device) / length
+    hx = torch.floor(proj).to(torch.int64)
+    head = proj[:LSH_HASH_ROWS]
+    edge = (head - torch.round(head)).abs().cpu().numpy()
+    hx_head = hx[:LSH_HASH_ROWS].cpu().numpy()
+    off = (ann["hashes"] != hx_head) & (edge > LSH_EDGE)
+    if off.any():
+        bad.append(f"lsh hashes: {int(off.sum())} differ away from an edge")
+    notes["lsh_hash_rows_at_edges"] = int(
+        (ann["hashes"] != hx_head).any(axis=1).sum())
+    x32 = X.float().double()
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=device)
+    worst = 0.0
+    for q in range(ANN_QUERIES):
+        cand = (hx == hx[q]).any(dim=1)
+        d2 = torch.where(cand, ((x32 - x32[q]) ** 2).sum(dim=1), inf)
+        d = torch.sqrt(torch.topk(d2, 5, largest=False).values).cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(ann[f"dist {q}"] - d))))
+    if over(worst, LSH_DIST_TOL):
+        bad.append(f"lsh nearest-neighbor distances off by {worst}")
+    notes["lsh_ann_max_err"] = worst
+    del X, proj, hx, x32
+    x32 = data["xor"]["features"][:2 * LSH_JOIN_ROWS].astype(
+        np.float32).astype(np.float64)
+    lap("lsh_ann")
+    j = card["lsh_join"]
+    keys = numpy_pairs(j["hashes_a"].astype(np.int64),
+                       j["hashes_b"].astype(np.int64))
+    a, b = keys // LSH_JOIN_ROWS, keys % LSH_JOIN_ROWS
+    xa = x32[:LSH_JOIN_ROWS]
+    xb = x32[LSH_JOIN_ROWS:2 * LSH_JOIN_ROWS]
+    d = np.sqrt(((xa[a] - xb[b]) ** 2).sum(axis=1))
+    near = np.abs(d - 0.01) <= 1e-6             # at the threshold: printed
+    want = set(zip(a[(d <= 0.01) & ~near].tolist(),
+                   b[(d <= 0.01) & ~near].tolist()))
+    got = set(zip(j["idA"].tolist(), j["idB"].tolist()))
+    at_threshold = set(zip(a[near].tolist(), b[near].tolist()))
+    if (got - at_threshold) != want:
+        bad.append(f"lsh join: {len(got)} pairs vs numpy's {len(want)}")
+    notes["lsh_join"] = {"candidates": int(keys.size), "pairs": len(got),
+                         "at_threshold": len(at_threshold)}
+
+    lap("lsh_join")
+    m = card["minhash"]
+    B = data["binary"]
+    prime = 2038074743
+    hv = (m["coeff_a"][:, None] * np.arange(1, B.shape[1] + 1)[None, :]
+          + m["coeff_b"][:, None]) % prime
+    hm = np.where(B[:, None, :] > 0, hv[None], prime).min(axis=2)
+    if not np.array_equal(m["hashes"].astype(np.int64), hm):
+        bad.append("minhash hashes differ from numpy's")
+    cand = (hm == hm[0]).any(axis=1)
+    inter = (B[cand] * B[0]).sum(axis=1)
+    union = ((B[cand] + B[0]) > 0).sum(axis=1)
+    d = np.sort(1.0 - inter / np.maximum(union, 1))[:5]
+    if over(np.max(np.abs(m["dist"] - d)), LSH_DIST_TOL):
+        bad.append(f"minhash distances {m['dist']} vs {d}")
+    lap("minhash")
+    if bad:
+        raise AssertionError(f"phase 14 against numpy: {bad}")
+    return notes
+
+
+def check_rest_card(card: dict, ref: dict, launches: dict, data: dict,
+                    steps: int) -> dict:
+    """Phase 14(c)'s gates against the float64 run on the card (FM, AFT,
+    Word2Vec, LDA) and the launch counts; returns the errors and the
+    near ties printed."""
+    bad, out = [], {}
+    for name in ("fm_classifier", "fm_regressor"):
+        e = rel_gap(card[name]["loss"], ref[name]["loss"])
+        out[f"{name} loss"] = e
+        if over(e, FM_LOSS_RTOL):
+            bad.append(f"{name} loss {card[name]['loss']} vs "
+                       f"{ref[name]['loss']}")
+    acc = abs(card["fm_classifier"]["accuracy"]
+              - ref["fm_classifier"]["accuracy"])
+    out["fm accuracy"] = acc
+    if over(acc, FM_ACCURACY_TOL):
+        bad.append(f"fm accuracy off by {acc}")
+    for k in ("coef", "intercept", "scale"):
+        e = float(np.max(np.abs(np.asarray(card["aft"][k], np.float64)
+                                - np.asarray(ref["aft"][k], np.float64))))
+        out[f"aft {k}"] = e
+        if over(e, AFT_TOL):
+            bad.append(f"aft {k} off by {e}")
+    w, wr = card["word2vec"], ref["word2vec"]
+    if not (np.all(np.isfinite(w["vectors"])) and np.all(np.isfinite(
+            w["loss"]))):
+        bad.append("word2vec vectors or losses not finite")
+    e = rel_gap(w["loss"][-1], wr["loss"][-1])
+    out["word2vec last loss"] = e
+    if over(e, W2V_LOSS_RTOL):
+        bad.append(f"word2vec last loss {w['loss'][-1]} vs {wr['loss'][-1]}")
+    ties = []
+    for word in wr["vocabulary"][:20]:
+        sims = wr[f"sim {word}"]
+        lead = float(sims[0] - sims[1])
+        same = w[f"syn {word}"][0] == wr[f"syn {word}"][0]
+        if not lead > W2V_MARGIN:
+            ties.append({"word": str(word), "lead": lead, "same": bool(same)})
+        elif not same:
+            bad.append(f"word2vec top synonym of {word}")
+    out["word2vec near ties"] = ties
+    for name in ("lda_em", "lda_online"):
+        g, r = card[name], ref[name]
+        # each topic's λ against its largest entry: an entry near η holds
+        # a few tokens, whose float32 sums round at 1e-4 of themselves
+        e = float(np.max(np.abs(g["topics"] - r["topics"])
+                         / np.max(r["topics"], axis=1, keepdims=True)))
+        out[f"{name} lambda"] = e
+        if over(e, LDA_RTOL):
+            bad.append(f"{name} lambda off by {e} relative")
+        e = rel_gap(g["perplexity"], r["perplexity"])
+        out[f"{name} perplexity"] = e
+        if over(e, LDA_RTOL):
+            bad.append(f"{name} perplexity {g['perplexity']} vs "
+                       f"{r['perplexity']}")
+        beta = r["topics"] / r["topics"].sum(axis=1, keepdims=True)
+        srt = -np.sort(-beta, axis=1)
+        gap = np.minimum(np.diff(-srt, axis=1, prepend=-np.inf)[:, :5],
+                         np.diff(-srt, axis=1)[:, :5]) / srt[:, :5]
+        held = gap > LDA_MARGIN
+        if np.any((g["top_terms"] != r["top_terms"]) & held):
+            bad.append(f"{name} top terms {g['top_terms']} vs "
+                       f"{r['top_terms']}")
+        out[f"{name} near ties"] = int((~held).sum())
+    for name in ("isotonic", "isotonic_antitonic", "isotonic_weighted"):
+        if launches[name]["sorted_segment_sum"] != 1:
+            bad.append(f"{name} launches {launches[name]}")
+    if launches["word2vec"]["sorted_segment_sum"] != 2 * steps + 1:
+        bad.append(f"word2vec launches {launches['word2vec']} for {steps} "
+                   "steps")
+    if bad:
+        raise AssertionError(f"phase 14 gates: {bad}")
+    return out
+
+
+def check_negatives(cdf32, seed: int, steps: int, batch: int,
+                    negatives: int = 5, device: str = "cuda") -> list:
+    """Word2Vec's negatives on the card (``word2vec.step_negatives``, the
+    fit's own draw) bit for bit against numpy's threefry, at
+    W2V_NEGATIVE_STEPS steps spread over the fit."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.models import word2vec
+
+    cdf = torch.as_tensor(cdf32, device=device)
+    picks = sorted({int(s) for s in np.linspace(0, steps - 1,
+                                                W2V_NEGATIVE_STEPS)})
+    for s in picks:
+        got = word2vec.step_negatives(cdf, seed, s, s + 1, batch, negatives,
+                                      torch.float32)[0].cpu().numpy()
+        if not np.array_equal(got, numpy_negatives(cdf32, seed, s,
+                                                   (batch, negatives))):
+            raise AssertionError(f"word2vec negatives of step {s} differ "
+                                 "from numpy's threefry draw")
+    return picks
+
+
+def w2v_cdf(docs, min_count: int = 5) -> np.ndarray:
+    """The float32 unigram^0.75 CDF of the vocabulary Word2Vec builds."""
+    from sparkdq4ml_tpu_torch.models import word2vec
+
+    _, counts, _ = word2vec._build_vocab(docs, np.ones(len(docs), bool),
+                                         min_count, 262144)
+    p = counts.astype(np.float64) ** 0.75
+    return np.cumsum(p / p.sum()).astype(np.float32)
+
+
+def check_rest_full(rows: int = FULL_ROWS) -> dict:
+    """Phase 14(b)-(c): the fits of ``rest_fits`` on the card in float32,
+    each twice (bit-identical) with the launch counts set to 0 just before
+    it and read just after, isotonic on the table cleaned by one dq_rules
+    launch, one Word2Vec fit under torch.profiler; then the float64 run of
+    FM, AFT, Word2Vec and LDA on the card under the float64 policy with
+    the float32 run's draws (``float32_draws``), the numpy references of
+    the rest, and the gates."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import float_policy
+    from sparkdq4ml_tpu_torch.ops import kernels
+    from sparkdq4ml_tpu_torch.ops.cells import list_column
+
+    t0 = time.perf_counter()
+    data = rest_data(rows)
+    guest, price = full_table(rows)
+    data_s = time.perf_counter() - t0
+    fits = rest_fits(data)
+    t_card = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.launches.reset()
+    spark, clean = clean_table("cuda", guest, price)
+    torch.cuda.synchronize()
+    clean_counts = kernels.launches.snapshot()
+    if clean_counts["dq_rules"] != 1:
+        raise AssertionError(f"phase 14's clean table: {clean_counts}")
+    clean_host = clean.to_pydict()
+    clean_cols = (clean_host["guest"], clean_host["price"])
+    frames = rest_frames(data, clean, "cuda")
+    card, launches, fit_ms, differ = {}, {}, {}, {}
+    for name, fn in fits:
+        card[name], launches[name], s1 = driven(fn, frames)
+        again, _, s2 = driven(fn, frames)
+        differ[name] = same_results(card[name], again)
+        fit_ms[name] = [1e3 * s1, 1e3 * s2]
+    profiled = {}
+    profiles = {"word2vec": profile_run(
+        "rest_word2vec", lambda: profiled.update(dict(fits)["word2vec"](
+            {"docs": frames["docs"].filter(torch.arange(
+                W2V_DOCS, device="cuda") < W2V_PROFILED_DOCS)})))}
+    profiles["word2vec"]["steps"] = len(profiled["loss"])
+    del frames
+    spark.stop()
+    card_s = time.perf_counter() - t_card
+    bad = {k: v for k, v in differ.items() if v}
+    if bad:
+        raise AssertionError(f"phase 14 fits differ between two card runs: "
+                             f"{bad}")
+    steps = len(card["word2vec"]["loss"])
+    t0 = time.perf_counter()
+    with float_policy(torch.float64), float32_draws():
+        frames64 = rest_frames(data, None, "cuda")
+        ref, ref_fit_s = {}, {}
+        for name, fn in fits:
+            if name in REST_CARD_REFERENCE:
+                ref[name], _, ref_fit_s[name] = driven(fn, frames64)
+        del frames64
+    torch.cuda.synchronize()
+    ref_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gates = check_rest_card(card, ref, launches, data, steps)
+    numpy_notes = rest_reference_checks(card, data, clean_cols)
+    t1 = time.perf_counter()
+    picks = check_negatives(w2v_cdf(list_column(data["docs"])), 1, steps,
+                            4096)
+    numpy_notes["seconds"]["negatives"] = time.perf_counter() - t1
+    ref_numpy_s = time.perf_counter() - t0
+    w2v_prof = profiles["word2vec"]
+    seg_ms = w2v_prof.get("port_kernel_ms", {}).get("sorted_segment_sum")
+    summary = {
+        "fm_classifier": {k: card["fm_classifier"][k]
+                          for k in ("intercept", "loss", "accuracy")},
+        "fm_regressor": {k: card["fm_regressor"][k]
+                         for k in ("intercept", "loss")},
+        "aft": {"coef": card["aft"]["coef"].tolist(),
+                "intercept": card["aft"]["intercept"],
+                "scale": card["aft"]["scale"]},
+        "isotonic": numpy_notes, "word2vec": {
+            "steps": steps, "last_loss": float(card["word2vec"]["loss"][-1]),
+            "negatives_checked_at_steps": picks,
+            "segment_sum_device_ms_per_step": (
+                None if seg_ms is None
+                else seg_ms / w2v_prof["steps"])},
+        "lda": {name: {"perplexity": card[name]["perplexity"],
+                       "top_terms": card[name]["top_terms"].tolist()}
+                for name in ("lda_em", "lda_online")}}
+    log(f"phase 14 at {rows} rows ({len(clean_cols[0])} clean): "
+        f"{json.dumps(summary, default=str)}; fit ms {fit_ms}; gates "
+        f"{json.dumps(gates, default=str)}; profiles {profiles}; float64 "
+        f"reference on the card {ref_card_s:.1f} s, numpy {ref_numpy_s:.1f} s")
+    return {"rows": rows, "clean_rows": len(clean_cols[0]), "fits": summary,
+            "fit_ms": fit_ms, "launches": launches,
+            "clean_launches": clean_counts, "gates": gates,
+            "numpy": numpy_notes, "profiles": profiles,
+            "float64_on_card": REST_CARD_REFERENCE,
+            "float64_fit_s": ref_fit_s, "data_s": data_s,
+            "card_s": card_s, "card_float64_reference_s": ref_card_s,
+            "numpy_reference_s": ref_numpy_s}
+
+
+def rest_segment_cases():
+    """(name, kernel, x, seg, size) at phase 14's segment-sum shapes:
+    Word2Vec's step updates (4,096 center rows and 4,096·6 context and
+    negative rows of 100 columns onto 2,000 slots, the ids sorted first as
+    ops/segments.py does), its document means (the token rows of 10^5
+    documents onto one slot a document, in document order), and
+    isotonic's (w, w·y) in float64 over the clean rows sorted by guest
+    onto 39 slots."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    p = _zipf(W2V_WORDS)
+    cases = []
+    for name, n in (("word2vec dU", 4096), ("word2vec dV", 4096 * 6)):
+        ids = torch.as_tensor(rng.choice(W2V_WORDS, n, p=p), device="cuda")
+        order = torch.sort(ids, stable=True)
+        x = torch.randn((n, 100), device="cuda", dtype=torch.float32,
+                        generator=torch.Generator("cuda").manual_seed(n))
+        cases.append((name, "sorted_segment_sum",
+                      x.index_select(0, order.indices), order.values,
+                      W2V_WORDS))
+    lens = np.asarray([len(d) for d in w2v_docs()])
+    docs = torch.as_tensor(np.repeat(np.arange(lens.size), lens),
+                           device="cuda")
+    cases.append(("word2vec document means", "sorted_segment_sum",
+                  torch.randn((int(lens.sum()), 100), device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(
+                                  3)), docs, lens.size))
+    guest, price = clean_columns()
+    by_guest = torch.sort(guest, stable=True)
+    w = (guest % 3 + 1).to(torch.float64).index_select(0, by_guest.indices)
+    y = price.to(torch.float64).index_select(0, by_guest.indices)
+    first = torch.ones_like(by_guest.values, dtype=torch.bool)
+    first[1:] = by_guest.values[1:] != by_guest.values[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    cases.append(("isotonic (w, w·y) float64", "sorted_segment_sum",
+                  torch.stack([w, w * y], dim=1), seg, int(seg[-1]) + 1))
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -4646,10 +5666,15 @@ def profile_run(name: str, fn) -> dict:
     with open(os.path.join(out, f"{name}_profile.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=60))
+    kernel_ms = {name: 1e-3 * sum(e.self_device_time_total
+                                  for e in on_device
+                                  if any(p in e.key for p in parts))
+                 for name, parts in KERNEL_NAMES.items()}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (None if busy_ms is None
                                   else 1.0 - busy_ms / wall_ms),
             "device_events": len(on_device), "copies": copies,
+            "port_kernel_ms": {k: v for k, v in kernel_ms.items() if v},
             "port_kernels_in_trace": sorted(
                 name for name, parts in KERNEL_NAMES.items()
                 if any(p in listed for p in parts))}
@@ -4829,6 +5854,15 @@ def main() -> int:
     zoo_times = {c[0]: {**segsum_times(*c), "kernel": c[1],
                         "max_abs_err": zoo_errs[c[0]]} for c in zoo_cases}
     del zoo_cases
+    t0 = time.perf_counter()
+    rest_tour_res = check_rest_tour_golden("cuda")
+    rest = check_rest_full()
+    rest_s = time.perf_counter() - t0
+    rest_cases = rest_segment_cases()
+    rest_errs = check_segment_sum(rest_cases)
+    rest_times = {c[0]: {**segsum_times(*c), "kernel": c[1],
+                         "max_abs_err": rest_errs[c[0]]} for c in rest_cases}
+    del rest_cases
     zoo_launches = {name: zoo["launches"][name]
                     for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
                                  "bisecting", "pic")}
@@ -4844,7 +5878,9 @@ def main() -> int:
                "ingest_app": ingest["launches"],
                "dq_report": report["launches"],
                "builtins": builtins["launches"],
-               **{f"zoo_{name}": c for name, c in zoo_launches.items()}}
+               **{f"zoo_{name}": c for name, c in zoo_launches.items()},
+               "rest_clean_table": rest["clean_launches"],
+               **{f"rest_{name}": c for name, c in rest["launches"].items()}}
     one_slot_launches = {path: c.get("dense_segment_sum_one_slot", 0)
                          for path, c in by_path.items()}
     log(f"dense_segment_sum launches onto one slot, by path: "
@@ -4856,6 +5892,7 @@ def main() -> int:
          "launches": counts["dq_rules"], "max_abs_err": dq_err,
          "dq_report_launches": report["launches"]["dq_rules"],
          "builtins_launches": builtins["launches"]["dq_rules"],
+         "rest_launches": rest["clean_launches"]["dq_rules"],
          "parity": True, **dq_main, "app_size": dq_app},
         {"name": "packed_gram", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/packed_gram.cu",
@@ -4883,6 +5920,8 @@ def main() -> int:
                           for name, c in zoo_launches.items()},
          "zoo_shapes": {k: v for k, v in zoo_times.items()
                         if v["kernel"] == "dense_segment_sum"},
+         "rest_launches": {name: c["dense_segment_sum"]
+                           for name, c in rest["launches"].items()},
          "one_slot_launches": one_slot_launches,
          "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
          "bit_identical_runs": True, **seg_dense, "one_slot": seg_one,
@@ -4897,6 +5936,9 @@ def main() -> int:
                           for name, c in zoo_launches.items()},
          "zoo_shapes": {k: v for k, v in zoo_times.items()
                         if v["kernel"] == "sorted_segment_sum"},
+         "rest_launches": {name: c["sorted_segment_sum"]
+                           for name, c in rest["launches"].items()},
+         "rest_shapes": rest_times,
          "max_abs_err": seg_errs["sorted price groups"], "parity": True,
          "bit_identical_runs": True, "two_streams": two_streams,
          "zero_forms": zero_forms,
@@ -4922,6 +5964,8 @@ def main() -> int:
         "builtins": builtins, "builtins_phase_s": builtins_s,
         "zoo_tour_dataset_full": zoo_tour_res, "zoo": zoo,
         "zoo_phase_s": zoo_s,
+        "rest_tour_dataset_full": rest_tour_res, "rest": rest,
+        "rest_phase_s": rest_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}

@@ -17,12 +17,21 @@ from .evaluation import (BinaryClassificationEvaluator, ClusteringEvaluator,
                          Evaluator, MulticlassClassificationEvaluator,
                          RegressionEvaluator)
 from .feature import VectorAssembler
+from .fm import (FMClassificationModel, FMClassifier, FMRegressionModel,
+                 FMRegressor)
+from .fpm import FPGrowth, FPGrowthModel, PrefixSpan
 from .glm import (GeneralizedLinearRegression,
                   GeneralizedLinearRegressionModel, GlmTrainingSummary)
+from .lda import LDA, LDAModel
 from .linalg import Vectors
-from .regression import (LinearRegression, LinearRegressionModel,
+from .lsh import (BucketedRandomProjectionLSH,
+                  BucketedRandomProjectionLSHModel, MinHashLSH,
+                  MinHashLSHModel)
+from .regression import (IsotonicRegression, IsotonicRegressionModel,
+                         LinearRegression, LinearRegressionModel,
                          LinearRegressionSummary,
                          LinearRegressionTrainingSummary)
+from .survival import AFTSurvivalRegression, AFTSurvivalRegressionModel
 from .tree import (DecisionTreeClassificationModel, DecisionTreeClassifier,
                    DecisionTreeRegressionModel, DecisionTreeRegressor,
                    GBTClassificationModel, GBTClassifier,
@@ -31,3 +40,4 @@ from .tree import (DecisionTreeClassificationModel, DecisionTreeClassifier,
                    RandomForestRegressionModel, RandomForestRegressor)
 from .tuning import (CrossValidator, CrossValidatorModel, ParamGridBuilder,
                      TrainValidationSplit, TrainValidationSplitModel)
+from .word2vec import Word2Vec, Word2VecModel

@@ -34,6 +34,8 @@ import torch
 from ..config import float_dtype
 from ..frame.frame import Frame
 from ..ops.segments import _seg_sum
+from ..utils import prng
+from ..utils.prng import uniform_like_jax  # noqa: F401 - PIC's start draw
 from .base import Estimator, Model, feature_matrix, no_mesh, persistable
 
 
@@ -778,47 +780,6 @@ class BisectingKMeansModel(Model):
 # PowerIterationClustering
 # ---------------------------------------------------------------------------
 
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _rotl(x, r):
-    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
-
-
-def _threefry2x32(k1, k2, x0, x1):
-    """The Threefry-2x32 hash (20 rounds) of counter words ``x0``, ``x1``
-    (uint32 arrays) under the key ``(k1, k2)``: JAX's default PRNG."""
-    ks = (np.uint32(k1), np.uint32(k2),
-          np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
-    x = [x0 + ks[0], x1 + ks[1]]
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x[0] = x[0] + x[1]
-            x[1] = _rotl(x[1], r)
-            x[1] = x[0] ^ x[1]
-        x[0] = x[0] + ks[(i + 1) % 3]
-        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x
-
-
-def uniform_like_jax(seed: int, n: int, dtype) -> np.ndarray:
-    """``jax.random.uniform(jax.random.PRNGKey(seed), (n,), dtype)`` in
-    numpy, bit for bit (the partitionable threefry counters: word 0 the
-    high and word 1 the low half of the flat index)."""
-    seed = int(seed)
-    k1, k2 = (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF
-    idx = np.arange(n, dtype=np.uint64)
-    with np.errstate(over="ignore"):
-        b1, b2 = _threefry2x32(k1, k2, (idx >> np.uint64(32)).astype(
-            np.uint32), (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-    if np.dtype(dtype) == np.float64:
-        bits = (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
-        bits = (bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
-        return bits.view(np.float64) - 1.0
-    bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
-    return bits.view(np.float32) - np.float32(1.0)
-
-
 @persistable
 class PowerIterationClustering(Estimator):
     """MLlib ``PowerIterationClustering``: cluster the nodes of a weighted
@@ -830,7 +791,7 @@ class PowerIterationClustering(Estimator):
     and each power step is one matvec. ``assign_clusters(frame)`` returns
     ``Frame(id, cluster)`` over the ``src``/``dst``/``weight`` columns,
     ids ascending; ``init_mode`` is ``"random"`` (JAX's uniform draw,
-    reproduced in numpy) or ``"degree"``."""
+    ``utils/prng.py``) or ``"degree"``."""
 
     _persist_attrs = ('k', 'max_iter', 'init_mode', 'src_col', 'dst_col',
                       'weight_col', 'seed')
@@ -946,11 +907,7 @@ class PowerIterationClustering(Estimator):
         if self.init_mode == "degree":
             v = deg / torch.where(vol > 0, vol, one)
         else:
-            from ..config import numpy_dtype
-
-            u = torch.as_tensor(uniform_like_jax(self.seed, n,
-                                                 numpy_dtype(dt)),
-                                device=W.device)
+            u = prng.uniform(prng.PRNGKey(self.seed, W.device), (n,), dt)
             v = u / torch.clamp(torch.sum(torch.abs(u)), min=1e-30)
         for _ in range(self.max_iter):
             nv = inv_deg * (W @ v)

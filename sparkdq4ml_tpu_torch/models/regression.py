@@ -1,6 +1,5 @@
-"""``LinearRegression``, its model and its summaries (port of
-``sparkdq4ml_tpu/models/regression.py``; ``IsotonicRegression`` is not
-ported yet).
+"""``LinearRegression``, its model and its summaries, and
+``IsotonicRegression`` (port of ``sparkdq4ml_tpu/models/regression.py``).
 
 A squared-error ``fit`` packs the frame's valid rows into one design, takes
 its Gramian through the ``packed_gram`` kernel and runs the solver (FISTA,
@@ -12,6 +11,14 @@ package's format (``metadata.json`` + ``coefficients.npy``). MLlib's
 defaults hold: ``maxIter=100``, ``regParam=0``, ``elasticNetParam=0``,
 ``tol=1e-6``, ``fitIntercept=True``, ``standardization=True``,
 ``solver="auto"``.
+
+``IsotonicRegression`` sorts the valid points by feature (stable) on the
+device in float64 under either policy, finds the distinct feature values
+and sums (w, w·y) over each with one ``sorted_segment_sum`` call of two
+columns; it reads the aggregated points to the host once and pools the
+adjacent violators there (a sequential stack over at most that many
+points, a host step in the JAX package too). Its model interpolates on the
+device (``torch.searchsorted``), constant beyond the boundaries.
 """
 
 from __future__ import annotations
@@ -506,3 +513,199 @@ class LinearRegressionTrainingSummary(LinearRegressionSummary):
         return self._objective_history
 
     objectiveHistory = objective_history
+
+
+# ---------------------------------------------------------------------------
+# IsotonicRegression (MLlib org.apache.spark.ml.regression.IsotonicRegression)
+# ---------------------------------------------------------------------------
+
+def _pava(bx, by, bw):
+    """Weighted pool-adjacent-violators over points sorted by ``bx``, the
+    classic stack: (pool lows, pool highs, pooled values)."""
+    vals: list = []
+    wts: list = []
+    xs_lo: list = []
+    xs_hi: list = []
+    for xi, yi, wi in zip(bx, by, bw):
+        vals.append(yi)
+        wts.append(wi)
+        xs_lo.append(xi)
+        xs_hi.append(xi)
+        while len(vals) > 1 and vals[-2] > vals[-1]:
+            y2, w2 = vals.pop(), wts.pop()
+            hi2 = xs_hi.pop()          # merged pool spans (lo1, hi2)
+            xs_lo.pop()
+            y1, w1 = vals.pop(), wts.pop()
+            xs_hi.pop()
+            lo1 = xs_lo.pop()
+            vals.append((y1 * w1 + y2 * w2) / (w1 + w2))
+            wts.append(w1 + w2)
+            xs_lo.append(lo1)
+            xs_hi.append(hi2)
+    return xs_lo, xs_hi, vals
+
+
+def isotonic_points(x, y, w):
+    """The distinct values of ``x`` (float64 tensors of the valid points)
+    ascending with their weight sums and weighted label sums, on the host:
+    a stable sort and one ``sorted_segment_sum`` of (w, w·y) on the
+    device, then one read."""
+    from ..ops.segments import _seg_sum
+
+    xs, order = torch.sort(x, stable=True)
+    ys, ws = y.index_select(0, order), w.index_select(0, order)
+    first = torch.ones_like(xs, dtype=torch.bool)
+    first[1:] = xs[1:] != xs[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    uniq = xs[first]
+    sums = _seg_sum(torch.stack([ws, ws * ys], dim=1), seg, uniq.shape[0],
+                    contiguous=True)
+    host = torch.cat([uniq[:, None], sums], dim=1).cpu().numpy()
+    return host[:, 0], host[:, 1], host[:, 2]
+
+
+@persistable
+class IsotonicRegression(Estimator):
+    """MLlib ``IsotonicRegression``: weighted isotonic (or antitonic) fit of
+    label vs ONE feature, via pool-adjacent-violators. Points with equal
+    feature values aggregate to their weighted-mean label first;
+    prediction linearly interpolates between boundaries and is constant
+    beyond them; ``isotonic=False`` fits the antitonic (decreasing)
+    function."""
+
+    _persist_attrs = ("isotonic", "features_col", "label_col",
+                      "prediction_col", "weight_col", "feature_index")
+
+    def __init__(self, isotonic: bool = True, features_col: str = "features",
+                 label_col: str = "label", prediction_col: str = "prediction",
+                 weight_col: Optional[str] = None, feature_index: int = 0):
+        self.isotonic = bool(isotonic)
+        self.features_col = features_col
+        self.label_col = label_col
+        self.prediction_col = prediction_col
+        self.weight_col = weight_col
+        self.feature_index = int(feature_index)
+
+    def set_isotonic(self, v):
+        self.isotonic = bool(v)
+        return self
+
+    def set_feature_index(self, v):
+        self.feature_index = int(v)
+        return self
+
+    def set_weight_col(self, v):
+        self.weight_col = v
+        return self
+
+    def set_features_col(self, v):
+        self.features_col = v
+        return self
+
+    def set_label_col(self, v):
+        self.label_col = v
+        return self
+
+    def set_prediction_col(self, v):
+        self.prediction_col = v
+        return self
+
+    setIsotonic = set_isotonic
+    setFeatureIndex = set_feature_index
+    setWeightCol = set_weight_col
+    setFeaturesCol = set_features_col
+    setLabelCol = set_label_col
+    setPredictionCol = set_prediction_col
+
+    def fit(self, frame: Frame) -> "IsotonicRegressionModel":
+        X = frame._column_values(self.features_col).to(torch.float64)
+        if X.ndim > 1:
+            X = X[:, self.feature_index]
+        y = frame._column_values(self.label_col).to(torch.float64)
+        w = (torch.ones_like(y) if self.weight_col is None else
+             frame._column_values(self.weight_col).to(torch.float64))
+        mask = frame.mask
+        checks = torch.stack([
+            mask.sum(),
+            ((~torch.isfinite(X) | ~torch.isfinite(y)) & mask).sum(),
+            ((w < 0) & mask).sum()]).cpu().tolist()
+        if checks[0] == 0:
+            raise ValueError("IsotonicRegression: no valid rows")
+        if checks[1]:
+            raise ValueError("IsotonicRegression: non-finite feature/label "
+                             "in valid rows")
+        if checks[2]:
+            raise ValueError("weights must be nonnegative")
+        sign = 1.0 if self.isotonic else -1.0
+        ux, wsum, ysum = isotonic_points(X[mask], sign * y[mask], w[mask])
+        keep = wsum > 0
+        bx, bw = ux[keep], wsum[keep]
+        by = ysum[keep] / bw
+        xs_lo, xs_hi, vals = _pava(bx, by, bw)
+        # MLlib keeps each pool's boundary pair (lo, hi) with the pooled
+        # value at both ends, then interpolates linearly between pools
+        boundaries: list = []
+        predictions: list = []
+        for lo, hi, v in zip(xs_lo, xs_hi, vals):
+            boundaries.append(lo)
+            predictions.append(v)
+            if hi != lo:
+                boundaries.append(hi)
+                predictions.append(v)
+        return IsotonicRegressionModel(
+            np.asarray(boundaries, np.float64),
+            sign * np.asarray(predictions, np.float64),
+            {"features_col": self.features_col,
+             "prediction_col": self.prediction_col,
+             "feature_index": self.feature_index,
+             "isotonic": self.isotonic})
+
+
+def interpolate(x, bx, by):
+    """``np.interp(x, bx, by)`` on the device of ``x`` (float64; ``bx``
+    strictly increasing): linear between the boundaries, constant beyond
+    them, a boundary's own value at a boundary."""
+    m = bx.shape[0]
+    if m == 1:
+        return torch.where(torch.isnan(x), x, by[0].expand_as(x))
+    j = torch.clamp(torch.searchsorted(bx, x, right=True) - 1, 0, m - 2)
+    x0, x1 = bx.index_select(0, j), bx.index_select(0, j + 1)
+    y0, y1 = by.index_select(0, j), by.index_select(0, j + 1)
+    slope = (y1 - y0) / (x1 - x0)
+    inner = torch.where(x == x0, y0, slope * (x - x0) + y0)
+    return torch.where(x < bx[0], by[0], torch.where(x >= bx[-1], by[-1],
+                                                     inner))
+
+
+@persistable
+class IsotonicRegressionModel(Model):
+    """Fitted piecewise-linear function: ``boundaries`` (ascending) and
+    ``predictions``; transform interpolates on the device with constant
+    extrapolation (``np.interp``'s contract, MLlib's predictionForX)."""
+
+    _persist_attrs = ("boundaries", "predictions", "_params")
+
+    def __init__(self, boundaries, predictions, params=None):
+        self.boundaries = np.asarray(boundaries, np.float64)
+        self.predictions = np.asarray(predictions, np.float64)
+        self._params = dict(params or {})
+
+    def _p(self, k, default=None):
+        return self._params.get(k, default)
+
+    def _predict(self, x: torch.Tensor) -> torch.Tensor:
+        dev = x.device
+        return interpolate(x.to(torch.float64),
+                           torch.as_tensor(self.boundaries, device=dev),
+                           torch.as_tensor(self.predictions, device=dev))
+
+    def transform(self, frame: Frame) -> Frame:
+        X = frame._column_values(self._p("features_col", "features"))
+        if X.ndim > 1:
+            X = X[:, self._p("feature_index", 0)]
+        return frame.with_column(self._p("prediction_col", "prediction"),
+                                 self._predict(X).to(float_dtype()))
+
+    def predict(self, feature: float) -> float:
+        return float(self._predict(torch.tensor([float(feature)],
+                                                dtype=torch.float64))[0])

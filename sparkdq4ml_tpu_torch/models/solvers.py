@@ -392,3 +392,66 @@ def huber_fit(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     intercept = theta[d] if fit_intercept else theta.new_zeros(())
     return (theta[:d], intercept, torch.exp(theta[d + 1]),
             i.to(torch.int32), obj.to(fdt))
+
+
+def psum_value_and_grad(local_objective, axis=None):
+    """``value_and_grad`` of ``local_objective`` through ``torch.autograd``
+    (the JAX package's ``psum_value_and_grad`` with ``axis=None``): returns
+    ``vg(params) -> (loss, grads)`` for a tensor or a tuple of tensors,
+    ``grads`` of the same structure. A data axis to reduce over is not
+    ported: the port fits on one device."""
+    if axis is not None:
+        raise NotImplementedError("psum_value_and_grad: reductions over a "
+                                  "mesh axis are not ported")
+
+    def vg(params):
+        single = isinstance(params, torch.Tensor)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in ((params,) if single else params)]
+        with torch.enable_grad():
+            loss = local_objective(leaves[0] if single else tuple(leaves))
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), (grads[0] if single else tuple(grads))
+    return vg
+
+
+def adam_scan(value_and_grad, params0, max_iter: int, lr: float,
+              grad_mask=None, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8):
+    """Full-batch Adam (bias-corrected) over a tensor or a tuple of
+    tensors: the JAX package's ``lax.scan`` as a Python loop of device
+    steps with no host read inside. ``value_and_grad(params) -> (loss,
+    grads)``; ``grad_mask`` optionally transforms the gradients (zeroing
+    frozen groups). The constants and the step count ``t`` are tensors in
+    the parameters' dtype, so ``b1 ** t`` is a power in that dtype and
+    every divisor a tensor (a divisor given as a Python number would run
+    as a product with its reciprocal on the card). Returns (params, loss
+    history), the history on the device."""
+    single = isinstance(params0, torch.Tensor)
+    p = [params0] if single else list(params0)
+    dt, dev = p[0].dtype, p[0].device
+
+    def c(v):
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    cb1, cb2, c1b1, c1b2 = c(b1), c(b2), c(1 - b1), c(1 - b2)
+    clr, ceps, one = c(lr), c(eps), c(1.0)
+    t = torch.arange(max_iter, dtype=dt, device=dev) + one
+    bc1 = one - torch.pow(cb1, t)
+    bc2 = one - torch.pow(cb2, t)
+    m = [torch.zeros_like(x) for x in p]
+    v = [torch.zeros_like(x) for x in p]
+    history = []
+    for i in range(max_iter):
+        loss, g = value_and_grad(p[0] if single else tuple(p))
+        if grad_mask is not None:
+            g = grad_mask(g)
+        g = [g] if single else list(g)
+        m = [cb1 * a + c1b1 * b for a, b in zip(m, g)]
+        v = [cb2 * a + c1b2 * b * b for a, b in zip(v, g)]
+        p = [x - clr * (a / bc1[i]) / (torch.sqrt(b / bc2[i]) + ceps)
+             for x, a, b in zip(p, m, v)]
+        history.append(loss)
+    hist = (torch.stack(history) if history
+            else torch.zeros((0,), dtype=dt, device=dev))
+    return (p[0] if single else tuple(p)), hist
