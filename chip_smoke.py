@@ -190,6 +190,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    neighbors and join, MinHash, Word2Vec's negatives by numpy's threefry); the
    segment sums at Word2Vec's and isotonic's shapes against their plain
    version, timed.
+15. the feature layer and spark.ml.stat: on the 10^7-row table cleaned by
+   one dq_rules launch, with a string tier (the price band), a price with
+   every seventh slot NaN and the labels of phase 9, one pipeline as a
+   user prepares data for a fit: StringIndexer and OneHotEncoder on the
+   tier, Imputer (median), Bucketizer on guest, QuantileDiscretizer (10
+   buckets) on the imputed price, VectorAssembler, PolynomialExpansion
+   (degree 2), StandardScaler (mean and std), PCA (k = 3), Correlation
+   (pearson, spearman) and Summarizer over the scaled vector, ChiSquareTest
+   of the bucket columns against the band, UnivariateFeatureSelector and
+   VarianceThresholdSelector on the scaled vector, a binomial
+   LogisticRegression (Newton on masked_gram) on the components; then the
+   same through SQLTransformer (a derived column) and RFormula as one
+   Pipeline, its PipelineModel saved, loaded and predicting bit for bit as
+   before. Each step twice on the card (the first with its launch counts
+   and host-clock time, the second under torch.profiler; bit-identical),
+   the exact results over every clean row against numpy (labels, median,
+   splits, bucket counts, counts, the chi-square tables), every result on
+   the first 10^6 clean rows against the CPU float64 run of the same steps
+   on the same rows.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -243,7 +262,9 @@ GRAM_SHAPES = ((0, 3), (1, 3), (40, 3), (16_384, 3), (10_000_000, 3),
 MASKED_SHAPES = ((0, 1), (1, 1), (1040, 1), (16_384, 1), (10_000_000, 1),
                  (65_537, 3), (1_000_000, 16), (65_537, 126),
                  (65_537, 254), (100_003, 128), (1_000_000, 128),
-                 (1_000_000, 512))
+                 (1_000_000, 512),
+                 # phase 15's scatters: the scaled expansion, RFormula's
+                 (10_000_000, 14), (10_000_000, 20))
 APP_KERNELS = ("dq_rules", "packed_gram")   # the app path's; CV and Huber
                                             # launch masked_gram
 TIMED_RUNS = 25
@@ -5551,6 +5572,523 @@ def rest_segment_cases():
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the feature layer and spark.ml.stat at 10^7 rows
+# ---------------------------------------------------------------------------
+
+FEATURE_TIERS = ("low", "mid", "high")     # the price band (BAND_PRICES)
+FEATURE_HOLE_EVERY = 7                     # slot i % 7 == 3: price is NaN
+FEATURE_GUEST_SPLITS = [-float("inf"), 10.0, 20.0, 30.0, float("inf")]
+FEATURE_BUCKETS = 10
+FEATURE_PCA_K = 3
+FEATURE_TOP = 5
+FEATURE_VARIANCE = 0.5
+FEATURE_REG = 0.1
+FEATURE_DERIVED = "SELECT *, price_imp * guest AS spend FROM __THIS__"
+FEATURE_FORMULA = "l2 ~ tier + guest + price_imp + spend"
+# Card float32 against the CPU float64 run of the same steps on the same
+# rows: moments, norms, scaler statistics, chi-square statistics and
+# explained variance within 1e-4 relative (float32 sums of 10^7 rows, as
+# SQL_ROWS_RTOL); correlations and the scaled means within 1e-4 absolute
+# (the correlations lie in [-1, 1], the scaled columns have mean 0 and
+# std 1); PCA components within 1e-3 absolute where the float64
+# eigen-gap to their neighbours exceeds FEATURE_PCA_GAP of the largest
+# eigenvalue (the others printed); nonzero counts within 1e-6 relative;
+# the classifier as phase 9's (CLASSIFIER_RTOL, OBJECTIVE_RTOL,
+# ITERATION_SLACK). Exact: labels, sizes, surrogates, bucket counts and
+# splits (order statistics of the same float32 values, numpy's
+# interpolation in float64 on both sides), counts, degrees of freedom,
+# selections, RFormula's columns.
+FEATURE_RTOL = 1e-4
+FEATURE_ATOL = 1e-4
+FEATURE_PCA_ATOL = 1e-3
+FEATURE_PCA_GAP = 1e-2
+FEATURE_NNZ_RTOL = 1e-6
+FEATURE_KERNELS = ("dq_rules", "dense_segment_sum", "masked_gram")
+
+
+def feature_columns(guest, price) -> dict:
+    """Phase 15's host columns: price rounded to float32 (the card's
+    values, so the float64 reference reads the same rows), the same price
+    with every FEATURE_HOLE_EVERY-th slot NaN, and the band's tier string
+    (a host column)."""
+    p32 = price.astype(np.float32)
+    band = (p32 >= BAND_PRICES[0]).astype(np.int8) + (p32 >= BAND_PRICES[1])
+    holed = np.where(np.arange(len(price)) % FEATURE_HOLE_EVERY == 3,
+                     np.float32(np.nan), p32)
+    return {"guest": guest, "price": p32.astype(np.float64),
+            "price_holed": holed.astype(np.float64),
+            "tier": np.asarray(FEATURE_TIERS, object)[band]}
+
+
+def feature_frame(df):
+    """``df`` with phase 9's labels l2 (price > 102.5) and band."""
+    price = df.col("price")
+    return df.with_columns({
+        "l2": (price > 102.5).cast("double"),
+        "band": ((price >= BAND_PRICES[0]).cast("double")
+                 + (price >= BAND_PRICES[1]).cast("double"))})
+
+
+def _valid_host(frame, col: str) -> np.ndarray:
+    """A column's valid rows on the host (a frame of either package)."""
+    v, m = frame._column_values(col), frame.mask
+    if hasattr(v, "cpu"):
+        return v[m].cpu().numpy()
+    return np.asarray(v)[np.asarray(m)]
+
+
+def _canon(v, dtypes: bool = True):
+    """A step's results as plain JSON values, exact (floats by repr):
+    equal canons are bit-identical results (with ``dtypes``, of the same
+    array types)."""
+    if isinstance(v, dict):
+        return {k: _canon(x, dtypes) for k, x in v.items()}
+    if isinstance(v, np.ndarray):
+        return [v.dtype.str, v.tolist()] if dtypes else v.tolist()
+    if isinstance(v, (list, tuple)):
+        return [_canon(x, dtypes) for x in v]
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def same_canon(a, b, dtypes: bool = True) -> bool:
+    return json.dumps(_canon(a, dtypes)) == json.dumps(_canon(b, dtypes))
+
+
+def _lr_numbers(model) -> dict:
+    s = model.summary
+    return {"coef": np.ravel(np.asarray(model.coefficient_matrix)).tolist(),
+            "intercept": np.ravel(np.asarray(model.intercept_vector))
+            .tolist(),
+            "iterations": int(s.total_iterations),
+            "objective": float(s.objective_history[-1])}
+
+
+def feature_steps(M, tmp: str):
+    """(name, fn(state) -> host results) of phase 15, in order, over the
+    models module ``M`` (the port's; the CPU tests pass the JAX package's
+    too). ``state["df"]`` is the running frame, ``state["base"]`` the
+    clean table the RFormula pipeline starts from."""
+    def fit_transform(s, est):
+        model = est.fit(s["df"])
+        s["df"] = model.transform(s["df"])
+        return model
+
+    def counts(s, col, size):
+        v = _valid_host(s["df"], col)
+        return np.bincount(v.astype(np.int64), minlength=size)
+
+    def index(s):
+        return {"labels": list(fit_transform(
+            s, M.StringIndexer("tier", "tier_idx")).labels)}
+
+    def onehot(s):
+        return {"sizes": fit_transform(
+            s, M.OneHotEncoder("tier_idx", "tier_vec")).categorySizes}
+
+    def impute(s):
+        return {"surrogates": fit_transform(s, M.Imputer(
+            ["price_holed"], ["price_imp"], strategy="median")).surrogates}
+
+    def bucketize(s):
+        s["df"] = M.Bucketizer(FEATURE_GUEST_SPLITS, "guest",
+                               "guest_bucket").transform(s["df"])
+        return {"counts": counts(s, "guest_bucket", 4)}
+
+    def discretize(s):
+        b = fit_transform(s, M.QuantileDiscretizer(
+            FEATURE_BUCKETS, "price_imp", "price_q"))
+        return {"splits": list(b.splits),
+                "counts": counts(s, "price_q", FEATURE_BUCKETS)}
+
+    def expand(s):
+        df = M.VectorAssembler(["guest", "price_imp", "tier_vec"],
+                               "raw").transform(s["df"])
+        s["df"] = M.PolynomialExpansion(2, "raw", "poly").transform(df)
+        return {"width": int(s["df"]._column_values("poly").shape[1])}
+
+    def scale(s):
+        m = fit_transform(s, M.StandardScaler("poly", "scaled",
+                                              with_mean=True, with_std=True))
+        return {"mean": np.asarray(m.mean), "std": np.asarray(m.std)}
+
+    def pca(s):
+        m = fit_transform(s, M.PCA(FEATURE_PCA_K, "scaled", "pca"))
+        return {"pc": np.asarray(m.pc),
+                "explained_variance": np.asarray(m.explained_variance)}
+
+    def correlation(s):
+        return {m: np.asarray(M.Correlation.corr(s["df"], "scaled", m))
+                for m in ("pearson", "spearman")}
+
+    def summarize(s):
+        out = M.Summarizer(M.Summarizer.METRICS).summary(s["df"], "scaled")
+        return {k: np.asarray(v) for k, v in out.items()}
+
+    def chi_square(s):
+        df = M.VectorAssembler(["guest_bucket", "price_q"],
+                               "buckets").transform(s["df"])
+        res = M.ChiSquareTest.test(df, "buckets", "band").to_pydict()
+        return {k: np.asarray(res[k][0], np.float64)
+                for k in ("pValues", "degreesOfFreedom", "statistics")}
+
+    def univariate(s):
+        m = M.UnivariateFeatureSelector(
+            selection_mode="numTopFeatures",
+            selection_threshold=FEATURE_TOP, features_col="scaled",
+            label_col="band", output_col="top").fit(s["df"])
+        s["df"] = m.transform(s["df"])
+        return {"selected": list(m.selected_features)}
+
+    def variance(s):
+        m = M.VarianceThresholdSelector(FEATURE_VARIANCE, "scaled",
+                                        "kept").fit(s["df"])
+        s["df"] = m.transform(s["df"])
+        return {"selected": list(m.selected_features)}
+
+    def logistic(s):
+        m = M.LogisticRegression(max_iter=50, reg_param=FEATURE_REG,
+                                 features_col="pca", label_col="l2").fit(
+                                     s["df"])
+        return _lr_numbers(m)
+
+    def formula(s):
+        pipe = M.Pipeline([
+            M.Imputer(["price_holed"], ["price_imp"], strategy="median"),
+            M.SQLTransformer(FEATURE_DERIVED),
+            M.RFormula(FEATURE_FORMULA),
+            M.PolynomialExpansion(2, "features", "poly"),
+            M.StandardScaler("poly", "scaled", with_mean=True,
+                             with_std=True),
+            M.PCA(FEATURE_PCA_K, "scaled", "pca"),
+            M.LogisticRegression(max_iter=50, reg_param=FEATURE_REG,
+                                 features_col="pca", label_col="label")])
+        model = pipe.fit(s["base"])
+        path = os.path.join(tmp, "feature_pipeline")
+        model.write().overwrite().save(path)
+        loaded = M.PipelineModel.load(path)
+        a = _valid_host(model.transform(s["base"]), "prediction")
+        b = _valid_host(loaded.transform(s["base"]), "prediction")
+        rf = model.stages[2]
+        return {**_lr_numbers(model.stages[-1]),
+                "encoders": [[list(e) for e in t] for t in rf.encoders],
+                "positives": int(a.sum()),
+                "loaded_same": bool(a.tobytes() == b.tobytes())}
+
+    return (("string_indexer", index), ("one_hot", onehot),
+            ("imputer", impute), ("bucketizer", bucketize),
+            ("quantile_discretizer", discretize),
+            ("polynomial_expansion", expand), ("standard_scaler", scale),
+            ("pca", pca), ("correlation", correlation),
+            ("summarizer", summarize), ("chi_square", chi_square),
+            ("univariate_selector", univariate),
+            ("variance_selector", variance), ("logistic", logistic),
+            ("rformula_pipeline", formula))
+
+
+def run_features(M, df, tmp: str, counted: bool = False):
+    """Every step of ``feature_steps`` once on the clean table ``df``;
+    returns (results, per-step host-clock ms to a device synchronisation,
+    per-step launch counts when ``counted``)."""
+    state = {"df": df, "base": df}
+    res, ms, launches = {}, {}, {}
+    for name, fn in feature_steps(M, tmp):
+        out, counts, s = driven(fn, state)
+        res[name], ms[name] = out, 1e3 * s
+        if counted:
+            launches[name] = counts
+    return res, ms, launches
+
+
+def _abs(got, want) -> float:
+    """The largest |got - want| (0 where both are NaN)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    both_nan = np.isnan(got) & np.isnan(want)
+    return float(np.max(np.where(both_nan, 0.0, np.abs(got - want)),
+                        initial=0.0))
+
+
+def check_features(card: dict, ref: dict) -> dict:
+    """Phase 15's gates, card (float32) against the float64 run of the
+    same steps on the same rows; raises listing every gate missed, and
+    returns each float output's largest error and the PCA eigen-gaps."""
+    bad, errs = [], {}
+    for step, key in (("string_indexer", "labels"), ("one_hot", "sizes"),
+                      ("imputer", "surrogates"), ("bucketizer", "counts"),
+                      ("quantile_discretizer", "splits"),
+                      ("quantile_discretizer", "counts"),
+                      ("polynomial_expansion", "width"),
+                      ("univariate_selector", "selected"),
+                      ("variance_selector", "selected"),
+                      ("chi_square", "degreesOfFreedom"),
+                      ("rformula_pipeline", "encoders"),
+                      ("rformula_pipeline", "loaded_same")):
+        got, want = card[step][key], ref[step][key]
+        if not same_canon(got, want, dtypes=False):
+            bad.append(f"{step}.{key} {got} vs {want}")
+    if not card["rformula_pipeline"]["loaded_same"]:
+        bad.append("the loaded PipelineModel predicts otherwise")
+
+    def rel(step, key, tol=FEATURE_RTOL):
+        errs[f"{step}.{key}"] = e = rel_err(card[step][key], ref[step][key])
+        if not e <= tol:
+            bad.append(f"{step}.{key} relative error {e}")
+
+    def absolute(step, key, tol=FEATURE_ATOL):
+        errs[f"{step}.{key}"] = e = _abs(card[step][key], ref[step][key])
+        if not e <= tol:
+            bad.append(f"{step}.{key} error {e}")
+
+    rel("standard_scaler", "std")
+    absolute("standard_scaler", "mean", FEATURE_RTOL * float(np.max(
+        np.abs(ref["standard_scaler"]["mean"]))))
+    rel("pca", "explained_variance")
+    for m in ("pearson", "spearman"):
+        # a constant column has no correlation (NaN) in float64; in
+        # float32 its ranks' rounded mean leaves a spread: not held
+        want = np.asarray(ref["correlation"][m])
+        errs[f"correlation.{m}.constant_entries"] = int(np.isnan(want).sum())
+        errs[f"correlation.{m}"] = e = _abs(
+            np.where(np.isnan(want), 0.0, card["correlation"][m]),
+            np.nan_to_num(want))
+        if not e <= FEATURE_ATOL:
+            bad.append(f"correlation.{m} error {e}")
+    for k in ("variance", "std", "normL1", "normL2", "min", "max"):
+        rel("summarizer", k)
+    absolute("summarizer", "mean")
+    rel("summarizer", "numNonZeros", FEATURE_NNZ_RTOL)
+    if card["summarizer"]["count"] != ref["summarizer"]["count"]:
+        bad.append("summarizer.count")
+    rel("chi_square", "statistics")
+    absolute("chi_square", "pValues", 1e-6)
+    # PCA: components whose float64 eigen-gap is clear of their neighbours
+    vals = np.sort(np.asarray(ref["pca"]["explained_variance"]))[::-1]
+    gaps = np.abs(np.diff(vals)) / max(vals[0], 1e-300)
+    gap = np.minimum(np.r_[np.inf, gaps], np.r_[gaps, np.inf])
+    held = [j for j in range(FEATURE_PCA_K) if gap[j] > FEATURE_PCA_GAP]
+    errs["pca.pc"] = e = _abs(card["pca"]["pc"][:, held],
+                              ref["pca"]["pc"][:, held])
+    errs["pca.gaps"] = gap.tolist()
+    errs["pca.held"] = held
+    if not e <= FEATURE_PCA_ATOL:
+        bad.append(f"pca.pc error {e} on components {held}")
+    for step in ("logistic", "rformula_pipeline"):
+        got, want = card[step], ref[step]
+        # the coefficients of the PCA components, as one block
+        errs[f"{step}.coef"] = e = max(
+            rel_err(got[k], want[k], block=True)
+            for k in ("coef", "intercept"))
+        if e > CLASSIFIER_RTOL:
+            bad.append(f"{step} coefficients {got['coef']} vs "
+                       f"{want['coef']}")
+        if abs(got["iterations"] - want["iterations"]) > ITERATION_SLACK:
+            bad.append(f"{step} iterations {got['iterations']} vs "
+                       f"{want['iterations']}")
+        errs[f"{step}.objective"] = e = abs(
+            got["objective"] - want["objective"]) / abs(want["objective"])
+        if e > OBJECTIVE_RTOL:
+            bad.append(f"{step} objective {got['objective']} vs "
+                       f"{want['objective']}")
+    if bad:
+        raise AssertionError(f"phase 15 gates: {'; '.join(bad)} "
+                             f"(errors {errs})")
+    return errs
+
+
+# The host steps of phase 15, as in the JAX package: the StringIndexer's
+# order of its distinct labels (string_indexer, rformula_pipeline), the
+# selectors' and the chi-square test's scipy tails (univariate_selector,
+# chi_square) and the words' lookup of each string column's dictionary.
+FEATURE_HOST_STEPS = {
+    "string_indexer": "labels ordered by (count, label)",
+    "chi_square": "chi2.sf of each feature's table",
+    "univariate_selector": "f.sf of the ANOVA F statistics",
+    "rformula_pipeline": "the tier's labels ordered; its words looked up",
+}
+
+
+def feature_tables(device: str, cols: dict, keep=None):
+    """A session and phase 15's clean table on ``device``: on the card
+    through one dq_rules launch (``clean_table``), for the reference with
+    the card's clean rows (``keep``) as its mask."""
+    import torch
+
+    if keep is None:
+        spark, clean = clean_table(device, cols["guest"], cols["price"])
+    else:
+        spark = session(device)
+        clean = spark.createDataFrame({"guest": cols["guest"],
+                                       "price": cols["price"]}).filter(
+            torch.as_tensor(keep, device=device))
+    clean = clean.with_column("price_holed", cols["price_holed"]) \
+        .with_column("tier", cols["tier"])
+    return spark, feature_frame(clean)
+
+
+def feature_numpy(cols: dict, keep: np.ndarray) -> dict:
+    """Phase 15's exact results over every clean row from numpy alone: the
+    tier labels by (count, label), the Imputer's median, the guest bucket
+    counts, the price splits and their bucket counts (the card's
+    Bucketizer compares float32 values with float32 splits), the valid
+    row count, and each chi-square table's statistic and degrees of
+    freedom against the band."""
+    p32 = cols["price"][keep].astype(np.float32)
+    band = (p32 >= BAND_PRICES[0]).astype(np.int64) + (p32 >= BAND_PRICES[1])
+    per_tier = np.bincount(band, minlength=3)
+    labels = sorted((t for t, c in zip(FEATURE_TIERS, per_tier) if c),
+                    key=lambda t: (-per_tier[FEATURE_TIERS.index(t)], t))
+    holed = cols["price_holed"][keep]
+    surrogate = float(np.median(holed[~np.isnan(holed)]))
+    imp = np.where(np.isnan(holed), np.float32(surrogate),
+                   holed.astype(np.float32))
+    inner = np.unique(np.quantile(imp.astype(np.float64), np.linspace(
+        0, 1, FEATURE_BUCKETS + 1)[1:-1]))
+    splits = [-float("inf"), *inner.tolist(), float("inf")]
+
+    def buckets(x, edges):
+        e = np.asarray(edges, np.float32)
+        return np.clip(np.searchsorted(e, x, side="right") - 1, 0,
+                       len(e) - 2)
+
+    g = buckets(cols["guest"][keep].astype(np.float32),
+                FEATURE_GUEST_SPLITS)
+    q = buckets(imp, splits)
+    tables = {}
+    for name, ids, k in (("guest_bucket", g, 4),
+                         ("price_q", q, len(splits) - 1)):
+        t = np.bincount(ids * 3 + band, minlength=k * 3).reshape(k, 3)
+        t = t[t.sum(1) > 0][:, t.sum(0) > 0].astype(np.float64)
+        expected = t.sum(1, keepdims=True) @ t.sum(0, keepdims=True) / t.sum()
+        tables[name] = (float(((t - expected) ** 2 / expected).sum()),
+                        (t.shape[0] - 1) * (t.shape[1] - 1))
+    return {"labels": labels, "surrogates": [surrogate],
+            "guest_counts": np.bincount(g, minlength=4),
+            "splits": splits,
+            "price_counts": np.bincount(q, minlength=len(splits) - 1),
+            "count": int(keep.sum()),
+            "chi_statistics": [tables[k][0] for k in tables],
+            "chi_dof": [tables[k][1] for k in tables]}
+
+
+def check_features_numpy(card: dict, want: dict) -> dict:
+    """The card's full-size run against ``feature_numpy``: exact but for
+    the chi-square statistics, within FEATURE_RTOL (the card's tables are
+    exact counts; its statistic is computed in float32)."""
+    got = {"labels": card["string_indexer"]["labels"],
+           "surrogates": card["imputer"]["surrogates"],
+           "guest_counts": card["bucketizer"]["counts"],
+           "splits": card["quantile_discretizer"]["splits"],
+           "price_counts": card["quantile_discretizer"]["counts"],
+           "count": card["summarizer"]["count"],
+           "chi_dof": [int(v) for v in
+                       card["chi_square"]["degreesOfFreedom"]]}
+    bad = [k for k in got if not same_canon(got[k], want[k], dtypes=False)]
+    err = rel_err(card["chi_square"]["statistics"],
+                  want["chi_statistics"])
+    if bad or not err <= FEATURE_RTOL:
+        raise AssertionError(
+            f"phase 15 against numpy: {bad} differ, chi-square statistics "
+            f"within {err}: card {got}, numpy {want}")
+    return {"chi_statistics": err}
+
+
+def check_features_full(rows: int = FULL_ROWS) -> dict:
+    """Phase 15: the feature pipeline on the 10^7-row table cleaned by one
+    dq_rules launch, twice on the card in float32 (the first run with its
+    launch counts by step, the second under torch.profiler for the idle
+    share; bit-identical) and its exact results against numpy over every
+    clean row; then the same steps on the first HEAD_ROWS clean rows, on
+    the card in float32 and on the CPU in float64, and the gates between
+    those two runs. (The CPU float64 run of every step at 9.6 M rows takes
+    about 80 s on the card's machine's 8 cores, past the phase's budget:
+    the Spearman ranks alone sort 28 columns of 9.6 M values.)"""
+    import tempfile
+
+    import torch
+
+    from sparkdq4ml_tpu_torch import models as M
+    from sparkdq4ml_tpu_torch.config import float_policy
+    from sparkdq4ml_tpu_torch.ops import kernels
+    from sparkdq4ml_tpu_torch.sql import default_catalog
+
+    import scipy.stats  # noqa: F401  (its first import, outside the steps)
+
+    t0 = time.perf_counter()
+    cols = feature_columns(*full_table(rows))
+    data_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        kernels.launches.reset()
+        spark, clean = feature_tables("cuda", cols)
+        torch.cuda.synchronize()
+        clean_counts = kernels.launches.snapshot()
+        if clean_counts["dq_rules"] != 1:
+            raise AssertionError(f"phase 15's clean table: {clean_counts}")
+        t_card = time.perf_counter()
+        card, ms, launches = run_features(M, clean, tmp, counted=True)
+        again = {}
+        profile = profile_run("features", lambda: again.update(
+            run_features(M, clean, tmp)[0]))
+        card_s = time.perf_counter() - t_card
+        differ = [k for k in card if not same_canon(card[k], again[k])]
+        if differ:
+            raise AssertionError(f"phase 15 differs between two card runs: "
+                                 f"{differ}")
+        keep = clean._host_mask()
+        t0 = time.perf_counter()
+        numpy_errs = check_features_numpy(card, feature_numpy(cols, keep))
+        numpy_s = time.perf_counter() - t0
+        head = head_of(clean)
+        end = head.num_slots
+        head_card = run_features(M, head, tmp)[0]
+        del head, clean
+        spark.stop()
+        default_catalog().clear()
+        t0 = time.perf_counter()
+        with float_policy(torch.float64):
+            spark, ref_head = feature_tables(
+                "cpu", {k: v[:end] for k, v in cols.items()}, keep[:end])
+            ref, ref_ms, _ = run_features(M, ref_head, tmp)
+            spark.stop()
+        default_catalog().clear()
+        ref_s = time.perf_counter() - t0
+    errs = check_features(head_card, ref)
+    totals = {k: sum(c[k] for c in launches.values())
+              for k in kernels.KERNELS}
+    missing = [k for k in FEATURE_KERNELS
+               if k != "dq_rules" and totals[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 15 launched no {missing}: {launches}")
+    summary = {"labels": card["string_indexer"]["labels"],
+               "surrogate": card["imputer"]["surrogates"],
+               "splits": card["quantile_discretizer"]["splits"],
+               "selected": {k: card[k]["selected"] for k in (
+                   "univariate_selector", "variance_selector")},
+               "logistic": card["logistic"],
+               "rformula": {k: card["rformula_pipeline"][k] for k in (
+                   "iterations", "objective", "positives")}}
+    log(f"phase 15 at {rows} rows ({int(keep.sum())} clean): "
+        f"{json.dumps(summary, default=str)}; step ms {ms}; launches "
+        f"{totals} (clean table {clean_counts}); against numpy "
+        f"{numpy_errs}; head errors {json.dumps(errs, default=str)}; idle "
+        f"share {profile['device_idle_share']}; float64 reference "
+        f"{ref_s:.1f} s; host steps {FEATURE_HOST_STEPS}")
+    return {"rows": rows, "clean_rows": int(keep.sum()), "summary": summary,
+            "step_ms": ms, "launches": launches, "launch_totals": totals,
+            "clean_launches": clean_counts, "numpy_errors": numpy_errs,
+            "head_errors": errs, "head_rows": HEAD_ROWS,
+            "profile": profile, "reference_step_ms": ref_ms,
+            "host_steps": FEATURE_HOST_STEPS,
+            "host_step_count": len(FEATURE_HOST_STEPS), "data_s": data_s,
+            "card_s": card_s, "numpy_s": numpy_s,
+            "cpu_float64_reference_s": ref_s}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -5602,22 +6140,25 @@ def gram_times(n: int, D: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def masked_times(n: int, d: int) -> dict:
+def masked_times(n: int, d: int, weights: str = "bool") -> dict:
     """masked_gram with a boolean mask (the cross-validation's and the
-    unweighted Huber fit's weight). library_ms is one torch.matmul on a
-    pre-built Zw, the packing excluded."""
+    unweighted Huber fit's weight) or float weights (phase 15's √w).
+    library_ms is one torch.matmul on a pre-built Zw, the packing
+    excluded."""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
 
-    X, y, w = masked_inputs(n, d, torch.float32, "cuda", 13, "bool")
+    X, y, w = masked_inputs(n, d, torch.float32, "cuda", 13, weights)
     D = d + 2
     Zw = torch.cat([X, y[:, None], torch.ones_like(y)[:, None]],
                    dim=1) * w.to(X.dtype)[:, None]
-    # X, y in float32 and a one-byte mask read once; A written once
-    t_bytes = (n * ((d + 1) * 4 + 1) + D * D * 4) / HBM_BYTES_PER_S
+    # X, y in float32 and the weight (1 byte or 4) read once; A written
+    # once
+    t_bytes = (n * ((d + 1) * 4 + w.element_size()) + D * D * 4) \
+        / HBM_BYTES_PER_S
     t_ops = n * D * (D + 1) / FP32_FLOPS    # one triangle of symmetric A
-    return {"n": n, "d": d, "dtype": "float32", "weights": "bool",
+    return {"n": n, "d": d, "dtype": "float32", "weights": weights,
             "ms": median_ms(lambda: kernels.masked_gram(X, y, w)),
             "plain_ms": median_ms(
                 lambda: kernels.masked_gram_reference(X, y, w)),
@@ -5810,6 +6351,7 @@ def main() -> int:
     masked_main, masked_app, masked_big = (masked_times(FULL_ROWS, 1),
                                            masked_times(1040, 1),
                                            masked_times(1_000_000, 512))
+    masked_feature = masked_times(FULL_ROWS, 14, "float")
     seg_dense, seg_sorted, seg_long = (segsum_times(*c) for c in seg_cases)
     seg_one = {c[0]: {**segsum_times(*c), "max_abs_err": one_errs[c[0]]}
                for c in one_cases}
@@ -5863,6 +6405,9 @@ def main() -> int:
     rest_times = {c[0]: {**segsum_times(*c), "kernel": c[1],
                          "max_abs_err": rest_errs[c[0]]} for c in rest_cases}
     del rest_cases
+    t0 = time.perf_counter()
+    features = check_features_full()
+    features_s = time.perf_counter() - t0
     zoo_launches = {name: zoo["launches"][name]
                     for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
                                  "bisecting", "pic")}
@@ -5880,7 +6425,13 @@ def main() -> int:
                "builtins": builtins["launches"],
                **{f"zoo_{name}": c for name, c in zoo_launches.items()},
                "rest_clean_table": rest["clean_launches"],
-               **{f"rest_{name}": c for name, c in rest["launches"].items()}}
+               **{f"rest_{name}": c for name, c in rest["launches"].items()},
+               "feature_clean_table": features["clean_launches"],
+               **{f"feature_{name}": c
+                  for name, c in features["launches"].items()}}
+    feature_launches = {k: {name: c[k]
+                            for name, c in features["launches"].items()}
+                        for k in ("dense_segment_sum", "masked_gram")}
     one_slot_launches = {path: c.get("dense_segment_sum_one_slot", 0)
                          for path, c in by_path.items()}
     log(f"dense_segment_sum launches onto one slot, by path: "
@@ -5893,6 +6444,7 @@ def main() -> int:
          "dq_report_launches": report["launches"]["dq_rules"],
          "builtins_launches": builtins["launches"]["dq_rules"],
          "rest_launches": rest["clean_launches"]["dq_rules"],
+         "feature_launches": features["clean_launches"]["dq_rules"],
          "parity": True, **dq_main, "app_size": dq_app},
         {"name": "packed_gram", "route": "cuda",
          "source": "sparkdq4ml_tpu_torch/ops/csrc/packed_gram.cu",
@@ -5907,6 +6459,8 @@ def main() -> int:
          "launches": selection["cv"]["launches"]["masked_gram"],
          "zoo_glm_launches": zoo_launches["glm"]["masked_gram"],
          "zoo_glm_irls_iterations": zoo["fits"]["glm"]["iterations"],
+         "feature_launches": feature_launches["masked_gram"],
+         "feature_shape": masked_feature,
          "max_abs_err": masked_errs[(FULL_ROWS, 1)],
          "parity": True, **masked_main, "app_size": masked_app,
          "largest": masked_big},
@@ -5922,6 +6476,7 @@ def main() -> int:
                         if v["kernel"] == "dense_segment_sum"},
          "rest_launches": {name: c["dense_segment_sum"]
                            for name, c in rest["launches"].items()},
+         "feature_launches": feature_launches["dense_segment_sum"],
          "one_slot_launches": one_slot_launches,
          "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
          "bit_identical_runs": True, **seg_dense, "one_slot": seg_one,
@@ -5966,6 +6521,7 @@ def main() -> int:
         "zoo_phase_s": zoo_s,
         "rest_tour_dataset_full": rest_tour_res, "rest": rest,
         "rest_phase_s": rest_s,
+        "features": features, "features_phase_s": features_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}

@@ -14,10 +14,16 @@ The model zoo crosses the same way: :func:`glm_model_from_numpy`,
 :func:`tree_model_from_numpy`, :func:`kmeans_model_from_numpy` and
 :func:`gmm_model_from_numpy` build the port's model from a JAX model's
 fitted parameters as numpy arrays, so one fitted model scores in both
-packages."""
+packages.
+
+The feature layer's fitted models cross through their persisted
+attributes: :func:`feature_model_to_numpy` reads them off a model of
+either package and :func:`feature_model_from_numpy` builds the port's
+model from them."""
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional
 
 import numpy as np
@@ -189,3 +195,51 @@ def gmm_model_from_numpy(weights, means, covs,
     ``means`` (k, d), ``covs`` (k, d, d) and ``_params``."""
     return GaussianMixtureModel(np.asarray(weights), np.asarray(means),
                                 np.asarray(covs), params)
+
+
+# The fitted models of the feature layer (``Bucketizer`` is what
+# QuantileDiscretizer fits).
+FEATURE_MODELS = ("StandardScalerModel", "MinMaxScalerModel",
+                  "MaxAbsScalerModel", "RobustScalerModel",
+                  "StringIndexerModel", "OneHotEncoderModel", "Bucketizer",
+                  "ImputerModel", "PCAModel", "VectorIndexerModel",
+                  "ChiSqSelectorModel", "VarianceThresholdSelectorModel",
+                  "UnivariateFeatureSelectorModel", "RFormulaModel")
+
+
+def _host_value(v):
+    if hasattr(v, "__array__") and not isinstance(v, (list, tuple, dict)):
+        return np.array(v)
+    return copy.deepcopy(v)
+
+
+def feature_model_to_numpy(model) -> dict:
+    """A fitted feature model of either package as ``{"class": name,
+    attribute: value}`` over its ``_persist_attrs`` (the two packages
+    share them): scaler statistics, StringIndexer labels, OneHotEncoder
+    sizes, Bucketizer splits, Imputer surrogates, PCA components and
+    ratios, VectorIndexer category maps, selected feature indices and
+    RFormula's resolved columns, arrays as numpy."""
+    name = type(model).__name__
+    if name not in FEATURE_MODELS:
+        raise TypeError(f"not a fitted feature model: {name}")
+    return {"class": name, **{k: _host_value(getattr(model, k))
+                              for k in model._persist_attrs}}
+
+
+def feature_model_from_numpy(state: dict):
+    """The port's feature model of :func:`feature_model_to_numpy`'s dict
+    (built as ``load_stage`` builds a stage: its persisted attributes set,
+    its derived state rebuilt)."""
+    from .models import feature as _feature
+
+    if state.get("class") not in FEATURE_MODELS:
+        raise TypeError(f"not a fitted feature model: {state.get('class')}")
+    cls = getattr(_feature, state["class"])
+    obj = cls.__new__(cls)
+    for k in cls._persist_attrs:
+        setattr(obj, k, _host_value(state[k]))
+    post = getattr(obj, "_post_load", None)
+    if post is not None:
+        post()
+    return obj

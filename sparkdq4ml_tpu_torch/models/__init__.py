@@ -16,14 +16,30 @@ from .clustering import (BisectingKMeans, BisectingKMeansModel,
 from .evaluation import (BinaryClassificationEvaluator, ClusteringEvaluator,
                          Evaluator, MulticlassClassificationEvaluator,
                          RegressionEvaluator)
-from .feature import VectorAssembler
+from .feature import (Binarizer, Bucketizer, ChiSqSelector,
+                      ChiSqSelectorModel, DCT, ElementwiseProduct,
+                      FeatureHasher, Imputer, ImputerModel,
+                      IndexToString, Interaction, MaxAbsScaler,
+                      MaxAbsScalerModel, MinMaxScaler, MinMaxScalerModel,
+                      Normalizer, OneHotEncoder, OneHotEncoderEstimator,
+                      OneHotEncoderModel, PCA,
+                      PCAModel, PolynomialExpansion, QuantileDiscretizer,
+                      RFormula, RFormulaModel, RobustScaler,
+                      RobustScalerModel, SQLTransformer,
+                      StandardScaler, StandardScalerModel, StringIndexer,
+                      StringIndexerModel, VectorAssembler, VectorIndexer,
+                      VectorIndexerModel, VectorSizeHint, VectorSlicer,
+                      UnivariateFeatureSelector,
+                      UnivariateFeatureSelectorModel,
+                      VarianceThresholdSelector,
+                      VarianceThresholdSelectorModel)
 from .fm import (FMClassificationModel, FMClassifier, FMRegressionModel,
                  FMRegressor)
 from .fpm import FPGrowth, FPGrowthModel, PrefixSpan
 from .glm import (GeneralizedLinearRegression,
                   GeneralizedLinearRegressionModel, GlmTrainingSummary)
 from .lda import LDA, LDAModel
-from .linalg import Vectors
+from .linalg import Matrices, Vectors
 from .lsh import (BucketedRandomProjectionLSH,
                   BucketedRandomProjectionLSHModel, MinHashLSH,
                   MinHashLSHModel)
@@ -31,6 +47,8 @@ from .regression import (IsotonicRegression, IsotonicRegressionModel,
                          LinearRegression, LinearRegressionModel,
                          LinearRegressionSummary,
                          LinearRegressionTrainingSummary)
+from .stat import (ChiSquareTest, Correlation, KolmogorovSmirnovTest,
+                   Summarizer)
 from .survival import AFTSurvivalRegression, AFTSurvivalRegressionModel
 from .tree import (DecisionTreeClassificationModel, DecisionTreeClassifier,
                    DecisionTreeRegressionModel, DecisionTreeRegressor,

@@ -13,11 +13,10 @@ apart from XLA's now and then) and float64 within 32 ulps of 1 (99% and
 95% of the draws bit-equal); ``gamma`` within 12 ulps of its value for
 shape 100 and 64 for shape 0.3 in either type (its rejection test and its
 boost take torch's ``log`` and ``pow``), at least 90% and 60% bit-equal.
-Those bounds hold for 99.9% of the draws: in some runs torch's CPU
-``sqrt`` returns float64 results 2e5 ulps off for one thread's chunk of
-the elements (seen in 7 of 30 processes), so every normal draw is held
-within 1e-9 (float64) or 1e-6 (float32) of JAX's, and a gamma draw that
-such an error moves across its rejection test is one of the 0.1%.
+Every draw is held within those bounds. torch's CPU float64 ``sqrt`` has
+been seen to return one thread's chunk of results 2e5 ulps off at 8
+intra-op threads (in 7 of 30 processes), and never at one, so these two
+tests run at one intra-op thread (``tests/torch_repro.py``).
 """
 
 import fractions
@@ -27,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_repro import one_thread  # noqa: F401
 
 from sparkdq4ml_tpu_torch.models import clustering as tc
 from sparkdq4ml_tpu_torch.utils import prng
@@ -144,16 +144,14 @@ def ulps(got, want, of=None):
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("dtype,bound,exact", [("float32", 4, 0.98),
                                                ("float64", 32, 0.9)])
-def test_normal_within_ulps(seed, dtype, bound, exact):
+def test_normal_within_ulps(seed, dtype, bound, exact, one_thread):
     with jax.enable_x64(dtype == "float64"):
         want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed),
                                             (20000,), getattr(jnp, dtype)))
     got = prng.normal(prng.PRNGKey(seed), (20000,),
                       getattr(torch, dtype)).numpy()
     assert got.dtype == want.dtype
-    assert np.quantile(ulps(got, want, of=1.0), 0.999) <= bound
-    assert np.abs(got - want).max() <= (1e-9 if dtype == "float64"
-                                        else 1e-6)
+    assert ulps(got, want, of=1.0).max() <= bound
     assert np.mean(got == want) >= exact
 
 
@@ -161,14 +159,14 @@ def test_normal_within_ulps(seed, dtype, bound, exact):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("a,bound,exact", [(100.0, 12, 0.9),
                                            (0.3, 64, 0.6)])
-def test_gamma_within_ulps(seed, dtype, a, bound, exact):
+def test_gamma_within_ulps(seed, dtype, a, bound, exact, one_thread):
     with jax.enable_x64(dtype == "float64"):
         want = np.asarray(jax.random.gamma(jax.random.PRNGKey(seed), a,
                                            (16, 40), getattr(jnp, dtype)))
     got = prng.gamma(prng.PRNGKey(seed), a, (16, 40),
                      getattr(torch, dtype)).numpy()
     assert got.shape == want.shape and got.dtype == want.dtype
-    assert np.quantile(ulps(got, want), 0.999) <= bound
+    assert ulps(got, want).max() <= bound
     assert np.mean(got == want) >= exact
 
 
