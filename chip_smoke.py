@@ -209,6 +209,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    splits, bucket counts, counts, the chi-square tables), every result on
    the first 10^6 clean rows against the CPU float64 run of the same steps
    on the same rows.
+16. the rest of models/: (a) Spark's text-classification pipeline on 10^5
+   seeded raw documents (20-100 words, capitals and punctuation, ~30% stop
+   words, 20,000 content words in 4 topics of Zipf vocabularies, each
+   document from one topic, its label): Tokenizer, RegexTokenizer (\\W+,
+   minTokenLength 2), StopWordsRemover, NGram(2), HashingTF(1024),
+   CountVectorizer (vocabSize 4096, minDF 5) on the bigrams, IDF and
+   MultilayerPerceptronClassifier [1024, 64, 32, 4] (100 Adam steps,
+   stepSize 0.03) on the TF-IDF; every token, n-gram, bucket count, the
+   vocabulary and its order and the document frequencies exact against
+   numpy written here, the IDF weights within 1e-6; the MLP fit twice
+   (bit-identical), its loss history within 1e-4 and accuracy within 1e-3
+   of its float64 run on the card from the same draws; as an extra case
+   the MLP on the TF-IDF's unit rows (Normalizer, p = 2) against its own
+   float64 run, with the same limits; (b) ALS
+   on seeded ratings of MovieLens 20M's shape (20,000,263 ratings, 138,493
+   users, 26,744 movies, half stars, at least 20 a user, Zipf popularity,
+   planted rank-10 taste plus noise): explicit at Spark's defaults and
+   implicit (alpha 1.0), each twice (bit-identical) with its launch counts,
+   recommendForAllUsers(10) and recommendForAllItems(10); against the
+   float64 run on the card from the same initial factors: losses and
+   training RMSE within 1e-4, 10^5 held-out predictions within 1e-3, every
+   top-10 place where float64's scores are 1e-4 apart; the training RMSE
+   within 10% of the planted noise; (c) the sorted segment sum at the
+   half-steps' shapes (20 M × 100 outer products and 20 M × 10 right-hand
+   sides onto the users and onto the movies) against its plain version,
+   timed beside index_add_ and torch.segment_reduce; (d) small cases of
+   the three modules against TEXT_REC_GOLDEN (the JAX package's float32
+   output). The device time of the three TPU kernels' ports at their main
+   shapes joins phase 6.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -1069,7 +1098,8 @@ def traced_calls(fn, calls: int = TRACED_CALLS) -> dict:
 SEGSUM_TURNS = 3
 
 
-def segsum_times(name, kernel, x, seg, size) -> dict:
+def segsum_times(name, kernel, x, seg, size, runs: int = TIMED_RUNS,
+                 index_add: bool = False) -> dict:
     """One segment-sum kernel, its plain version (index_add_ into zeros;
     sum at one slot) and the library call (index_add_ for slot ids, sum
     over the rows at one slot, torch.segment_reduce for contiguous
@@ -1077,7 +1107,9 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
     medians of CUDA-event-timed wrapper and library calls, taken in turns,
     and the device time of single calls of the kernel and of the library
     call from a profiler trace; the wrapper's host path is the first less
-    the second. (One kernel a dense call is asserted by check_one_kernel.)"""
+    the second. (One kernel a dense call is asserted by check_one_kernel.)
+    ``runs`` calls a median; ``index_add`` also times index_add_ into
+    zeros beside a sorted kernel (``index_add_ms``)."""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
@@ -1108,19 +1140,24 @@ def segsum_times(name, kernel, x, seg, size) -> dict:
     turns = {"kernel": [], "library": []}
     for who in ("library", "kernel", "kernel", "library") * SEGSUM_TURNS:
         turns[who].append(median_ms(library if who == "library"
-                                    else lambda: fn(x, seg, size)))
+                                    else lambda: fn(x, seg, size), runs))
     ms, library_ms = (float(np.median(turns[k]))
                       for k in ("kernel", "library"))
     traced = traced_calls(lambda: fn(x, seg, size))
     library_traced = traced_calls(library)
     device_ms = traced["device_ms"]
-    return {"case": name, "n": n, "size": size, "columns": cols,
+    extra = {}
+    if index_add:
+        extra["index_add_ms"] = median_ms(
+            lambda: torch.zeros((size, cols), dtype=x.dtype,
+                                device=x.device).index_add_(0, seg, x), runs)
+    return {**extra, "case": name, "n": n, "size": size, "columns": cols,
             "dtype": str(x.dtype)[6:], "ids": seg is not None,
             "ms": ms, "device_ms": device_ms,
             "traces_kept": traced["traces_kept"],
             "host_path_ms": None if device_ms is None else ms - device_ms,
             "kernel_names": traced["names"],
-            "plain_ms": median_ms(plain),
+            "plain_ms": median_ms(plain, runs),
             "library_ms": library_ms, "library_call": call,
             "turns_ms": turns,
             "library_device_ms": library_traced["device_ms"],
@@ -6089,6 +6126,937 @@ def check_features_full(rows: int = FULL_ROWS) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: a text-classification pass and a MovieLens-20M-shaped recommender
+# ---------------------------------------------------------------------------
+
+TEXT_DOCS = 100_000
+TEXT_WORDS = 20_000             # content words: TEXT_TOPICS topics of 5,000
+TEXT_TOPICS = 4
+TEXT_STOP_SHARE = 0.3
+TEXT_FEATURES = 1024
+TEXT_VOCAB = 4096
+TEXT_MIN_DF = 5
+TEXT_LAYERS = (1024, 64, 32, 4)
+TEXT_STEPS = 100
+TEXT_STEP_SIZE = 0.03
+TEXT_SEED = 17
+TEXT_IDF_RTOL = 1e-6
+TEXT_LOSS_RTOL = 1e-4           # the MLP on the TF-IDF, against float64
+TEXT_UNIT_LOSS_RTOL = 1e-4      # the extra case: on unit rows
+TEXT_ACCURACY_TOL = 1e-3
+# the corpus's stop words, all in the default English list ("a" and "i"
+# fall to RegexTokenizer's minTokenLength 2 before the remover sees them)
+TEXT_STOP = ("the", "of", "and", "a", "to", "in", "is", "it", "that", "for",
+             "was", "on", "with", "as", "i", "at", "by", "this", "from",
+             "or")
+TEXT_SYLLABLES = ("ka", "lo", "mi", "ne", "ru", "sa", "ti", "vo", "ze", "da",
+                  "fe", "go", "hu", "ji", "pa", "qu", "re", "so", "tu", "wy")
+# GroupLens' MovieLens 20M (ml-20m/README.txt): 20,000,263 ratings by
+# 138,493 users of 26,744 movies, 0.5-5 stars in half steps, every user at
+# least 20 ratings; the most rated movie has 67,310 and the most active
+# user 9,254.
+ML20M_RATINGS = 20_000_263
+ML20M_USERS = 138_493
+ML20M_MOVIES = 26_744
+ML20M_MOVIE_IDS = 131_262       # movie ids run from 1 to 131,262
+ML20M_MIN_PER_USER = 20
+ML20M_MAX_PER_USER = 9_254
+ML20M_TOP_MOVIE = 67_310
+REC_RANK = 10                   # Spark's ALS defaults: rank 10, maxIter 10,
+REC_ITERS = 10                  # regParam 0.1
+REC_REG = 0.1
+REC_ALPHA = 1.0
+REC_SEED = 23
+REC_NOISE = 0.8                 # the planted ratings' noise (stars)
+REC_SIGNAL = 0.8                # the planted taste's spread (stars)
+REC_MEAN = 3.5
+REC_HELD_OUT = 100_000
+REC_TOP = 10
+REC_RTOL = 1e-4                 # losses and training RMSE against float64
+REC_PREDICT_ATOL = 1e-3         # held-out predictions against float64
+REC_GAP = 1e-4                  # a top-10 place is held where float64's
+#                                 scores around it are this far apart
+REC_NOISE_SHARE = 0.1           # training RMSE within 10% of the noise
+
+
+def text_words() -> list:
+    """TEXT_WORDS content words: word j is its base-20 digits as
+    syllables, three of them (six letters) below 8,000, four above, so no
+    content word is a stop word or shorter than RegexTokenizer's minimum."""
+    out = []
+    for j in range(TEXT_WORDS):
+        digits = 3 if j < 20 ** 3 else 4
+        out.append("".join(TEXT_SYLLABLES[(j // 20 ** p) % 20]
+                           for p in reversed(range(digits))))
+    return out
+
+
+def text_corpus(docs: int = TEXT_DOCS, seed: int = TEXT_SEED) -> dict:
+    """Seeded raw documents of 20-100 words: about TEXT_STOP_SHARE of the
+    words are stop words, the content words drawn by Zipf rank from the
+    5,000 of the document's topic (its label; word
+    ``rank * TEXT_TOPICS + topic``); a document's first word and a word
+    after a period are capitalized, about 8% of the words carry a comma and
+    6% a period. The generating ids and forms come back with the text for
+    the reference."""
+    rng = np.random.default_rng(seed)
+    per = TEXT_WORDS // TEXT_TOPICS
+    lens = rng.integers(20, 101, docs)
+    topic = rng.integers(0, TEXT_TOPICS, docs)
+    n = int(lens.sum())
+    stop = rng.random(n) < TEXT_STOP_SHARE
+    ranks = rng.choice(per, size=n, p=_zipf(per))
+    content = ranks * TEXT_TOPICS + np.repeat(topic, lens)
+    ids = np.where(stop, TEXT_WORDS + rng.integers(0, len(TEXT_STOP), n),
+                   content)
+    u = rng.random(n)
+    punct = np.where(u < 0.06, 2, np.where(u < 0.14, 1, 0))    # ".", ","
+    start = np.zeros(n, bool)
+    start[np.cumsum(lens) - lens] = True
+    cap = start.copy()
+    cap[1:] |= punct[:-1] == 2
+    vocab = text_words() + list(TEXT_STOP)
+    table = np.empty((len(vocab), 6), dtype=object)
+    for c in (0, 1):
+        for p, suffix in enumerate(("", ",", ".")):
+            table[:, 3 * c + p] = [(w.capitalize() if c else w) + suffix
+                                   for w in vocab]
+    surface = table[ids, 3 * cap + punct].tolist()
+    ends = np.cumsum(lens)
+    text = np.empty(docs, dtype=object)
+    text[:] = [" ".join(surface[e - k:e]) for e, k in zip(ends.tolist(),
+                                                        lens.tolist())]
+    return {"text": text, "label": topic.astype(np.float64), "ids": ids,
+            "lens": lens, "form": 3 * cap + punct, "table": table,
+            "vocab": vocab}
+
+
+def _md5_bucket(word: str, mod: int) -> int:
+    import hashlib
+
+    return int.from_bytes(hashlib.md5(word.encode()).digest()[:8],
+                          "little") % mod
+
+
+def _sparse(flat_index: np.ndarray) -> tuple:
+    """(sorted distinct flat indices, how often each occurs)."""
+    return np.unique(flat_index, return_counts=True)
+
+
+def text_reference(corpus: dict) -> dict:
+    """Each stage's expected output from the corpus's generating ids, in
+    numpy and Python written here: a token column as (its tokens in
+    order, tokens a document) for the Tokenizer (each surface form
+    lowercased), RegexTokenizer (the words of at least two letters), the
+    stop-word-free words and the bigrams; HashingTF's counts (the md5
+    bucket of each word) and CountVectorizer's over the bigrams as (sorted
+    flat indices, counts); the vocabulary in its order; the IDF weights in
+    float64."""
+    ids, lens, vocab = corpus["ids"], corpus["lens"], corpus["vocab"]
+    low = np.vectorize(str.lower, otypes=[object])(corpus["table"])
+    docs = len(lens)
+    doc_of = np.repeat(np.arange(docs), lens)
+    vocab_arr = np.asarray(vocab, dtype=object)
+    out = {"words": (low[ids, corpus["form"]].tolist(), lens)}
+    long = np.asarray([len(w) >= 2 for w in vocab])[ids]
+    out["tokens"] = (vocab_arr[ids[long]].tolist(),
+                     np.bincount(doc_of[long], minlength=docs))
+    keep = ids < TEXT_WORDS
+    cid, cdoc = ids[keep], doc_of[keep]
+    out["clean"] = (vocab_arr[cid].tolist(),
+                    np.bincount(cdoc, minlength=docs))
+    # bigrams: consecutive clean words of one document
+    same = cdoc[1:] == cdoc[:-1]
+    first, second, bdoc = cid[:-1][same], cid[1:][same], cdoc[:-1][same]
+    spaced = np.asarray([w + " " for w in vocab], dtype=object)
+    out["bigrams"] = ((spaced[first] + vocab_arr[second]).tolist(),
+                      np.bincount(bdoc, minlength=docs))
+    bucket = np.asarray([_md5_bucket(w, TEXT_FEATURES)
+                         for w in vocab[:TEXT_WORDS]])
+    out["tf"] = _sparse(cdoc * TEXT_FEATURES + bucket[cid])
+    code = first.astype(np.int64) * TEXT_WORDS + second
+    pairs = np.unique(bdoc.astype(np.int64) * TEXT_WORDS ** 2 + code)
+    codes, df = np.unique(pairs % TEXT_WORDS ** 2, return_counts=True)
+    kept = df >= TEXT_MIN_DF
+    ranked = sorted((-int(n), f"{vocab[k // TEXT_WORDS]} "
+                              f"{vocab[k % TEXT_WORDS]}", int(k))
+                    for n, k in zip(df[kept], codes[kept]))[:TEXT_VOCAB]
+    out["vocabulary"] = [w for _, w, _ in ranked]
+    vcode = np.asarray([k for _, _, k in ranked], np.int64)
+    order = np.argsort(vcode)
+    at = np.minimum(np.searchsorted(vcode[order], code), max(len(vcode) - 1,
+                                                             0))
+    hit = vcode[order][at] == code if len(vcode) else np.zeros_like(same)
+    out["cv"] = _sparse(bdoc[hit] * len(ranked) + order[at[hit]])
+    dfb = np.bincount(out["tf"][0] % TEXT_FEATURES, minlength=TEXT_FEATURES)
+    out["idf"] = np.log((docs + 1.0) / (dfb + 1.0))
+    return out
+
+
+def _card_sparse(M) -> tuple:
+    """(flat indices, values) of the nonzero entries of a card matrix, on
+    the host."""
+    import torch
+
+    flat = M.reshape(-1)
+    at = torch.nonzero(flat).reshape(-1)
+    return at.cpu().numpy(), flat[at].cpu().numpy()
+
+
+def text_steps(M, frame, times: dict) -> tuple:
+    """The text stages on ``frame`` (its ``text`` and ``label``), each
+    timed to a device synchronization: Tokenizer, RegexTokenizer (\\W+,
+    minTokenLength 2), StopWordsRemover, NGram(2), HashingTF(1024) on the
+    words, CountVectorizer (vocabSize 4096, minDF 5) on the bigrams, IDF on
+    the term frequencies into ``tfidf`` (what the MLP fits), and for the
+    extra case Normalizer (p = 2) of the TF-IDF into ``unit``. Returns (the
+    frame, the fitted models)."""
+    import torch
+
+    sync = (torch.cuda.synchronize if frame.device.type == "cuda"
+            else lambda: None)
+    stages = [("tokenizer", M.Tokenizer("text", "words")),
+              ("regex_tokenizer", M.RegexTokenizer(
+                  "text", "tokens", pattern=r"\W+", min_token_length=2)),
+              ("stop_words", M.StopWordsRemover("tokens", "clean")),
+              ("ngram", M.NGram(2, "clean", "bigrams")),
+              ("hashing_tf", M.HashingTF(TEXT_FEATURES, "clean", "tf")),
+              ("count_vectorizer", M.CountVectorizer(
+                  vocab_size=TEXT_VOCAB, min_df=float(TEXT_MIN_DF),
+                  input_col="bigrams", output_col="cv")),
+              ("idf", M.IDF(input_col="tf", output_col="tfidf")),
+              ("normalizer", M.Normalizer("tfidf", "unit", p=2.0))]
+    models = {}
+    for name, stage in stages:
+        sync()
+        t0 = time.perf_counter()
+        if hasattr(stage, "fit"):
+            stage = stage.fit(frame)
+            models[name] = stage
+        frame = stage.transform(frame)
+        sync()
+        times[name] = 1e3 * (time.perf_counter() - t0)
+    return frame, models
+
+
+def check_text(frame, models, want: dict) -> dict:
+    """Phase 16(a)'s exact gates and the IDF weights against float64."""
+    from itertools import chain
+
+    bad = []
+    for name in ("words", "tokens", "clean", "bigrams"):
+        col = frame._column_values(name)
+        lens = np.fromiter(map(len, col), np.int64, count=len(col))
+        if not (np.array_equal(lens, want[name][1])
+                and list(chain.from_iterable(col)) == want[name][0]):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"phase 16: token columns differ from the "
+                             f"reference: {bad}")
+    if models["count_vectorizer"].vocabulary != want["vocabulary"]:
+        raise AssertionError("phase 16: the CountVectorizer vocabulary or "
+                             "its order differs from the reference")
+    for name in ("tf", "cv"):
+        at, val = _card_sparse(frame._column_values(name))
+        if not (np.array_equal(at, want[name][0])
+                and np.array_equal(val, want[name][1])):
+            raise AssertionError(f"phase 16: {name} counts differ from the "
+                                 "reference")
+    idf = np.asarray(models["idf"].idf, np.float64)
+    err = np.abs(idf - want["idf"])
+    idf_err = float(np.max(err / want["idf"]))
+    if idf_err > TEXT_IDF_RTOL:
+        raise AssertionError(f"phase 16: IDF off by {idf_err} relative")
+    return {"idf_max_rel_err": idf_err,
+            "idf_max_abs_err": float(np.max(err)),
+            "idf_min": float(np.min(want["idf"])),
+            "vocabulary_size": len(want["vocabulary"]),
+            "tf_nonzeros": int(want["tf"][0].size),
+            "cv_nonzeros": int(want["cv"][0].size),
+            "tokens": len(want["tokens"][0])}
+
+
+def mlp_fit_on(M, frame, features: str = "tfidf"):
+    """One MultilayerPerceptronClassifier fit on the ``features`` column
+    (the TF-IDF, or its unit rows) and its training accuracy."""
+    model = M.MultilayerPerceptronClassifier(
+        layers=list(TEXT_LAYERS), max_iter=TEXT_STEPS,
+        step_size=TEXT_STEP_SIZE, seed=TEXT_SEED, features_col=features,
+        label_col="label").fit(frame)
+    pred = model.transform(frame)._column_values("prediction")
+    label = frame._column_values("label")
+    return {"model": model,
+            "accuracy": float((pred == label.to(pred.dtype)).double()
+                              .mean()),
+            "loss": np.asarray(model.loss_history)}
+
+
+def mlp_float64_reference(frame, tf64, idf64, unit: bool) -> dict:
+    """The MLP fit in float64 on the card from the float32 run's initial
+    weights (its Glorot draws, widened), on the float64 TF-IDF (``unit``:
+    scaled to unit rows)."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.models import mlp
+
+    X = tf64 * torch.as_tensor(idf64, device=tf64.device)
+    if unit:
+        norm = torch.sqrt((X * X).sum(dim=1, keepdim=True))
+        X = torch.where(norm > 0, X / torch.where(norm > 0, norm, 1.0), X)
+    y = frame._column_values("label").to(torch.float64)
+    mask = frame.mask
+    start = [(W.double(), b.double()) for W, b in mlp.glorot_params(
+        TEXT_LAYERS, TEXT_SEED, torch.float32, tf64.device)]
+    params, hist = mlp.mlp_fit(X, y, mask, list(TEXT_LAYERS), TEXT_STEPS,
+                               TEXT_STEP_SIZE, TEXT_SEED, params0=start)
+    pred = torch.argmax(mlp._mlp_forward(params, X), dim=1)
+    return {"loss": hist.cpu().numpy(),
+            "accuracy": float((pred == y.to(torch.int64)).double().mean())}
+
+
+def check_text_full(docs: int = TEXT_DOCS, device: str = "cuda") -> dict:
+    """Phase 16(a): the text stages on the card on ``docs`` seeded raw
+    documents against the numpy reference (exact; the IDF weights within
+    TEXT_IDF_RTOL relative), then the MLP on the TF-IDF
+    twice (bit-identical) with its launch counts, against its float64 run
+    on the card from the same draws; and, as an extra case, the MLP once on
+    the TF-IDF's unit rows against its own float64 run."""
+    import torch
+
+    from sparkdq4ml_tpu_torch import models as M
+    from sparkdq4ml_tpu_torch.config import float_policy
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+
+    t0 = time.perf_counter()
+    corpus = text_corpus(docs)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = text_reference(corpus)
+    ref_s = time.perf_counter() - t0
+    raw = Frame({"text": corpus["text"], "label": corpus["label"]},
+                device=device)
+    step_ms = {}
+    (frame, models), text_launches, text_s = driven(
+        text_steps, M, raw, step_ms)
+    t0 = time.perf_counter()
+    gates = check_text(frame, models, want)
+    check_s = time.perf_counter() - t0
+    card, launches, fit_ms = [], {}, []
+    for _ in range(2):
+        res, launches, s = driven(mlp_fit_on, M, frame)
+        card.append(res)
+        fit_ms.append(1e3 * s)
+    a, b = (r["model"] for r in card)
+    same = (a.loss_history == b.loss_history and all(
+        np.array_equal(x, y) for (x, _), (y, _) in zip(a.weights, b.weights))
+        and all(np.array_equal(x, y) for (_, x), (_, y) in zip(a.weights,
+                                                                b.weights)))
+    if not same:
+        raise AssertionError("phase 16: the MLP fit differs between two "
+                             "card runs")
+    t0 = time.perf_counter()
+    unit = mlp_fit_on(M, frame, "unit")
+    unit_fit_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with float_policy(torch.float64):
+        tf64 = frame._column_values("tf").to(torch.float64)
+        idf64 = M.IDF(input_col="tf", output_col="o").fit(
+            frame.with_column("tf", tf64)).idf
+        ref = mlp_float64_reference(frame, tf64, idf64, unit=False)
+        ref_unit = mlp_float64_reference(frame, tf64, idf64, unit=True)
+        del tf64
+    ref64_s = time.perf_counter() - t0
+    mlp = {}
+    for name, got, want64, rtol in (
+            ("tfidf", card[0], ref, TEXT_LOSS_RTOL),
+            ("unit_rows", unit, ref_unit, TEXT_UNIT_LOSS_RTOL)):
+        loss_err = float(np.max(np.abs(got["loss"] - want64["loss"])
+                                / np.abs(want64["loss"])))
+        acc_err = abs(got["accuracy"] - want64["accuracy"])
+        mlp[name] = {"accuracy": got["accuracy"],
+                     "float64_accuracy": want64["accuracy"],
+                     "loss_first_last": [float(got["loss"][0]),
+                                         float(got["loss"][-1])],
+                     "loss_max_rel_err": loss_err, "loss_rtol": rtol,
+                     "accuracy_err": acc_err}
+        if loss_err > rtol or acc_err > TEXT_ACCURACY_TOL:
+            raise AssertionError(f"phase 16: the MLP on {name} against "
+                                 f"float64: loss off by {loss_err}, "
+                                 f"accuracy by {acc_err}")
+    out = {"docs": docs, "gates": gates, "step_ms": step_ms,
+           "text_ms": 1e3 * text_s, "text_launches": text_launches,
+           "mlp_fit_ms": fit_ms, "mlp_launches": launches,
+           "mlp_unit_rows_fit_ms": unit_fit_ms, "mlp": mlp,
+           "data_s": data_s, "numpy_reference_s": ref_s,
+           "check_s": check_s,
+           "float64_reference_s": ref64_s}
+    log(f"phase 16(a) text at {docs} documents: {json.dumps(out)}")
+    return out
+
+
+def _zipf_exponent(m: int, top_share: float) -> float:
+    """The exponent s of a Zipf law over ``m`` ranks whose first rank
+    holds ``top_share`` of the mass (bisection)."""
+    ranks = np.arange(1, m + 1, dtype=np.float64)
+    lo, hi = 0.0, 2.0
+    for _ in range(60):
+        s = 0.5 * (lo + hi)
+        share = 1.0 / np.sum(ranks ** -s)
+        lo, hi = (s, hi) if share < top_share else (lo, s)
+    return 0.5 * (lo + hi)
+
+
+def rec_data(users: int = ML20M_USERS, movies: int = ML20M_MOVIES,
+             ratings: int = ML20M_RATINGS, held_out: int = REC_HELD_OUT,
+             device: str = "cuda", seed: int = REC_SEED) -> dict:
+    """Seeded ratings of MovieLens 20M's shape: ``ratings`` training
+    ratings by ``users`` users (each at least ML20M_MIN_PER_USER and at
+    most ML20M_MAX_PER_USER, the extra counts log-normal), of ``movies``
+    movies with Zipf popularity (the most rated holding ML-20M's share),
+    every (user, movie) pair once, and ``held_out`` more ratings spread
+    over the users as the training ones are. A rating is a planted rank-10
+    taste (REC_MEAN on a constant factor and nine factors spreading
+    REC_SIGNAL stars) plus N(0, REC_NOISE²), rounded to half stars and
+    clipped to 0.5-5. The pairs and ratings are drawn on ``device``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cap = min(ML20M_MAX_PER_USER, int(0.35 * movies))
+    extra = rng.lognormal(0.0, 1.2, users)
+    extra *= (ratings - ML20M_MIN_PER_USER * users) / extra.sum()
+    counts = np.minimum(ML20M_MIN_PER_USER + np.floor(extra).astype(np.int64),
+                        cap)
+    short = ratings - int(counts.sum())
+    while short:
+        room = np.flatnonzero(counts < cap) if short > 0 else \
+            np.flatnonzero(counts > ML20M_MIN_PER_USER)
+        pick = rng.choice(room, min(abs(short), room.size), replace=False)
+        counts[pick] += int(np.sign(short))
+        short = ratings - int(counts.sum())
+    held = rng.multinomial(held_out, counts / counts.sum())
+    total = counts + held
+    s = _zipf_exponent(movies, ML20M_TOP_MOVIE / ML20M_RATINGS)
+    popularity = np.arange(1, movies + 1, dtype=np.float64) ** -s
+    cdf = np.cumsum(popularity / popularity.sum())
+    movie_ids = np.sort(rng.choice(
+        np.arange(1, max(ML20M_MOVIE_IDS, movies) + 1), movies,
+        replace=False))
+    by_rank = rng.permutation(movies)           # a movie of each Zipf rank
+    k = REC_RANK
+    a = np.sqrt(REC_SIGNAL / np.sqrt(k - 1))
+    U = np.concatenate([np.full((users, 1), np.sqrt(REC_MEAN)),
+                        rng.normal(0.0, a, (users, k - 1))], axis=1)
+    V = np.concatenate([np.full((movies, 1), np.sqrt(REC_MEAN)),
+                        rng.normal(0.0, a, (movies, k - 1))], axis=1)
+    gen = torch.Generator(device).manual_seed(seed)
+    n = int(total.sum())
+    user = torch.repeat_interleave(torch.arange(users, device=device),
+                                   torch.as_tensor(total, device=device))
+    cdf_d = torch.as_tensor(cdf, device=device)
+
+    def draw(m):
+        u = torch.rand(m, generator=gen, device=device, dtype=torch.float64)
+        return torch.clamp(torch.searchsorted(cdf_d, u), max=movies - 1)
+
+    rank = draw(n)
+    for rounds in range(1, 200):
+        key = user * movies + rank
+        order = torch.sort(key, stable=True).indices
+        ks = key.index_select(0, order)
+        dup = torch.zeros(n, dtype=torch.bool, device=device)
+        dup[1:] = ks[1:] == ks[:-1]
+        again = order[dup]
+        if again.numel() == 0:
+            break
+        rank[again] = draw(again.numel())
+    else:
+        raise AssertionError("rec_data: duplicate pairs remain")
+    movie = torch.as_tensor(by_rank, device=device).index_select(0, rank)
+    signal = torch.sum(torch.as_tensor(U, device=device).index_select(0, user)
+                       * torch.as_tensor(V, device=device).index_select(
+                           0, movie), dim=1)
+    noisy = signal + REC_NOISE * torch.randn(n, generator=gen, device=device,
+                                             dtype=torch.float64)
+    stars = torch.clamp(torch.round(2.0 * noisy) / 2.0, 0.5, 5.0)
+    # the last ``held`` ratings of each user are held out
+    first = torch.as_tensor(np.cumsum(total) - total, device=device)
+    within = torch.arange(n, device=device) - first.index_select(0, user)
+    test = within >= torch.as_tensor(counts, device=device).index_select(
+        0, user)
+    train = ~test
+    noise = float(torch.sqrt(torch.mean((stars[train] - signal[train]) ** 2)))
+    ids = torch.as_tensor(movie_ids, device=device)
+
+    def cols(pick):
+        return {"userId": (user[pick] + 1).to(torch.int32),
+                "movieId": ids.index_select(0, movie[pick]).to(torch.int32),
+                "rating": stars[pick].to(torch.float32)}
+
+    return {"train": cols(train), "test": cols(test), "noise_rms": noise,
+            "zipf_s": s, "dedupe_rounds": rounds,
+            "per_user": {"min": int(counts.min()), "max": int(counts.max()),
+                         "median": float(np.median(counts))},
+            "ratings": int(counts.sum()), "held_out": int(held.sum())}
+
+
+def _rec_frame(cols: dict, device):
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+
+    return Frame(dict(cols), device=device)
+
+
+def rec_estimator(M, implicit: bool):
+    """Spark's defaults (rank 10, maxIter 10, regParam 0.1), the implicit
+    form with alpha 1.0, on MovieLens' column names."""
+    return M.ALS(rank=REC_RANK, max_iter=REC_ITERS, reg_param=REC_REG,
+                 implicit_prefs=implicit, alpha=REC_ALPHA, seed=REC_SEED,
+                 user_col="userId", item_col="movieId", rating_col="rating")
+
+
+def rec_float64_reference(train: dict, implicit: bool):
+    """The fit in float64 on the card from the float32 run's initial
+    factors (``ALS.fit``'s numpy draws rounded to float32, widened), as an
+    ``ALSModel`` under the float64 policy."""
+    import torch
+
+    from sparkdq4ml_tpu_torch import models as M
+    from sparkdq4ml_tpu_torch.models import recommendation as R
+
+    users = train["userId"].to(torch.int64)
+    items = train["movieId"].to(torch.int64)
+    u_ids, u_idx = torch.unique(users, sorted=True, return_inverse=True)
+    i_ids, i_idx = torch.unique(items, sorted=True, return_inverse=True)
+    rng = np.random.default_rng(REC_SEED)
+    start = [torch.as_tensor((rng.normal(size=(len(ids), REC_RANK))
+                              / np.sqrt(REC_RANK)).astype(np.float32)
+                             .astype(np.float64), device=users.device)
+             for ids in (u_ids, i_ids)]
+    U, V, hist = R.als_fit(u_idx, i_idx, train["rating"].to(torch.float64),
+                           start[0], start[1], len(u_ids), len(i_ids),
+                           REC_RANK, REC_ITERS, REC_REG, implicit,
+                           REC_ALPHA)
+    return R.ALSModel(U.cpu().numpy(), V.cpu().numpy(), u_ids.cpu().tolist(),
+                      i_ids.cpu().tolist(),
+                      rec_estimator(M, implicit)._params_dict(),
+                      hist.cpu().tolist(), device=users.device)
+
+
+def _rmse(model, frame) -> float:
+    import torch
+
+    pred = model.transform(frame)._column_values("prediction")
+    err = pred.to(torch.float64) - frame._column_values("rating").to(
+        torch.float64)
+    return float(torch.sqrt(torch.mean(err * err)))
+
+
+def check_top(card_recs, ref, users: bool, what: str) -> dict:
+    """Every place of every card top-10 (the recommendations column) equals
+    the float64 model ``ref``'s where float64's scores around it (the next
+    one included, from its top-11) are more than REC_GAP apart; the other
+    places are counted."""
+    got = np.asarray(card_recs.tolist(), np.float64)[:, :, 0].astype(
+        np.int64)
+    F = (ref.user_factors_arr, ref.item_factors_arr)
+    vals, idx = ref._top_k(*(F if users else F[::-1]), REC_TOP + 1)
+    scores = vals.cpu().numpy()
+    want = np.asarray(ref.item_ids if users else ref.user_ids,
+                      np.int64)[idx.cpu().numpy()]
+    k = got.shape[1]
+    gap = -np.diff(scores, axis=1)                       # (n, k)
+    apart = np.ones_like(got, dtype=bool)
+    apart[:, 1:] &= gap[:, :k - 1] > REC_GAP
+    apart &= gap[:, :k] > REC_GAP
+    wrong = apart & (got != want[:, :k])
+    if wrong.any():
+        rows = np.flatnonzero(wrong.any(axis=1))[:5]
+        raise AssertionError(f"phase 16 {what}: top-{k} places differ from "
+                             f"float64 where its scores are apart: rows "
+                             f"{rows.tolist()}")
+    return {"held_places": int(apart.sum()),
+            "near_ties": int((~apart).sum()),
+            "near_tie_places_differing": int((~apart & (got != want[:, :k]))
+                                             .sum())}
+
+
+def rec_run(M, train_f, implicit: bool) -> dict:
+    """One fit and what it must give: factors, loss history, training
+    RMSE."""
+    model = rec_estimator(M, implicit).fit(train_f)
+    return {"model": model, "loss": np.asarray(model.loss_history),
+            "rmse": _rmse(model, train_f)}
+
+
+def check_rec_full(users: int = ML20M_USERS, movies: int = ML20M_MOVIES,
+                   ratings: int = ML20M_RATINGS,
+                   held_out: int = REC_HELD_OUT, device: str = "cuda",
+                   profile: bool = True) -> dict:
+    """Phase 16(b): the explicit and the implicit fit on the card, each
+    twice (bit-identical) with the launch counts set to 0 just before it
+    and read just after; recommendForAllUsers(10) and
+    recommendForAllItems(10) of the explicit model; one explicit fit under
+    torch.profiler; against the float64 run of both fits on the card from
+    the same initial factors."""
+    import torch
+
+    from sparkdq4ml_tpu_torch import models as M
+    from sparkdq4ml_tpu_torch.config import float_policy
+
+    t0 = time.perf_counter()
+    data = rec_data(users, movies, ratings, held_out, device)
+    train_f = _rec_frame(data["train"], device)
+    test_f = _rec_frame(data["test"], device)
+    data_s = time.perf_counter() - t0
+    marks = {}
+
+    def mark(what, since=[time.perf_counter()]):
+        now = time.perf_counter()
+        marks[what] = now - since[0]
+        since[0] = now
+    card, launches, fit_ms, models = {}, {}, {}, {}
+    for name, implicit in (("als_explicit", False), ("als_implicit", True)):
+        a, launches[name], s1 = driven(rec_run, M, train_f, implicit)
+        b, _, s2 = driven(rec_run, M, train_f, implicit)
+        fit_ms[name] = [1e3 * s1, 1e3 * s2]
+        ma, mb = a["model"], b["model"]
+        if not (np.array_equal(ma.user_factors_arr, mb.user_factors_arr)
+                and np.array_equal(ma.item_factors_arr, mb.item_factors_arr)
+                and ma.loss_history == mb.loss_history):
+            raise AssertionError(f"phase 16: {name} differs between two "
+                                 "card runs")
+        card[name], models[name] = a, ma
+        del b, mb
+    mark("card_fits")
+    model = models["als_explicit"]
+    recs, rec_ms = {}, {}
+    for who, call in (("users", model.recommendForAllUsers),
+                      ("items", model.recommendForAllItems)):
+        recs[who], launches[f"als_recommend_{who}"], s = driven(call,
+                                                                 REC_TOP)
+        rec_ms[who] = 1e3 * s
+    mark("recommend")
+    held = {name: models[name].transform(test_f)._column_values(
+        "prediction").to(torch.float64) for name in models}
+    prof = (profile_run("rec_als", lambda: rec_run(M, train_f, False))
+            if profile else None)
+    mark("held_out_and_profile")
+    t0 = time.perf_counter()
+    gates = {}
+    with float_policy(torch.float64):
+        for name, implicit in (("als_explicit", False),
+                               ("als_implicit", True)):
+            ref = rec_float64_reference(data["train"], implicit)
+            mark(f"{name}_float64_fit")
+            loss_err = float(np.max(np.abs(card[name]["loss"]
+                                           - np.asarray(ref.loss_history))
+                                    / np.abs(ref.loss_history)))
+            rmse64 = _rmse(ref, train_f)
+            rmse_err = abs(card[name]["rmse"] - rmse64) / rmse64
+            want = ref.transform(test_f)._column_values("prediction")
+            got = held[name]
+            cold = torch.isnan(want)
+            if not torch.equal(cold, torch.isnan(got)):
+                raise AssertionError(f"phase 16: {name} held-out cold "
+                                     "starts differ")
+            pred_err = float(torch.max(torch.abs(got - want)[~cold]))
+            gates[name] = {"loss_max_rel_err": loss_err,
+                           "rmse": card[name]["rmse"],
+                           "rmse_float64": rmse64,
+                           "rmse_rel_err": rmse_err,
+                           "held_out_max_abs_err": pred_err,
+                           "held_out_cold": int(cold.sum())}
+            if loss_err > REC_RTOL or rmse_err > REC_RTOL \
+                    or pred_err > REC_PREDICT_ATOL:
+                raise AssertionError(f"phase 16: {name} against float64: "
+                                     f"{gates[name]}")
+            if not implicit:
+                gates["top_users"] = check_top(
+                    recs["users"]._column_values("recommendations"), ref,
+                    True, "recommendForAllUsers")
+                gates["top_items"] = check_top(
+                    recs["items"]._column_values("recommendations"), ref,
+                    False, "recommendForAllItems")
+            del ref
+            mark(f"{name}_gates")
+    ref_s = time.perf_counter() - t0
+    noise = data["noise_rms"]
+    share = abs(card["als_explicit"]["rmse"] - noise) / noise
+    if share > REC_NOISE_SHARE:
+        raise AssertionError(f"phase 16: the explicit fit's training RMSE "
+                             f"{card['als_explicit']['rmse']} is not within "
+                             f"{REC_NOISE_SHARE} of the planted noise "
+                             f"{noise}")
+    out = {"users": model.user_factors_arr.shape[0],
+           "movies": model.item_factors_arr.shape[0],
+           "ratings": data["ratings"], "held_out": data["held_out"],
+           "per_user": data["per_user"], "zipf_s": data["zipf_s"],
+           "dedupe_rounds": data["dedupe_rounds"],
+           "noise_rms": noise, "rmse_share_of_noise": share,
+           "fit_ms": fit_ms, "recommend_ms": rec_ms, "launches": launches,
+           "losses": {k: [float(card[k]["loss"][0]),
+                          float(card[k]["loss"][-1])] for k in card},
+           "gates": gates, "profile": prof, "data_s": data_s,
+           "steps_s": marks,
+           "float64_reference_s": ref_s}
+    log(f"phase 16(b) recommender: {json.dumps(out, default=str)}")
+    for name in ("als_explicit", "als_implicit"):
+        if device == "cuda" and launches[name]["sorted_segment_sum"] == 0:
+            raise AssertionError(f"phase 16: {name} launched no "
+                                 f"sorted_segment_sum: {launches[name]}")
+    return out, data["train"], model
+
+
+def als_segment_check(data_train: dict, model, device: str = "cuda",
+                      runs: int = 5) -> dict:
+    """Phase 16(c): the sorted segment sum at a half-step's shapes, built
+    from the explicit fit's own factors and the ratings sorted by user and
+    by movie (as ``models/recommendation.py`` sorts them once a fit): the
+    (nnz, 100) outer products and the (nnz, 10) right-hand sides onto
+    138,493 users and onto 26,744 movies. Each case in turn: two float32
+    kernel runs bit-identical and within 1e-5 Σ|x| of the float64 plain
+    version on the card, the float64 kernel within 1e-12 Σ|x|, one kernel
+    a call (``check_one_kernel``), and its times (``segsum_times`` with
+    ``runs`` runs a median, index_add_ and torch.segment_reduce beside)."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.models import recommendation as R
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    users = data_train["userId"].to(torch.int64)
+    items = data_train["movieId"].to(torch.int64)
+    _, u_idx = torch.unique(users, sorted=True, return_inverse=True)
+    _, i_idx = torch.unique(items, sorted=True, return_inverse=True)
+    r = data_train["rating"]
+    U = torch.as_tensor(model.user_factors_arr, device=device)
+    V = torch.as_tensor(model.item_factors_arr, device=device)
+    out = {}
+    for side_name, idx_self, idx_other, F, n_self in (
+            ("users", u_idx, i_idx, V, U.shape[0]),
+            ("movies", i_idx, u_idx, U, V.shape[0])):
+        side = R._by_side(idx_self, idx_other, r, n_self)
+        size = side.size
+        G = F.index_select(0, side.other)
+        for what in ("outer products", "right-hand sides"):
+            if what == "outer products":
+                x = (G[:, :, None] * G[:, None, :]).reshape(G.shape[0], -1)
+            else:
+                x = G * side.ratings[:, None]
+            name = f"ALS {what} onto {size} {side_name}"
+            x64 = x.double()
+            want = kernels.segment_sum_reference(x64, side.seg, size)
+            bound = kernels.segment_sum_reference(x64.abs_(), side.seg,
+                                                  size)
+            del x64
+            errs = {}
+            for dtype, rel in ((torch.float32, 1e-5), (torch.float64,
+                                                        1e-12)):
+                xd = x.to(dtype)
+                got = kernels.sorted_segment_sum(xd, side.seg, size)
+                again = kernels.sorted_segment_sum(xd, side.seg, size)
+                if not same_bits(got, again):
+                    raise AssertionError(f"{name} {dtype}: not "
+                                         "bit-identical over two runs")
+                del again
+                diff = (got.double() - want).abs()
+                if bool((diff > rel * bound).any()):
+                    raise AssertionError(f"{name} {dtype}: exceeds {rel} "
+                                         "sum|x|")
+                errs[str(dtype)[6:]] = float(diff.max())
+                if dtype == torch.float32:
+                    one = check_one_kernel("sorted_segment_sum", xd,
+                                           side.seg, size)
+                del xd, got, diff
+            del want, bound
+            seg = side.seg
+            out[name] = {**segsum_times(name, "sorted_segment_sum", x,
+                                        seg, size, runs=runs,
+                                        index_add=True),
+                         "graph_device_ms": graph_ms(
+                             lambda: kernels.sorted_segment_sum(x, seg,
+                                                                size), 5, 3),
+                         "max_abs_err": errs["float32"],
+                         "float64_max_abs_err": errs["float64"],
+                         "kernels_a_call": one}
+            del x
+            torch.cuda.empty_cache()
+        del G, side
+    log(f"phase 16(c) segment sums at ALS's shapes: "
+        f"{json.dumps(out, default=str)}")
+    return out
+
+
+# The JAX package's float32 output (jax.enable_x64(False)) of
+# text_rec_small's cases, recomputed by tests/test_torch_text.py.
+TEXT_REC_GOLDEN = {
+    "als_loss": [1.6009982824325562, 0.3231261074542999, 0.028854768723249435,
+                 0.005798960570245981, 0.002187896752730012,
+                 0.0012863383162766695, 0.0009692342136986554,
+                 0.0008285051444545388, 0.0007548131980001926,
+                 0.0007106562261469662, 0.0006810589111410081,
+                 0.0006593792932108045, 0.0006424202001653612,
+                 0.0006285303388722241, 0.0006167769897729158],
+    "als_predictions": [0.5216606855392456, 0.6740745902061462,
+                        -0.6956538558006287, 0.15606538951396942,
+                        1.0948799848556519, 0.7170532941818237,
+                        -0.5638483762741089, 0.1732012778520584],
+    "als_top": [[8, 19, 9], [8, 4, 19], [15, 10, 14], [6, 16, 5], [6, 16, 11]],
+    "ials_loss": [0.8230360150337219, 0.1428782045841217, 0.10049857199192047,
+                  0.08483094722032547, 0.07561894506216049, 0.0672391876578331,
+                  0.06026492267847061, 0.055707551538944244,
+                  0.0522979199886322, 0.04956291988492012, 0.04725239798426628,
+                  0.04539026692509651, 0.04409405589103699,
+                  0.04327499493956566, 0.042767707258462906],
+    "ials_predictions": [0.946110725402832, 0.9303255081176758,
+                         0.9947859048843384, 0.9975287318229675,
+                         0.9403082132339478, 0.9677966237068176,
+                         0.9732797741889954, 0.9822115302085876],
+    "mlp_loss": [0.7192500829696655, 0.29043272137641907, 0.23691946268081665,
+                 0.08159654587507248, 0.057334478944540024,
+                 0.047602325677871704, 0.041818343102931976,
+                 0.037776824086904526, 0.03475132957100868],
+    "mlp_accuracy": 0.9875,
+    "mlp_probability": [0.9999986886978149, 0.0007213743519969285,
+                        2.017372207774315e-05, 1.762089777912479e-05],
+    "words": [["the", "tpu", "runs", "fast"], ["the", "cpu", "runs", "slow"],
+              None, ["fast", "tpu", "fast"]],
+    "tf": [[7, 1.0], [13, 1.0], [15, 1.0], [49, 1.0], [71, 1.0], [79, 2.0],
+           [89, 1.0], [205, 1.0], [241, 2.0]],
+    "vocabulary": ["fast", "runs", "the", "tpu", "cpu", "slow"],
+    "cv": [[0, 1.0], [1, 1.0], [2, 1.0], [3, 1.0], [7, 1.0], [8, 1.0],
+           [10, 1.0], [11, 1.0], [18, 2.0], [21, 1.0]],
+    "idf": [1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 0.5108256340026855, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 0.5108256340026855, 1.6094379425048828,
+            0.5108256340026855, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 0.9162907600402832, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 0.5108256340026855, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828, 1.6094379425048828, 1.6094379425048828,
+            1.6094379425048828],
+}
+
+TEXT_REC_TOL = 1e-4
+
+
+def text_rec_small(device: str) -> dict:
+    """Small seeded cases of the three modules: tests/test_als.py's planted
+    low-rank ratings (explicit) and its implicit data, tests/test_mlp.py's
+    XOR fit, and tests/test_text_ovr.py's documents through Tokenizer,
+    HashingTF, CountVectorizer and IDF."""
+    from sparkdq4ml_tpu_torch import models as M
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+
+    def host(v) -> list:
+        return np.asarray(v, np.float64).tolist()
+
+    out = {}
+    rng = np.random.default_rng(0)
+    U = rng.normal(size=(30, 3))
+    V = rng.normal(size=(20, 3))
+    R = U @ V.T
+    u, i = np.nonzero(rng.random((30, 20)) < 0.6)
+    f = Frame({"user": u.astype(np.int32), "item": i.astype(np.int32),
+               "rating": R[u, i].astype(np.float32)}, device=device)
+    als = M.ALS(rank=3, max_iter=15, reg_param=0.01, seed=1).fit(f)
+    out["als_loss"] = host(als.loss_history)
+    out["als_predictions"] = host(als.transform(f).to_pydict()[
+        "prediction"][:8])
+    out["als_top"] = [[int(j) for j, _ in rec] for rec in
+                      als.recommendForAllUsers(3).to_pydict()[
+                          "recommendations"][:5]]
+    rng = np.random.default_rng(0)
+    U = rng.normal(size=(40, 3))
+    V = rng.normal(size=(30, 3))
+    prob = 1 / (1 + np.exp(-2.0 * (U @ V.T)))
+    observed = rng.random((40, 30)) < prob * 0.4
+    counts = rng.poisson(3.0, size=(40, 30)) + 1
+    u, i = np.nonzero(observed)
+    f = Frame({"user": u.astype(float), "item": i.astype(float),
+               "rating": counts[u, i].astype(float)}, device=device)
+    ials = M.ALS(rank=8, max_iter=15, reg_param=0.05, implicit_prefs=True,
+                 alpha=10.0, seed=0).fit(f)
+    out["ials_loss"] = host(ials.loss_history)
+    out["ials_predictions"] = host(ials.transform(f).to_pydict()[
+        "prediction"][:8])
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, size=(400, 2))
+    y = ((X[:, 0] > 0) ^ (X[:, 1] > 0)).astype(np.float64)
+    f = M.VectorAssembler(["a", "b"], "features").transform(
+        Frame({"a": X[:, 0], "b": X[:, 1], "label": y}, device=device))
+    mlp = M.MultilayerPerceptronClassifier(layers=[2, 8, 2], max_iter=800,
+                                           step_size=0.05, seed=1).fit(f)
+    d = mlp.transform(f).to_pydict()
+    out["mlp_loss"] = host(mlp.loss_history[::100] + mlp.loss_history[-1:])
+    out["mlp_accuracy"] = float(np.mean(np.asarray(d["prediction"]) == y))
+    out["mlp_probability"] = host(np.asarray(d["probability"])[:4, 1])
+    docs = np.asarray(["the TPU runs Fast", "the cpu runs slow", None,
+                       "fast tpu fast"], dtype=object)
+    f = M.Tokenizer("text", "words").transform(
+        Frame({"text": docs}, device=device))
+    out["words"] = [None if w is None else list(w)
+                    for w in f.to_pydict()["words"]]
+    f = M.HashingTF(64, "words", "tf").transform(f)
+    tf = np.asarray(f.to_pydict()["tf"], np.float64)
+    out["tf"] = [[int(j), float(tf.flat[j])]
+                 for j in np.flatnonzero(tf.reshape(-1))]
+    cv = M.CountVectorizer(input_col="words", output_col="cv").fit(f)
+    out["vocabulary"] = list(cv.vocabulary)
+    cm = np.asarray(cv.transform(f).to_pydict()["cv"], np.float64)
+    out["cv"] = [[int(j), float(cm.flat[j])]
+                 for j in np.flatnonzero(cm.reshape(-1))]
+    idf = M.IDF(input_col="tf", output_col="tfidf").fit(f)
+    out["idf"] = host(idf.idf)
+    return out
+
+
+TEXT_REC_EXACT = ("als_top", "mlp_accuracy", "words", "tf", "vocabulary",
+                  "cv")
+
+
+def text_rec_errors(got: dict, want: dict) -> dict:
+    """Each float entry's largest error, relative to max(1, |want|)."""
+    errs = {}
+    for k, v in want.items():
+        if k in TEXT_REC_EXACT:
+            continue
+        a = np.asarray(got[k], np.float64)
+        b = np.asarray(v, np.float64)
+        if a.shape != b.shape:
+            errs[k] = float("inf")
+            continue
+        errs[k] = float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+    return errs
+
+
+def check_text_rec_golden(device: str) -> dict:
+    """Phase 16(d): text_rec_small on the card against TEXT_REC_GOLDEN:
+    ids, vocabularies, counts and the accuracy exact, floats within
+    TEXT_REC_TOL."""
+    got = text_rec_small(device)
+    bad = [k for k in TEXT_REC_EXACT if got[k] != TEXT_REC_GOLDEN[k]]
+    errs = text_rec_errors(got, TEXT_REC_GOLDEN)
+    bad += [f"{k} off by {e}" for k, e in errs.items() if e > TEXT_REC_TOL]
+    log(f"phase 16(d) against TEXT_REC_GOLDEN, {device} float32: errors "
+        f"{errs}")
+    if bad:
+        raise AssertionError(f"phase 16 against TEXT_REC_GOLDEN: {bad}")
+    return {"errors": errs}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -6109,14 +7077,28 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return float(np.median(times))
 
 
-def dq_times(n: int) -> dict:
+def device_time(fn) -> dict:
+    """The device time of one call of ``fn``: from CUDA graph replays
+    (``graph_ms``, the kernels alone, no host path) and from profiler
+    traces of single calls (``traced_calls``; None where every trace lost
+    its device events, as traces late in this script do)."""
+    got = traced_calls(fn)
+    return {"device_ms": graph_ms(fn), "traced_device_ms": got["device_ms"],
+            "device_events": got["device_events"],
+            "traces_kept": got["traces_kept"]}
+
+
+def dq_times(n: int, device: bool = False) -> dict:
+    """``device``: also the device time of single calls (``device_time``)."""
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
 
     price, guest = dq_inputs(n, torch.float32, "cuda", seed=7)
     moved = n * (4 + 4 + 4 + 4 + 1)
-    return {"n": n, "dtype": "float32",
+    extra = (device_time(lambda: kernels.dq_rules(price, guest)) if device
+             else {})
+    return {**extra, "n": n, "dtype": "float32",
             "ms": median_ms(lambda: kernels.dq_rules(price, guest)),
             "plain_ms": median_ms(
                 lambda: kernels.dq_rules_reference(price, guest)),
@@ -6124,7 +7106,7 @@ def dq_times(n: int) -> dict:
             "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes"}
 
 
-def gram_times(n: int, D: int) -> dict:
+def gram_times(n: int, D: int, device: bool = False) -> dict:
     import torch
 
     from sparkdq4ml_tpu_torch.ops import kernels
@@ -6132,7 +7114,8 @@ def gram_times(n: int, D: int) -> dict:
     Z = packed_design(n, D, torch.float32, "cuda", seed=11)
     t_bytes = (n * D + D * D) * 4 / HBM_BYTES_PER_S
     t_ops = n * D * (D + 1) / FP32_FLOPS    # one triangle of symmetric A
-    return {"n": n, "D": D, "dtype": "float32",
+    extra = device_time(lambda: kernels.packed_gram(Z)) if device else {}
+    return {**extra, "n": n, "D": D, "dtype": "float32",
             "ms": median_ms(lambda: kernels.packed_gram(Z)),
             "plain_ms": median_ms(lambda: kernels.packed_gram_reference(Z)),
             "library_ms": median_ms(lambda: torch.matmul(Z.T, Z)),
@@ -6140,7 +7123,8 @@ def gram_times(n: int, D: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def masked_times(n: int, d: int, weights: str = "bool") -> dict:
+def masked_times(n: int, d: int, weights: str = "bool",
+                 device: bool = False) -> dict:
     """masked_gram with a boolean mask (the cross-validation's and the
     unweighted Huber fit's weight) or float weights (phase 15's √w).
     library_ms is one torch.matmul on a pre-built Zw, the packing
@@ -6158,7 +7142,9 @@ def masked_times(n: int, d: int, weights: str = "bool") -> dict:
     t_bytes = (n * ((d + 1) * 4 + w.element_size()) + D * D * 4) \
         / HBM_BYTES_PER_S
     t_ops = n * D * (D + 1) / FP32_FLOPS    # one triangle of symmetric A
-    return {"n": n, "d": d, "dtype": "float32", "weights": weights,
+    extra = (device_time(lambda: kernels.masked_gram(X, y, w)) if device
+             else {})
+    return {**extra, "n": n, "d": d, "dtype": "float32", "weights": weights,
             "ms": median_ms(lambda: kernels.masked_gram(X, y, w)),
             "plain_ms": median_ms(
                 lambda: kernels.masked_gram_reference(X, y, w)),
@@ -6344,14 +7330,17 @@ def main() -> int:
              "owlqn": check_owlqn("cuda")}
     small_s = time.perf_counter() - t0
 
-    dq_main, dq_app = dq_times(FULL_ROWS), dq_times(40)
-    gram_main, gram_app, gram_big = (gram_times(FULL_ROWS, 3),
+    dq_main, dq_app = dq_times(FULL_ROWS, device=True), dq_times(40)
+    gram_main, gram_app, gram_big = (gram_times(FULL_ROWS, 3, device=True),
                                      gram_times(40, 3),
                                      gram_times(1_000_000, 514))
-    masked_main, masked_app, masked_big = (masked_times(FULL_ROWS, 1),
-                                           masked_times(1040, 1),
-                                           masked_times(1_000_000, 512))
-    masked_feature = masked_times(FULL_ROWS, 14, "float")
+    masked_main, masked_app, masked_big = (
+        masked_times(FULL_ROWS, 1, device=True), masked_times(1040, 1),
+        masked_times(1_000_000, 512))
+    masked_feature = masked_times(FULL_ROWS, 14, "float", device=True)
+    log("device times of the TPU kernels' ports at their main shapes: "
+        + str([(r["n"], r.get("D", r.get("d")), r["ms"], r["device_ms"])
+               for r in (dq_main, gram_main, masked_main, masked_feature)]))
     seg_dense, seg_sorted, seg_long = (segsum_times(*c) for c in seg_cases)
     seg_one = {c[0]: {**segsum_times(*c), "max_abs_err": one_errs[c[0]]}
                for c in one_cases}
@@ -6408,6 +7397,23 @@ def main() -> int:
     t0 = time.perf_counter()
     features = check_features_full()
     features_s = time.perf_counter() - t0
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    text_rec_gold = check_text_rec_golden("cuda")
+    text = check_text_full()
+    rec, rec_train, rec_model = check_rec_full()
+    text_rec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    als_shapes = als_segment_check(rec_train, rec_model)
+    del rec_train, rec_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    als_segment_s = time.perf_counter() - t0
+    log(f"phase 16: {text_rec_s:.1f} s, its segment-sum cases "
+        f"{als_segment_s:.1f} s")
     zoo_launches = {name: zoo["launches"][name]
                     for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
                                  "bisecting", "pic")}
@@ -6428,7 +7434,10 @@ def main() -> int:
                **{f"rest_{name}": c for name, c in rest["launches"].items()},
                "feature_clean_table": features["clean_launches"],
                **{f"feature_{name}": c
-                  for name, c in features["launches"].items()}}
+                  for name, c in features["launches"].items()},
+               "text_pipeline": text["text_launches"],
+               "text_mlp": text["mlp_launches"],
+               **{f"rec_{name}": c for name, c in rec["launches"].items()}}
     feature_launches = {k: {name: c[k]
                             for name, c in features["launches"].items()}
                         for k in ("dense_segment_sum", "masked_gram")}
@@ -6477,6 +7486,8 @@ def main() -> int:
          "rest_launches": {name: c["dense_segment_sum"]
                            for name, c in rest["launches"].items()},
          "feature_launches": feature_launches["dense_segment_sum"],
+         "als_launches": {name: c["dense_segment_sum"]
+                          for name, c in rec["launches"].items()},
          "one_slot_launches": one_slot_launches,
          "max_abs_err": seg_errs["dense 39 slots"], "parity": True,
          "bit_identical_runs": True, **seg_dense, "one_slot": seg_one,
@@ -6494,6 +7505,9 @@ def main() -> int:
          "rest_launches": {name: c["sorted_segment_sum"]
                            for name, c in rest["launches"].items()},
          "rest_shapes": rest_times,
+         "als_launches": {name: c["sorted_segment_sum"]
+                          for name, c in rec["launches"].items()},
+         "als_shapes": als_shapes,
          "max_abs_err": seg_errs["sorted price groups"], "parity": True,
          "bit_identical_runs": True, "two_streams": two_streams,
          "zero_forms": zero_forms,
@@ -6522,6 +7536,8 @@ def main() -> int:
         "rest_tour_dataset_full": rest_tour_res, "rest": rest,
         "rest_phase_s": rest_s,
         "features": features, "features_phase_s": features_s,
+        "text_rec_golden": text_rec_gold, "text": text, "recommender": rec,
+        "text_rec_phase_s": text_rec_s, "als_segment_s": als_segment_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "script_s": time.perf_counter() - script_t0, "card": card}

@@ -19,7 +19,12 @@ packages.
 The feature layer's fitted models cross through their persisted
 attributes: :func:`feature_model_to_numpy` reads them off a model of
 either package and :func:`feature_model_from_numpy` builds the port's
-model from them."""
+model from them.
+
+The rest of ``models/`` crosses as arrays too: :func:`als_model_from_numpy`,
+:func:`mlp_model_from_numpy`, :func:`count_vectorizer_model_from_numpy` and
+:func:`idf_model_from_numpy` build the port's model from a JAX model's
+factors and ids, weights, vocabulary or IDF weights."""
 
 from __future__ import annotations
 
@@ -243,3 +248,48 @@ def feature_model_from_numpy(state: dict):
     if post is not None:
         post()
     return obj
+
+
+def als_model_from_numpy(user_factors, item_factors, user_ids, item_ids,
+                         params: Optional[dict] = None, loss_history=None,
+                         device=None):
+    """The port's ``ALSModel`` from a JAX model's factor matrices and id
+    lists (``user_factors_arr``, ``item_factors_arr``, ``user_ids``,
+    ``item_ids``), computing on ``device``, by default the one
+    ``config.resolve_device`` gives at each call (the active session's)."""
+    from .models.recommendation import ALSModel
+
+    return ALSModel(np.asarray(user_factors), np.asarray(item_factors),
+                    list(user_ids), list(item_ids), params, loss_history,
+                    device=device)
+
+
+def mlp_model_from_numpy(layers, weights, params: Optional[dict] = None,
+                         loss_history=None):
+    """The port's ``MultilayerPerceptronClassificationModel`` from a JAX
+    model's layer sizes and [(W, b), ...] weights as numpy arrays."""
+    from .models.mlp import MultilayerPerceptronClassificationModel
+
+    return MultilayerPerceptronClassificationModel(
+        list(layers), [(np.asarray(W), np.asarray(b)) for W, b in weights],
+        params, loss_history)
+
+
+def count_vectorizer_model_from_numpy(vocabulary, min_tf: float = 1.0,
+                                      binary: bool = False,
+                                      input_col: str = None,
+                                      output_col: str = None):
+    """The port's ``CountVectorizerModel`` from a JAX model's vocabulary
+    and transform settings."""
+    from .models.text import CountVectorizerModel
+
+    return CountVectorizerModel([str(w) for w in vocabulary], min_tf,
+                                binary, input_col, output_col)
+
+
+def idf_model_from_numpy(idf, input_col: str = None,
+                         output_col: str = None):
+    """The port's ``IDFModel`` from a JAX model's weights as numpy."""
+    from .models.text import IDFModel
+
+    return IDFModel(np.asarray(idf), input_col, output_col)

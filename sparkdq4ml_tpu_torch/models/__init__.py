@@ -40,9 +40,12 @@ from .glm import (GeneralizedLinearRegression,
                   GeneralizedLinearRegressionModel, GlmTrainingSummary)
 from .lda import LDA, LDAModel
 from .linalg import Matrices, Vectors
+from .mlp import (MultilayerPerceptronClassificationModel,
+                  MultilayerPerceptronClassifier)
 from .lsh import (BucketedRandomProjectionLSH,
                   BucketedRandomProjectionLSHModel, MinHashLSH,
                   MinHashLSHModel)
+from .recommendation import ALS, ALSModel
 from .regression import (IsotonicRegression, IsotonicRegressionModel,
                          LinearRegression, LinearRegressionModel,
                          LinearRegressionSummary,
@@ -50,6 +53,9 @@ from .regression import (IsotonicRegression, IsotonicRegressionModel,
 from .stat import (ChiSquareTest, Correlation, KolmogorovSmirnovTest,
                    Summarizer)
 from .survival import AFTSurvivalRegression, AFTSurvivalRegressionModel
+from .text import (CountVectorizer, CountVectorizerModel, HashingTF, IDF,
+                   IDFModel, NGram, RegexTokenizer, StopWordsRemover,
+                   Tokenizer)
 from .tree import (DecisionTreeClassificationModel, DecisionTreeClassifier,
                    DecisionTreeRegressionModel, DecisionTreeRegressor,
                    GBTClassificationModel, GBTClassifier,
