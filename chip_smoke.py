@@ -6,9 +6,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: a CUDA device must be present; prints its name and power limit;
-2. build: compiles the CUDA kernels from the sources in the checkout
-   (the three ports of the TPU kernels and the port's own segment sums),
-   one nvcc each, all started together; then one wrapper call of each
+2. build: starts the CPU float64 references of phases 7-8, 11 and 12,
+   one spawned process each at 3 intra-op threads, and compiles the CUDA
+   kernels from the sources in the checkout (the three ports of the TPU
+   kernels and the port's own segment sums), one nvcc each, all started
+   together beside them; waits for the references (their results come back
+   through files in a temporary directory the script removes), so that
+   no card phase shares the host with them; then one wrapper call of each
    Gramian under torch.profiler at the app's, the tour's and the full
    table's shapes, for the number of kernels it launches (first, while no
    other profiler session has run in the process);
@@ -54,7 +58,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    phase and of each model-selection path under torch.profiler for the
    device's idle share (the kernel tables go to
    chiprun_out/<path>_profile.txt);
-7. SQL core: the whole of examples/sql_tour.py (GROUP BY with HAVING and
+7. SQL core (its CPU float64 reference, shared with phase 8, from phase
+   2): the whole of examples/sql_tour.py (GROUP BY with HAVING and
    ORDER BY, the sorted-program groupings, sort, distinct, joins, window
    functions, arithmetic, a derived table, explode, the CTE with a scalar
    subquery, IN (subquery) against LEFT SEMI, temp-view DDL) on
@@ -238,6 +243,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the three modules against TEXT_REC_GOLDEN (the JAX package's float32
    output). The device time of the three TPU kernels' ports at their main
    shapes joins phase 6.
+17. the fused pipeline (ops/compiler.py: a plan-keyed cache with shape
+   buckets) under the reference app, every earlier phase having run
+   through it: (a) ``python -m sparkdq4ml_tpu_torch.app`` on the
+   three datasets, each from a fresh plan cache, counters and statstore,
+   its last line equal to APP_REPORT_GOLDEN (the JAX example's), its RMSE,
+   r2, predict(40) and DQ row counts against GOLDEN; (b) the app path on
+   the 10^7-row table with the pipeline on and off: every column and the
+   mask of the clean frame and the fit's numbers bit-identical, the
+   statstore's two WHERE selectivities equal to the run's kept/in counts
+   (the second phase 5's), the steady DQ phase both ways (median of 3,
+   in turns); (c) at 1,040 rows, the same on against off bits, one plan
+   run at two hoisted literals in turns (WHERE price_no_min > 0 and > 50,
+   every result kept) each against its eager run bit for bit, the kernels
+   of a flush both ways (the kernel nodes of a CUDA graph captured from
+   it, and the launches and device kernels under torch.profiler over 20),
+   the host time of a hit flush piece by piece, the steady DQ phase both
+   ways (median of 21) and no synchronizing call in a hit flush; (d) no
+   fallback to eager replay over the whole script, the pipeline's
+   counters.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -1927,6 +1951,127 @@ def cpu_reference(guest, price) -> dict:
     return {"clean_rows": kept, "core": core, "rest": rest}
 
 
+# Intra-op threads of each CPU reference process (the card's machine has 8
+# cores; the three references run at once, before any card phase).
+CPU_REFERENCE_THREADS = 3
+
+
+def _cpu_reference_jobs():
+    """The CPU float64 runs that no card state feeds: phases 7-8's, 11's
+    and 12's."""
+    return (("sql", cpu_reference), ("report", report_reference),
+            ("builtins", builtin_reference))
+
+
+def _cpu_reference_worker(name: str, rows: int, queue, tmp: str) -> None:
+    """The CPU reference ``name`` on full_table(rows), in a worker process.
+    Its result (about 3 GB for phases 7-8 at 10^7 rows, millions of string
+    cells among it) goes through a file in ``tmp``, or through ``queue``
+    itself where the file cannot be written: puts (name, kind, the path or
+    the result, the reference's seconds, the write's seconds, the time it
+    was ready), or (name, "error", traceback, ...)."""
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    guest, price = full_table(rows)
+    try:
+        t0 = time.perf_counter()
+        out = dict(_cpu_reference_jobs())[name](guest, price)
+        seconds = time.perf_counter() - t0
+    except Exception:
+        queue.put((name, "error", traceback.format_exc(), None, None, None))
+        return
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"{name}.pkl")
+    try:
+        with open(path, "wb") as f:
+            pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    except OSError:
+        queue.put((name, "result", out, seconds, None, time.time()))
+        return
+    queue.put((name, "file", path, seconds, time.perf_counter() - t0,
+               time.time()))
+
+
+class CpuReference:
+    """The CPU float64 runs of phases 7-8, 11 and 12, one spawned process
+    each, all started together before the kernels' build. ``wait()``
+    returns when all three have ended, and the script calls it before
+    phase 3, so no card phase shares the host with them: every host-clock
+    time the script reports is taken after they end. ``result(name)``
+    loads one; ``stop()`` ends the processes and removes what they left,
+    whatever happened."""
+
+    def __init__(self, rows: int = FULL_ROWS):
+        import multiprocessing
+        import tempfile
+
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.ready: dict = {}
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_reference_")
+        self.procs = [ctx.Process(target=_cpu_reference_worker,
+                                  args=(name, rows, self.queue, self.tmp),
+                                  daemon=True)
+                      for name, _ in _cpu_reference_jobs()]
+        for proc in self.procs:
+            proc.start()
+
+    def wait(self) -> float:
+        """Blocks until every reference is ready; returns the seconds
+        waited."""
+        import queue as queue_mod
+
+        t0 = time.perf_counter()
+        while len(self.ready) < len(self.procs):
+            try:
+                item = self.queue.get(timeout=5)
+                self.ready[item[0]] = item[1:]
+            except queue_mod.Empty:
+                if not any(proc.is_alive() for proc in self.procs):
+                    raise RuntimeError(
+                        "a CPU reference process ended without its result "
+                        f"(exit codes {[p.exitcode for p in self.procs]})"
+                    ) from None
+        for proc in self.procs:
+            proc.join()
+        return time.perf_counter() - t0
+
+    def result(self, name: str) -> tuple:
+        """(the reference ``name``, {its seconds in its process, the
+        write's and the read's seconds})."""
+        import pickle
+
+        kind, out, seconds, write_s, _ready = self.ready.pop(name)
+        if kind == "error":
+            raise RuntimeError(f"the CPU reference {name!r} failed:\n{out}")
+        timing = {"reference_s": seconds, "write_s": write_s}
+        if kind == "file":
+            path, t0 = out, time.perf_counter()
+            try:
+                with open(path, "rb") as f:
+                    out = pickle.load(f)
+            finally:
+                os.remove(path)
+            timing["read_s"] = time.perf_counter() - t0
+        return out, timing
+
+    def stop(self) -> None:
+        import shutil
+
+        for proc in self.procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        self.queue.close()
+        self.ready.clear()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def card_path(run, guest, price, counted, what: str):
     """``run(spark, clean, times, runs=3)`` on the card's clean table,
     the launch counts set to 0 just before the table is cleaned and read
@@ -3502,9 +3647,10 @@ def report_reference(guest, price) -> dict:
     return out
 
 
-def check_report_full(guest, price) -> dict:
+def check_report_full(guest, price, reference=None) -> dict:
     """Phase 11 on the 10^7-row table: the CPU float64 run of
-    REPORT_CPU_STEPS, then the card (float32) with the launch counts set
+    REPORT_CPU_STEPS (from ``reference``'s worker when given, else run
+    here), then the card (float32) with the launch counts set
     to 0 just before the table is cleaned and read just after the steps
     (dq_rules once, both segment sums at least once); every step's median
     of 3 host-clock times, and one more run under torch.profiler for the
@@ -3516,9 +3662,14 @@ def check_report_full(guest, price) -> dict:
 
     from sparkdq4ml_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
-    cpu = report_reference(guest, price)
-    cpu_s = time.perf_counter() - t0
+    if reference is None:
+        t0 = time.perf_counter()
+        cpu = report_reference(guest, price)
+        cpu_s = time.perf_counter() - t0
+    else:
+        cpu, timing = reference.result("report")
+        cpu_s = timing["reference_s"]
+        log(f"phase 11's cpu float64 reference: {timing}")
     spark, tables = report_tables("cuda", guest[:1000], price[:1000])
     run_report(spark, tables)                               # warm-up
     spark.stop()
@@ -3996,9 +4147,10 @@ def builtin_reference(guest, price) -> dict:
     return out
 
 
-def check_builtins_full(guest, price) -> dict:
-    """Phase 12 on the 10^7-row table: the CPU references first, then the
-    card (float32) with the launch counts set to 0 just before the table
+def check_builtins_full(guest, price, reference=None) -> dict:
+    """Phase 12 on the 10^7-row table: the CPU references (from
+    ``reference``'s worker when given, else run here), then the card
+    (float32) with the launch counts set to 0 just before the table
     is cleaned and read just after the steps (dq_rules once); every step's
     median of 3 host-clock times and one more run under torch.profiler;
     the numeric and date results on the card; every column against the
@@ -4013,9 +4165,14 @@ def check_builtins_full(guest, price) -> dict:
 
     from sparkdq4ml_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
-    ref = builtin_reference(guest, price)
-    cpu_s = time.perf_counter() - t0
+    if reference is None:
+        t0 = time.perf_counter()
+        ref = builtin_reference(guest, price)
+        cpu_s = time.perf_counter() - t0
+    else:
+        ref, timing = reference.result("builtins")
+        cpu_s = timing["reference_s"]
+        log(f"phase 12's cpu references: {timing}")
     spark, tables = builtin_tables("cuda", guest[:1000], price[:1000])
     run_builtins(spark, tables)                             # warm-up
     spark.stop()
@@ -7057,6 +7214,424 @@ def check_text_rec_golden(device: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the fused pipeline under the reference app
+# ---------------------------------------------------------------------------
+
+# The last line of examples/dq4ml_pipeline.py on each dataset: the JAX
+# package's output on the CPU (tests/test_torch_app_report.py recomputes
+# it), from a fresh process.
+APP_REPORT_GOLDEN = {
+    name: ("pipeline counters: {'pipeline.flush': 9, 'pipeline.compile': 3, "
+           "'pipeline.hit': 6}")
+    for name in ("abstract", "small", "full")}
+PIPELINE_SMALL_ROWS = 1040
+PIPELINE_FULL_RUNS = 3          # steady DQ phase at 10^7 rows, each way
+PIPELINE_SMALL_RUNS = 21        # and at 1,040 rows
+PIPELINE_TRACED = 20            # flushes under one profiler trace, each way
+PIPELINE_HOST_RUNS = 200        # calls a piece of a flush's host time
+RULE_1_SQL = ("SELECT cast(guest as int) guest, price_no_min AS price "
+              "FROM price WHERE price_no_min > 0")
+RULE_2_SQL = ("SELECT guest, price_correct_correl AS price "
+              "FROM price WHERE price_correct_correl > 0")
+
+
+def fresh_pipeline() -> int:
+    """Clear the plan cache, the pipeline and frame counters and the
+    statstore, as in a fresh process; returns the fallbacks counted
+    until then."""
+    from sparkdq4ml_tpu_torch.ops import compiler
+    from sparkdq4ml_tpu_torch.utils import statstore
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+
+    fallbacks = counters.get("pipeline.fallback")
+    compiler.clear_cache()
+    counters.clear("pipeline.")
+    counters.clear("frame.")
+    statstore.STORE.clear()
+    return fallbacks
+
+
+def dq_phase(spark, df):
+    """The app's DQ phase (``dq_phase`` of examples/dq4ml_pipeline.py):
+    both rules and both SQL clean-ups."""
+    import sparkdq4ml_tpu_torch as dq
+
+    d = df.with_column("price_no_min",
+                       dq.call_udf("minimumPriceRule", df.col("price")))
+    d.create_or_replace_temp_view("price")
+    d = spark.sql(RULE_1_SQL)
+    d = d.with_column("price_correct_correl",
+                      dq.call_udf("priceCorrelationRule", d.col("price"),
+                                  d.col("guest")))
+    d.create_or_replace_temp_view("price")
+    return spark.sql(RULE_2_SQL)
+
+
+def pipeline_setting(on: bool):
+    """The pipeline on or off for a block, as spark.pipeline.enabled sets
+    it."""
+    import contextlib
+
+    from sparkdq4ml_tpu_torch.config import config
+
+    @contextlib.contextmanager
+    def block():
+        old = config.pipeline
+        config.pipeline = on
+        try:
+            yield
+        finally:
+            config.pipeline = old
+    return block()
+
+
+def timed_both_ways(fn, runs: int) -> dict:
+    """Median host-clock ms of ``fn()`` (ended by a synchronisation), with
+    the pipeline on and off in turns, after one warm-up each way."""
+    import torch
+
+    times = {True: [], False: []}
+    for r in range(runs + 1):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            with pipeline_setting(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if r:
+                    times[on].append(1e3 * (time.perf_counter() - t0))
+    return {"on_ms": float(np.median(times[True])),
+            "off_ms": float(np.median(times[False])),
+            "on_runs_ms": times[True], "off_runs_ms": times[False]}
+
+
+def check_app_report() -> dict:
+    """Phase 17(a): ``python -m sparkdq4ml_tpu_torch.app`` on the three
+    datasets, each from a fresh pipeline state: its report's last line
+    equal to APP_REPORT_GOLDEN, its RMSE, r2 and predict(40) and the row
+    counts of its DQ phase against GOLDEN."""
+    import contextlib
+    import io
+
+    from sparkdq4ml_tpu_torch import TorchSession, app
+
+    out = {}
+    fallbacks = 0
+    for name, (rows, rmse, r2, p40) in GOLDEN.items():
+        fallbacks += fresh_pipeline()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            app.start(os.path.join(ROOT, "data", f"dataset-{name}.csv"))
+        lines = buf.getvalue().splitlines()
+        if lines[-1] != APP_REPORT_GOLDEN[name]:
+            raise AssertionError(f"app report {name}: {lines[-1]!r} != "
+                                 f"{APP_REPORT_GOLDEN[name]!r}")
+
+        def value(prefix):
+            return float(next(line for line in lines
+                              if line.startswith(prefix))[len(prefix):])
+
+        got = {"RMSE": value("RMSE: "), "r2": value("r2: "),
+               "predict(40)": float(lines[-3].rsplit(" ", 1)[1])}
+        for what, want in (("RMSE", rmse), ("r2", r2), ("predict(40)", p40)):
+            if abs(got[what] - want) > 1e-3 * abs(want):
+                raise AssertionError(f"app report {name}: {what} "
+                                     f"{got[what]} vs {want}")
+        spark = TorchSession.active()
+        counts = (read_dataset(spark, name).count(),
+                  spark.table("price").count(),
+                  spark.sql(RULE_2_SQL).count())
+        if counts != rows:
+            raise AssertionError(f"app report {name}: rows {counts} != "
+                                 f"{rows}")
+        out[name] = {**got, "rows": counts, "last_line": lines[-1],
+                     "wall_clock_line": lines[-2]}
+        spark.stop()
+    log(f"phase 17(a) app reports: {out}")
+    return {"reports": out, "fallbacks_before": fallbacks}
+
+
+def frame_bits(frame) -> dict:
+    import torch
+
+    return {c: frame._column_values(c) for c in frame.columns
+            if isinstance(frame._column_values(c), torch.Tensor)}
+
+
+def frame_differences(a, b) -> list:
+    """The columns (and ``mask``) in which two frames differ, bit for
+    bit."""
+    import torch
+
+    x, y = frame_bits(a), frame_bits(b)
+    out = [c for c in x if c not in y or x[c].dtype != y[c].dtype
+           or x[c].shape != y[c].shape or not same_bits(x[c], y[c])]
+    out += [c for c in y if c not in x]
+    if not torch.equal(a.mask, b.mask):
+        out.append("mask")
+    return out
+
+
+def app_on_off(spark, df, where: str) -> dict:
+    """The app path with the pipeline on and off (spark.pipeline.enabled):
+    every column and the mask of the clean frame and the fit's numbers
+    must be bit-identical. Returns the run's counts and the statstore's
+    entries of each way."""
+    from sparkdq4ml_tpu_torch.utils import statstore
+
+    res = {}
+    for on in (True, False):
+        with pipeline_setting(on):
+            statstore.STORE.clear()
+            counts = []
+            clean, model, p40 = app_path(spark, df, counts)
+            res[on] = {"frame": clean, "counts": counts,
+                       "numbers": (model.coefficients[0], model.intercept,
+                                   model.summary.rootMeanSquaredError, p40),
+                       "stats": statstore.STORE.report()["entries"]}
+    on, off = res[True], res[False]
+    differ = frame_differences(on["frame"], off["frame"])
+    if on["numbers"] != off["numbers"]:
+        differ.append(f"fit {on['numbers']} vs {off['numbers']}")
+    if differ:
+        raise AssertionError(f"phase 17{where}: pipeline on against off "
+                             f"differ at {df.num_slots} rows: {differ}")
+    if off["stats"]:
+        raise AssertionError(f"phase 17{where}: the eager path recorded "
+                             f"{off['stats']}")
+    return res
+
+
+def check_pipeline_full(full: dict, rows: int = FULL_ROWS) -> dict:
+    """Phase 17(b): the app path at 10^7 rows with the pipeline on and off
+    (``app_on_off``); the steady DQ phase both ways; the statstore's two
+    WHERE selectivities equal to the run's kept/in counts, the second to
+    phase 5's."""
+    from sparkdq4ml_tpu_torch.ops import compiler
+
+    guest, price = full_table(rows)
+    spark = session("cuda")
+    df = spark.create_data_frame({"guest": guest, "price": price})
+    on = app_on_off(spark, df, "(b)")[True]
+    n, kept1, kept2 = on["counts"]
+    if kept2 != full["kept"]:
+        raise AssertionError(f"phase 17(b): kept {kept2} != phase 5's "
+                             f"{full['kept']}")
+    filters = {("price_no_min" if "price_no_min" in e["key"] else
+                "price_correct_correl"): e for e in on["stats"]
+               if e["kind"] == "filter"}
+    sel = {}
+    for col, kept in (("price_no_min", kept1),
+                      ("price_correct_correl", kept2)):
+        e = filters[col]
+        k = e["sel_observations"]
+        if k < 1 or e["rows_in"] != k * n or e["rows_out"] != k * kept:
+            raise AssertionError(f"phase 17(b): WHERE {col} > 0 recorded "
+                                 f"{e}, expected {k} x ({kept} of {n})")
+        sel[col] = {"selectivity": e["selectivity"], "kept": kept,
+                    "rows": n, "observations": k}
+    steady = timed_both_ways(lambda: dq_phase(spark, df).mask,
+                             PIPELINE_FULL_RUNS)
+    buckets = {e["program_key"]: sorted(e["buckets"])
+               for e in compiler.cache_stats()["entries"]}
+    spark.stop()
+    out = {"rows": rows, "bit_identical": True, "selectivity": sel,
+           "steady_dq_phase": steady, "plan_buckets": buckets}
+    log(f"phase 17(b) at {rows} rows: {out}")
+    return out
+
+
+def flush_trace(fn, calls: int = PIPELINE_TRACED) -> dict:
+    """``calls`` calls of ``fn`` under one torch.profiler trace: the
+    launches a call makes on the host (kernels, copies, memsets) and the
+    device kernels it runs, with their names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchKernelExC"),
+             "memcpy": ("cudaMemcpyAsync",),
+             "memset": ("cudaMemsetAsync",)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [e for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    host = {k: sum(e.name in v for e in events) / calls
+            for k, v in names.items()}
+    return {"host_launches": host,
+            "device_kernels": len(on_device) / calls,
+            "device_kernel_names": sorted({e.name for e in on_device}),
+            "device_ms": 1e-3 * sum(e.time_range.elapsed_us()
+                                    for e in on_device) / calls}
+
+
+def literal_turns(spark, d1) -> dict:
+    """One plan run at two hoisted literals in turns (WHERE price_no_min >
+    0 and > 50), every result frame kept until all have run; each held
+    against its eager run bit for bit. Returns the kept rows a literal
+    and the plan's compiles and hits."""
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+
+    sql = RULE_1_SQL.replace("> 0", "> {}")
+    before = (counters.get("pipeline.compile"), counters.get("pipeline.hit"))
+    frames = []
+    for lit in (0, 50, 0, 50):
+        d1.create_or_replace_temp_view("price")
+        f = spark.sql(sql.format(lit))
+        f._data
+        frames.append((lit, f))
+    compiles = counters.get("pipeline.compile") - before[0]
+    hits = counters.get("pipeline.hit") - before[1]
+    kept = {}
+    with pipeline_setting(False):
+        for lit, f in frames:
+            d1.create_or_replace_temp_view("price")
+            differ = frame_differences(f, spark.sql(sql.format(lit)))
+            if differ:
+                raise AssertionError(f"phase 17(c): WHERE price_no_min > "
+                                     f"{lit} differs from eager at "
+                                     f"{differ}")
+            kept[lit] = f.count()
+    if kept[0] == kept[50] or compiles > 1 or compiles + hits != 4:
+        raise AssertionError(f"phase 17(c): literal turns kept {kept} "
+                             f"with {compiles} compiles, {hits} hits")
+    return {"kept": kept, "compiles": compiles, "hits": hits}
+
+
+def flush_host_us(fn, runs: int = PIPELINE_HOST_RUNS) -> float:
+    """Median host-clock microseconds of ``fn()``, the card idle before
+    each call (the launches it queues are not waited for)."""
+    import torch
+
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(times[1:]))
+
+
+def flush_breakdown(spark, d1) -> dict:
+    """The host time of a hit flush of RULE_1_SQL's plan (its WHERE as a
+    deferred filter, its cast as the fused projection), piece by piece:
+    the query both ways, the deferral of the filter (``Frame._defer``,
+    which lowers its predicate once), the lowering of the projection
+    (``compiler.lower``), ``run_pipeline`` whole, and its parts, the
+    cache probe (``_lookup_plan``, which joins the steps' lowerings into
+    the plan key), the plan's steps (``_Plan.run``) and the statstore's
+    record (``_record_flush_stats``)."""
+    import sparkdq4ml_tpu_torch as dq
+    from sparkdq4ml_tpu_torch.frame.frame import _step_names
+    from sparkdq4ml_tpu_torch.ops import compiler
+
+    pred = dq.col("price_no_min") > 0
+    cast = dq.col("guest").cast("int")
+    f = d1.filter(pred)
+    steps, data, mask, n = f._pending, f._data_store, f._mask_store, f._n
+    schema = compiler.LazySchema(data, _step_names(steps))
+    extra = (("__sel_0", cast, compiler.lower(cast, schema)),)
+    plan, lits = compiler._lookup_plan(steps, extra)
+    b = compiler.bucket_size(n)
+
+    def query():
+        d1.create_or_replace_temp_view("price")
+        return spark.sql(RULE_1_SQL)._data
+
+    out = {}
+    with pipeline_setting(False):
+        out["query_off"] = flush_host_us(query)
+    out["query_on"] = flush_host_us(query)
+    out["defer_filter"] = flush_host_us(lambda: d1.filter(pred))
+    out["lower_projection"] = flush_host_us(lambda: compiler.lower(
+        cast, compiler.LazySchema(data, _step_names(steps))))
+    out["run_pipeline"] = flush_host_us(
+        lambda: compiler.run_pipeline(data, mask, n, steps, extra))
+    out["lookup_plan"] = flush_host_us(
+        lambda: compiler._lookup_plan(steps, extra))
+    out["plan_run"] = flush_host_us(
+        lambda: plan.run(data, mask, n, b, lits, mask.device))
+    out["record_stats"] = flush_host_us(
+        lambda: compiler._record_flush_stats(plan, data, b, n, 0.0, False,
+                                             mask))
+    out["rest_of_run_pipeline"] = (out["run_pipeline"] - out["lookup_plan"]
+                                   - out["plan_run"] - out["record_stats"])
+    return out
+
+
+def check_pipeline_small(rows: int = PIPELINE_SMALL_ROWS) -> dict:
+    """Phase 17(c): at 1,040 rows: the app path on against off bit for bit
+    (``app_on_off``); one plan at two hoisted literals in turns
+    (``literal_turns``); the kernels a flush of the first clean-up runs
+    both ways (the kernel nodes of a CUDA graph captured from it, and the
+    launches and device kernels under torch.profiler); the host time of
+    a hit flush piece by piece (``flush_breakdown``); the steady DQ phase
+    both ways; no synchronizing call in a hit flush."""
+    import sparkdq4ml_tpu_torch as dq
+
+    guest, price = full_table(rows, seed=1)
+    spark = session("cuda")
+    df = spark.create_data_frame({"guest": guest, "price": price})
+    app_on_off(spark, df, "(c)")
+    d1 = df.with_column("price_no_min",
+                        dq.call_udf("minimumPriceRule", df.col("price")))
+    d1._data
+
+    def run():
+        d1.create_or_replace_temp_view("price")
+        return spark.sql(RULE_1_SQL)._data
+
+    run()
+    out = {"bit_identical": True, "literal_turns": literal_turns(spark, d1)}
+    with pipeline_setting(False):
+        run()
+        eager = flush_trace(run)
+        eager_nodes = graph_kernels(run)
+    piped = flush_trace(run)
+    piped_nodes = graph_kernels(run)
+    syncs = host_syncs(run)
+    if syncs:
+        raise AssertionError(f"phase 17(c): a hit flush of rule 1's query "
+                             f"made {syncs} synchronizing calls")
+    out["rule_1_sql"] = {"pipeline_kernel_nodes": piped_nodes[0],
+                         "pipeline_memset_nodes": piped_nodes[1],
+                         "eager_kernel_nodes": eager_nodes[0],
+                         "eager_memset_nodes": eager_nodes[1],
+                         "pipeline_trace": piped, "eager_trace": eager,
+                         "hit_flush_syncs": syncs}
+    out["flush_host_us"] = flush_breakdown(spark, d1)
+    out["steady_dq_phase"] = timed_both_ways(
+        lambda: dq_phase(spark, df).mask, PIPELINE_SMALL_RUNS)
+    spark.stop()
+    log(f"phase 17(c) at {rows} rows: {out}")
+    return out
+
+
+def pipeline_totals(fallbacks_before: int) -> dict:
+    """Phase 17(d): the pipeline's counters since the last fresh state and
+    the fallbacks over the whole script (none may have happened)."""
+    from sparkdq4ml_tpu_torch.ops import compiler
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+
+    out = {"fallbacks": fallbacks_before
+           + counters.get("pipeline.fallback"),
+           **{k: counters.get(f"pipeline.{k}")
+              for k in ("flush", "compile", "hit", "evict")},
+           "plans": compiler.cache_stats()["size"]}
+    log(f"phase 17(d): {out}")
+    if out["fallbacks"]:
+        raise AssertionError(f"the pipeline fell back to eager replay "
+                             f"{out['fallbacks']} times")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -7302,9 +7877,26 @@ def main() -> int:
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} ({card})")
 
-    t0 = time.perf_counter()
-    kernels.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    reference = CpuReference()
+    try:
+        t0 = time.perf_counter()
+        kernels.build()
+        log(f"build (beside the CPU references): "
+            f"{time.perf_counter() - t0:.1f} s")
+        waited = reference.wait()
+        log(f"CPU float64 references of phases 7-8, 11 and 12 ready, "
+            f"{waited:.1f} s waited for after the build")
+        return run_phases(card, reference, script_t0, waited)
+    finally:
+        reference.stop()
+
+
+def run_phases(card: str, reference: "CpuReference", script_t0: float,
+               reference_wait_s: float) -> int:
+    """Phases 3 to 17 and the last lines; ``reference`` holds the CPU
+    float64 runs of phases 7-8, 11 and 12, all ready."""
+    import torch
+
     # First, while no other profiler session has run in this process.
     per_call = gram_kernel_counts()
 
@@ -7349,10 +7941,10 @@ def main() -> int:
     del seg_cases, one_cases
     prof = profile_app()
     log(f"profile of the app phase: {prof}")
-    t0 = time.perf_counter()
     tour = check_tour_golden("cuda")
-    cpu = cpu_reference(*full_table(FULL_ROWS))
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_timing = reference.result("sql")
+    cpu_s = cpu_timing["reference_s"]
+    log(f"cpu float64 reference: {cpu_timing}")
     t0 = time.perf_counter()
     sql_core = check_sql_core_full(cpu)
     sql_core_s = time.perf_counter() - t0
@@ -7370,10 +7962,10 @@ def main() -> int:
     ingest = check_ingest(full, plain, have)
     ingest_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    report = check_report_full(*full_table(FULL_ROWS))
+    report = check_report_full(*full_table(FULL_ROWS), reference)
     report_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    builtins = check_builtins_full(*full_table(FULL_ROWS))
+    builtins = check_builtins_full(*full_table(FULL_ROWS), reference)
     builtins_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     argmax_first_on_card()
@@ -7414,6 +8006,13 @@ def main() -> int:
     als_segment_s = time.perf_counter() - t0
     log(f"phase 16: {text_rec_s:.1f} s, its segment-sum cases "
         f"{als_segment_s:.1f} s")
+    t0 = time.perf_counter()
+    app_report = check_app_report()
+    pipeline_full = check_pipeline_full(full)
+    pipeline_small = check_pipeline_small()
+    pipeline = pipeline_totals(app_report["fallbacks_before"])
+    pipeline_s = time.perf_counter() - t0
+    log(f"phase 17: {pipeline_s:.1f} s")
     zoo_launches = {name: zoo["launches"][name]
                     for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
                                  "bisecting", "pic")}
@@ -7538,8 +8137,14 @@ def main() -> int:
         "features": features, "features_phase_s": features_s,
         "text_rec_golden": text_rec_gold, "text": text, "recommender": rec,
         "text_rec_phase_s": text_rec_s, "als_segment_s": als_segment_s,
+        "pipeline": {"app_report": app_report["reports"],
+                     "full": pipeline_full, "small": pipeline_small,
+                     "totals": pipeline},
+        "pipeline_phase_s": pipeline_s,
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
+        "cpu_float64_reference_wait_s": reference_wait_s,
+        "cpu_float64_reference_timing": cpu_timing,
         "script_s": time.perf_counter() - script_t0, "card": card}
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)

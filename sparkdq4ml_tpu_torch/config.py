@@ -1,7 +1,9 @@
 """Process-wide defaults of the PyTorch port (subset of
 ``sparkdq4ml_tpu/config.py``): the float and int dtype policy, the
-``show()`` row default, the device a session runs on, and the native CSV
-ingest settings (``spark.ingest.*`` in a session's conf).
+``show()`` row default, the device a session runs on, the native CSV
+ingest settings (``spark.ingest.*`` in a session's conf), and the fused
+pipeline's and the plan-statistics store's switches
+(``spark.pipeline.enabled``, ``spark.stats.*``).
 
 There is no kernel on/off switch: a wrapper in ``ops/kernels.py`` launches
 its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a
@@ -46,6 +48,18 @@ class _Config:
     # SIMD tier of the parse: "auto", "off", "avx2" or "avx512", clamped to
     # what the CPU has (spark.ingest.simd).
     ingest_simd: str = "auto"
+    # Fused expression pipeline (ops/compiler.py): consecutive compilable
+    # Frame.with_column/filter ops defer and run as one cached plan per
+    # structural plan key (spark.pipeline.enabled; False restores the exact
+    # per-op eager path).
+    pipeline: bool = True
+    # Plan-statistics store (utils/statstore.py): per-plan-key observed
+    # selectivity, wall-time digests, estimated bytes (spark.stats.enabled;
+    # false reduces every hook to one flag read).
+    stats_enabled: bool = True
+    # Snapshot path for cross-session persistence (spark.stats.path);
+    # empty = in memory only. Loaded at session start, written by stop().
+    stats_path: str = ""
 
 
 config = _Config()
@@ -69,12 +83,18 @@ INGEST_KEYS = {
     "spark.ingest.simd": ("ingest_simd", lambda v: v.strip().lower()),
 }
 
+# The fused pipeline's and the statstore's keys, in the same form.
+PIPELINE_KEYS = {
+    "spark.pipeline.enabled": ("pipeline", _flag),
+    "spark.stats.enabled": ("stats_enabled", _flag),
+    "spark.stats.path": ("stats_path", str),
+}
+
 
 def apply_conf(conf: dict, saved: dict) -> None:
-    """Set the ingest settings that ``conf`` names, recording each
-    setting's value before its first change into ``saved`` (for
-    :func:`restore_conf`)."""
-    for key, (attr, parse) in INGEST_KEYS.items():
+    """Set the settings that ``conf`` names, recording each setting's value
+    before its first change into ``saved`` (for :func:`restore_conf`)."""
+    for key, (attr, parse) in {**INGEST_KEYS, **PIPELINE_KEYS}.items():
         if key in conf:
             value = parse(str(conf[key]))
             if value is not None:

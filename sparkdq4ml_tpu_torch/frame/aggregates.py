@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.expressions import Col, Expr, is_host_column
+from ..utils.profiling import counters
 from ..ops.segments import (SEGMENT_FNS, _seg_sum, global_values,
                             grouped_agg)
 
@@ -391,6 +392,8 @@ def global_agg(frame, aggs: list):
             out[agg.name] = (var if agg.fn == "variance"
                              else torch.sqrt(var))[None]
     if deferred:
+        # the one deferred device->host pull of an agg call, counted
+        counters.increment("frame.host_sync")
         counts = torch.stack([c for _, c, _, _ in deferred]).tolist()
         for (name, _, val, nanv), c in zip(deferred, counts):
             out[name] = val if c > 0 else nanv

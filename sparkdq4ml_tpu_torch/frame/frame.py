@@ -17,11 +17,22 @@ from one pull of the key columns and gathers every payload column on the
 device; window functions plan on the host the same way
 (``frame/window.py``). A string key enters each of them as int32 codes
 (``ops/strings.py``).
+
+Pipeline compiler (``ops/compiler.py``): consecutive *compilable*
+``with_column``/``with_columns``/``filter`` calls do not run one at a
+time; they accumulate as pending steps (``_pending``) and run as ONE
+cached plan (the eager path's kernels, through one trace frame) at the
+first read of ``_data``/``_mask``. ``select`` fuses its projection
+expressions into the same flush. Frames stay immutable and eager-equivalent: the flush is a
+cache fill, semantics are bit-identical, and ``config.pipeline = False``
+(``spark.pipeline.enabled``) restores the exact per-op eager path.
 """
 
 from __future__ import annotations
 
 import io
+import logging
+import threading
 from typing import Iterable, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -34,6 +45,40 @@ from ..ops.cells import list_column  # noqa: F401 - the package exports it
 from ..ops.expressions import (Alias, Col, Explode, Expr, JsonTuple,
                                SortOrder, is_host_column,
                                predicate_keep_mask, spark_type_name)
+from ..utils.observability import op_span
+from ..utils.profiling import counters
+
+logger = logging.getLogger("sparkdq4ml_tpu_torch.frame")
+
+# Guards the lazy creation of a frame's flush lock (Frame._lock).
+_LOCK_FILL = threading.Lock()
+
+def _step_names(pending) -> list[str]:
+    """The columns pending pipeline steps produce, in order."""
+    names: list[str] = []
+    for s in pending:
+        if s[0] == "with_column":
+            names.append(s[1])
+        elif s[0] == "with_columns":
+            names.extend(n for n, _ in s[1])
+    return names
+
+
+def _lower_all(exprs, data: dict, pending) -> Optional[tuple]:
+    """The lowerings (``ops/compiler.lower``) of ``exprs`` against the
+    stored columns ``data`` and the ``pending`` steps, or None when one is
+    not a compilable expression."""
+    from ..ops.compiler import LazySchema, lower
+
+    schema = LazySchema(data, _step_names(pending))
+    lows = []
+    for e in exprs:
+        low = lower(e, schema)
+        if low is None:
+            return None
+        lows.append(low)
+    return tuple(lows)
+
 
 _JOIN_TYPES = ("inner", "left", "right", "outer", "left_semi", "left_anti",
                "cross")
@@ -148,7 +193,34 @@ def _frame_device(columns: Mapping, mask) -> torch.device:
 
 
 class Frame:
-    """Immutable columnar frame with a validity mask."""
+    """Immutable columnar frame with a validity mask (see the module
+    docstring for the pipeline's deferral)."""
+
+    _pending: tuple = ()          # deferred pipeline steps (see _defer)
+    _flush_lock = None            # per-frame flush serializer (see _lock)
+
+    # _data/_mask are flush-on-read properties, so every consumer (frame
+    # methods, aggregates, models, tests reading internals) sees the
+    # materialized state without knowing the pipeline exists.
+    @property
+    def _data(self) -> dict:
+        if self._pending:
+            self._flush()
+        return self._data_store
+
+    @_data.setter
+    def _data(self, value: dict) -> None:
+        self._data_store = value
+
+    @property
+    def _mask(self):
+        if self._pending:
+            self._flush()
+        return self._mask_store
+
+    @_mask.setter
+    def _mask(self, value) -> None:
+        self._mask_store = value
 
     def __init__(self, columns: Mapping[str, object], mask=None,
                  device=None):
@@ -189,10 +261,103 @@ class Frame:
         f._n = self._n
         return f
 
+    # -- pipeline compiler plumbing (ops/compiler.py) ----------------------
+    def _lock(self):
+        """This frame's flush serializer, created on first need; reentrant,
+        as an eager replay re-enters on the same frame."""
+        lk = self._flush_lock
+        if lk is None:
+            with _LOCK_FILL:
+                lk = self._flush_lock
+                if lk is None:
+                    lk = self._flush_lock = threading.RLock()
+        return lk
+
+    def _snapshot(self) -> tuple:
+        """A consistent (data store, mask store, pending) triple against a
+        concurrent flush of this frame."""
+        with self._lock():
+            return self._data_store, self._mask_store, self._pending
+
+    def _defer(self, step, *exprs) -> Optional["Frame"]:
+        """A new frame sharing this one's stored columns and mask, with
+        ``step`` appended to the pending pipeline together with the
+        lowerings (``ops/compiler.lower``) of its expressions ``exprs``
+        (one for a filter or with_column, a tuple for with_columns), made
+        here, once, for its flush to reuse. None when the pipeline is off,
+        the frame has no rows, or an expression is not compilable: the
+        caller runs the step eagerly. A flush never mutates a shared
+        store, and compilable steps are pure, so sibling frames replaying a
+        shared prefix stay correct."""
+        if not config.pipeline or self._n == 0:
+            return None
+        data, mask, pending = self._snapshot()
+        lows = _lower_all(exprs, data, pending)
+        if lows is None:
+            return None
+        f = Frame.__new__(Frame)
+        f._data_store = data
+        f._mask_store = mask
+        f._pending = pending + (
+            step + ((lows if step[0] == "with_columns" else lows[0]),),)
+        f.device = self.device
+        f._n = self._n
+        return f
+
+    def _pending_names(self) -> list[str]:
+        return _step_names(self._pending)
+
+    def _flush(self) -> None:
+        """Materialize the pending steps as one cached plan, or, when the
+        compiler fails (a lowering failure, counted
+        ``pipeline.fallback``), by eager per-op replay. A device error
+        escapes as it is.
+
+        ``_pending`` is cleared only after the new stores are published: if
+        even the eager replay raises, every later read raises the same
+        error instead of serving the pre-op state."""
+        from ..ops.compiler import PipelineError, run_pipeline
+
+        with self._lock():
+            steps = self._pending
+            if not steps:
+                return
+            try:
+                new_data, new_mask, _ = run_pipeline(
+                    self._data_store, self._mask_store, self._n, steps)
+            except PipelineError as e:
+                logger.debug("pipeline flush fell back to eager replay: %s",
+                             e)
+                new_data, new_mask = self._eager_replay(steps)
+            self._data_store = new_data
+            self._mask_store = new_mask
+            self._pending = ()
+
+    def _eager_replay(self, steps):
+        """Apply pipeline steps through the eager code paths."""
+        f = self._with(data=self._data_store, mask=self._mask_store)
+        for s in steps:
+            if s[0] == "with_column":
+                f = f._with_column_eager(s[1], s[2])
+            elif s[0] == "with_columns":
+                f = f._with_columns_eager(dict(s[1]))
+            else:
+                f = f._filter_eager(s[1])
+        return f._data_store, f._mask_store
+
     # -- introspection -----------------------------------------------------
     @property
     def columns(self) -> list[str]:
-        return list(self._data)
+        if not self._pending:
+            return list(self._data_store)
+        # pending with_column targets are columns too, without a flush
+        out = list(self._data_store)
+        seen = set(out)
+        for n in self._pending_names():
+            if n not in seen:
+                seen.add(n)
+                out.append(n)
+        return out
 
     @property
     def num_slots(self) -> int:
@@ -236,7 +401,8 @@ class Frame:
                 f"no column {name!r}; columns: {self.columns}") from None
 
     def col(self, name: str) -> Col:
-        if name not in self._data:
+        # a name check, not a value read: a pending pipeline stays pending
+        if name not in self.columns:
             raise KeyError(f"no column {name!r}; columns: {self.columns}")
         return Col(name)
 
@@ -251,8 +417,14 @@ class Frame:
         return arr
 
     # -- transformations ---------------------------------------------------
+    @op_span("frame.with_column")
     def with_column(self, name: str, values) -> "Frame":
-        """``withColumn``: add or replace a column."""
+        """``withColumn``: add or replace a column. A compilable expression
+        defers into the fused pipeline."""
+        f = self._defer(("with_column", name, values), values)
+        return f if f is not None else self._with_column_eager(name, values)
+
+    def _with_column_eager(self, name: str, values) -> "Frame":
         data = dict(self._data)
         data[name] = self._eval(values)
         return self._with(data=data)
@@ -382,11 +554,16 @@ class Frame:
         return out
 
     # -- no-ops for API parity: one device, no partitions, no lineage -------
+    @op_span("frame.cache")
     def cache(self) -> "Frame":
-        """Wait for the frame's device work, so that ``cache()`` bounds a
-        timing as in the JAX package (which blocks until ready)."""
+        """Materialize and pin: flush any pending pipeline, then wait for
+        the frame's device work, so that ``cache()`` bounds a timing as in
+        the JAX package (which blocks until ready); counts
+        ``frame.cache``."""
+        self._data              # the flush
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        counters.increment("frame.cache")
         return self
 
     persist = cache
@@ -410,7 +587,15 @@ class Frame:
 
     def with_columns(self, cols_map: Mapping[str, object]) -> "Frame":
         """``withColumns``: every expression resolves against the input
-        frame (Spark semantics)."""
+        frame (Spark semantics). When every expression is compilable the
+        batch defers as ONE pipeline step."""
+        items = tuple(cols_map.items())
+        f = (self._defer(("with_columns", items), *[v for _, v in items])
+             if items else None)
+        return f if f is not None else self._with_columns_eager(cols_map)
+
+    def _with_columns_eager(self, cols_map: Mapping[str, object]) \
+            -> "Frame":
         evaluated = {name: self._eval(v) for name, v in cols_map.items()}
         data = dict(self._data)
         data.update(evaluated)
@@ -418,6 +603,7 @@ class Frame:
 
     withColumns = with_columns
 
+    @op_span("frame.select")
     def select(self, *exprs: Union[str, Expr]) -> "Frame":
         """Project columns and expressions. One row generator (a bare
         ``Explode`` or an alias of one: ``explode``, ``explode_outer``,
@@ -432,6 +618,9 @@ class Frame:
             isinstance(e, Alias) and isinstance(e.child, Explode))]
         if len(gens) > 1:
             raise ValueError("only one explode() per select (Spark rule)")
+        # compilable projection expressions run in ONE flush together with
+        # any pending steps (the SQL SELECT-list + WHERE path)
+        pre = self._precompute_select(flat, gens)
         data: dict[str, object] = {}
         for e in flat:
             if isinstance(e, str):
@@ -443,6 +632,9 @@ class Frame:
                 continue
             if isinstance(e, JsonTuple):
                 data.update(e.columns(self))
+                continue
+            if id(e) in pre:
+                data[e.name] = pre[id(e)]
                 continue
             data[e.name] = self._eval(e)
         if not gens:
@@ -459,6 +651,46 @@ class Frame:
             tmp, g.name, keep_nulls=inner.outer,
             position_col="pos" if inner.with_position else None)
 
+    def _precompute_select(self, exprs, gens) -> dict:
+        """Run the compilable select expressions (and any pending steps) in
+        one flush; returns ``{id(expr): column}`` for :meth:`select`. An
+        empty dict means nothing fused."""
+        if not config.pipeline or self._n == 0:
+            return {}
+        from ..ops.compiler import (LazySchema, PipelineError, lower,
+                                    run_pipeline)
+
+        with self._lock():
+            steps = self._pending
+            schema = LazySchema(self._data_store, _step_names(steps))
+            cand = []
+            for e in exprs:
+                if (isinstance(e, Expr) and not isinstance(e, JsonTuple)
+                        and not any(e is g for g in gens)
+                        and not isinstance(e, Col)):    # plain refs: free
+                    low = lower(e, schema)
+                    if low is not None:
+                        cand.append((e, low))
+            # fusing pays when a pending chain flushes anyway or when two
+            # or more expressions share one plan
+            if not cand or (not steps and len(cand) < 2):
+                return {}
+            extra = [(f"__sel_{i}", e, low)
+                     for i, (e, low) in enumerate(cand)]
+            try:
+                new_data, new_mask, extras = run_pipeline(
+                    self._data_store, self._mask_store, self._n, steps,
+                    extra)
+            except PipelineError as e:
+                logger.debug("fused select fell back to eager: %s", e)
+                return {}
+            self._data_store = new_data
+            self._mask_store = new_mask
+            self._pending = ()
+        return {id(e): extras[f"__sel_{i}"]
+                for i, (e, _) in enumerate(cand)}
+
+    @op_span("frame.explode")
     def explode(self, column: str, output_col: Optional[str] = None,
                 keep_nulls: bool = False,
                 position_col: Optional[str] = None) -> "Frame":
@@ -1017,7 +1249,9 @@ class Frame:
                   and is_host_column(self._data[k])}
 
         def pull(frame, side: int):
-            """The valid rows and the key columns on the host."""
+            """The valid rows and the key columns on the host (one counted
+            read a side)."""
+            counters.increment("frame.host_sync")
             host = [frame._mask.cpu().numpy()]
             for k in (keys if how != "cross" else []):
                 host.append(shared[k][side] if k in shared
@@ -1116,9 +1350,15 @@ class Frame:
             out[name] = col
         return out
 
+    @op_span("frame.filter")
     def filter(self, condition: Union[Expr, torch.Tensor]) -> "Frame":
         """AND a predicate into the validity mask; a NULL (NaN) predicate
-        drops the row, as Spark's WHERE does."""
+        drops the row, as Spark's WHERE does. A compilable predicate
+        defers into the fused pipeline."""
+        f = self._defer(("filter", condition), condition)
+        return f if f is not None else self._filter_eager(condition)
+
+    def _filter_eager(self, condition) -> "Frame":
         cond = self._eval(condition)
         return self._with(mask=self._mask & predicate_keep_mask(cond))
 
@@ -1154,6 +1394,7 @@ class Frame:
     isEmpty = is_empty
 
     def _host_mask(self) -> np.ndarray:
+        counters.increment("frame.host_sync")
         return self._mask.cpu().numpy()
 
     def collect(self, limit: Optional[int] = None) -> list:
@@ -1215,20 +1456,32 @@ class Frame:
 
     foreachPartition = foreach_partition
 
+    @op_span("frame.to_pydict", cat="action")
     def to_pydict(self, limit: Optional[int] = None) -> dict:
         """The valid rows on the host, as numpy arrays; ``limit`` gathers
-        only the first ``limit`` valid rows."""
-        m = self._host_mask()
+        only the first ``limit`` valid rows. Counted as the JAX package
+        counts its reads: with a limit, the mask (one ``frame.host_sync``)
+        and then the device columns' prefixes (one more); without, the
+        mask and the columns as one batch (one)."""
+        data = self._data
         if limit is not None:
+            m = self._host_mask()
             keep = np.cumsum(m) <= limit
             m = m & keep
             m = m[:(int(np.argmax(~keep)) if not keep.all() else len(m))]
+        else:
+            counters.increment("frame.host_sync")
+            m = self._mask.cpu().numpy()
+        pulled = False
         out = {}
-        for name, arr in self._data.items():
+        for name, arr in data.items():
             host = arr[:len(m)]
             if isinstance(host, torch.Tensor):
                 host = host.cpu().numpy()
+                pulled = True
             out[name] = np.asarray(host)[m]
+        if pulled and limit is not None:
+            counters.increment("frame.host_sync")
         return out
 
     def to_pandas(self):

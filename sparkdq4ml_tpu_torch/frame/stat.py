@@ -20,6 +20,7 @@ from ..config import float_dtype
 from ..ops import strings
 from ..ops.expressions import is_host_column
 from ..ops.segments import _seg_sum
+from ..utils.profiling import counters
 
 
 def _sums(cols: list) -> torch.Tensor:
@@ -136,11 +137,13 @@ class FrameStatFunctions:
             a, b = _rank(a, w), _rank(b, w)
         elif method != "pearson":
             raise ValueError(f"unknown correlation method {method!r}")
+        counters.increment("frame.host_sync")  # device scalar -> float
         return float(_corr_cov(a, b, w)[0])
 
     def cov(self, col1: str, col2: str) -> float:
         """Sample covariance (n - 1 denominator, as Spark)."""
         a, b, w = self._pair(col1, col2)
+        counters.increment("frame.host_sync")  # device scalar -> float
         return float(_corr_cov(a, b, w)[1])
 
     def approx_quantile(self, col: str, probabilities, relative_error=0.0):
@@ -148,6 +151,7 @@ class FrameStatFunctions:
         ``min(int(p n), n - 1)`` (``relative_error`` is accepted for API
         compatibility). One sort on the device, one host read."""
         f = self._frame
+        counters.increment("frame.host_sync")  # the one host read
         v = torch.sort(f._column_values(col).to(float_dtype())[f.mask]).values
         n = v.shape[0]
         ps = np.atleast_1d(probabilities)

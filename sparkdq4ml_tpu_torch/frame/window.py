@@ -32,6 +32,7 @@ import torch
 from ..config import float_dtype, int_dtype, numpy_dtype
 from ..ops import strings
 from ..ops.expressions import Col, Expr, is_host_column
+from ..utils.profiling import counters
 
 _RANKING_FNS = ("row_number", "rank", "dense_rank", "percent_rank",
                 "cume_dist", "ntile")
@@ -196,6 +197,7 @@ def _window_plan(frame, spec):
     if last is not None and last[0] == key and len(last[1]) == len(
             tensors) and all(r() is t for r, t in zip(last[1], tensors)):
         return last[2]
+    counters.increment("frame.host_sync")   # one counted pull a plan
     idx = np.flatnonzero(frame.mask.cpu().numpy())     # valid slots only
     nv = len(idx)
     host = {c: _host_key(frame, c, spec)[idx] for c in dict.fromkeys(names)}

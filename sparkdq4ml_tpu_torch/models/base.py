@@ -24,6 +24,17 @@ from ..config import float_dtype
 _STAGE_REGISTRY: dict[str, type] = {}
 
 
+def host_fetch(x) -> np.ndarray:
+    """The counted device-to-host pull of a model accessor (one
+    ``frame.host_sync`` a call), host numpy out."""
+    from ..utils.profiling import counters
+
+    counters.increment("frame.host_sync")
+    if hasattr(x, "cpu"):
+        x = x.cpu()
+    return np.asarray(x)
+
+
 def persistable(cls):
     """Class decorator: register for name-based ``load_stage``."""
     _STAGE_REGISTRY[cls.__name__] = cls

@@ -44,7 +44,8 @@ import torch
 from ..config import float_dtype
 from ..frame.frame import Frame
 from ..ops import kernels
-from .base import Estimator, Model, persistable, read_json, write_json
+from .base import (Estimator, Model, host_fetch, persistable, read_json,
+                   write_json)
 from .base import no_mesh as _no_mesh
 from .evaluation import _share, _valid, pr_points, roc_points
 from .evaluation import area_under_roc as _area_under_roc
@@ -1446,7 +1447,7 @@ class NaiveBayesModel(Model):
     def predict(self, features) -> float:
         x = torch.as_tensor(np.asarray(features, np.float64).reshape(1, -1),
                             dtype=float_dtype())
-        return float(torch.argmax(self._raw(x), dim=1)[0])
+        return float(host_fetch(torch.argmax(self._raw(x), dim=1))[0])
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..frame.frame import Frame
+from ..utils.profiling import counters
 
 
 def _pair(labels, scores):
@@ -49,6 +50,7 @@ def threshold_sweep(labels, scores):
     boundary = torch.ones_like(pos, dtype=torch.bool)
     boundary[:-1] = s[1:] != s[:-1]
     host = torch.stack([s.to(torch.float64), tp, fp])[:, boundary]
+    counters.increment("frame.host_sync")    # one batched, counted pull
     host = host.cpu().numpy()
     return host[0], host[1], host[2]
 

@@ -22,7 +22,7 @@ import torch
 
 from ..config import float_dtype
 from ..frame.frame import Frame, _join_plan
-from .base import Estimator, Model, feature_matrix, persistable
+from .base import Estimator, Model, feature_matrix, host_fetch, persistable
 
 _MINHASH_PRIME = 2038074743  # MLlib's MinHashLSH prime
 
@@ -84,7 +84,7 @@ class _LSHModelBase(Model):
         self._validate(keyv[None, :])
         hit = (self._hashes(X) == self._hashes(keyv[None, :])).any(dim=1)
         cand = hit & valid
-        counts = torch.stack([cand.sum(), valid.sum()]).cpu().tolist()
+        counts = host_fetch(torch.stack([cand.sum(), valid.sum()])).tolist()
         if counts[0] < num_neighbors:
             cand, counts[0] = valid, counts[1]
         d = self._distance_rows(X, keyv[None, :])
@@ -138,8 +138,8 @@ class _LSHModelBase(Model):
         B = Xb[frame_b.mask].index_select(0, torch.as_tensor(pb, device=dev))
         d = self._distance_rows(A, B)
         keep = d <= threshold
-        host = torch.stack([d.to(torch.float64), keep.to(torch.float64)]
-                           ).cpu().numpy()
+        host = host_fetch(torch.stack([d.to(torch.float64),
+                                       keep.to(torch.float64)]))
         sel = host[1] > 0
         return Frame({"idA": pa[sel].astype(np.int64),
                       "idB": pb[sel].astype(np.int64),

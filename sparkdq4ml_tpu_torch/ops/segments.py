@@ -60,6 +60,7 @@ import torch
 from ..config import float_dtype, int_dtype, wide_types
 from . import kernels, strings
 from .expressions import is_host_column
+from ..utils.profiling import counters
 
 __all__ = ["DEVICE_AGG_FNS", "SEGMENT_FNS", "grouped_agg", "global_values",
            "host_path_columns", "narrow_dtype", "pivot_agg", "pivot_values",
@@ -323,6 +324,7 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
     slot, ok, total, decoders = _dense_slots(keys, kinds, valid, S)
     # host read 1: the fit verdict and the table size T (slot T collects
     # the masked rows), so the tables hold T + 1 slots, not S + 1
+    counters.increment("frame.host_sync")
     ok_h, T = torch.stack([ok.to(acc), torch.where(
         ok, total, torch.zeros_like(total))]).tolist()
     if not ok_h:
@@ -414,6 +416,7 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
         return reduced[stack][:, j]
 
     present = table("present") > 0
+    counters.increment("frame.host_sync")
     g = int(present.sum())                      # host read 2: the groups
 
     cs = torch.cumsum(present.to(torch.int32), 0)
@@ -610,6 +613,7 @@ def _sorted_agg(keys, kinds, vals, val_kinds, val_words, agg_ops, mask,
     dev = mask.device
     idx = torch.arange(n, device=dev)
     perm, valid, seg, boundary = _group_scaffold(keys, kinds, mask)
+    counters.increment("frame.host_sync")
     g = int(boundary.sum())                     # THE host read
     G = max(g, 1)
     f64 = torch.float64
@@ -908,6 +912,8 @@ def host_path_columns(agg_ops, vals, outs) -> list:
             checks.append(torch.isnan(out).any())
         else:
             widen.append(-1)
+    if checks:
+        counters.increment("frame.host_sync")
     flags = torch.stack(checks).tolist() if checks else []
     typed = []
     for (fn, s_i, _, _, _), out, w in zip(agg_ops, outs, widen):
@@ -1142,6 +1148,7 @@ def pivot_agg(frame, keys, pivot_col: str, values, agg_list):
         if k.is_floating_point():
             neq &= ~(torch.isnan(k[1:]) & torch.isnan(k[:-1]))
         boundary[1:] |= neq
+    counters.increment("frame.host_sync")
     starts = torch.nonzero(boundary).squeeze(1)
     ng = starts.numel()                         # host read: the groups
     gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
@@ -1184,6 +1191,8 @@ def pivot_agg(frame, keys, pivot_col: str, values, agg_list):
             else:
                 cells.append(("dev", base if dt != torch.float64 else dt,
                               table))
+    if checks:
+        counters.increment("frame.host_sync")
     flags = torch.stack(checks).tolist() if checks else []
     for name, cell in zip(names, cells):
         if cell[0] == "host":
@@ -1228,6 +1237,7 @@ def gather_rows(frame, take: torch.Tensor, host_idx=None):
     for name, arr in frame._data.items():
         if is_host_column(arr):
             if host_idx is None:
+                counters.increment("frame.host_sync")
                 host_idx = take.cpu().numpy()
             out[name] = np.asarray(arr, dtype=object)[host_idx]
         else:
@@ -1361,6 +1371,7 @@ def device_sort(frame, names, ascending, nulls_first):
         keys.append(_to_int8_if_bool(arr))
         desc.append(not asc)
     perm = _lex_perm(keys, frame.num_slots, frame.device, desc)
+    counters.increment("frame.host_sync")
     nv = int(mask.sum())                        # THE host read
     return gather_rows(frame, perm[:nv])
 
@@ -1387,6 +1398,7 @@ def device_unique(frame, key_names):
         return frame._with()
     perm, valid, seg, boundary = _group_scaffold(key_arrs, key_kinds,
                                                  frame.mask)
+    counters.increment("frame.host_sync")
     g = int(boundary.sum())                     # THE host read
     # a stable sort gives each group its smallest row index first; the
     # sorted first indices restore first-occurrence order

@@ -1092,7 +1092,24 @@ def execute(sql: str, catalog=None):
     ``CREATE [OR REPLACE] [TEMP] VIEW name AS ...`` runs its query and
     registers the result; ``DROP [TEMP] VIEW [IF EXISTS] name`` removes
     one (a missing view raises ``KeyError`` unless ``IF EXISTS``). Both
-    return an empty frame with no column, as the JAX package does."""
+    return an empty frame with no column, as the JAX package does.
+
+    When tracing is on, each statement runs inside an ``sql.query`` span
+    with the query text and the output's row slots."""
+    from ..utils import observability as _obs
+
+    if not _obs.TRACER.enabled:
+        return _execute_statement(sql, catalog)
+    with _obs.TRACER.span("sql.query", cat="sql",
+                          query=" ".join(sql.split())[:300]) as s:
+        out = _execute_statement(sql, catalog)
+        n = getattr(out, "_n", None)
+        if n is not None:
+            s.set(rows_out=n)
+        return out
+
+
+def _execute_statement(sql: str, catalog=None):
     from ..frame.frame import Frame
     from .catalog import default_catalog
 
