@@ -262,6 +262,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ways (median of 21) and no synchronizing call in a hit flush; (d) no
    fallback to eager replay over the whole script, the pipeline's
    counters.
+18. the planner (sql/optimizer.py, sql/adaptive.py, EXPLAIN [ANALYZE],
+   utils/costprof.py, utils/meminfo.py) on bench.py's optimizer tables at
+   10^7 fact rows: (a) plain EXPLAIN of its three arms (pushdown,
+   build-side, join-order) on cold history against
+   PLANNER_EXPLAIN_GOLDEN, then each arm with the optimizer off and on,
+   warm, the median of 3 host-clock runs each way, on against off
+   bit-identical (sorted rows at level 2), the join and flush spans of
+   an on run; (b) adaptive execution from a snapshot whose WHERE kept
+   every row, then a WHERE keeping about 1% (DRIFT_ROWS fact rows): the
+   build-flip, re-bucket and grouped-lowering events under EXPLAIN
+   ANALYZE equal to ADAPTIVE_GOLDEN, each result bit-identical to
+   spark.aqe.enabled=false; (c) EXPLAIN ANALYZE of the app's two DQ
+   queries, each view's rule column from one dq_rules launch, on the
+   three datasets (every node annotated, the golden rows) and at 10^7
+   rows (the touched plans, a repeat all hits), then
+   session.profile_report() with dq_rules' measured time, every achieved
+   rate at most the card's peaks; (d) the level-2 split from a snapshot
+   recording a 5 ms first run of a warm six-step prefix, and a flush
+   chunked under a budget below its remembered bytes, both bit-identical
+   to one flush; no optimizer or adaptive fallback.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -7632,6 +7652,652 @@ def pipeline_totals(fallbacks_before: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the planner (sql/optimizer.py, sql/adaptive.py, EXPLAIN
+# [ANALYZE], utils/costprof.py and meminfo.py)
+# ---------------------------------------------------------------------------
+
+PLANNER_SEED = 11
+# bench.py:1204-1222's three arms, verbatim: (arm, SQL, optimizer level)
+PLANNER_ARMS = (
+    ("pushdown", "SELECT k, v, u FROM opt_big JOIN opt_mid USING (k) "
+                 "WHERE v < -1.35", 1),
+    ("build_side", "SELECT k, w, v FROM opt_small JOIN opt_big USING (k)",
+     1),
+    ("join_order", "SELECT v, u, w FROM opt_big JOIN opt_mid USING (k) "
+                   "JOIN opt_small USING (k) WHERE v < 0", 2),
+)
+PLANNER_RUNS = 3
+# (b): a WHERE that keeps about 1% of N(0, 1) rows, a dimension of 2^20
+# keys, and a seed table on which the same WHERE keeps every row
+DRIFT_KEYS = 1 << 20
+# (b)'s fact rows: the JAX package's CPU run for ADAPTIVE_GOLDEN stays
+# small at this size, and every decision is the one 10^7 rows take (the
+# drift ratios decide the events): about 10^6 distinct keys of 2^20
+DRIFT_ROWS = 3_000_000
+DRIFT_SEED_ROWS = 4096
+DRIFT_CUT = "2.3263"
+DRIFT_SEED_SQL = f"SELECT k, v FROM drift_seed WHERE v > {DRIFT_CUT}"
+DRIFT_JOIN_SQL = ("SELECT k, v, u FROM drift_fact JOIN drift_dim USING (k) "
+                  f"WHERE v > {DRIFT_CUT}")
+DRIFT_GROUP_SQL = ("SELECT k, count(*) AS c, max(v) AS m, sum(w) AS s "
+                   f"FROM drift_fact WHERE v > {DRIFT_CUT} GROUP BY k")
+DRIFT_WIDE_SQL = ("SELECT k, count(*) AS c, sum(w) AS s FROM drift_fact "
+                  "GROUP BY k")
+# Plain EXPLAIN of each arm on cold history: the JAX package's
+# sparkdq4ml_tpu.sql.parser.execute("EXPLAIN " + sql) over views of
+# planner_tables() (10^7 fact rows), spark.audit.enabled=false,
+# spark.dq.profile.enabled=false, float32 (tests/planner_goldens.py).
+PLANNER_EXPLAIN_GOLDEN = {'pushdown': '== Physical Plan ==\n'
+             'Project[3]  (est_rows=-)\n'
+             '+- Join[inner]  (est_rows=-)\n'
+             '   +- Scan[(subquery)]  (est_rows=-)\n'
+             '      +- FusedStage(Project[2] <- Filter)  (est_rows=-)\n'
+             '         +- Scan[opt_big]  (est_rows=10000000)\n'
+             '   +- Scan[opt_mid]  (est_rows=4096)\n'
+             '== Rewrites ==\n'
+             'pushdown: (v < (-1.35)) -> Scan[opt_big]\n'
+             'prune: Scan[opt_big] keeps 2/8 cols (k, v)\n'
+             '== Before Optimization ==\n'
+             'FusedStage(Project[3] <- Filter)\n'
+             '+- Join[inner]\n'
+             '   +- Scan[opt_big]\n'
+             '   +- Scan[opt_mid]',
+ 'build_side': '== Physical Plan ==\n'
+               'Project[3]  (est_rows=-)\n'
+               '+- Join[inner,build=left]  (est_rows=-)\n'
+               '   +- Scan[opt_small]  (est_rows=64)\n'
+               '   +- Scan[(subquery)]  (est_rows=10000000)\n'
+               '      +- Project[2]  (est_rows=10000000)\n'
+               '         +- Scan[opt_big]  (est_rows=10000000)\n'
+               '== Rewrites ==\n'
+               'build-side: Join[opt_big] build=left (est 64 vs '
+               '10000000 rows)\n'
+               'prune: Scan[opt_big] keeps 2/8 cols (k, v)\n'
+               '== Before Optimization ==\n'
+               'Project[3]\n'
+               '+- Join[inner]\n'
+               '   +- Scan[opt_small]\n'
+               '   +- Scan[opt_big]',
+ 'join_order': '== Physical Plan ==\n'
+               'Project[3]  (est_rows=-)\n'
+               '+- Join[inner]  (est_rows=-)\n'
+               '   +- Join[inner]  (est_rows=-)\n'
+               '      +- Scan[(subquery)]  (est_rows=-)\n'
+               '         +- FusedStage(Project[2] <- Filter)  '
+               '(est_rows=-)\n'
+               '            +- Scan[opt_big]  (est_rows=10000000)\n'
+               '      +- Scan[opt_mid]  (est_rows=4096)\n'
+               '   +- Scan[opt_small]  (est_rows=64)\n'
+               '== Rewrites ==\n'
+               'pushdown: (v < 0) -> Scan[opt_big]\n'
+               'join-reorder: opt_small~64r, opt_mid~4096r (smallest '
+               'estimate first)\n'
+               'prune: Scan[opt_big] keeps 2/8 cols (k, v)\n'
+               '== Before Optimization ==\n'
+               'FusedStage(Project[3] <- Filter)\n'
+               '+- Join[inner]\n'
+               '   +- Join[inner]\n'
+               '      +- Scan[opt_big]\n'
+               '      +- Scan[opt_small]\n'
+               '   +- Scan[opt_mid]'}
+# The == Adaptive == lines of (b)'s three EXPLAIN ANALYZE statements: the
+# JAX package's, from the same snapshot and the same steps over
+# drift_tables() (DRIFT_ROWS) on the CPU in float32
+# (tests/planner_goldens.py, drift_steps()).
+ADAPTIVE_GOLDEN = {'join_analyzed': ['build-flip: join build=left (observed 30047 vs '
+                   '1048576 rows) (est_rows 3000000 -> 30047)'],
+ 'group_analyzed': ['re-bucket: 3000000 -> 32768 padded slots '
+                    '(observed 30047 rows; est 32073) (est_rows '
+                    '3000000 -> 30047)'],
+ 'wide_analyzed': ['grouped-lowering: est 533336 groups > dense range '
+                   '131072; sorted program directly (est_rows 131072 '
+                   '-> 533336)']}
+
+
+def planner_tables(rows: int = FULL_ROWS, seed: int = PLANNER_SEED) -> dict:
+    """bench.py:1151-1160's tables at ``rows`` fact rows (ten times its
+    n): ``opt_big`` (k uniform in [0, 4096), v ~ N(0, 1), x0..x5),
+    ``opt_mid`` (4,096 keys, u) and ``opt_small`` (64 keys, w); float32
+    columns from a seeded numpy generator: {view: {column: array}}."""
+    rng = np.random.default_rng(seed)
+    big = {"k": rng.integers(0, 4096, rows).astype(np.float32),
+           "v": rng.standard_normal(rows, dtype=np.float32)}
+    for i in range(6):
+        big[f"x{i}"] = rng.standard_normal(rows, dtype=np.float32)
+    return {"opt_big": big,
+            "opt_mid": {"k": np.arange(4096, dtype=np.float32),
+                        "u": rng.standard_normal(4096, dtype=np.float32)},
+            "opt_small": {"k": np.arange(64, dtype=np.float32),
+                          "w": rng.standard_normal(64, dtype=np.float32)}}
+
+
+def drift_tables(rows: int = DRIFT_ROWS, seed: int = PLANNER_SEED + 1
+                 ) -> dict:
+    """(b)'s tables: ``drift_fact`` (k uniform in [0, 2^20), v and w ~
+    N(0, 1)), ``drift_dim`` (the 2^20 keys, u) and ``drift_seed`` (4,096
+    rows whose v all pass DRIFT_CUT); float32, seeded."""
+    rng = np.random.default_rng(seed)
+    return {
+        "drift_fact": {
+            "k": rng.integers(0, DRIFT_KEYS, rows).astype(np.float32),
+            "v": rng.standard_normal(rows, dtype=np.float32),
+            "w": rng.standard_normal(rows, dtype=np.float32)},
+        "drift_dim": {"k": np.arange(DRIFT_KEYS, dtype=np.float32),
+                      "u": rng.standard_normal(DRIFT_KEYS,
+                                               dtype=np.float32)},
+        "drift_seed": {
+            "k": np.arange(DRIFT_SEED_ROWS, dtype=np.float32),
+            "v": 5.0 + np.abs(rng.standard_normal(DRIFT_SEED_ROWS,
+                                                  dtype=np.float32)),
+            "w": rng.standard_normal(DRIFT_SEED_ROWS, dtype=np.float32)}}
+
+
+def register_views(spark, tables: dict) -> None:
+    for name, cols in tables.items():
+        spark.create_data_frame(cols).create_or_replace_temp_view(name)
+
+
+def drift_steps(sql, analyze, set_aqe, snapshot) -> dict:
+    """(b)'s steps, through the package's ``sql`` (a statement -> frame),
+    ``analyze`` (a statement -> EXPLAIN ANALYZE text), ``set_aqe`` (on
+    or off) and ``snapshot()`` (the statstore emptied, then the seed's
+    snapshot loaded). Returns each step's frame or text; the same calls
+    in the same order made the JAX package's ADAPTIVE_GOLDEN."""
+    out = {}
+    snapshot()
+    set_aqe(True)
+    out["join_analyzed"] = analyze(DRIFT_JOIN_SQL)
+    snapshot()
+    out["join_on"] = sql(DRIFT_JOIN_SQL)
+    set_aqe(False)
+    out["join_off"] = sql(DRIFT_JOIN_SQL)
+    set_aqe(True)
+    out["group_analyzed"] = analyze(DRIFT_GROUP_SQL)
+    out["group_on"] = sql(DRIFT_GROUP_SQL)
+    set_aqe(False)
+    out["group_off"] = sql(DRIFT_GROUP_SQL)
+    out["wide_off"] = sql(DRIFT_WIDE_SQL)
+    set_aqe(True)
+    out["wide_analyzed"] = analyze(DRIFT_WIDE_SQL)
+    out["wide_on"] = sql(DRIFT_WIDE_SQL)
+    return out
+
+
+def adaptive_lines(text: str) -> list:
+    lines = text.splitlines()
+    if "== Adaptive ==" not in lines:
+        return []
+    return lines[lines.index("== Adaptive ==") + 1:]
+
+
+def planner_setting(**kw):
+    """Planner settings (``config`` attributes) for a block."""
+    import contextlib
+
+    from sparkdq4ml_tpu_torch.config import config
+
+    @contextlib.contextmanager
+    def block():
+        old = {k: getattr(config, k) for k in kw}
+        for k, v in kw.items():
+            setattr(config, k, v)
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                setattr(config, k, v)
+    return block()
+
+
+def same_frames(a, b) -> list:
+    """``frame_differences`` with the column order."""
+    return ([] if a.columns == b.columns else ["columns"]) \
+        + frame_differences(a, b)
+
+
+def same_rows(a, b) -> list:
+    """The columns in which two frames' valid rows differ, bit for bit
+    (the rows in order; the slots a filter masked are not rows)."""
+    import torch
+
+    if a.columns != b.columns:
+        return ["columns"]
+    ma, mb = a.mask, b.mask
+    out = []
+    for c in a.columns:
+        x, y = a._column_values(c), b._column_values(c)
+        if not isinstance(x, torch.Tensor):
+            if list(x[ma.cpu().numpy()]) != list(y[mb.cpu().numpy()]):
+                out.append(c)
+            continue
+        x, y = x[ma], y[mb]
+        if x.dtype != y.dtype or x.shape != y.shape or not same_bits(x, y):
+            out.append(c)
+    return out
+
+
+def sorted_rows(frame) -> np.ndarray:
+    d = frame.to_pydict()
+    cols = sorted(d)
+    rows = np.array([np.asarray(d[c], dtype=np.float64) for c in cols])
+    return rows[:, np.lexsort(rows[::-1])]
+
+
+def planner_arms(spark) -> dict:
+    """Phase 18(a): each arm's plain EXPLAIN on cold history against
+    PLANNER_EXPLAIN_GOLDEN, then the arm with the optimizer off and on,
+    each way warm (its first run held for parity), PLANNER_RUNS runs
+    timed on the host clock ending in a synchronisation; on against off
+    valid rows bit-identical (level 1) or equal as sorted rows (level
+    2); the join and flush spans (host times) of the on arm's warm-up,
+    run under query_stats."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.sql.parser import execute
+    from sparkdq4ml_tpu_torch.utils import observability as obs
+    from sparkdq4ml_tpu_torch.utils import statstore
+
+    statstore.STORE.clear()
+    out = {}
+    for arm, sql, level in PLANNER_ARMS:
+        with planner_setting(optimizer_enabled=True, optimizer_level=level):
+            text = execute("EXPLAIN " + sql).to_pydict()["plan"][0]
+        if text != PLANNER_EXPLAIN_GOLDEN[arm]:
+            raise AssertionError(f"phase 18(a) {arm}: EXPLAIN differs from "
+                                 f"the JAX package's:\n{text}\n---\n"
+                                 f"{PLANNER_EXPLAIN_GOLDEN[arm]}")
+
+    def run(sql):
+        frame = execute(sql)
+        torch.cuda.synchronize()
+        return frame
+
+    for arm, sql, level in PLANNER_ARMS:
+        res = {}
+        for on in (False, True):
+            with planner_setting(optimizer_enabled=on,
+                                 optimizer_level=level), \
+                    obs.query_stats(sample_memory=False) as qs:
+                first = run(sql)            # the warm-up, held for parity
+                first.mask
+                torch.cuda.synchronize()
+            with planner_setting(optimizer_enabled=on,
+                                 optimizer_level=level):
+                times = []
+                for _ in range(PLANNER_RUNS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    f = run(sql)
+                    f.mask
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                res[on] = {"frame": first, "runs_ms": times,
+                           "median_ms": float(np.median(times))}
+        if level == 1:
+            differ = same_rows(res[True]["frame"], res[False]["frame"])
+        else:
+            a, b = (sorted_rows(res[k]["frame"]) for k in (True, False))
+            differ = [] if a.shape == b.shape and np.array_equal(a, b) \
+                else ["sorted rows"]
+        if differ:
+            raise AssertionError(f"phase 18(a) {arm}: optimizer on against "
+                                 f"off differ at {differ}")
+        spans = [{"name": s.name, "ms": (s.dur_us or 0) / 1e3,
+                  "rows_in": s.attrs.get("rows_in", s.attrs.get("rows")),
+                  "rows_out": s.attrs.get("rows_out")}
+                 for s in qs.spans
+                 if s.name in ("frame.join", "frame.pipeline.flush")]
+        out[arm] = {"off_ms": res[False]["median_ms"],
+                    "on_ms": res[True]["median_ms"],
+                    "off_runs_ms": res[False]["runs_ms"],
+                    "on_runs_ms": res[True]["runs_ms"],
+                    "off_over_on": (res[False]["median_ms"]
+                                    / res[True]["median_ms"]),
+                    "rows_out": res[True]["frame"].num_slots,
+                    "on_spans": spans}
+        log(f"phase 18(a) {arm}: off {out[arm]['off_ms']:.1f} ms, on "
+            f"{out[arm]['on_ms']:.1f} ms; spans {spans}")
+    return out
+
+
+def planner_drift(spark, tmp: str) -> dict:
+    """Phase 18(b): adaptive execution under drift (``drift_steps``): the
+    seed's snapshot (its WHERE kept every row) loaded, then the ~1% WHERE
+    joined, grouped, and a GROUP BY over about 10^6 keys after its
+    cardinality was recorded; the build-flip, re-bucket and
+    grouped-lowering events in EXPLAIN ANALYZE, every result
+    bit-identical to the same query with adaptive execution off, the
+    == Adaptive == lines equal to ADAPTIVE_GOLDEN."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.config import config
+    from sparkdq4ml_tpu_torch.sql.parser import execute
+    from sparkdq4ml_tpu_torch.utils import statstore
+
+    path = os.path.join(tmp, "drift_seed.jsonl")
+    statstore.STORE.clear()
+    execute(DRIFT_SEED_SQL).mask
+    statstore.STORE.drain_pending()
+    statstore.STORE.save(path, merge=False)
+
+    def snapshot():
+        statstore.STORE.clear()
+        statstore.STORE.load(path)
+
+    def set_aqe(on):
+        config.aqe_enabled = on
+
+    def sql(s):
+        frame = execute(s)
+        frame.mask
+        torch.cuda.synchronize()
+        return frame
+
+    def analyze(s):
+        return execute("EXPLAIN ANALYZE " + s).to_pydict()["plan"][0]
+
+    old = config.aqe_enabled
+    t0 = time.perf_counter()
+    try:
+        steps = drift_steps(sql, analyze, set_aqe, snapshot)
+    finally:
+        config.aqe_enabled = old
+    steps_s = time.perf_counter() - t0
+    lines = {k: adaptive_lines(steps[k])
+             for k in ("join_analyzed", "group_analyzed", "wide_analyzed")}
+    for key, trigger in (("join_analyzed", "build-flip"),
+                         ("group_analyzed", "re-bucket"),
+                         ("wide_analyzed", "grouped-lowering")):
+        if not any(ln.startswith(trigger + ":") for ln in lines[key]):
+            raise AssertionError(f"phase 18(b): no {trigger} event in "
+                                 f"{lines[key]}")
+    if lines != ADAPTIVE_GOLDEN:
+        raise AssertionError(f"phase 18(b): == Adaptive == lines {lines} != "
+                             f"the JAX package's {ADAPTIVE_GOLDEN}")
+    for q in ("join", "group", "wide"):
+        differ = same_rows(steps[f"{q}_on"], steps[f"{q}_off"])
+        if differ:
+            raise AssertionError(f"phase 18(b) {q}: adaptive on against off "
+                                 f"differ at {differ}")
+    out = {"adaptive": lines, "steps_s": steps_s,
+           "rows": {q: steps[f"{q}_on"].num_slots
+                    for q in ("join", "group", "wide")}}
+    log(f"phase 18(b): {out}")
+    return out
+
+
+def planner_dq(spark) -> dict:
+    """Phase 18(c): EXPLAIN ANALYZE of the reference app's two DQ queries
+    (RULE_1_SQL, RULE_2_SQL), each over a view whose rule column one
+    dq_rules launch computed (rule 1 on the raw table, rule 2 on rule 1's
+    output): on the three datasets every node annotated, the golden row
+    counts, the JAX package's structure of phase 17's app; at 10^7 rows
+    the == Caches == lines of the touched plans and, run again, every
+    compile a hit; then session.profile_report(): every achieved rate,
+    dq_rules' at the device time its wrapper recorded, at most the card's
+    peaks.
+
+    The SQL does not reach dq_rules: the queries read the rule column,
+    and the app's own rules (app.py) are torch expressions. So the
+    dq_rules count here, one a view, is this phase's own launch and
+    shows only that the SQL added none; it is no gate on the planner."""
+    import re
+
+    import torch
+
+    from sparkdq4ml_tpu_torch.frame.frame import Frame
+    from sparkdq4ml_tpu_torch.ops import kernels
+    from sparkdq4ml_tpu_torch.ops.rules import dq_rules_fused
+
+    fields = ("rows_in=", "rows_out=", "wall_ms=", "compile=",
+              "host_syncs=", "peak_mem=")
+
+    def node_lines(text):
+        lines = text.splitlines()
+        return lines[lines.index("== Analyzed Plan ==") + 1:
+                     lines.index("== Query Stats ==")]
+
+    def rule_views(df):
+        """(text of rule 1, text of rule 2, dq_rules launches a query)."""
+        launches = []
+        kernels.launches.reset()
+        price = df._column_values("price").to(torch.float32)
+        guest = df._column_values("guest").to(torch.float32)
+        pnm = dq_rules_fused(price, guest)[0]
+        Frame({"guest": df._column_values("guest"), "price": price,
+               "price_no_min": pnm}, mask=df.mask
+              ).create_or_replace_temp_view("price")
+        t1 = spark.sql("EXPLAIN ANALYZE " + RULE_1_SQL).to_pydict()["plan"][0]
+        d = spark.sql(RULE_1_SQL)
+        launches.append(kernels.launches.snapshot()["dq_rules"])
+        kernels.launches.reset()
+        dp = d._column_values("price")
+        pcc = dq_rules_fused(dp, d._column_values("guest").to(dp.dtype))[1]
+        Frame({"guest": d._column_values("guest"), "price": dp,
+               "price_correct_correl": pcc}, mask=d.mask
+              ).create_or_replace_temp_view("price")
+        t2 = spark.sql("EXPLAIN ANALYZE " + RULE_2_SQL).to_pydict()["plan"][0]
+        launches.append(kernels.launches.snapshot()["dq_rules"])
+        return t1, t2, launches
+
+    out = {}
+    for name, (rows, *_rest) in GOLDEN.items():
+        t1, t2, launches = rule_views(read_dataset(spark, name))
+        n1, n2 = node_lines(t1), node_lines(t2)
+        for line in n1 + n2:
+            for f in fields:
+                if f not in line:
+                    raise AssertionError(f"phase 18(c) {name}: {f} missing "
+                                         f"from {line!r}")
+        got = (int(re.search(r"rows_in=(\d+)", n1[0]).group(1)),
+               int(re.search(r"rows_valid=(\d+)", n1[0]).group(1)),
+               int(re.search(r"rows_valid=(\d+)", n2[0]).group(1)))
+        if got != rows or launches != [1, 1]:
+            raise AssertionError(f"phase 18(c) {name}: rows {got} (want "
+                                 f"{rows}), dq_rules launches {launches}")
+        out[name] = {"rows": got, "rule_1": n1, "rule_2": n2}
+    guest, price = full_table(FULL_ROWS)
+    df = spark.create_data_frame({"guest": guest, "price": price})
+    first = rule_views(df)
+    again = rule_views(df)
+    for t in (first[0], first[1]):
+        if "== Caches ==" not in t or "pipeline:" not in t:
+            raise AssertionError(f"phase 18(c): no touched plan in\n{t}")
+    for t in (again[0], again[1]):
+        if "compile=compile" in t or " compiles=0 " not in t:
+            raise AssertionError(f"phase 18(c): a repeat compiled:\n{t}")
+    if first[2] != [1, 1] or again[2] != [1, 1]:
+        raise AssertionError(f"phase 18(c): dq_rules launches {first[2]}, "
+                             f"{again[2]}")
+    # every cached plan counted (a count costs about a millisecond)
+    rows = spark.profile_report(budget=1 << 20)["entries"]
+    for r in rows:
+        if r["gbps"] is not None and r["gbps"] > HBM_BYTES_PER_S / 1e9:
+            raise AssertionError(f"phase 18(c): {r['key']} reached "
+                                 f"{r['gbps']} GB/s, above the card's "
+                                 f"{HBM_BYTES_PER_S / 1e9} GB/s")
+        if r["gflops"] is not None and r["gflops"] > FP32_FLOPS / 1e9:
+            raise AssertionError(f"phase 18(c): {r['key']} reached "
+                                 f"{r['gflops']} GFLOP/s, above the card's "
+                                 f"{FP32_FLOPS / 1e9}")
+    dq_row = next(r for r in rows if r["key"].startswith("kernel:dq_rules"))
+    if dq_row["bytes"] != 17 * FULL_ROWS or dq_row["time_of"] != "device" \
+            or dq_row["gbps"] is None:
+        raise AssertionError(f"phase 18(c): dq_rules counted {dq_row}")
+    out["dq_rules_launches"] = first[2] + again[2]
+    out["full"] = {"rule_1": node_lines(again[0]),
+                   "rule_2": node_lines(again[1]),
+                   "caches": [ln for ln in first[0].splitlines()
+                              if ln.startswith(("pipeline:", "grouped:",
+                                                "  program"))],
+                   "dq_rules_ms": dq_row["time_ms"]}
+    out["profile_report"] = rows
+    out["memory_report"] = {k: v for k, v in spark.memory_report().items()
+                            if k != "largest"}
+    log(f"phase 18(c): {out}")
+    return out
+
+
+def planner_lowering(spark, tmp: str) -> dict:
+    """Phase 18(d): at 10^7 rows, (1) with the level-2 split on and a
+    snapshot recording a first-run cost of 5 ms for a warm six-step
+    prefix, a twelve-step flush splits (optimizer.split); the port's own
+    recorded cost of that prefix is kept for PERF.md; (2) with
+    spark.audit.deviceBudget below a plan's remembered bytes_bound (a
+    measured peak in the statstore) and above its static estimate, the
+    flush runs chunked (optimizer.mem_chunk); both bit-identical to one
+    flush."""
+    import torch
+
+    import sparkdq4ml_tpu_torch as dq
+    from sparkdq4ml_tpu_torch.ops import compiler
+    from sparkdq4ml_tpu_torch.utils import statstore
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+
+    base = spark.table("opt_big")
+
+    def chain(f, steps, tail=None):
+        """``steps`` with_column steps, the second half reading ``tail``
+        when given: a twelve-step chain's first six steps are a six-step
+        chain's (bench.py's boundary arm)."""
+        for i in range(steps):
+            src = tail if tail and i >= steps // 2 else "v"
+            f = f.with_column(f"c{i}", dq.col(src) * float(i + 1) + 0.5)
+        return f
+
+    def flushed(f):
+        f.mask
+        torch.cuda.synchronize()
+        return f
+
+    with planner_setting(optimizer_level=1):
+        ref = flushed(chain(base, 12, "x1"))
+    with planner_setting(optimizer_level=2):
+        compiler.clear_cache()
+        statstore.STORE.clear()
+        flushed(chain(base, 6))                 # the warm prefix
+        prefix = next(e["program_key"]
+                      for e in compiler.cache_stats()["entries"])
+        own = {"p50_ms": statstore.STORE.compile_ms_p50(prefix),
+               "max_ms": statstore.STORE.entry(prefix)["compile_ms"]["max"]}
+        split0 = counters.get("optimizer.split")
+        live = flushed(chain(base, 12, "x1"))   # on its own history
+        live_split = counters.get("optimizer.split") - split0
+        snap = statstore.StatStore()
+        snap.record_flush(prefix, "pipeline", wall_ms=5.0, compiled=True)
+        path = os.path.join(tmp, "split.jsonl")
+        snap.save(path, merge=False)
+        compiler.clear_cache()
+        flushed(chain(base, 6))                 # warm again
+        statstore.STORE.clear()
+        statstore.STORE.load(path)
+        split0 = counters.get("optimizer.split")
+        got = flushed(chain(base, 12, "x1"))
+        split = counters.get("optimizer.split") - split0
+    if split != 1 or same_frames(got, ref) or same_frames(live, ref):
+        raise AssertionError(f"phase 18(d): splits {split} (seeded), "
+                             f"{live_split} (live); differ "
+                             f"{same_frames(got, ref)}, "
+                             f"{same_frames(live, ref)}")
+    one = flushed(base.with_column("d", dq.col("v") * 3.0 - dq.col("x0")))
+    key = next(e["program_key"] for e in compiler.cache_stats()["entries"]
+               if "W('d')" in e["program_key"])
+    est = statstore.STORE.entry(key)["est_bytes_max"]
+    statstore.STORE.record_flush(key, "pipeline", peak_bytes=4 * est)
+    c0 = (counters.get("optimizer.mem_chunk"),
+          counters.get("pipeline.oom_chunked"))
+    with planner_setting(audit_device_budget=2 * est,
+                         audit_memory_fraction=1.0):
+        chunked = flushed(base.with_column("d", dq.col("v") * 3.0
+                                           - dq.col("x0")))
+    c1 = (counters.get("optimizer.mem_chunk") - c0[0],
+          counters.get("pipeline.oom_chunked") - c0[1])
+    if c1 != (1, 1) or same_frames(chunked, one):
+        raise AssertionError(f"phase 18(d): mem_chunk/oom_chunked {c1}, "
+                             f"differ {same_frames(chunked, one)}")
+    out = {"split": split, "live_split": live_split,
+           "prefix_first_run": own, "mem_chunk": c1,
+           "est_bytes": est, "budget": 2 * est}
+    log(f"phase 18(d): {out}")
+    return out
+
+
+def check_planner_full() -> dict:
+    """Phase 18: (a)-(d) on the card, the launch counts reset just before
+    and read just after, no optimizer or adaptive fallback."""
+    import tempfile
+
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+
+    t0 = time.perf_counter()
+    spark = session("cuda")
+    register_views(spark, planner_tables())
+    register_views(spark, drift_tables())
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    fall0 = (counters.get("optimizer.fallback"), counters.get("aqe.fallback"))
+    kernels.launches.reset()
+    t0 = time.perf_counter()
+    arms = planner_arms(spark)
+    with tempfile.TemporaryDirectory() as tmp:
+        drift = planner_drift(spark, tmp)
+        launches = kernels.launches.snapshot()
+        dq = planner_dq(spark)
+        lowering = planner_lowering(spark, tmp)
+    phase_s = time.perf_counter() - t0
+    fallbacks = (counters.get("optimizer.fallback") - fall0[0],
+                 counters.get("aqe.fallback") - fall0[1])
+    spark.stop()
+    if fallbacks != (0, 0):
+        raise AssertionError(f"phase 18: optimizer/aqe fallbacks "
+                             f"{fallbacks}")
+    out = {"arms": arms, "drift": drift, "dq": dq, "lowering": lowering,
+           "launches": launches, "tables_s": tables_s, "phase_s": phase_s,
+           "fallbacks": fallbacks}
+    log(f"phase 18: {phase_s:.1f} s (tables {tables_s:.1f} s)")
+    return out
+
+
+def join_ab(tree: str) -> dict:
+    """Phase 18(a)'s three arms in the port of the checkout ``tree`` (a
+    ``git archive`` of another commit, say), for comparing two commits'
+    joins: each arm's SQL once to warm, then PLANNER_RUNS runs on the host
+    clock ending in a synchronisation; the literal plan
+    (``spark.optimizer.enabled=false``, or a tree without the planner)
+    and, where the tree has the optimizer, the optimized one. Medians in
+    ms. ``python3 chip_smoke.py --join-ab TREE`` prints them as one JSON
+    line; to compare, run parent, change, change, parent in one call."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from sparkdq4ml_tpu_torch.config import config
+
+    spark = session("cuda")
+    register_views(spark, planner_tables())
+    modes = (False, True) if hasattr(config, "optimizer_enabled") else (
+        None,)
+    out = {"tree": tree}
+    for arm, sql, level in PLANNER_ARMS:
+        for on in modes:
+            if on is not None:
+                config.optimizer_enabled, config.optimizer_level = on, level
+            times = []
+            for _ in range(PLANNER_RUNS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                spark.sql(sql).mask
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            out[f"{arm}_{'optimized' if on else 'literal'}_ms"] = float(
+                np.median(times[1:]))
+    spark.stop()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: times
 # ---------------------------------------------------------------------------
 
@@ -7893,7 +8559,7 @@ def main() -> int:
 
 def run_phases(card: str, reference: "CpuReference", script_t0: float,
                reference_wait_s: float) -> int:
-    """Phases 3 to 17 and the last lines; ``reference`` holds the CPU
+    """Phases 3 to 18 and the last lines; ``reference`` holds the CPU
     float64 runs of phases 7-8, 11 and 12, all ready."""
     import torch
 
@@ -8013,6 +8679,9 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     pipeline = pipeline_totals(app_report["fallbacks_before"])
     pipeline_s = time.perf_counter() - t0
     log(f"phase 17: {pipeline_s:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    planner = check_planner_full()
     zoo_launches = {name: zoo["launches"][name]
                     for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
                                  "bisecting", "pic")}
@@ -8036,7 +8705,9 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
                   for name, c in features["launches"].items()},
                "text_pipeline": text["text_launches"],
                "text_mlp": text["mlp_launches"],
-               **{f"rec_{name}": c for name, c in rec["launches"].items()}}
+               **{f"rec_{name}": c for name, c in rec["launches"].items()},
+               "planner": planner["launches"],
+               "planner_dq": {"dq_rules": planner["dq"]["dq_rules_launches"]}}
     feature_launches = {k: {name: c[k]
                             for name, c in features["launches"].items()}
                         for k in ("dense_segment_sum", "masked_gram")}
@@ -8141,6 +8812,8 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
                      "full": pipeline_full, "small": pipeline_small,
                      "totals": pipeline},
         "pipeline_phase_s": pipeline_s,
+        "planner": {k: v for k, v in planner.items() if k != "launches"},
+        "planner_phase_s": planner["phase_s"],
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "cpu_float64_reference_wait_s": reference_wait_s,
@@ -8159,4 +8832,7 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--join-ab"] and len(sys.argv) == 3:
+        print(json.dumps(join_ab(sys.argv[2])), flush=True)
+        sys.exit(0)
     sys.exit(main())

@@ -1,9 +1,11 @@
 """Process-wide defaults of the PyTorch port (subset of
 ``sparkdq4ml_tpu/config.py``): the float and int dtype policy, the
 ``show()`` row default, the device a session runs on, the native CSV
-ingest settings (``spark.ingest.*`` in a session's conf), and the fused
-pipeline's and the plan-statistics store's switches
-(``spark.pipeline.enabled``, ``spark.stats.*``).
+ingest settings (``spark.ingest.*`` in a session's conf), the fused
+pipeline's and the plan-statistics store's switches and bounds
+(``spark.pipeline.*``, ``spark.stats.*``), and the planner's
+(``spark.optimizer.*``, ``spark.aqe.*``, ``spark.costprof.*``,
+``spark.explain.*``, ``spark.audit.deviceBudget``/``memoryFraction``).
 
 There is no kernel on/off switch: a wrapper in ``ops/kernels.py`` launches
 its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a
@@ -58,8 +60,43 @@ class _Config:
     # false reduces every hook to one flag read).
     stats_enabled: bool = True
     # Snapshot path for cross-session persistence (spark.stats.path);
-    # empty = in memory only. Loaded at session start, written by stop().
+    # empty = in memory only. Loaded at session start, written by stop()
+    # when stats_flush_on_stop (spark.stats.flushOnStop).
     stats_path: str = ""
+    stats_flush_on_stop: bool = True
+    # Bounded entry table of the statstore (spark.stats.maxEntries): past
+    # it the least recently updated entry goes.
+    stats_max_entries: int = 512
+    # Row-bucket floor of the pipeline (spark.pipeline.minBucket) and the
+    # bound of its plan LRU, shared by the grouped engine's plan cache
+    # (spark.pipeline.cacheSize).
+    pipeline_min_bucket: int = 8
+    pipeline_cache_size: int = 256
+    # Cost-based optimizer (sql/optimizer.py, spark.optimizer.enabled):
+    # pushdown, pruning and build-side hints before execution; level 2
+    # (spark.optimizer.level) adds join reordering and the compiler's
+    # stage split.
+    optimizer_enabled: bool = True
+    optimizer_level: int = 1
+    # Adaptive execution (sql/adaptive.py, spark.aqe.enabled): re-plans
+    # from counts a running query observed once they drift past
+    # aqe_drift_factor (spark.aqe.driftFactor) from the estimates.
+    aqe_enabled: bool = True
+    aqe_drift_factor: float = 4.0
+    # Cost profiles (utils/costprof.py, spark.costprof.enabled) and the
+    # roofline ridge in flops per byte (spark.costprof.ridge).
+    costprof_enabled: bool = True
+    costprof_ridge: float = 8.0
+    # EXPLAIN ANALYZE: memory sampling at span boundaries
+    # (spark.explain.memory) and its == Caches == section
+    # (spark.explain.caches).
+    explain_memory: bool = True
+    explain_caches: bool = True
+    # A flush's device-byte budget: audit_device_budget x
+    # audit_memory_fraction when the budget is set (spark.audit.deviceBudget
+    # in bytes, 0 = none; spark.audit.memoryFraction).
+    audit_device_budget: int = 0
+    audit_memory_fraction: float = 0.9
 
 
 config = _Config()
@@ -86,15 +123,35 @@ INGEST_KEYS = {
 # The fused pipeline's and the statstore's keys, in the same form.
 PIPELINE_KEYS = {
     "spark.pipeline.enabled": ("pipeline", _flag),
+    "spark.pipeline.minBucket": ("pipeline_min_bucket", int),
+    "spark.pipeline.cacheSize": ("pipeline_cache_size", int),
     "spark.stats.enabled": ("stats_enabled", _flag),
     "spark.stats.path": ("stats_path", str),
+    "spark.stats.maxEntries": ("stats_max_entries", int),
+    "spark.stats.flushOnStop": ("stats_flush_on_stop", _flag),
+}
+
+# The planner's keys (optimizer, adaptive execution, cost profiles,
+# EXPLAIN and the flush budget), in the same form.
+PLANNER_KEYS = {
+    "spark.optimizer.enabled": ("optimizer_enabled", _flag),
+    "spark.optimizer.level": ("optimizer_level", int),
+    "spark.aqe.enabled": ("aqe_enabled", _flag),
+    "spark.aqe.driftFactor": ("aqe_drift_factor", float),
+    "spark.costprof.enabled": ("costprof_enabled", _flag),
+    "spark.costprof.ridge": ("costprof_ridge", float),
+    "spark.explain.memory": ("explain_memory", _flag),
+    "spark.explain.caches": ("explain_caches", _flag),
+    "spark.audit.deviceBudget": ("audit_device_budget", int),
+    "spark.audit.memoryFraction": ("audit_memory_fraction", float),
 }
 
 
 def apply_conf(conf: dict, saved: dict) -> None:
     """Set the settings that ``conf`` names, recording each setting's value
     before its first change into ``saved`` (for :func:`restore_conf`)."""
-    for key, (attr, parse) in {**INGEST_KEYS, **PIPELINE_KEYS}.items():
+    for key, (attr, parse) in {**INGEST_KEYS, **PIPELINE_KEYS,
+                               **PLANNER_KEYS}.items():
         if key in conf:
             value = parse(str(conf[key]))
             if value is not None:

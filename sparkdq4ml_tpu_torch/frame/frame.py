@@ -84,14 +84,24 @@ _JOIN_TYPES = ("inner", "left", "right", "outer", "left_semi", "left_anti",
                "cross")
 
 
-def _join_plan(lcols, rcols, li, ri, how):
+def _join_plan(lcols, rcols, li, ri, how, build_left=False):
     """Hash-join plan for numeric keys, the JAX package's
     ``_vector_join_plan``: ``(lpairs, rpairs)`` row-index arrays, -1 where
     an outer join has no partner. Left rows come out in order, each with
     its right matches in right order; unmatched right rows follow in
     order (right/outer). A NaN key never matches (NaN != NaN), as in the
     JAX package's dict plan for such keys. Integer key pairs compare as
-    int64, others as float64."""
+    int64, others as float64.
+
+    ``build_left`` (inner joins only): sort the LEFT side instead of the
+    right, the gain when the left is the small side. The pairs are the
+    same in the same order: an inner join's emission order is the
+    (left, right)-lexicographic pair order, so the swapped plan's pairs
+    come back to it with one lexsort."""
+    if build_left and how == "inner":
+        r_sw, l_sw = _join_plan(rcols, lcols, ri, li, "inner")
+        order = np.lexsort((r_sw, l_sw))        # primary: the left index
+        return l_sw[order], r_sw[order]
     def ids(a, b):
         if not (np.issubdtype(a.dtype, np.floating)
                 or np.issubdtype(b.dtype, np.floating)):
@@ -115,7 +125,14 @@ def _join_plan(lcols, rcols, li, ri, how):
         inv = np.empty(perm.size, np.int64)
         inv[perm] = np.cumsum(newg) - 1
         lid, rid = inv[:nl], inv[nl:]
-    order = np.argsort(rid, kind="stable")      # groups keep right order
+    small = _small_ids(lid, rid)
+    if small is not None:
+        # ids in [0, 2^16): a radix argsort (numpy's stable sort of 16-bit
+        # integers) and table lookups, the same plan in linear time
+        lid, rid, span = small
+        order = np.argsort(rid.astype(np.uint16), kind="stable")
+    else:
+        order = np.argsort(rid, kind="stable")  # groups keep right order
     rid_sorted = rid[order]
     if rid_sorted.size:
         bound = np.empty(rid_sorted.size, bool)
@@ -124,14 +141,29 @@ def _join_plan(lcols, rcols, li, ri, how):
         gstart = np.nonzero(bound)[0]
         gvals = rid_sorted[gstart]
         gcnt = np.diff(np.append(gstart, rid_sorted.size))
-        pos = np.minimum(np.searchsorted(gvals, lid), gvals.size - 1)
-        hit = gvals[pos] == lid
+        if small is not None:
+            table = np.full(span, -1, np.int64)
+            table[gvals] = np.arange(gvals.size)
+            pos = table[lid]
+            hit = pos >= 0
+            pos = np.where(hit, pos, 0)
+        else:
+            pos = np.minimum(np.searchsorted(gvals, lid), gvals.size - 1)
+            hit = gvals[pos] == lid
         start = np.where(hit, gstart[pos], 0)
         counts = np.where(hit, gcnt[pos], 0)
     else:
         start = np.zeros(lid.size, np.int64)
         counts = np.zeros(lid.size, np.int64)
 
+    if how in ("inner", "left") and rid_sorted.size and gcnt.max() == 1:
+        # unique right keys (a dimension table): each left row has at
+        # most one partner, the general path's pairs without its repeats
+        partner = ri[order[start]]
+        if how == "inner":
+            return li[hit].astype(np.int64), partner[hit].astype(np.int64)
+        return (li.astype(np.int64),
+                np.where(hit, partner, -1).astype(np.int64))
     ecounts = np.maximum(counts, 1) if how in ("left", "outer") else counts
     total = int(ecounts.sum())
     lp = np.repeat(li, ecounts)
@@ -145,8 +177,12 @@ def _join_plan(lcols, rcols, li, ri, how):
     if how in ("left", "outer"):
         rp = np.where(np.repeat(counts == 0, ecounts), -1, rp)
     if how in ("right", "outer"):               # unmatched right rows last
-        lid_sorted = np.sort(lid)
-        if lid_sorted.size:
+        if small is not None:
+            present = np.zeros(span, bool)
+            present[lid] = True
+            matched = present[rid]
+        elif lid.size:
+            lid_sorted = np.sort(lid)
             pos = np.searchsorted(lid_sorted, rid)
             matched = (pos < lid_sorted.size) & \
                 (lid_sorted[np.minimum(pos, lid_sorted.size - 1)] == rid)
@@ -156,6 +192,24 @@ def _join_plan(lcols, rcols, li, ri, how):
         lp = np.concatenate([lp, np.full(extra.size, -1, np.int64)])
         rp = np.concatenate([rp, extra])
     return lp.astype(np.int64), rp.astype(np.int64)
+
+
+def _small_ids(lid, rid):
+    """``(lid, rid, span)`` as int64 arrays when every id of both sides
+    is an integer in ``[0, 2^16)`` (span one past the largest), else
+    None: the join plan then sorts by radix and looks groups up in a
+    table of ``span`` entries."""
+    if not (lid.size and rid.size):
+        return None
+    lo = np.min([lid.min(), rid.min()])          # NaN propagates
+    hi = np.max([lid.max(), rid.max()])
+    if not (lo >= 0 and hi < (1 << 16)):         # and fails both
+        return None
+    li, ri = lid.astype(np.int64), rid.astype(np.int64)
+    if lid.dtype.kind == "f" and not (np.array_equal(li, lid)
+                                      and np.array_equal(ri, rid)):
+        return None
+    return li, ri, int(hi) + 1
 
 
 def _as_column(values, device: torch.device):
@@ -854,6 +908,7 @@ class Frame:
         keep = torch.cumsum(self._mask.to(torch.int64), 0) > n
         return self._with(mask=self._mask & keep)
 
+    @op_span("frame.union")
     def union(self, other: "Frame") -> "Frame":
         """``union``/``unionAll``: rows of both frames, by position."""
         if self.columns != other.columns:
@@ -1132,6 +1187,7 @@ class Frame:
                                device=self.device)
         return self._with(mask=self._mask & keep)
 
+    @op_span("frame.agg")
     def agg(self, *aggs):
         """Global aggregates (no grouping): masked device reductions."""
         from .aggregates import (AggExpr, _dict_aggs, global_agg,
@@ -1144,6 +1200,7 @@ class Frame:
         frame, agg_list = materialize_agg_exprs(self, agg_list)
         return global_agg(frame, agg_list)
 
+    @op_span("frame.sort")
     def sort(self, *cols, ascending=True) -> "Frame":
         """``orderBy``: the valid rows in key order (a compact frame).
         Columns are names, ``Col``s or ``col.asc()``/``col.desc()`` markers
@@ -1177,6 +1234,7 @@ class Frame:
 
     orderBy = order_by = sort
 
+    @op_span("frame.distinct")
     def distinct(self) -> "Frame":
         """Unique valid rows in first-occurrence order (a compact frame);
         NaN cells equal each other, as in Spark's null-safe dedup."""
@@ -1190,6 +1248,7 @@ class Frame:
             return _empty_frame(self.columns, self.device)
         return device_unique(self, self.columns)
 
+    @op_span("frame.drop_duplicates")
     def drop_duplicates(self, subset=None) -> "Frame":
         """``dropDuplicates``: the first valid row per distinct ``subset``
         key combination (all columns kept); without a subset, ``distinct``."""
@@ -1206,7 +1265,9 @@ class Frame:
 
     dropDuplicates = drop_duplicates
 
-    def join(self, other: "Frame", on=None, how: str = "inner") -> "Frame":
+    @op_span("frame.join")
+    def join(self, other: "Frame", on=None, how: str = "inner",
+             build: Optional[str] = None, est=None) -> "Frame":
         """Join on key column(s) present in both frames (Spark's USING
         semantics: each key appears once). ``how``: inner, left, right,
         outer/full, left_semi, left_anti, cross. A non-key name on both
@@ -1215,12 +1276,22 @@ class Frame:
         pull of the masks and key columns; every payload column is gathered
         on the device (``index_select``). Unmatched sides of outer joins
         fill with NaN, and an int column becomes float for it. LEFT SEMI
-        and LEFT ANTI run on the device (``_semi_join``)."""
+        and LEFT ANTI run on the device (``_semi_join``).
+
+        ``build="left"`` (the optimizer's hint, inner joins only): the host
+        plan builds from the left side; the result is bit-identical, its
+        order included (``_join_plan``). ``est=(left_rows, right_rows)``
+        (the optimizer's estimates, read by ``sql/adaptive.py``): when
+        ``spark.aqe.enabled`` and an observed valid-row count drifts past
+        ``spark.aqe.driftFactor`` from its estimate, the build side is
+        decided again from the observed counts, which the plan holds
+        already (no further host read)."""
         how = how.lower().replace("fullouter", "outer").replace(
             "full", "outer")
         if how not in _JOIN_TYPES:
             raise ValueError(f"unknown join type {how!r}; expected one of "
                              f"{_JOIN_TYPES}")
+        build_left = build == "left" and how == "inner"
         keys = [on] if isinstance(on, str) else list(on or [])
         if how != "cross":
             if not keys:
@@ -1260,6 +1331,23 @@ class Frame:
 
         li, lk = pull(self, 0)
         ri, rk = pull(other, 1)
+        if est is not None and how == "inner" and config.aqe_enabled:
+            from ..sql import adaptive as _aqe
+
+            left_est, right_est = est
+            if _aqe.drift(left_est, li.size) \
+                    or _aqe.drift(right_est, ri.size):
+                want_left = li.size * _aqe.BUILD_RATIO <= ri.size
+                if want_left != build_left and _aqe.guard("build-flip"):
+                    _aqe.record(
+                        "build-flip",
+                        f"join build={'left' if want_left else 'right'}"
+                        f" (observed {li.size} vs {ri.size} rows)",
+                        est_before=(left_est if want_left
+                                    else right_est),
+                        est_after=(int(li.size) if want_left
+                                   else int(ri.size)))
+                    build_left = want_left
         if how == "cross":
             lpairs = np.repeat(li, len(ri))
             rpairs = np.tile(ri, len(li))
@@ -1271,7 +1359,8 @@ class Frame:
                 rpairs = np.full(li.size, -1, np.int64)
         else:
             lpairs, rpairs = _join_plan([k[li] for k in lk],
-                                        [k[ri] for k in rk], li, ri, how)
+                                        [k[ri] for k in rk], li, ri, how,
+                                        build_left)
 
         left_cols = self._gather_rows(lpairs, how in ("right", "outer"))
         right_cols = other._gather_rows(rpairs, how in ("left", "outer"))
@@ -1382,6 +1471,59 @@ class Frame:
         return out
 
     randomSplit = random_split
+
+    def explain(self, extended: bool = False, analyze: bool = False) -> None:
+        """Print :meth:`explain_string`: the frame's physical layout
+        (slots, valid rows, each column's placement and dtype) and, with
+        ``analyze``, the measured flush of its pending steps."""
+        print(self.explain_string(extended=extended, analyze=analyze))
+
+    def explain_string(self, extended: bool = False,
+                       analyze: bool = False) -> str:
+        """The text :meth:`explain` prints. ``analyze=True`` first runs the
+        frame's pending pipeline under a per-query stats collector (waiting
+        for the card) and appends one line per recorded span (wall ms,
+        rows, compile/hit verdict, host reads, peak memory) and the
+        counter deltas; a frame with nothing pending says so."""
+        from ..utils import observability as _obs
+        from ..utils.logging import format_kv
+
+        analyzed: list[str] = []
+        if analyze:
+            # before the description below reads the mask, which would
+            # flush the pending steps outside the measurement
+            with _obs.query_stats(
+                    sample_memory=config.explain_memory) as qs:
+                mask = self._mask
+                if mask.is_cuda:
+                    torch.cuda.synchronize(mask.device)
+            analyzed.append("== Analyzed ==")
+            for s in qs.spans:
+                attrs = {k: v for k, v in s.attrs.items() if v is not None}
+                kv = format_kv(dur_ms=round((s.dur_us or 0) / 1e3, 3),
+                               **attrs)
+                analyzed.append(f"  {s.name}" + (f"  {kv}" if kv else ""))
+            delta = qs.counter_delta()
+            if delta:
+                analyzed.append("  counters: " + format_kv(**delta))
+            if not qs.spans:
+                analyzed.append("  (nothing pending — frame already "
+                                "materialized)")
+        n_valid = self.count()
+        lines = ["== Physical Frame ==",
+                 f"row slots: {self.num_slots} (valid: {n_valid}, "
+                 f"masked: {self.num_slots - n_valid})"]
+        for name in self.columns:
+            arr = self._data[name]
+            kind = ("host/object" if is_host_column(arr)
+                    else f"device/{str(arr.dtype).replace('torch.', '')}")
+            lines.append(f"  {name}: {kind}")
+        if extended:
+            lines.append(f"devices: [{self.device.type}]")
+            lines.append("execution: eager columnar; filters are validity-"
+                         "mask AND; compilable expression chains run as "
+                         "one cached plan")
+        return "\n".join(lines + analyzed)
 
     # -- actions -------------------------------------------------------------
     def count(self) -> int:

@@ -16,9 +16,9 @@ first read as ONE cached plan per *plan shape*, run through one
   :class:`_ArgLit`).
 
 * **Plan-keyed cache**: one :class:`_Plan` per key (bounded LRU of
-  :data:`CACHE_SIZE`, ``pipeline.evict``). A plan's first flush at a row
+  ``spark.pipeline.cacheSize``, ``pipeline.evict``). A plan's first flush at a row
   bucket (:func:`bucket_size`: the next power of two, floored at
-  :data:`MIN_BUCKET`; ``n`` itself above :data:`EXACT_THRESHOLD`) counts
+  ``spark.pipeline.minBucket``; ``n`` itself above :data:`EXACT_THRESHOLD`) counts
   ``pipeline.compile``, every later one ``pipeline.hit``, as the JAX
   package's jit traces once a bucket. The plan runs its lowered steps at
   the true row count on the frame's device, the card or the CPU: there
@@ -29,6 +29,21 @@ Semantics are bit-identical to eager evaluation: the plan runs the *same*
 ``Expr.eval`` methods against a :class:`_TraceFrame` shim, so it launches
 the very kernels of the eager path. Anything outside the compilable
 subset (strings, UDFs, row generators, array cells) never defers.
+
+Two planned decisions of the cost-based optimizer live here, where a
+flush's shape is known: at ``spark.optimizer.level >= 2`` a cold plan of
+at least :data:`_SPLIT_MIN_STEPS` steps whose first half is cached with a
+recorded first-run cost of at least :data:`_SPLIT_MIN_COMPILE_MS` splits
+into that prefix and its tail (``optimizer.split``); and under a flush
+byte budget (``spark.audit.deviceBudget`` x ``memoryFraction``) a plan
+whose estimate, or whose remembered statstore bound
+(``optimizer.mem_chunk``), exceeds the budget runs in row chunks
+(``pipeline.oom_chunked``). Both are bit-identical to one flush: the
+compilable steps are elementwise and the filters row-local. The port's
+recorded first-run cost is its flush time (a plan's steps were lowered
+when they deferred), which sits far below the split's threshold; the
+rule and its constants are the JAX package's, so one snapshot gives one
+decision in both packages.
 
 Observability: ``pipeline.flush`` / ``pipeline.compile`` /
 ``pipeline.hit`` / ``pipeline.fallback`` / ``pipeline.evict`` counters in
@@ -52,6 +67,7 @@ import numpy as np
 import torch
 
 from ..config import config, float_dtype, int_dtype, numpy_dtype
+from ..utils import costprof as _costprof
 from ..utils import observability as _obs
 from ..utils.profiling import counters
 from . import expressions as E
@@ -60,6 +76,7 @@ from .cells import is_host_column
 __all__ = [
     "bucket_size", "dtype_tag", "is_compilable", "lower",
     "run_pipeline", "clear_cache", "cache_len", "PipelineError",
+    "flush_budget", "selectivity_key_for",
 ]
 
 
@@ -74,18 +91,16 @@ class PipelineError(RuntimeError):
 # Shape buckets
 # ---------------------------------------------------------------------------
 
-#: Row-bucket floor, and the row count above which the bucket is ``n``
-#: itself (the JAX package's ``pipeline_min_bucket`` and
-#: ``pipeline_exact_threshold`` defaults).
-MIN_BUCKET = 8
+#: The row count above which the bucket is ``n`` itself (the JAX
+#: package's ``pipeline_exact_threshold`` default).
 EXACT_THRESHOLD = 1 << 17
 
 
 def bucket_size(n: int) -> int:
     """Row-slot bucket for ``n`` rows, the JAX package's rule: the next
-    power of two, floored at :data:`MIN_BUCKET`; above
+    power of two, floored at ``spark.pipeline.minBucket``; above
     :data:`EXACT_THRESHOLD` the bucket IS ``n``."""
-    lo = max(int(MIN_BUCKET), 1)
+    lo = max(int(config.pipeline_min_bucket), 1)
     if n <= lo:
         return lo
     if n > int(EXACT_THRESHOLD):
@@ -570,6 +585,7 @@ class _Plan:
         self.traces = 0
         self.seen: set = set()          # the (bucket, device)s run at
         self.example: Optional[tuple] = None
+        self.example_rows = 0           # the rows of the example's run
         self._steps = tuple(lowered_steps)
         self._extra = tuple(lowered_extra)
 
@@ -632,14 +648,11 @@ class _Plan:
                         tuple((tuple(data[k].shape[1:]), data[k].dtype)
                               for k in self.donated),
                         b, tuple(lit_values))
+                    self.example_rows = n
         if first:
             counters.increment("pipeline.compile")
         return out, first
 
-
-#: Bound of the plan LRU (the JAX package's ``pipeline_cache_size``
-#: default).
-CACHE_SIZE = 256
 
 _CACHE: "OrderedDict[str, _Plan]" = OrderedDict()
 _CACHE_LOCK = threading.RLock()
@@ -676,7 +689,7 @@ def _lookup_plan(steps, extra):
             _CACHE.move_to_end(key)
             return existing, lit_values
         _CACHE[key] = plan
-        while len(_CACHE) > CACHE_SIZE:
+        while len(_CACHE) > max(int(config.pipeline_cache_size), 1):
             _CACHE.popitem(last=False)
             counters.increment("pipeline.evict")
     return plan, lit_values
@@ -701,17 +714,18 @@ def _est_flush_bytes(plan, data: dict, b: int) -> int:
 
 
 def _record_flush_stats(plan, data, b: int, n: int, wall_ms: float,
-                        compiled: bool, new_mask) -> None:
+                        compiled: bool, new_mask, est=None) -> None:
     """Statstore hand-off (``utils/statstore.py``): one ``record_flush``
-    a flush (wall/first-run digest, static byte estimate) and, when the
-    flush carried a filter, a DEFERRED selectivity observation: the kept
-    rows' count stays a device scalar (one tiny reduction) until a
-    batched, counted drain on the cold paths. Called only when
+    a flush (wall/first-run digest, byte estimate) and, when the flush
+    carried a filter, a DEFERRED selectivity observation: the kept rows'
+    count stays a device scalar (one tiny reduction) until a batched,
+    counted drain on the cold paths. Called only when
     ``spark.stats.enabled``; a failure is logged, never raised."""
     from ..utils import statstore as _stats
 
     try:
-        est = plan.est_bytes.get(b)
+        if est is None:
+            est = plan.est_bytes.get(b)
         if est is None:
             # the inputs' dtypes and widths are in the plan's key
             est = plan.est_bytes[b] = _est_flush_bytes(plan, data, b)
@@ -725,6 +739,163 @@ def _record_flush_stats(plan, data, b: int, n: int, wall_ms: float,
         logger.debug("stats hand-off failed", exc_info=True)
 
 
+def flush_budget() -> Optional[int]:
+    """The device-byte budget of ONE flush, or None (the default): an
+    explicit ``spark.audit.deviceBudget`` scaled by
+    ``spark.audit.memoryFraction``. The allocator's limit is not read on
+    this path. The adaptive re-bucket (``sql/adaptive.py``) checks a
+    shrunk stage against the same budget. (The JAX package's injected
+    ``oom`` fault comes first there; it comes with the port's fault
+    layer.)"""
+    budget = int(config.audit_device_budget)
+    if budget > 0:
+        return int(budget * float(config.audit_memory_fraction))
+    return None
+
+
+def _run_chunked(plan, lit_values, data: dict, mask, n: int,
+                 budget: int, est: int):
+    """Row-chunked run of an over-budget flush: the same plan over row
+    slices of a power-of-two size (scaled from the estimate down to the
+    budget, floored at the bucket floor), concatenated. Bit-identical to
+    one flush, since the compilable steps are elementwise and a filter's
+    mask AND is row-local. Counted ``pipeline.oom_chunked``."""
+    counters.increment("pipeline.oom_chunked")
+    per_row = max(1.0, est / float(max(n, 1)))
+    m = max(1, int(budget / per_row))
+    m = 1 << max(m.bit_length() - 1, 0)
+    m = max(m, max(int(config.pipeline_min_bucket), 1))
+    m = min(m, n)
+    nchunks = -(-n // m)
+    device = mask.device
+    stats_on = config.stats_enabled
+    t_stats = time.perf_counter() if stats_on else 0.0
+    pieces_changed: dict = {}
+    pieces_mask: list = []
+    pieces_extras: dict = {}
+    compiled = 0
+    with _obs.span("frame.pipeline.flush", cat="frame", rows=n, bucket=m,
+                   chunks=nchunks, oom_budget=budget, est_bytes=est,
+                   plan_key=plan.key):
+        for start in range(0, n, m):
+            rows = min(start + m, n) - start
+            cb = bucket_size(rows)
+            part = {name: data[name][start:start + rows]
+                    for name in plan.kept + plan.donated}
+            (changed, new_mask, extras), first = plan.run(
+                part, mask[start:start + rows], rows, cb, lit_values,
+                device)
+            compiled += int(first)
+            with _CACHE_LOCK:
+                plan.buckets[cb] = plan.buckets.get(cb, 0) + 1
+            for k, v in changed.items():
+                pieces_changed.setdefault(k, []).append(v)
+            pieces_mask.append(new_mask)
+            for k, v in extras.items():
+                pieces_extras.setdefault(k, []).append(v)
+    if nchunks > compiled:
+        counters.increment("pipeline.hit", nchunks - compiled)
+    with _CACHE_LOCK:
+        plan.compiles += compiled
+        plan.hits += nchunks - compiled
+
+    def cat(vs):
+        return vs[0] if len(vs) == 1 else torch.cat(vs)
+
+    new_data = dict(data)
+    new_data.update({k: cat(vs) for k, vs in pieces_changed.items()})
+    new_mask = cat(pieces_mask)
+    if stats_on:
+        _record_flush_stats(plan, data, m, n,
+                            (time.perf_counter() - t_stats) * 1e3,
+                            compiled > 0, new_mask, est=est)
+    return (new_data, new_mask,
+            {k: cat(vs) for k, vs in pieces_extras.items()})
+
+
+#: The stage split (``spark.optimizer.level >= 2``): the fewest pending
+#: steps of a plan worth probing, and the least recorded first-run cost
+#: (statstore p50, ms) of the warm prefix for a split to pay (the JAX
+#: package's constants).
+_SPLIT_MIN_STEPS = 6
+_SPLIT_MIN_COMPILE_MS = 5.0
+
+
+def _split_point(steps, extra) -> Optional[int]:
+    """Where to split a flush, or None: when the whole plan is cold (not
+    cached) but its first half is cached with a recorded first-run cost
+    of at least :data:`_SPLIT_MIN_COMPILE_MS`, the prefix replays as a
+    hit and only the tail is new. Host-side planning only: one
+    ``_linearize`` walk and two cache probes."""
+    try:
+        key = _linearize(steps, tuple(extra))[0]
+    except Exception:
+        return None
+    parts = key.split("|")
+    if len(parts) != 1 + len(steps) + len(extra):
+        return None          # a key fragment embeds '|': stay unsplit
+    with _CACHE_LOCK:
+        if key in _CACHE:
+            return None      # warm whole plan: replay beats any split
+        k = len(steps) // 2
+        prefix_key = "|".join(parts[:1 + k])
+        if prefix_key not in _CACHE:
+            return None
+    from ..utils import statstore as _stats
+
+    cost = _stats.STORE.compile_ms_p50(prefix_key)
+    if cost is None or cost < _SPLIT_MIN_COMPILE_MS:
+        return None
+    return k
+
+
+def _relower(steps, data: dict) -> Optional[tuple]:
+    """``steps`` with their lowerings made again against ``data``: the
+    columns a split's prefix produced are stored columns for its tail.
+    None when one no longer lowers."""
+    from ..frame.frame import _lower_all
+
+    out: list = []
+    for step in steps:
+        exprs = ([e for _, e in step[1]] if step[0] == "with_columns"
+                 else [step[2] if step[0] == "with_column" else step[1]])
+        lows = _lower_all(exprs, data, tuple(out))
+        if lows is None:
+            return None
+        out.append(step[:-1] + ((lows if step[0] == "with_columns"
+                                 else lows[0]),))
+    return tuple(out)
+
+
+def _history_bytes(key: str) -> Optional[int]:
+    """The statstore's remembered byte bound of a plan key (the larger of
+    its estimates and measured peaks), or None."""
+    from ..utils import statstore as _stats
+
+    try:
+        return _stats.STORE.bytes_bound(key)
+    except Exception:
+        return None
+
+
+def selectivity_key_for(where_steps, schema) -> Optional[str]:
+    """The statstore selectivity key a flush of ``where_steps``
+    (``("filter", expr)`` pairs) over ``schema`` would record under,
+    computed with no execution (the plan-key walk, then the statstore's
+    filter extraction); EXPLAIN addresses history with it. None when a
+    step does not lower (such a flush runs eagerly and records
+    nothing)."""
+    from ..utils import statstore as _stats
+
+    steps = []
+    for kind, expr in where_steps:
+        low = lower(expr, schema)
+        if low is None:
+            return None
+        steps.append((kind, expr, low))
+    return _stats.selectivity_key(_linearize(tuple(steps), ())[0])
+
+
 def run_pipeline(data: dict, mask, n: int, steps, extra=()):
     """Run pending ``steps`` (+ ``extra`` projection expressions, each
     ``(name, expr, lowering)``) over the base column dict as one cached
@@ -736,14 +907,43 @@ def run_pipeline(data: dict, mask, n: int, steps, extra=()):
     :class:`PipelineError` on a lowering failure (counted
     ``pipeline.fallback``); callers replay eagerly. A device error
     (``torch.cuda`` out of memory, an illegal access) escapes unwrapped.
+    The stage split and the chunked flush are in the module docstring.
     """
     counters.increment("pipeline.flush")
     device = mask.device
     try:
         b = bucket_size(n)
+        if (n > 0 and config.optimizer_enabled
+                and int(config.optimizer_level) >= 2
+                and len(steps) >= _SPLIT_MIN_STEPS):
+            k = _split_point(steps, extra)
+            if k:
+                mid_data, mid_mask, _ = run_pipeline(data, mask, n,
+                                                     steps[:k], ())
+                tail = _relower(steps[k:], mid_data)
+                if tail is None:
+                    raise PipelineError("a split's tail did not lower")
+                counters.increment("optimizer.split")
+                return run_pipeline(mid_data, mid_mask, n, tail, extra)
         plan, lit_values = _lookup_plan(steps, tuple(extra))
+        if n > 0:
+            budget = flush_budget()
+            if budget is not None:
+                est = _est_flush_bytes(plan, data, b)
+                if (est <= budget and config.optimizer_enabled
+                        and config.stats_enabled):
+                    # the remembered bound (measured peaks included)
+                    # chunks a plan whose static estimate under-counts
+                    hist = _history_bytes(plan.key)
+                    if hist is not None and hist > budget:
+                        counters.increment("optimizer.mem_chunk")
+                        est = hist
+                if est > budget:
+                    return _run_chunked(plan, lit_values, data, mask, n,
+                                        budget, est)
         stats_on = config.stats_enabled
         t_stats = time.perf_counter() if stats_on else 0.0
+        timer = _costprof.start_run(plan.key, n, device)
         if _obs.TRACER.enabled:
             with _obs.TRACER.span(
                     "frame.pipeline.flush", cat="frame", steps=len(steps),
@@ -755,6 +955,7 @@ def run_pipeline(data: dict, mask, n: int, steps, extra=()):
         else:
             (changed, new_mask, extras), compiled = plan.run(
                 data, mask, n, b, lit_values, device)
+        _costprof.end_run(plan.key, n, timer, device)
         if not compiled:
             counters.increment("pipeline.hit")
         with _CACHE_LOCK:
@@ -799,7 +1000,7 @@ def cache_stats() -> dict:
     return {
         "kind": "plan-keyed cache (fused expression pipeline)",
         "size": len(entries),
-        "capacity": CACHE_SIZE,
+        "capacity": int(config.pipeline_cache_size),
         "hits": counters.get("pipeline.hit"),
         "misses": counters.get("pipeline.compile"),
         "evictions": counters.get("pipeline.evict"),
@@ -834,7 +1035,8 @@ def program_handles() -> list:
             meta={"expected_traces": max(len(p.buckets), 1),
                   "observed_traces": p.traces,
                   "dedup_key": _NUM_LIT_RE.sub("V(#)", p.key),
-                  "runtime_literals": p.n_lits}))
+                  "runtime_literals": p.n_lits,
+                  "rows": p.example_rows}))
     return out
 
 

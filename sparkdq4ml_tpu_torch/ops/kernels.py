@@ -51,6 +51,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import config
+from ..utils import costprof as _costprof
 from .rules import (BAD_ROW_SENTINEL, CORRELATION_MAX_GUESTS,
                     CORRELATION_MAX_PRICE, MIN_PRICE)
 
@@ -166,6 +168,30 @@ class LaunchCounts:
 
 
 launches = LaunchCounts()
+
+#: Each wrapper's last launch: its dimensions (rows, columns, element
+#: sizes), which ``utils/costprof.py`` counts by the kernel's work
+#: formula. Written beside each launch count, read on cold surfaces.
+last_call: dict = {}
+
+
+def _timer(name: str, dims: dict, device: torch.device):
+    """Before a launch: a timer of it under the kernel's profile key
+    (``costprof.start_run``, CUDA events on the card), so that
+    ``session.profile_report()`` joins the kernel's counted work with its
+    measured time; None with ``spark.costprof.enabled=false``."""
+    if not config.costprof_enabled:
+        return None
+    key = _costprof.kernel_key(name, dims)
+    return key, _costprof.start_run(key, dims["n"], device)
+
+
+def _launched(name: str, dims: dict, device: torch.device, timer) -> None:
+    """After a launch: its dimensions into ``last_call`` and the end of
+    its timer."""
+    last_call[name] = dims
+    if timer is not None:
+        _costprof.end_run(timer[0], dims["n"], timer[1], device)
 
 
 # ---------------------------------------------------------------------------
@@ -341,9 +367,12 @@ def dq_rules(price: torch.Tensor, guest: torch.Tensor):
     if n == 0:
         return pnm, pcc, keep
     stream = torch.cuda.current_stream(price.device).cuda_stream
+    dims = {"n": n, "itemsize": price.element_size()}
+    timer = _timer("dq_rules", dims, price.device)
     _check("dq_rules", fn(price.data_ptr(), guest.data_ptr(), pnm.data_ptr(),
                           pcc.data_ptr(), keep.data_ptr(), n, stream))
     launches.add("dq_rules")
+    _launched("dq_rules", dims, price.device, timer)
     return pnm, pcc, keep
 
 
@@ -419,9 +448,12 @@ def packed_gram(Z: torch.Tensor) -> torch.Tensor:
     chunks, rows = gram_plan(n, D, Z.element_size())
     part = _partials(chunks, D, Z)
     stream = torch.cuda.current_stream(Z.device).cuda_stream
+    dims = {"n": n, "D": D, "itemsize": Z.element_size()}
+    timer = _timer("packed_gram", dims, Z.device)
     _check("packed_gram", fn(Z.data_ptr(), _ptr(part), out.data_ptr(),
                              n, D, chunks, rows, stream))
     launches.add("packed_gram")
+    _launched("packed_gram", dims, Z.device, timer)
     return out
 
 
@@ -461,10 +493,14 @@ def masked_gram(X: torch.Tensor, y: torch.Tensor,
     chunks, rows = gram_plan(n, D, X.element_size())
     part = _partials(chunks, D, X)
     stream = torch.cuda.current_stream(X.device).cuda_stream
+    dims = {"n": n, "D": D, "itemsize": X.element_size(),
+            "w_itemsize": w.element_size()}
+    timer = _timer("masked_gram", dims, X.device)
     _check("masked_gram", fn(X.data_ptr(), y.data_ptr(), w.data_ptr(),
                              _ptr(part), out.data_ptr(), n, d, chunks,
                              rows, stream))
     launches.add("masked_gram")
+    _launched("masked_gram", dims, X.device, timer)
     return out
 
 
@@ -808,6 +844,9 @@ def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor | None,
     else:
         out = torch.empty((size,) + shape[1:], dtype=dtype, device=dev)
     xp = x.data_ptr()
+    dims = {"n": n, "cols": C, "size": size, "itemsize": elem,
+            "id_bytes": 0 if seg is None else seg.element_size()}
+    timer = _timer("dense_segment_sum", dims, dev)
     err = fn(xp, sp, state.tickets, out.data_ptr(), args,
              (xp | sp) % 16 == 0, stream)
     if err:
@@ -816,6 +855,7 @@ def dense_segment_sum(x: torch.Tensor, seg: torch.Tensor | None,
         launches.add("dense_segment_sum", "dense_segment_sum_one_slot")
     else:
         launches.add("dense_segment_sum")
+    _launched("dense_segment_sum", dims, dev, timer)
     return out
 
 
@@ -862,9 +902,14 @@ def _sorted_launch(x: torch.Tensor, seg: torch.Tensor, size: int,
         state = _stream_state(dev, stream, scratch_bytes)
     out = torch.empty((size,) + x.shape[1:], dtype=dtype, device=dev)
     xp, sp = x.data_ptr(), seg.data_ptr()
+    dims = {"n": x.shape[0], "cols": x.shape[1] if x.dim() == 2 else 1,
+            "size": size, "itemsize": x.element_size(),
+            "id_bytes": seg.element_size()}
+    timer = _timer("sorted_segment_sum", dims, dev)
     err = fn(xp, sp, state.tickets, out.data_ptr(), args, size,
              (xp | sp) % 16 == 0, stream)
     if err:
         _check("sorted_segment_sum", err)
     launches.add("sorted_segment_sum")
+    _launched("sorted_segment_sum", dims, dev, timer)
     return out

@@ -32,10 +32,15 @@ String keys and string value columns run as int32 codes
 ``NULL_CODE`` first, and decodes the results.
 
 Host reads: two per dense ``grouped_agg`` (the fit verdict with the table
-size, then the group count), one on a dense miss and one per sorted
-program (the group count); one per ``device_sort`` (the valid-row count)
-and per ``device_unique`` (the group count); string keys add their
-dictionary pass, host answers their gather.
+size and the valid rows, then the group count), one on a dense miss and
+one per sorted program (the group count with the valid rows); one per
+``device_sort`` (the valid-row count) and per ``device_unique`` (the
+group count); string keys add their dictionary pass, host answers their
+gather. The float sums of both programs read the valid rows alone (the
+dense program's gathered in row order, the sorted program's valid
+prefix), so their order of adds, and their bits, do not depend on the
+masked slots around them: a frame compacted by adaptive execution's
+re-bucket groups to the same bits as its source.
 
 Semantics are the JAX package's: masked rows carry no weight; NaN keys form
 one null group that sorts first; aggregates skip NaN values, with the
@@ -52,20 +57,31 @@ package's empty-result dtypes.
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import threading
+import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import float_dtype, int_dtype, wide_types
+from ..config import (config, float_dtype, int_dtype, numpy_dtype,
+                      wide_types)
 from . import kernels, strings
 from .expressions import is_host_column
+from ..utils import costprof as _costprof
+from ..utils import observability as _obs
 from ..utils.profiling import counters
+
+logger = logging.getLogger("sparkdq4ml_tpu_torch.ops.segments")
 
 __all__ = ["DEVICE_AGG_FNS", "SEGMENT_FNS", "grouped_agg", "global_values",
            "host_path_columns", "narrow_dtype", "pivot_agg", "pivot_values",
            "row_keys", "occurrence_ranks", "device_sort",
-           "device_unique", "gather_rows"]
+           "device_unique", "gather_rows", "agg_lowerable",
+           "cardinality_history_key", "cache_stats", "clear_cache"]
 
 # The aggregates the JAX package's segment program lowers; it answers any
 # other aggregate on its host path, whose result types the port keeps
@@ -89,6 +105,161 @@ _VAR_FNS = ("stddev", "variance", "stddev_pop", "var_pop")
 # Dense-table ceiling: the packed key range must fit min(this, 2 n) slots
 # or the plan reroutes to the sorted program.
 _DENSE_MAX = 1 << 17
+
+
+def agg_lowerable(agg) -> bool:
+    """Whether the JAX package's segment program lowers ``agg`` (its
+    ``agg_lowerable``): the structural test behind EXPLAIN's
+    ``SegmentedAggregate`` marker."""
+    return (agg.fn in SEGMENT_FNS and agg.column2 is None
+            and agg.param is None)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache: one entry per structural plan key (the JAX package's
+# jit cache). An entry is the plan's lowering, whose eager torch ops run
+# at the true row count; its first run at a (bucket, device) counts
+# ``grouped.compile``, every later one ``grouped.hit``, as the JAX
+# package's jit traces once a bucket. ``_PLAN_STATS`` counts the lookups
+# that found an entry (``hits``) and the entries built (``builds``).
+# ---------------------------------------------------------------------------
+
+_CACHE: "OrderedDict[str, dict]" = OrderedDict()
+_PLAN_STATS: dict = {}
+_CACHE_LOCK = threading.Lock()
+
+
+def clear_cache() -> None:
+    with _CACHE_LOCK:
+        _CACHE.clear()
+        _PLAN_STATS.clear()
+
+
+def _cached_plan(key: str) -> dict:
+    """The entry at ``key`` (the (bucket, device)s it ran at, its first
+    run's dimensions and statistics key), built on a miss; the LRU holds
+    ``spark.pipeline.cacheSize`` entries (``grouped.evict``)."""
+    with _CACHE_LOCK:
+        entry = _CACHE.get(key)
+        stats = _PLAN_STATS.setdefault(key, {"hits": 0, "builds": 0})
+        if entry is not None:
+            _CACHE.move_to_end(key)
+            stats["hits"] += 1
+            return entry
+        entry = _CACHE[key] = {"seen": set(), "dims": None,
+                               "stats_key": key}
+        stats["builds"] += 1
+        while len(_CACHE) > max(int(config.pipeline_cache_size), 1):
+            evicted, _ = _CACHE.popitem(last=False)
+            _PLAN_STATS.pop(evicted, None)
+            counters.increment("grouped.evict")
+        return entry
+
+
+def _run_plan(key: str, n: int, device, sp, dims: dict,
+              stats_key: Optional[str] = None) -> bool:
+    """One run of the plan at ``key`` over ``n`` rows: counts
+    ``grouped.compile`` on its first run at (bucket, device), else
+    ``grouped.hit``, and sets the span's verdict and plan key. ``dims``
+    (rows, value columns, element size, table slots) size its work for
+    ``utils/costprof.py``. Returns whether it was the first."""
+    from .compiler import bucket_size
+
+    entry = _cached_plan(key)
+    where = (bucket_size(n), str(device))
+    with _CACHE_LOCK:
+        first = where not in entry["seen"]
+        entry["seen"].add(where)
+        if entry["dims"] is None:
+            entry["dims"] = dict(dims)
+        if stats_key is not None:
+            entry["stats_key"] = stats_key
+    counters.increment("grouped.compile" if first else "grouped.hit")
+    sp.set(cache="compile" if first else "hit", plan_key=key)
+    return first
+
+
+def program_handles() -> list:
+    """Registry callback: one handle per cached plan that has run,
+    counted by the segment sums' work formula at its first run's
+    dimensions (``utils/costprof.kernel_profile``)."""
+    with _CACHE_LOCK:
+        items = [(k, dict(e["dims"]), e["stats_key"])
+                 for k, e in _CACHE.items() if e["dims"] is not None]
+    return [_obs.ProgramHandle("grouped", k, None,
+                               meta={"work": "segment_sums", "dims": d,
+                                     "stats_key": sk})
+            for k, d, sk in items]
+
+
+def cache_stats() -> dict:
+    """Registry callback (``observability.CACHES``): size, capacity, the
+    ``grouped.*`` counters and one entry per cached plan."""
+    with _CACHE_LOCK:
+        entries = [{"key": k[:160], "program_key": k, **dict(v)}
+                   for k, v in _PLAN_STATS.items()]
+        size = len(_CACHE)
+    return {
+        "kind": "plan-keyed cache (segment-reduction grouped exec)",
+        "size": size,
+        "capacity": int(config.pipeline_cache_size),
+        "hits": counters.get("grouped.hit"),
+        "misses": counters.get("grouped.compile"),
+        "evictions": counters.get("grouped.evict"),
+        "fallbacks": counters.get("grouped.fallback"),
+        "dense_misses": counters.get("grouped.dense_miss"),
+        "entries": entries,
+    }
+
+
+_obs.CACHES.register("grouped", cache_stats)
+_obs.CACHES.register_programs("grouped", program_handles)
+
+
+def _col_kind_spec(arr) -> str:
+    """A column's dtype in a plan key: numpy's name (``float32``)."""
+    return numpy_dtype(arr.dtype).name
+
+
+def cardinality_history_key(op: str, names, arrs) -> Optional[str]:
+    """The statstore's output-cardinality key of a grouping (``op`` ``g``)
+    or distinct (``d``) over ``names``: the sorted key names with their
+    dtypes and the engine dtype tag, the JAX package's string. Name
+    addressed, so EXPLAIN rebuilds it from a parsed query against the
+    catalog with no execution. None when a column is missing or on the
+    host."""
+    from .compiler import dtype_tag
+
+    parts = []
+    for name, arr in sorted(zip(names, arrs), key=lambda p: p[0]):
+        if arr is None or is_host_column(arr):
+            return None
+        parts.append(f"{name}:{_col_kind_spec(arr)}")
+    if not parts:
+        return None
+    return f"card|{dtype_tag()}|{op}|" + ",".join(parts)
+
+
+def _record_grouped_stats(key: str, rows_in: int, rows_out: int,
+                          wall_ms: float, compiles: int, host_syncs: int,
+                          card_key: Optional[str] = None) -> None:
+    """Statstore hand-off of one grouped run: its wall time and host
+    reads, its rows in and groups out, and the groups out under the
+    cardinality key. Called only when ``spark.stats.enabled``; a failure
+    is logged, never raised."""
+    from ..utils import statstore as _stats
+
+    try:
+        _stats.STORE.record_flush(key, "grouped", wall_ms=wall_ms,
+                                  compiled=compiles > 0,
+                                  host_syncs=host_syncs)
+        if rows_out >= 0:
+            _stats.STORE.record_rows(key, "grouped", rows_in, rows_out)
+            if card_key is not None:
+                _stats.STORE.record_rows(card_key, "cardinality",
+                                         rows_in, rows_out)
+    except Exception:
+        logger.debug("stats hand-off failed", exc_info=True)
 
 
 # ---------------------------------------------------------------------------
@@ -313,24 +484,50 @@ def _dense_slots(keys, kinds, valid, S: int):
     return slot, ok, total, decoders
 
 
-def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
+def _dense_verdict(ok, total, valid) -> torch.Tensor:
+    """(fit verdict, table size, valid rows) as one float64 vector: the
+    dense program's first host read."""
+    f64 = torch.float64
+    return torch.stack([ok.to(f64),
+                        torch.where(ok, total, torch.zeros_like(total))
+                        .to(f64), valid.sum().to(f64)])
+
+
+def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int,
+               pre=None):
     """The dense program. Returns ``(key_outs, agg_outs)`` or None when
-    the key range does not fit (the caller reroutes)."""
+    the key range does not fit (the caller reroutes). ``pre``: the
+    caller's ``(slot, T, nv, decoders)`` of a fit it has read already
+    (``_run_grouping``), so this program makes no read of its own for
+    it."""
     acc, wide = _acc_dtype(), _wide_int()
     n = mask.shape[0]
     dev = mask.device
     valid = mask
     idx = torch.arange(n, device=dev)
-    slot, ok, total, decoders = _dense_slots(keys, kinds, valid, S)
-    # host read 1: the fit verdict and the table size T (slot T collects
-    # the masked rows), so the tables hold T + 1 slots, not S + 1
-    counters.increment("frame.host_sync")
-    ok_h, T = torch.stack([ok.to(acc), torch.where(
-        ok, total, torch.zeros_like(total))]).tolist()
-    if not ok_h:
-        return None
-    T = int(T)
+    if pre is None:
+        slot, ok, total, decoders = _dense_slots(keys, kinds, valid, S)
+        # host read 1: the fit verdict, the table size T (slot T
+        # collects the masked rows), so the tables hold T + 1 slots, not
+        # S + 1, and the valid rows
+        counters.increment("frame.host_sync")
+        ok_h, T, nv = _dense_verdict(ok, total, valid).tolist()
+        if not ok_h:
+            return None
+    else:
+        slot, T, nv, decoders = pre
+    T, nv = int(T), int(nv)
     seg = torch.where(valid, slot, torch.full_like(slot, T)).to(torch.int64)
+    # the float sums read the valid rows alone, in row order, so their
+    # order of adds does not depend on how many masked slots surround
+    # them (a re-bucketed frame sums as its unbucketed source)
+    vidx = _valid_rows(valid, nv) if nv < n else None
+
+    def fseg_sum(x):
+        if vidx is None:
+            return _seg_sum(x, seg, T + 1)
+        return _seg_sum(x.index_select(0, vidx), seg.index_select(0, vidx),
+                        T + 1)
 
     nonnull = [valid & ~torch.isnan(v) if vk == "f" else valid
                for v, vk in zip(vals, val_kinds)]
@@ -402,7 +599,9 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
         if not arrs:
             continue
         x = torch.stack(arrs, dim=1)
-        if stack in ("ai", "af"):
+        if stack == "af":
+            r = fseg_sum(x)
+        elif stack == "ai":
             r = _seg_sum(x, seg, T + 1)
         elif stack in ("mf", "mi"):
             fill = float("inf") if stack == "mf" else big_i
@@ -443,7 +642,7 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
             d = torch.where(nonnull[s_i], vf - mu.index_select(0, seg_c),
                             torch.zeros_like(vf))
             cols.append(d * d)
-        tab = _seg_sum(torch.stack(cols, dim=1), seg, T + 1)[:T]
+        tab = fseg_sum(torch.stack(cols, dim=1))[:T]
         for j, s_i in enumerate(need_var):
             ssd[s_i] = tab[:, j].index_select(0, comp)
 
@@ -503,6 +702,18 @@ def _dense_agg(keys, kinds, vals, val_kinds, agg_ops, mask, S: int):
 # Sorted lowering (arbitrary keys; the distinct, order-valued, moment and
 # two-column aggregates; string value columns)
 # ---------------------------------------------------------------------------
+
+def _valid_rows(valid, nv: int) -> torch.Tensor:
+    """The indices of the ``nv`` true slots of ``valid``, in order, with
+    no host read (``nv`` is known): each valid row's rank scattered to
+    its place, the masked rows into one spare slot."""
+    n = valid.shape[0]
+    rank = torch.cumsum(valid.to(torch.int64), 0) - 1
+    dst = torch.where(valid, rank, torch.full_like(rank, nv))
+    out = torch.empty(nv + 1, dtype=torch.int64, device=valid.device)
+    out.scatter_(0, dst, torch.arange(n, device=valid.device))
+    return out[:nv]
+
 
 def _distinct_runs(seg, v, eligible, n: int):
     """Re-sort (segment, value) among eligible rows (ineligible rows get
@@ -600,26 +811,33 @@ _NUMERIC_ONLY = frozenset({
 
 
 def _sorted_agg(keys, kinds, vals, val_kinds, val_words, agg_ops, mask,
-                keep_empty: bool = False):
+                keep_empty: bool = False, pre=None):
     """The sorted program. ``agg_ops`` holds ``(fn, slot, ignore_nulls,
     slot2, param)``; a string value slot (kind ``s``) holds int32 codes
     with its dictionary in ``val_words``. Returns ``(key_outs, agg_outs)``
     with one row per group (one row for no group when ``keep_empty``); an
     aggregate over strings, or a collection, comes back as a host object
     array (NaN where a group has no non-null value, as the JAX package's
-    per-group numpy answers it)."""
+    per-group numpy answers it). ``pre``: the caller's ``(perm, valid,
+    seg, boundary, g, nv)``, read already (``_run_grouping``)."""
     acc = _acc_dtype()
     n = mask.shape[0]
     dev = mask.device
     idx = torch.arange(n, device=dev)
-    perm, valid, seg, boundary = _group_scaffold(keys, kinds, mask)
-    counters.increment("frame.host_sync")
-    g = int(boundary.sum())                     # THE host read
+    if pre is None:
+        perm, valid, seg, boundary = _group_scaffold(keys, kinds, mask)
+        counters.increment("frame.host_sync")
+        g, nv = torch.stack([boundary.sum(), valid.sum()]).tolist()
+    else:
+        perm, valid, seg, boundary, g, nv = pre
+    g, nv = int(g), int(nv)
     G = max(g, 1)
     f64 = torch.float64
 
     def seg_sum(x):
-        return _seg_sum(x, seg, G, contiguous=True)
+        # the sorted rows' valid prefix alone: the order of adds does not
+        # depend on how many masked slots trail it
+        return _seg_sum(x[:nv], seg[:nv], G, contiguous=True)
 
     first_pos = _seg_extreme(torch.where(valid, idx, n), seg, G, n, "amin")
     fp = first_pos.clamp(0, n - 1)
@@ -752,8 +970,8 @@ def _sorted_agg(keys, kinds, vals, val_kinds, val_words, agg_ops, mask,
             else:
                 sd = _seg_sum(torch.where(firstrun, v2.to(acc),
                                           torch.zeros((), dtype=acc,
-                                                      device=dev)), sid, G,
-                              contiguous=True)
+                                                      device=dev))[:nv],
+                              sid[:nv], G, contiguous=True)
                 cd = _seg_sum(firstrun.to(torch.int32), sid, G)
                 agg_outs.append(torch.where(cd > 0, sd, nan)
                                 .to(float_dtype()))
@@ -995,20 +1213,143 @@ def on_host_path(agg_list, val_kinds, key_words) -> bool:
         or a.param is not None for a in agg_list)
 
 
-def _run_grouping(frame, key_arrs, key_kinds, vals, kinds, words, ops):
-    """The dense program where it applies, else the sorted one:
-    ``(key_outs, agg_outs)`` with string keys still as codes."""
+def _group_programs(frame, key_arrs, key_kinds, vals, kinds, words, ops):
+    """The dense program where it applies, else the sorted one, with no
+    plan, span or statistics: ``(key_outs, agg_outs)``."""
     mask = frame.mask
     out = None
     if "s" not in kinds and all(fn in _DENSE_FNS for fn, *_ in ops):
-        n = frame.num_slots
         out = _dense_agg(key_arrs, key_kinds, vals, kinds,
                          [op[:3] for op in ops], mask,
-                         min(_DENSE_MAX, max(2 * n, 16)))
+                         min(_DENSE_MAX, max(2 * frame.num_slots, 16)))
     if out is None:
         out = _sorted_agg(key_arrs, key_kinds, vals, kinds, words, ops,
                           mask)
     return out
+
+
+def _run_grouping(frame, keys, key_arrs, key_kinds, vals, kinds, words,
+                  ops, host: bool):
+    """``grouped_agg``'s programs: ``(key_outs, agg_outs)`` with string
+    keys still as codes. A grouping the JAX package answers on its host
+    path (``host``) counts ``grouped.fallback`` and runs
+    :func:`_group_programs`.
+
+    A grouping the JAX package lowers runs as a cached
+    plan in a ``frame.grouped.flush`` span and records its statistics.
+    Its dense program is skipped, for the sorted one, when the statstore
+    holds two dense misses of its plan (``optimizer.dense_skip``) or,
+    under adaptive execution, when the recorded cardinality of its keys
+    estimates more groups than the dense table holds (the
+    ``grouped-lowering`` re-plan). A skip saves the dense program's own
+    host read: its fit verdict rides the sorted program's read, and a
+    verdict that fits (the history was wrong) runs the dense program
+    after all. So the answer is always the static plan's, bit for bit:
+    on the card the two programs add float sums in different orders."""
+    from .compiler import dtype_tag
+
+    mask = frame.mask
+    n = frame.num_slots
+    dense_ok = "s" not in kinds and all(fn in _DENSE_FNS for fn, *_ in ops)
+    S = min(_DENSE_MAX, max(2 * n, 16))
+    if host:
+        counters.increment("grouped.fallback")
+        return _group_programs(frame, key_arrs, key_kinds, vals, kinds,
+                               words, ops)
+    struct = "|".join([
+        dtype_tag(),
+        ",".join(f"{k}:{_col_kind_spec(a)}"
+                 for k, a in zip(key_kinds, key_arrs)),
+        ",".join(f"{fn}@{si}{'!' if ig else ''}" for fn, si, ig, *_ in ops),
+        ",".join(f"{k}:{_col_kind_spec(a)}" for k, a in zip(kinds, vals)),
+    ])
+    stats_on = config.stats_enabled
+    t_stats = time.perf_counter() if stats_on else 0.0
+    c_stats = counters.get("grouped.compile")
+    sync0 = counters.get("frame.host_sync")
+    skip_dense = False
+    if dense_ok and stats_on and config.optimizer_enabled:
+        from ..utils import statstore as _stats_store
+
+        if _stats_store.STORE.miss_count(f"GD{S}|{struct}") >= 2:
+            skip_dense = True
+            counters.increment("optimizer.dense_skip")
+    card_key = (cardinality_history_key("g", keys, key_arrs)
+                if stats_on else None)
+    if dense_ok and not skip_dense and stats_on and config.aqe_enabled:
+        from ..sql import adaptive as _aqe
+        from ..utils import statstore as _stats_store
+
+        est_g = (_stats_store.STORE.est_rows(card_key, n)
+                 if card_key is not None else None)
+        if est_g is not None and est_g > S \
+                and _aqe.guard("grouped-lowering"):
+            skip_dense = True
+            _aqe.record(
+                "grouped-lowering",
+                f"est {est_g} groups > dense range {S}; sorted "
+                "program directly",
+                est_before=S, est_after=est_g)
+    from .compiler import bucket_size
+
+    out = None
+    with _obs.TRACER.span(
+            "frame.grouped.flush", cat="frame", op="group_by",
+            keys=len(keys), aggs=len(ops), rows=n,
+            bucket=bucket_size(n)) as sp:
+        dims = {"n": n, "cols": max(len(vals), 1),
+                "itemsize": torch.empty(0, dtype=_acc_dtype()).element_size(),
+                "id_bytes": 8}
+        dense_pre = sorted_pre = None
+        if dense_ok and skip_dense:
+            slot, ok, total, decoders = _dense_slots(key_arrs, key_kinds,
+                                                     mask, S)
+            scaffold = _group_scaffold(key_arrs, key_kinds, mask)
+            counters.increment("frame.host_sync")
+            ok_h, T, nv, g = torch.cat([
+                _dense_verdict(ok, total, mask),
+                scaffold[3].sum().to(torch.float64)[None]]).tolist()
+            if ok_h:
+                dense_pre = (slot, T, nv, decoders)
+            else:
+                sorted_pre = (*scaffold, g, nv)
+        if dense_ok and (not skip_dense or dense_pre is not None):
+            timer = _costprof.start_run(f"GD{S}|{struct}", n, frame.device)
+            _run_plan(f"GD{S}|{struct}", n, frame.device, sp,
+                      {**dims, "size": S}, f"G|{struct}")
+            out = _dense_agg(key_arrs, key_kinds, vals, kinds,
+                             [op[:3] for op in ops], mask, S, dense_pre)
+            if out is not None:
+                _costprof.end_run(f"GD{S}|{struct}", n, timer, frame.device)
+                sp.set(groups=_rows(out), lowering="dense")
+            else:
+                counters.increment("grouped.dense_miss")
+                if stats_on:
+                    from ..utils import statstore as _stats_store
+
+                    _stats_store.STORE.record_miss(f"GD{S}|{struct}")
+        if out is None:
+            timer = _costprof.start_run(f"GS|{struct}", n, frame.device)
+            _run_plan(f"GS|{struct}", n, frame.device, sp, dims,
+                      f"G|{struct}")
+            out = _sorted_agg(key_arrs, key_kinds, vals, kinds, words, ops,
+                              mask, pre=sorted_pre)
+            _costprof.end_run(f"GS|{struct}", n, timer, frame.device)
+            sp.set(groups=_rows(out), lowering="sorted")
+    if stats_on:
+        _record_grouped_stats(
+            f"G|{struct}", n, _rows(out),
+            (time.perf_counter() - t_stats) * 1e3,
+            counters.get("grouped.compile") - c_stats,
+            counters.get("frame.host_sync") - sync0, card_key=card_key)
+    return out
+
+
+def _rows(out) -> int:
+    """The group count of a grouping's ``(key_outs, agg_outs)``."""
+    key_outs, agg_outs = out
+    first = (key_outs or agg_outs)[0]
+    return len(first)
 
 
 def grouped_agg(frame, keys, agg_list):
@@ -1030,8 +1371,9 @@ def grouped_agg(frame, keys, agg_list):
     if n == 0 or (host and not bool(frame.mask.any())):
         return _empty_frame(names, frame.device)
 
-    key_outs, agg_outs = _run_grouping(frame, key_arrs, key_kinds, val_arrs,
-                                       val_kinds, val_words, agg_ops)
+    key_outs, agg_outs = _run_grouping(frame, keys, key_arrs, key_kinds,
+                                       val_arrs, val_kinds, val_words,
+                                       agg_ops, host)
     for i, w in words.items():
         key_outs[i] = strings.decode(key_outs[i], w)
     if host:
@@ -1136,8 +1478,8 @@ def pivot_agg(frame, keys, pivot_col: str, values, agg_list):
     key_arrs.append(pcol)
     key_kinds.append(_require_kind(pcol, pivot_col, "pivot column"))
     vals, kinds, vwords, ops = _value_slots(frame, agg_list)
-    key_outs, agg_outs = _run_grouping(frame, key_arrs, key_kinds, vals,
-                                       kinds, vwords, ops)
+    key_outs, agg_outs = _group_programs(frame, key_arrs, key_kinds, vals,
+                                         kinds, vwords, ops)
     pc = key_outs[-1]
     dev = pc.device
     G2 = pc.shape[0]
@@ -1343,15 +1685,25 @@ def device_sort(frame, names, ascending, nulls_first):
     does; nulls first ascending and last descending unless pinned. A
     string key sorts by its codes, ascending only (as in the JAX
     package). One host read (the valid-row count); payload gathered on
-    the device."""
+    the device.
+
+    On the card the sort runs as a cached plan in a ``frame.grouped.flush``
+    span (op ``sort``), as the JAX package's sort program runs on an
+    accelerator; on the CPU, where the JAX package plans the sort on the
+    host, and with a string key, where it takes its host path
+    (``grouped.fallback``), it runs with no plan."""
+    from .compiler import bucket_size, dtype_tag
+
     mask = frame.mask
     keys, desc = [(~mask).to(torch.uint8)], [False]
+    specs, host_key = [], False
     for name, asc, nf in zip(names, ascending, nulls_first):
         arr = frame._column_values(name)
         if is_host_column(arr):
             if not asc:
                 raise ValueError("descending sort on string columns is "
                                  "not supported")
+            host_key = True
             (arr,), _ = strings.device_codes([arr], frame.device)
             null = arr == strings.NULL_CODE
             keys.append((~null if (asc if nf is None else nf) else null)
@@ -1361,18 +1713,35 @@ def device_sort(frame, names, ascending, nulls_first):
             desc.append(False)
             continue
         kind = _require_kind(arr, name, "sort key")
+        nf = asc if nf is None else bool(nf)
+        specs.append(f"{kind}{'^' if asc else 'v'}{'n' if nf else '_'}:"
+                     f"{_col_kind_spec(arr)}")
         if kind == "f":
             # flag False sorts first: nulls-first wants nulls = False
             null = torch.isnan(arr)
-            nf = asc if nf is None else bool(nf)
             keys.append((~null if nf else null).to(torch.uint8))
             desc.append(False)
             arr = torch.where(null, torch.zeros_like(arr), arr)
         keys.append(_to_int8_if_bool(arr))
         desc.append(not asc)
-    perm = _lex_perm(keys, frame.num_slots, frame.device, desc)
-    counters.increment("frame.host_sync")
-    nv = int(mask.sum())                        # THE host read
+    if host_key:
+        counters.increment("grouped.fallback")
+    n = frame.num_slots
+    planned = not host_key and frame.device.type != "cpu"
+    with (_obs.TRACER.span("frame.grouped.flush", cat="frame", op="sort",
+                           keys=len(names), rows=n, bucket=bucket_size(n))
+          if planned else contextlib.nullcontext()) as sp:
+        if planned:
+            plan_key = "|".join([dtype_tag(), "S", ",".join(specs)])
+            timer = _costprof.start_run(plan_key, n, frame.device)
+            _run_plan(plan_key, n, frame.device, sp,
+                      {"n": n, "cols": len(keys), "id_bytes": 8,
+                       "itemsize": max(k.element_size() for k in keys)})
+        perm = _lex_perm(keys, n, frame.device, desc)
+        counters.increment("frame.host_sync")
+        nv = int(mask.sum())                    # THE host read
+        if planned:
+            _costprof.end_run(plan_key, n, timer, frame.device)
     return gather_rows(frame, perm[:nv])
 
 
@@ -1380,12 +1749,21 @@ def device_unique(frame, key_names):
     """``Frame.distinct`` (``key_names`` = every column) and
     ``drop_duplicates`` (a subset): the first valid row of each distinct
     key combination, in first-occurrence order. NaN keys fold into one
-    null group; a 2-D column groups per component."""
+    null group; a 2-D column groups per component.
+
+    Numeric keys run as a cached plan in a ``frame.grouped.flush`` span
+    (op ``distinct``) and record their group count, under the
+    cardinality key too; a string key takes what is the JAX package's
+    host path (``grouped.fallback``), with no plan."""
+    from .compiler import bucket_size, dtype_tag
+
     n = frame.num_slots
     key_arrs, key_kinds = [], []
+    host_key = False
     for k in key_names:
         arr = frame._column_values(k)
         if is_host_column(arr):
+            host_key = True
             comps = strings.device_codes([arr], frame.device)[0]
         elif arr.ndim == 2:
             comps = [arr[:, j] for j in range(arr.shape[1])]
@@ -1396,10 +1774,37 @@ def device_unique(frame, key_names):
             key_arrs.append(c)
     if n == 0:
         return frame._with()
-    perm, valid, seg, boundary = _group_scaffold(key_arrs, key_kinds,
-                                                 frame.mask)
-    counters.increment("frame.host_sync")
-    g = int(boundary.sum())                     # THE host read
+    if host_key:
+        counters.increment("grouped.fallback")
+    stats_on = config.stats_enabled and not host_key
+    t_stats = time.perf_counter() if stats_on else 0.0
+    c_stats = counters.get("grouped.compile")
+    key = "|".join([dtype_tag(), "U", ",".join(
+        f"{k}:{_col_kind_spec(a)}" for k, a in zip(key_kinds, key_arrs))])
+    with (_obs.TRACER.span("frame.grouped.flush", cat="frame",
+                           op="distinct", keys=len(key_arrs), rows=n,
+                           bucket=bucket_size(n))
+          if not host_key else contextlib.nullcontext()) as sp:
+        if not host_key:
+            timer = _costprof.start_run(key, n, frame.device)
+            _run_plan(key, n, frame.device, sp,
+                      {"n": n, "cols": len(key_arrs), "id_bytes": 8,
+                       "itemsize": max(a.element_size()
+                                       for a in key_arrs)})
+        perm, valid, seg, boundary = _group_scaffold(key_arrs, key_kinds,
+                                                     frame.mask)
+        counters.increment("frame.host_sync")
+        g = int(boundary.sum())                 # THE host read
+        if not host_key:
+            _costprof.end_run(key, n, timer, frame.device)
+            sp.set(groups=g)
+    if stats_on:
+        _record_grouped_stats(
+            key, n, g, (time.perf_counter() - t_stats) * 1e3,
+            counters.get("grouped.compile") - c_stats, 1,
+            card_key=cardinality_history_key(
+                "d", key_names, [frame._column_values(k)
+                                 for k in key_names]))
     # a stable sort gives each group its smallest row index first; the
     # sorted first indices restore first-occurrence order
     orig_first = _seg_extreme(torch.where(valid, perm, n), seg, max(g, 1),

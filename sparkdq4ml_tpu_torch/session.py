@@ -5,12 +5,15 @@ The session's device comes from the conf key ``spark.torch.device``, which
 defaults to ``"cuda"``. Without a CUDA device, ``get_or_create`` raises
 unless the caller asked for ``"cpu"``: the port never continues on the CPU
 when the card was asked for. The ``spark.ingest.*`` keys set the native
-CSV ingest (``config.INGEST_KEYS``), and ``spark.pipeline.enabled`` and
-the ``spark.stats.*`` keys the fused pipeline and its statistics
-(``config.PIPELINE_KEYS``), while the session runs; ``stop`` restores them. ``spark.observability.enabled``
+CSV ingest (``config.INGEST_KEYS``), the ``spark.pipeline.*`` and
+``spark.stats.*`` keys the fused pipeline and its statistics
+(``config.PIPELINE_KEYS``), and the ``spark.optimizer.*``, ``spark.aqe.*``,
+``spark.costprof.*``, ``spark.explain.*`` and
+``spark.audit.deviceBudget``/``memoryFraction`` keys the planner
+(``config.PLANNER_KEYS``), while the session runs; ``stop`` restores them. ``spark.observability.enabled``
 (or ``SPARKDQ4ML_OBS=1``) turns the span tracer on. A session loads the
 statstore snapshot at ``spark.stats.path`` when it starts and saves it
-when it stops.
+when it stops (unless ``spark.stats.flushOnStop=false``).
 """
 
 from __future__ import annotations
@@ -248,11 +251,34 @@ class TorchSession:
         doc["path"] = config.stats_path or None
         return doc
 
+    def memory_report(self, top: int = 5) -> dict:
+        """Device-memory accounting (``utils.meminfo``): the live tensors'
+        bytes by dtype and the largest of them, the process peak, and the
+        allocator's statistics on the card."""
+        from .utils import meminfo as _meminfo
+
+        return _meminfo.memory_report(top=top)
+
+    def profile_report(self, top: Optional[int] = None,
+                       budget: Optional[int] = None) -> dict:
+        """The cost profiles (``utils.costprof``): one row per cached
+        program and hand kernel launched, with its counted flops and
+        bytes, its achieved rates at the median time of its runs at the
+        counted size (a hand kernel's from its own launches) and its
+        roofline verdict, ranked by wall-time share; at most ``budget``
+        new plan counts a call (``costprof.EXTRACT_BUDGET``), the rest
+        pending. ``spark.costprof.enabled=false`` makes it refuse."""
+        from .utils import costprof as _costprof
+
+        return _costprof.report(top=top, budget=budget)
+
     def stop(self) -> None:
-        """Save the statstore (``spark.stats.path``), end the session
-        span, restore the settings this session changed."""
+        """Save the statstore (``spark.stats.path``, unless
+        ``spark.stats.flushOnStop=false``), end the session span, restore
+        the settings this session changed."""
         global _ACTIVE
-        if config.stats_enabled and config.stats_path:
+        if config.stats_enabled and config.stats_path \
+                and config.stats_flush_on_stop:
             from .utils import statstore as _statstore
 
             _statstore.STORE.save(config.stats_path, merge=True)

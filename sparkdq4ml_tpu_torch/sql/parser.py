@@ -1,7 +1,7 @@
-"""The SQL of the torch port (``sparkdq4ml_tpu/sql/parser.py`` without
-EXPLAIN and the optimizer)::
+"""The SQL of the torch port (``sparkdq4ml_tpu/sql/parser.py``)::
 
-    statement := [WITH name AS '(' set ')', ...] set
+    statement := EXPLAIN [ANALYZE] statement
+                 | [WITH name AS '(' set ')', ...] set
                  | CREATE [OR REPLACE] [TEMP[ORARY]] VIEW name AS statement
                  | DROP [TEMP[ORARY]] VIEW [IF EXISTS] name
     set      := query ((UNION [ALL] | INTERSECT | EXCEPT) query)*
@@ -53,13 +53,33 @@ positions or expressions. ``WITH`` names shadow temp views for one
 statement (``_OverlayCatalog``).
 
 Out of scope, raising ``NotImplementedError`` naming what was met:
-``EXPLAIN [ANALYZE]``, ``GROUP BY GROUPING SETS``, the ``<=>`` operator,
-CAST to a type outside the four above, and statements other than SELECT
-and the temp-view DDL. A function name that is neither a UDF, a row
-function nor a builtin raises the registry's KeyError when the query
-runs, as in the JAX package. The executor follows the JAX package's
-``_execute_single`` without its cost-based optimizer (whose rewrites
-never change a result).
+``GROUP BY GROUPING SETS``, the ``<=>`` operator, CAST to a type outside
+the four above, and statements other than SELECT, EXPLAIN and the
+temp-view DDL. A function name that is neither a UDF, a row function
+nor a builtin raises the registry's KeyError when the query runs, as in
+the JAX package.
+
+The executor follows the JAX package's: every query (each CTE body
+first) passes through the cost-based optimizer (``sql/optimizer.py``:
+pushdown, pruning, build-side hints, join reordering at level 2) and runs
+under adaptive execution (``sql/adaptive.py``: the join's build flip,
+the re-bucket after WHERE, the grouped engine's lowering choice), whose
+rewrites and re-plans never change a result.
+``spark.optimizer.enabled=false`` and ``spark.aqe.enabled=false`` run
+the literal plan.
+
+``EXPLAIN`` renders the structural plan tree with no execution
+(``est_rows`` from statstore history, the optimizer's ``== Rewrites ==``
+and ``== Before Optimization ==``); ``EXPLAIN ANALYZE`` runs the
+statement and annotates each operator with its measured rows, wall
+time, compile/hit verdict, host reads, peak memory and counted cost,
+then ``== Query Stats ==``, ``== Caches ==`` and ``== Adaptive ==``.
+The output is the JAX package's under ``spark.audit.enabled=false`` and
+``spark.dq.profile.enabled=false``; it still lacks that package's
+``est peak`` column and its ``!! est peak`` budget line (its
+``analysis/program/static_mem.py``), its DQ-rule lines (its
+``utils/dqprof.py``) and its sharded annotations (``ShardedStage``,
+``Exchange``, per-shard rows).
 """
 
 from __future__ import annotations
@@ -68,10 +88,12 @@ import math
 import re
 from typing import Optional
 
+from ..config import config
 from ..frame import window as W
 from ..frame.aggregates import (AggExpr, AggOfExpr, approx_count_distinct,
                                 percentile_approx)
 from ..ops import expressions as E
+from ..utils import observability as _obs
 
 _TOKEN_RE = re.compile(
     r"\s*(?:"
@@ -1095,9 +1117,8 @@ def execute(sql: str, catalog=None):
     return an empty frame with no column, as the JAX package does.
 
     When tracing is on, each statement runs inside an ``sql.query`` span
-    with the query text and the output's row slots."""
-    from ..utils import observability as _obs
-
+    with the query text, the plan summary (:func:`plan_summary`) and the
+    output's row slots."""
     if not _obs.TRACER.enabled:
         return _execute_statement(sql, catalog)
     with _obs.TRACER.span("sql.query", cat="sql",
@@ -1109,21 +1130,35 @@ def execute(sql: str, catalog=None):
         return out
 
 
+_EXPLAIN_RE = re.compile(r"^\s*explain(\s+analyze)?\b(.*)$",
+                         re.IGNORECASE | re.DOTALL)
+
+
 def _execute_statement(sql: str, catalog=None):
     from ..frame.frame import Frame
     from .catalog import default_catalog
 
     cat = catalog if catalog is not None else default_catalog()
+    m = _EXPLAIN_RE.match(sql)
+    if m and m.group(2).strip():
+        return _execute_explain(m.group(2), cat, analyze=bool(m.group(1)))
     m = _DDL_RE.match(sql)
     if m:
+        if _obs.TRACER.enabled:
+            _obs.current_span().set(plan=f"CreateView[{m.group(1)}]")
         cat.register(m.group(1), execute(m.group(2), cat))
         return Frame({"__one_row__": [0.0]}).drop("__one_row__").limit(0)
     m = _DROP_RE.match(sql)
     if m:
+        if _obs.TRACER.enabled:
+            _obs.current_span().set(plan=f"DropView[{m.group(2)}]")
         if not cat.drop(m.group(2)) and not m.group(1):
             raise KeyError(f"temp view {m.group(2)!r} not found")
         return Frame({"__one_row__": [0.0]}).drop("__one_row__").limit(0)
-    return _execute(parse(sql), cat)
+    q = parse(sql)
+    if _obs.TRACER.enabled:
+        _obs.current_span().set(plan=plan_summary(q))
+    return _run_parsed(q, cat)
 
 
 class _OverlayCatalog:
@@ -1153,7 +1188,7 @@ def _execute_subquery(q, cat):
     that no rewrite took (``_decorrelate_where``) is the JAX package's
     "correlated subqueries are not supported" error."""
     try:
-        return _execute(q, cat)
+        return _execute_set(q, cat)
     except ValueError as e:
         if "unknown relation alias" in str(e):
             raise ValueError(
@@ -1199,8 +1234,8 @@ def _resolve_subqueries(expr, cat):
 
 
 def _relation(source, cat):
-    return (_execute(source.query, cat) if isinstance(source, DerivedTable)
-            else cat.lookup(source))
+    return (_execute_set(source.query, cat)
+            if isinstance(source, DerivedTable) else cat.lookup(source))
 
 
 # ---------------------------------------------------------------------------
@@ -1303,7 +1338,7 @@ def _decorrelate_one(sub: Query, extra_outer_cols, outer_scope, cat):
     inner = Query([E.Alias(ie, o) for o, (ie, _) in deduped.items()],
                   sub.view, _conjoin(rest), joins=sub.joins, distinct=True)
     inner.view_alias = sub.view_alias
-    return _execute(inner, cat), list(deduped)
+    return _execute_set(_maybe_optimize(inner, cat), cat), list(deduped)
 
 
 def _decorrelate_where(where, scope: dict, cat):
@@ -1420,14 +1455,9 @@ def _group_keys(q: Query, frame):
     return frame
 
 
-def _execute(q: Query, cat):
-    """A set expression (with the WITH clause before it): its first
-    SELECT, then each UNION [ALL] / INTERSECT / EXCEPT branch, left to
-    right."""
-    if q.ctes:
-        cat = _OverlayCatalog(cat)
-        for name, sub in q.ctes:                # later ones see earlier
-            cat.register(name, _execute(sub, cat))
+def _execute_set(q: Query, cat):
+    """A set expression: its first SELECT, then each UNION [ALL] /
+    INTERSECT / EXCEPT branch, left to right."""
     frame = _execute_single(q, cat)
     for op, sub in q.unions:
         rhs = _execute_single(sub, cat)
@@ -1459,10 +1489,16 @@ def _scoped_source(q: Query, cat):
     else:
         scope[(q.view_alias or q.view).lower()] = {c: c for c in
                                                    frame.columns}
-    for view, how, keys, jalias in q.joins:
+    # the optimizer's build hints and (left, right) row estimates per
+    # join: the estimates are the drift baseline of adaptive execution
+    hints = list(getattr(q, "join_build", ()) or ())
+    ests = list(getattr(q, "join_est", ()) or ())
+    for j, (view, how, keys, jalias) in enumerate(q.joins):
         right = _relation(view, cat)
         pre = set(frame.columns)
-        frame = frame.join(right, on=keys or None, how=how)
+        frame = frame.join(right, on=keys or None, how=how,
+                           build=hints[j] if j < len(hints) else None,
+                           est=ests[j] if j < len(ests) else None)
         name = jalias or (view if isinstance(view, str) else None)
         if name:
             post = set(frame.columns)
@@ -1502,6 +1538,20 @@ def _execute_single(q: Query, cat):
                else _resolve_subqueries(it, cat) for it in q.items]
     if q.where is not None:
         frame = frame.filter(q.where)
+        # stage boundary (sql/adaptive.py): when history says far fewer
+        # rows survive than the slot count and a grouping, sort or
+        # distinct follows, the survivors compact into a smaller bucket
+        if config.aqe_enabled and isinstance(q.view, str) \
+                and not q.joins \
+                and (q.group_by or q.order_by or q.distinct
+                     or any(isinstance(it, AggExpr) for it in q.items)):
+            from ..utils import statstore as _statstore
+            from . import adaptive as _adaptive
+
+            skey = _filter_history_key(q, cat)
+            if skey is not None:
+                frame = _adaptive.maybe_rebucket(
+                    frame, _statstore.STORE.est_rows(skey, frame.num_slots))
     if any(isinstance(k, int) for k, _ in q.order_by):
         _resolve_positions(q)
     if q.group_by and any(not isinstance(k, str) for k in q.group_by):
@@ -1630,3 +1680,854 @@ def _execute_single(q: Query, cat):
     if q.limit is not None:
         frame = frame.limit(q.limit)
     return frame
+
+
+# ---------------------------------------------------------------------------
+# The structural plan: plan_summary, PlanNode, plan_tree (EXPLAIN)
+# ---------------------------------------------------------------------------
+
+class _AnyColSchema(dict):
+    """Optimistic column schema for the structural fused-stage check:
+    every column resolves as a device column of unknown dtype (``p``), so
+    the check keys on the expression's form only."""
+
+    def get(self, key, default=None):  # noqa: ARG002 - dict signature
+        return "p"
+
+
+_OPTIMISTIC_SCHEMA = _AnyColSchema()
+
+
+def _segment_lowerable_aggs(items) -> bool:
+    """The ``SegmentedAggregate`` marker's test: every aggregate of the
+    select list (post-aggregate items' components included) is one the
+    grouped engine lowers (``segments.agg_lowerable``)."""
+    from ..ops.segments import agg_lowerable
+
+    found = False
+    for it in items:
+        aggs = (it.aggs if isinstance(it, PostAggItem)
+                else [it] if isinstance(it, AggExpr) else [])
+        for a in aggs:
+            found = True
+            if not agg_lowerable(a):
+                return False
+    return found
+
+
+def plan_summary(q: Query) -> str:
+    """``explain()``-style one-line plan for a parsed query — the operator
+    chain root-first (the shape Spark's ``explain`` prints), attached to
+    every ``sql.query`` span so traces show WHAT a query did, not just its
+    text.
+
+    When the pipeline is on (``spark.pipeline.enabled``, the default) and
+    the WHERE predicate and every projection are *structurally*
+    compilable, the Project+Filter pair of a non-aggregating query prints
+    as ``FusedStage(Project[n] <- Filter)``: one cached plan. Structural
+    means column dtypes are assumed numeric (the plan is summarized
+    before execution binds the frame). ``ORDER BY`` prints as
+    ``DeviceSort[n]`` and a plain ``GROUP BY`` whose aggregates the
+    grouped engine lowers as ``SegmentedAggregate[groupBy:n]``, as in
+    the JAX package with its grouped execution on (the port's only
+    mode)."""
+    chain = plan_tree(q).main_chain()
+    s = " <- ".join(n.label for n in chain)
+    if q.unions:
+        s += f" (+{len(q.unions)} set-op)"
+    if q.ctes:
+        s = f"With[{len(q.ctes)}] " + s
+    return s
+
+
+def _structurally_fusable(q: Query) -> bool:
+    """The FusedStage predicate — one definition for the plan-summary
+    marker, the plan tree, and EXPLAIN (the pipeline compiler re-checks
+    against real dtypes at flush time; see :func:`plan_summary`)."""
+    from ..config import config as _cfg
+    from ..ops.compiler import is_compilable
+
+    aggregating = bool(q.group_by) or any(
+        isinstance(it, (AggExpr, PostAggItem)) for it in q.items)
+    return (_cfg.pipeline and q.where is not None and not aggregating
+            and is_compilable(q.where, _OPTIMISTIC_SCHEMA)
+            and all(isinstance(it, str)
+                    or is_compilable(it, _OPTIMISTIC_SCHEMA)
+                    or isinstance(it, E.Col)
+                    for it in q.items))
+
+
+def _structurally_segmented(q: Query) -> bool:
+    return q.group_mode == "group" and _segment_lowerable_aggs(q.items)
+
+
+class PlanNode:
+    """One operator of the structural query plan — the per-operator node
+    tree ``plan_summary``'s flat chain is derived from, and the carrier
+    of EXPLAIN ANALYZE's measured stats (``stats`` stays empty on the
+    un-executed ``plan_tree`` output; EXPLAIN adds ``est_rows``, ANALYZE
+    the measured schema). ``children[0]`` is the operator's input; a
+    Join's ``children[1]`` is the probe-side Scan. ``meta`` carries
+    structural facts (the Scan's view name, the parsed query behind a
+    filter or aggregate) and is never rendered."""
+
+    __slots__ = ("op", "detail", "children", "stats", "meta")
+
+    def __init__(self, op: str, detail: str = "", children=()):
+        self.op = op
+        self.detail = detail
+        self.children = list(children)
+        self.stats: dict = {}
+        self.meta: dict = {}
+
+    @property
+    def label(self) -> str:
+        return f"{self.op}{self.detail}"
+
+    def walk(self):
+        """Preorder traversal over every node."""
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+    def execution_order(self):
+        """Nodes in the order the engine RUNS them (inputs before
+        consumers) — the order their spans arrive in, which is what FIFO
+        span attribution must follow (a root-first walk would hand the
+        WHERE filter's span to the Having node). Postorder — which is
+        already execution order for chains, Join probe sides, and SetOps
+        union branches — except ``With``, whose CTEs (children[1:]) run
+        BEFORE the main query (children[0])."""
+        if self.op == "With":
+            for c in self.children[1:]:
+                yield from c.execution_order()
+            if self.children:
+                yield from self.children[0].execution_order()
+            yield self
+            return
+        for c in self.children:
+            yield from c.execution_order()
+        yield self
+
+    def main_chain(self) -> list:
+        """Root-first operator chain down ``children[0]``, ending at the
+        Scan — exactly the shape :func:`plan_summary` prints. (A Scan
+        may carry a derived-table subquery plan as its child; the chain
+        does not descend into it.)"""
+        out, node = [], self
+        while node is not None:
+            out.append(node)
+            node = (node.children[0]
+                    if node.children and node.op != "Scan" else None)
+        return out
+
+    def render(self, analyze: bool = False) -> str:
+        """Indented operator tree; any annotated stats (``est_rows`` on
+        EXPLAIN, the full measured schema on ANALYZE) print as a logfmt
+        suffix."""
+        from ..utils.logging import format_kv
+
+        lines: list[str] = []
+
+        def emit(node, depth):
+            pad = "" if depth == 0 else "   " * (depth - 1) + "+- "
+            line = pad + node.label
+            if node.stats:
+                # unknowns render as "-" so every node shows the full
+                # stat schema (format_kv would elide None)
+                stats = {k: ("-" if node.stats[k] is None
+                             else node.stats[k]) for k in node.stats}
+                kv = format_kv(**stats)
+                if kv:
+                    line += f"  ({kv})"
+            lines.append(line)
+            for c in node.children:
+                emit(c, depth + 1)
+
+        emit(self, 0)
+        return "\n".join(lines)
+
+
+def plan_tree(q: Query) -> PlanNode:
+    """Build the per-operator plan-node tree for a parsed query (the
+    structural plan: built before execution binds the frame, so markers
+    follow the same optimistic-dtype convention as ``plan_summary``)."""
+    def scan_node(view):
+        """Scan leaf; a derived table carries its subquery's plan as a
+        child (outside the main chain) so EXPLAIN shows it and span
+        attribution consumes the subquery's spans at the right point
+        instead of handing them to outer same-named operators."""
+        if isinstance(view, DerivedTable):
+            return PlanNode("Scan", "[(subquery)]",
+                            [plan_tree(view.query)])
+        if isinstance(view, str):
+            n = PlanNode("Scan", f"[{view}]")
+            n.meta["view"] = view      # est-rows catalog lookup
+            return n
+        return PlanNode("Scan", "[(subquery)]")  # OneRowRelation et al.
+
+    node = scan_node(q.view)
+    hints = list(getattr(q, "join_build", ()) or ())
+    hints += [None] * (len(q.joins) - len(hints))
+    for (view, how, _keys, _alias), hint in zip(reversed(q.joins),
+                                                reversed(hints)):
+        how = how if isinstance(how, str) else "inner"
+        detail = f"[{how},build={hint}]" if hint else f"[{how}]"
+        node = PlanNode("Join", detail, [node, scan_node(view)])
+    if _structurally_fusable(q):
+        node = PlanNode("FusedStage",
+                        f"(Project[{len(q.items)}] <- Filter)", [node])
+        node.meta["query"] = q         # est-rows history lookup
+    else:
+        if q.where is not None:
+            node = PlanNode("Filter", "", [node])
+            node.meta["query"] = q     # est-rows history lookup
+        node = PlanNode("Project", f"[{len(q.items)}]", [node])
+    if q.group_by:
+        mode = q.group_mode if q.group_mode != "group" else "groupBy"
+        op = ("SegmentedAggregate" if _structurally_segmented(q)
+              else "Aggregate")
+        node = PlanNode(op, f"[{mode}:{len(q.group_by)}]", [node])
+        node.meta["query"] = q         # cardinality-history lookup
+    if q.having is not None:
+        node = PlanNode("Having", "", [node])
+    if q.distinct:
+        node = PlanNode("Distinct", "", [node])
+        node.meta["query"] = q         # cardinality-history lookup
+    if q.order_by:
+        node = PlanNode("DeviceSort", f"[{len(q.order_by)}]", [node])
+    if q.offset:
+        node = PlanNode("Offset", f"[{q.offset}]", [node])
+        node.meta["offset"] = q.offset
+    if q.limit is not None:
+        node = PlanNode("Limit", f"[{q.limit}]", [node])
+        node.meta["limit"] = q.limit
+    return node
+
+
+_EXPLAIN_RE = re.compile(r"^\s*explain(\s+analyze)?\b(.*)$",
+                         re.IGNORECASE | re.DOTALL)
+
+#: Plan-node op → the span names that measure it, most specific first.
+#: ``frame.grouped.flush:<op>`` keys the grouped-engine flush spans by
+#: their ``op`` attribute. Spans are consumed FIFO, so a query with two
+#: joins attributes the first ``frame.join`` span to the first Join node.
+_NODE_SPAN_CANDIDATES = {
+    "FusedStage": ("frame.pipeline.flush", "frame.filter", "frame.select"),
+    "ShardedStage": ("frame.pipeline.flush", "frame.filter",
+                     "frame.select"),
+    "Filter": ("frame.filter",),
+    "Project": ("frame.select",),
+    "Aggregate": ("frame.agg",),
+    "SegmentedAggregate": ("frame.grouped.flush:group_by", "frame.agg"),
+    "Having": ("frame.filter",),
+    "Sort": ("frame.sort",),
+    "DeviceSort": ("frame.sort", "frame.grouped.flush:sort"),
+    "Distinct": ("frame.distinct", "frame.drop_duplicates",
+                 "frame.grouped.flush:distinct"),
+    "Join": ("frame.join",),
+}
+
+#: Nodes whose program (if any) is the pipeline compiler's — a deferred
+#: filter/projection flushes OUTSIDE its own op span (at the next
+#: materialization point), so the verdict may ride an unconsumed
+#: ``frame.pipeline.flush`` span at query level. The predicate keys on
+#: the flush span's shape: ``steps`` are with_column/filter steps (the
+#: Filter node's program), ``outputs`` are fused select projections (the
+#: Project node's program); FusedStage owns both.
+_PIPELINE_NODE_PRED = {
+    "FusedStage": lambda a: True,
+    "ShardedStage": lambda a: True,
+    "Filter": lambda a: a.get("steps", 0) > 0,
+    "Project": lambda a: a.get("outputs", 0) > 0,
+}
+
+#: The acceptance contract: EVERY operator node carries these keys after
+#: an ANALYZE pass (measured where a span matched, defaults otherwise).
+_ANALYZE_DEFAULTS = (("rows_in", None), ("rows_out", None),
+                     ("wall_ms", 0.0), ("compile", "none"),
+                     ("host_syncs", 0), ("peak_mem", None))
+
+
+def _annotate_plan(tree: PlanNode, qs) -> None:
+    """Attribute one query's collected spans to plan-tree operators.
+
+    ``qs`` is an ``observability.QueryStatsCollector`` whose window was
+    exactly this query's execution. Attribution is name-based and FIFO
+    (frame ops execute in plan order within one query); the compile-vs-
+    cache-hit verdict comes from the operator's own flush span or the
+    flush span nested directly under it. After the walk every node holds
+    the full stat schema (:data:`_ANALYZE_DEFAULTS`)."""
+    by_name: dict[str, list] = {}
+    children_of: dict = {}
+    for s in qs.spans:
+        by_name.setdefault(s.name, []).append(s)
+        children_of.setdefault(s.parent_id, []).append(s)
+        if s.name == "frame.grouped.flush":
+            by_name.setdefault(
+                f"frame.grouped.flush:{s.attrs.get('op')}", []).append(s)
+
+    def pop(name, pred=None):
+        lst = by_name.get(name)
+        for s in list(lst or ()):
+            if pred is not None and not pred(s.attrs):
+                continue
+            for other in by_name.values():   # one span feeds ONE node
+                if s in other:
+                    other.remove(s)
+            return s
+        return None
+
+    peak_attr = max((s.attrs.get("peak_mem", 0) for s in qs.spans),
+                    default=0) or None
+    # EXECUTION order, not render order: spans arrive input-side-first,
+    # and FIFO queues must be consumed the same way (a root-first walk
+    # would hand the WHERE filter's span to the Having node).
+    for node in tree.execution_order():
+        primary = None
+        for name in _NODE_SPAN_CANDIDATES.get(node.op, ()):
+            primary = pop(name)
+            if primary is not None:
+                break
+        stats = node.stats
+        if primary is not None:
+            a = primary.attrs
+            # cost-observatory join handles: the plan key (when the
+            # span's program has one) addresses the CostProfile cache;
+            # "measured" marks operators that actually ran (the roofline
+            # `host` verdict's evidence). meta, never rendered.
+            node.meta["measured"] = True
+            if a.get("plan_key"):
+                node.meta["plan_key"] = a["plan_key"]
+            if "rows_in" in a:
+                stats["rows_in"] = a.get("rows_in")
+                stats["rows_out"] = a.get("rows_out")
+            else:                 # a flush span: rows/groups vocabulary
+                stats["rows_in"] = a.get("rows")
+                stats["rows_out"] = a.get("groups", a.get("rows"))
+            stats["wall_ms"] = round((primary.dur_us or 0) / 1e3, 3)
+            stats["host_syncs"] = a.get("host_syncs", 0)
+            if a.get("peak_mem") is not None:
+                stats["peak_mem"] = a["peak_mem"]
+            if a.get("lowering"):
+                stats["lowering"] = a["lowering"]
+            verdict = a.get("cache")
+            if verdict is None:
+                # the flush program ran nested under this op's span
+                # (grouped sort/distinct on accelerators)
+                for c in children_of.get(primary.sid, ()):
+                    if c.name in ("frame.pipeline.flush",
+                                  "frame.grouped.flush") \
+                            and c.attrs.get("cache"):
+                        verdict = c.attrs["cache"]
+                        break
+            pred = _PIPELINE_NODE_PRED.get(node.op)
+            if verdict is None and pred is not None:
+                # deferred pipeline steps flush at the next
+                # materialization point, outside the op's own span
+                flush = pop("frame.pipeline.flush", pred)
+                if flush is not None:
+                    verdict = flush.attrs.get("cache")
+                    stats["flush_ms"] = round((flush.dur_us or 0) / 1e3, 3)
+                    if flush.attrs.get("plan_key"):
+                        node.meta["plan_key"] = flush.attrs["plan_key"]
+            if verdict is not None:
+                stats["compile"] = verdict
+            for k, v in a.items():
+                if k.startswith("recovery_"):
+                    stats[k] = v
+        for key, default in _ANALYZE_DEFAULTS:
+            stats.setdefault(key, default)
+        if stats["peak_mem"] is None:
+            stats["peak_mem"] = peak_attr
+    # Row counts flow along edges: an operator with no span of its own
+    # (Scan, Limit, Offset) inherits its input's output count and its
+    # consumer's input count — static shape info, never a device read.
+    chain = tree.main_chain()
+    for parent, child in zip(chain, chain[1:]):
+        if child.stats.get("rows_out") is None \
+                and parent.stats.get("rows_in") is not None:
+            child.stats["rows_out"] = parent.stats["rows_in"]
+        if parent.stats.get("rows_in") is None \
+                and child.stats.get("rows_out") is not None:
+            parent.stats["rows_in"] = child.stats["rows_out"]
+
+
+def _filter_history_key(q, cat) -> Optional[str]:
+    """The statstore selectivity key a flush of this query's WHERE would
+    record under — computed from the parsed predicate plus the scanned
+    view's REAL column dtypes (catalog lookup; zero execution, zero
+    device reads). None when the view is unregistered, the predicate is
+    not structurally compilable (those flushes run eager and record no
+    history), or the query joins (the flush-time schema then carries
+    joined columns this static walk cannot see)."""
+    view = q.view if isinstance(q.view, str) else None
+    if view is None or q.where is None or q.joins:
+        return None
+    try:
+        frame = cat.lookup(view)
+    except Exception:
+        return None
+    # Mirror the executor's name resolution (qualified ``t.x`` refs
+    # rewrite to flat columns BEFORE the filter defers — the flush-time
+    # history key is recorded against the RESOLVED predicate). Subquery
+    # markers are deliberately NOT resolved here (that would execute
+    # them); they fail the compilability walk below and yield None,
+    # exactly like their flushes record nothing.
+    where = q.where
+    try:
+        scope = {(q.view_alias or view).lower():
+                 {c: c for c in frame.columns}}
+        where = _resolve_qualified(where, scope, frame.columns)
+    except Exception:
+        return None
+    from ..ops import compiler as C
+
+    schema = C.LazySchema(frame._data_store, frame._pending_names())
+    return C.selectivity_key_for((("filter", where),), schema)
+
+
+def _annotate_est_rows(tree: PlanNode, cat) -> None:
+    """History-informed cardinality column (``est_rows``): Scan rows are static slot counts, Filter/FusedStage apply the
+    HISTORICAL selectivity recorded for the structurally-same filter
+    stack (``utils.statstore``; persisted across sessions), and
+    row-preserving operators propagate. Unknowns stay None and render as
+    ``-``. Zero execution: catalog lookups + one ``_linearize`` walk per
+    filter, never a device program (the deferred-observation drain is a
+    host read of already-dispatched scalars). Never raises: estimation
+    is advisory."""
+    from ..utils import statstore as _stats
+
+    try:
+        _stats.STORE.drain_pending()
+    except Exception:
+        pass
+    #: CTE-name -> estimated rows (filled from the With wrapper's CTE
+    #: bodies BEFORE the main query annotates, so a Scan of a CTE name
+    #: resolves history-informed cardinality instead of going "-")
+    cte_est: dict[str, int] = {}
+
+    def est(node) -> Optional[int]:
+        try:
+            child = est(node.children[0]) if node.children else None
+        except RecursionError:   # pathological depth: stop annotating
+            return None
+        out: Optional[int] = None
+        op = node.op
+        if op == "Scan":
+            view = node.meta.get("view")
+            if isinstance(view, str):
+                if view.lower() in cte_est:
+                    out = cte_est[view.lower()]
+                else:
+                    try:
+                        out = int(cat.lookup(view).num_slots)
+                    except Exception:
+                        out = None
+            else:
+                out = child      # derived table: its subquery's estimate
+        elif op in ("FusedStage", "ShardedStage", "Filter"):
+            q = node.meta.get("query")
+            if child is not None and q is not None:
+                skey = _filter_history_key(q, cat)
+                if skey is not None:
+                    sel = _stats.STORE.selectivity(skey)
+                    if sel is not None:
+                        out = int(round(sel * child))
+        elif op in ("Project", "Sort", "DeviceSort", "Exchange"):
+            out = child
+        elif op == "Limit":
+            lim = node.meta.get("limit")
+            out = (min(child, int(lim)) if child is not None
+                   and lim is not None else None)
+        elif op == "Offset":
+            off = node.meta.get("offset")
+            out = (max(child - int(off), 0) if child is not None
+                   and off is not None else None)
+        elif op in ("Aggregate", "SegmentedAggregate", "Distinct"):
+            # output-cardinality history: the grouped engine records
+            # rows in -> groups out under a name+dtype key
+            # (ops/segments.cardinality_history_key), whose ratio scales
+            # the input estimate; unknown stays "-".
+            q = node.meta.get("query")
+            if child is not None and q is not None:
+                ckey = _cardinality_history_key(q, cat,
+                                                op == "Distinct")
+                if ckey is not None:
+                    sel = _stats.STORE.selectivity(ckey)
+                    if sel is not None:
+                        out = int(round(sel * child))
+        # Join/SetOps output cardinality has no history key yet —
+        # stays unknown rather than a guess. DDL and wrapper nodes
+        # have no cardinality at all and stay unannotated.
+        if op not in ("CreateView", "DropView", "With", "SetOps"):
+            node.stats["est_rows"] = out
+        # cardinality propagates along children[0], but side arms (a
+        # Join's probe-side Scan) still deserve their own annotation —
+        # the column must not silently disappear on the right arm
+        for side in node.children[1:]:
+            est(side)
+        return out
+
+    def annotate(node) -> Optional[int]:
+        """Wrapper-aware walk: With annotates its CTE bodies first (in
+        registration order — later CTEs may scan earlier ones) and
+        propagates the main query's estimate onto the wrapper; SetOps
+        annotates every branch and folds branch estimates through the
+        operator chain (UNION sums — an upper bound under dedup —,
+        INTERSECT takes the min, EXCEPT keeps the left bound)."""
+        if node.op == "With":
+            for name, sub in zip(node.meta.get("cte_names") or (),
+                                 node.children[1:]):
+                v = annotate(sub)
+                if v is not None:
+                    cte_est[str(name).lower()] = v
+            out = annotate(node.children[0]) if node.children else None
+            node.stats["est_rows"] = out
+            return out
+        if node.op == "SetOps":
+            vals = [annotate(c) for c in node.children]
+            out = vals[0] if vals else None
+            for op, v in zip(node.meta.get("set_ops") or (), vals[1:]):
+                if op in ("union", "union_all"):
+                    out = out + v if out is not None and v is not None \
+                        else None
+                elif op == "intersect":
+                    out = min(out, v) if out is not None and v is not None \
+                        else None
+                # except: the left branch bound stands
+            node.stats["est_rows"] = out
+            return out
+        if node.op == "CreateView":
+            for c in node.children:
+                annotate(c)
+            return None
+        return est(node)
+
+    try:
+        annotate(tree)
+    except Exception:
+        pass
+
+
+def _cardinality_history_key(q, cat, distinct: bool):
+    """The statstore output-cardinality key a grouped/distinct flush of
+    this query would record under (``ops/segments.
+    cardinality_history_key`` — name+dtype addressed, zero execution).
+    None when the view is unregistered, the query joins (the flush-time
+    frame carries joined columns this static walk cannot see), or any
+    key is not a plain resolvable column."""
+    view = q.view if isinstance(q.view, str) else None
+    if view is None or q.joins:
+        return None
+    try:
+        frame = cat.lookup(view)
+    except Exception:
+        return None
+    if distinct:
+        names = []
+        for it in q.items:
+            # plain column projections only (str or a bare Col ref) —
+            # computed items change the distinct key surface in ways
+            # this static probe cannot mirror
+            if isinstance(it, str) and it != "*":
+                names.append(it)
+            elif isinstance(it, E.Col):
+                names.append(it.name)
+            else:
+                return None
+        if not names:
+            return None
+    else:
+        names = [k for k in q.group_by if isinstance(k, str)]
+        if len(names) != len(q.group_by) or not names:
+            return None
+    arrs = [frame._data_store.get(n) for n in names]
+    if any(a is None for a in arrs):
+        return None
+    from ..ops import segments as _segments
+
+    return _segments.cardinality_history_key(
+        "d" if distinct else "g", names, arrs)
+
+
+def _annotate_costs(tree: PlanNode) -> None:
+    """Cost columns (``utils/costprof.py``) for EXPLAIN ANALYZE: per
+    operator node, the counted profile of the plan its flush span named
+    (``est_flops``/``est_bytes``), the achieved rates at the node's
+    measured wall (``gflops``/``gbps``; host-clock time on the CPU) and
+    the roofline ``bound`` verdict (compute|memory|sync|host). Counting
+    runs the plan's steps on small CPU tensors: no device work, no counted
+    host read. A plan that cannot be counted leaves every column "-".
+    Never raises: cost annotation is advisory."""
+    from ..utils import costprof as _costprof
+
+    try:
+        # ONE batched resolution (one registry enumeration) for every
+        # keyed node, then a second walk annotates
+        profiles = _costprof.profiles_for(
+            n.meta.get("plan_key") for n in tree.execution_order())
+        for node in tree.execution_order():
+            stats = node.stats
+            if "wall_ms" not in stats:
+                continue              # un-analyzed node (no stat schema)
+            key = node.meta.get("plan_key")
+            prof = profiles.get(key) if key else None
+            wall = stats.get("flush_ms") or stats.get("wall_ms")
+            gflops, gbps = _costprof.achieved(prof, wall)
+            if prof is not None:
+                bound = _costprof.roofline(
+                    prof, int(stats.get("host_syncs") or 0))
+            elif key:
+                bound = None          # extraction degraded: render "-"
+            elif node.meta.get("measured"):
+                bound = "host"        # ran, but with no device program
+            else:
+                bound = None
+            stats["est_flops"] = (None if prof is None
+                                  else int(prof.flops))
+            stats["est_bytes"] = (None if prof is None
+                                  else int(prof.bytes_accessed))
+            stats["gflops"] = gflops
+            stats["gbps"] = gbps
+            stats["bound"] = bound
+    except Exception:
+        pass
+
+
+def _parse_explain_tree(body: str):
+    """Parse an EXPLAIN'd statement into ``(plan_tree, kind, payload)``:
+    ``("query", Query)`` for a SELECT statement, ``("create"|"drop",
+    body)`` for the DDL forms (their child tree is the materializing
+    query's plan)."""
+    m = _DDL_RE.match(body)
+    if m:
+        name, inner = m.group(1), m.group(2)
+        sub = _EXPLAIN_RE.match(inner)
+        if sub:       # EXPLAIN CREATE VIEW v AS EXPLAIN ... is nonsense
+            raise ValueError("nested EXPLAIN is not supported")
+        tree = PlanNode("CreateView", f"[{name}]",
+                        [plan_tree(parse(inner))])
+        return tree, "create", body
+    m = _DROP_RE.match(body)
+    if m:
+        return PlanNode("DropView", f"[{m.group(2)}]"), "drop", body
+    q = parse(body)
+    return _wrap_plan_tree(q), "query", q
+
+
+def _wrap_plan_tree(q: Query) -> PlanNode:
+    """Plan tree for a full statement: the main query's tree plus the
+    With/SetOps wrapper nodes. ``meta`` carries the CTE names and the
+    set-operator list so ``_annotate_est_rows`` can propagate
+    cardinality through the wrappers (a Scan of a CTE name resolves
+    against the CTE body's estimate, not the catalog)."""
+    tree = plan_tree(q)
+    if q.ctes:
+        # children[0] = main query; children[1:] = the CTE bodies in
+        # registration order (execution_order runs them first)
+        tree = PlanNode("With", f"[{len(q.ctes)}]",
+                        [tree] + [plan_tree(sub) for _name, sub in q.ctes])
+        tree.meta["cte_names"] = [name for name, _sub in q.ctes]
+    if q.unions:
+        tree = PlanNode("SetOps", f"[+{len(q.unions)}]",
+                        [tree] + [plan_tree(sub) for _op, sub in q.unions])
+        tree.meta["set_ops"] = [op for op, _sub in q.unions]
+    return tree
+
+
+def _cache_lines(before: dict, after: dict) -> list[str]:
+    """One line per cache (and per cached program) the query touched —
+    the diff of two ``observability.cache_report()`` snapshots."""
+    lines: list[str] = []
+    for name, post in sorted(after.items()):
+        pre = before.get(name, {})
+        if not isinstance(post, dict) or not isinstance(pre, dict):
+            continue
+        deltas = {}
+        for k in ("hits", "misses", "evictions", "fallbacks",
+                  "dense_misses"):
+            d = (post.get(k) or 0) - (pre.get(k) or 0)
+            if d:
+                deltas[k] = d
+        if not deltas and post.get("entries") == pre.get("entries"):
+            continue
+        summary = " ".join(f"{k}+{v}" for k, v in deltas.items())
+        lines.append(f"{name}: size={post.get('size', '?')}"
+                     + (f" {summary}" if summary else ""))
+        pre_entries = {e.get("key"): e for e in pre.get("entries") or ()}
+        for e in post.get("entries") or ():
+            p = pre_entries.get(e.get("key"), {})
+            touched = any((e.get(k) or 0) > (p.get(k) or 0)
+                          for k in ("hits", "compiles", "builds"))
+            if not touched:
+                continue
+            # program_key duplicates key= (its un-truncated form): one
+            # rendering is enough
+            detail = {k: v for k, v in e.items()
+                      if k not in ("key", "program_key")}
+            from ..utils.logging import format_kv
+
+            lines.append(f"  program {format_kv(**detail)} key="
+                         f"{e.get('key', '')!r}")
+    return lines
+
+
+def _execute_explain(body: str, cat, analyze: bool):
+    """Run an ``EXPLAIN [ANALYZE]`` statement. EXPLAIN renders the
+    structural plan tree WITHOUT executing (no flush, no device work:
+    parsing, catalog metadata and statstore history only); EXPLAIN
+    ANALYZE executes the statement under a per-query stats collector
+    (``observability.query_stats``) and annotates every operator with
+    measured rows, wall ms, compile/hit verdicts, host reads and peak
+    device bytes, plus the ``== Query Stats ==``, ``== Caches ==`` and
+    ``== Adaptive ==`` sections. Returns a one-row frame with the plan
+    text in a ``plan`` column (Spark's ``EXPLAIN`` result shape).
+
+    The output is the JAX package's under ``spark.audit.enabled=false``
+    and ``spark.dq.profile.enabled=false``: its ``est peak`` column and
+    budget line (``analysis/program/static_mem.py``) and its DQ-rule
+    lines (``utils/dqprof.py``) are not ported yet."""
+    import time as _time
+
+    import torch
+
+    from ..config import config as _cfg
+    from ..frame.frame import Frame
+    from ..utils.logging import format_kv
+    from . import adaptive as _adaptive
+
+    tree, kind, payload = _parse_explain_tree(body)
+    # the optimizer's rewrite of the parsed query, exactly as execution
+    # would make it (no execution), and the before/after diff; ANALYZE
+    # runs the rewritten query, so the annotated tree is the plan that ran
+    opt_rewrites: list[str] = []
+    before_text: Optional[str] = None
+    if kind == "query" and _cfg.optimizer_enabled:
+        from . import optimizer as _optimizer
+
+        q_opt, rewrites = _optimizer.optimize_or_fallback(payload, cat)
+        if rewrites:
+            before_text = tree.render()
+            tree = _wrap_plan_tree(q_opt)
+            payload = q_opt
+            opt_rewrites.extend(str(r) for r in rewrites)
+    _obs.current_span().set(
+        plan=("ExplainAnalyze" if analyze else "Explain"))
+    # history-informed est_rows, annotated BEFORE any execution
+    if _cfg.stats_enabled:
+        _annotate_est_rows(tree, cat)
+
+    def _opt_sections() -> list[str]:
+        out: list[str] = []
+        if opt_rewrites:
+            out.append("== Rewrites ==")
+            out.extend(opt_rewrites)
+        if before_text is not None:
+            out.append("== Before Optimization ==")
+            out.append(before_text)
+        return out
+
+    if not analyze:
+        text = "== Physical Plan ==\n" + tree.render()
+        for ln in _opt_sections():
+            text += "\n" + ln
+        return Frame({"plan": [text]})
+
+    caches_before = _obs.cache_report() if _cfg.explain_caches else {}
+    # any mid-query re-plan (sql/adaptive.py) records an event here and
+    # renders as the == Adaptive == section
+    with _adaptive.capture() as aqe_events, \
+            _obs.query_stats(sample_memory=_cfg.explain_memory) as qs:
+        t0 = _time.perf_counter()
+        if kind == "query":
+            out = _run_parsed(payload, cat)
+        else:
+            out = _execute_statement(payload, cat)
+        # honest wall clock: flush what is pending and wait for the card
+        mask = out._mask
+        if mask.is_cuda:
+            torch.cuda.synchronize(mask.device)
+        wall_ms = (_time.perf_counter() - t0) * 1e3
+    _annotate_plan(tree, qs)
+    if _cfg.costprof_enabled:
+        _annotate_costs(tree)
+    top = tree.main_chain()[0]
+    if top.stats.get("rows_out") is None:
+        top.stats["rows_out"] = out.num_slots
+    if _cfg.stats_enabled:
+        # the query's valid rows (one mask reduction, outside the stats
+        # window) against the pre-query est_rows
+        rows_valid = int(out.count())
+        top.stats["rows_valid"] = rows_valid
+        est = top.stats.get("est_rows")
+        if est is not None:
+            top.stats["est_drift"] = (
+                f"x{est / rows_valid:.2f}" if rows_valid
+                else f"+{est}")
+        from ..utils import statstore as _statstore
+
+        _statstore.STORE.absorb_query_stats(qs)
+    delta = qs.counter_delta()
+    lines = ["== Analyzed Plan ==", tree.render(analyze=True),
+             "== Query Stats =="]
+    totals = {
+        "wall_ms": round(wall_ms, 3),
+        "rows_out": out.num_slots,
+        "host_syncs": delta.get("frame.host_sync", 0),
+        "compiles": (delta.get("pipeline.compile", 0)
+                     + delta.get("grouped.compile", 0)),
+        "cache_hits": (delta.get("pipeline.hit", 0)
+                       + delta.get("grouped.hit", 0)),
+        "fallbacks": (delta.get("pipeline.fallback", 0)
+                      + delta.get("grouped.fallback", 0)),
+        "recovery_events": sum(v for k, v in delta.items()
+                               if k.startswith("recovery.")
+                               and "." not in k[len("recovery."):]),
+    }
+    if _cfg.explain_memory:
+        from ..utils import meminfo as _meminfo
+
+        totals["live_bytes"] = _meminfo.sample()
+        totals["peak_bytes"] = _meminfo.peak_bytes()
+    lines.append(format_kv(**totals))
+    if _cfg.explain_caches:
+        cl = _cache_lines(caches_before, _obs.cache_report())
+        if cl:
+            lines.append("== Caches ==")
+            lines.extend(cl)
+    lines.extend(_opt_sections())
+    if aqe_events:
+        lines.append("== Adaptive ==")
+        lines.extend(_adaptive.render(aqe_events))
+    return Frame({"plan": ["\n".join(lines)]})
+
+
+def _maybe_optimize(q: Query, cat):
+    """Cost-based rewrite hook (``sql/optimizer.py``), gated on
+    ``spark.optimizer.enabled``: one flag read when disabled. Any
+    optimizer failure degrades to the unrewritten plan inside
+    ``optimize_or_fallback``."""
+    from ..config import config as _cfg
+
+    if not _cfg.optimizer_enabled or getattr(q, "_optimized", False):
+        return q
+    from . import optimizer as _optimizer
+
+    q2, _rewrites = _optimizer.optimize_or_fallback(q, cat)
+    return q2
+
+
+def _run_parsed(q: Query, cat):
+    """Execute an already-parsed query: CTE overlay + set expression.
+    Each CTE body and the main set expression pass through the
+    cost-based optimizer first (CTE frames are registered in the overlay
+    before the main query optimizes, so its relation metadata resolves
+    CTE names like any view)."""
+    if q.ctes:
+        cat = _OverlayCatalog(cat)
+        for name, sub in q.ctes:
+            # Later CTEs may reference earlier ones (executed in order).
+            cat.register(name, _execute_set(_maybe_optimize(sub, cat),
+                                            cat))
+    return _execute_set(_maybe_optimize(q, cat), cat)

@@ -1,7 +1,8 @@
 """Utilities of the torch port: JAX's threefry streams (``prng``), the
 counters, ``PhaseTimer`` and profiler traces (``profiling``), logging
-(``logging``), spans, metrics and the cache registry (``observability``)
-and the plan-statistics store (``statstore``)."""
+(``logging``), spans, metrics and the cache registry (``observability``),
+the plan-statistics store (``statstore``), cost profiles (``costprof``)
+and device-memory accounting (``meminfo``)."""
 
 from . import observability
 from .logging import configure_logging, format_kv

@@ -440,7 +440,8 @@ class Span:
     emit it, so a logfmt line can be found in the Perfetto view."""
 
     __slots__ = ("name", "cat", "attrs", "sid", "parent_id", "trace_id",
-                 "tid", "ts_us", "dur_us", "_t0", "_token", "_tracer")
+                 "tid", "ts_us", "dur_us", "_t0", "_token", "_tracer",
+                 "_mem")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, attrs: dict):
         self._tracer = tracer
@@ -463,6 +464,7 @@ class Span:
         self.dur_us: Optional[int] = None
         self._t0 = 0.0
         self._token: Optional[contextvars.Token] = None
+        self._mem = None              # meminfo.SpanSampler when sampling
 
     def set(self, **attrs) -> "Span":
         # copy-on-write: exporters read ``attrs`` from other threads
@@ -472,11 +474,18 @@ class Span:
     def __enter__(self) -> "Span":
         self._token = _CURRENT.set(self)
         self.ts_us = self._tracer._now_us()
+        if self._tracer.mem_sample:
+            from . import meminfo
+
+            self._mem = meminfo.SpanSampler()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, et, ev, tb) -> bool:
         self.dur_us = int((time.perf_counter() - self._t0) * 1e6)
+        if self._mem is not None:
+            self.attrs = {**self.attrs, **self._mem.finish()}
+            self._mem = None
         if et is not None:
             self.attrs = {**self.attrs, "error": et.__name__}
         if self._token is not None:
@@ -504,6 +513,7 @@ class Tracer:
     def __init__(self, max_spans: int = 10_000):
         self.enabled = False
         self.log_spans = False
+        self.mem_sample = False       # per-span memory sampling (meminfo)
         self.max_spans = max_spans
         self.dropped = 0              # spans evicted by the bounded buffer
         self._spans: list[Span] = []
@@ -763,28 +773,32 @@ class QueryStatsCollector:
         return [s for s in self.spans if s.name in names]
 
 
-# the enabled flag's restore is refcounted: the first collector in saves
-# it, the last one out restores it
+# the enabled and memory-sampling flags' restore is refcounted: the first
+# collector in saves them, the last one out restores them
 _QS_LOCK = threading.Lock()
 _QS_ACTIVE = 0
 _QS_WAS_ENABLED = False
+_QS_WAS_MEM = False
 
 
 @contextlib.contextmanager
 def query_stats(sample_memory: bool = True):
     """Install a :class:`QueryStatsCollector` for one query. Turns tracing
     on for the window if it is off, and restores the previous state when
-    the last active collector exits. ``sample_memory`` is accepted for the
-    JAX package's signature; per-span memory sampling comes with
-    ``utils/meminfo.py``."""
-    global _QS_ACTIVE, _QS_WAS_ENABLED
+    the last active collector exits. ``sample_memory`` also turns on
+    per-span memory sampling (a ``peak_mem`` attribute on every span;
+    ``utils/meminfo.py``)."""
+    global _QS_ACTIVE, _QS_WAS_ENABLED, _QS_WAS_MEM
     t = TRACER
     with _QS_LOCK:
         if _QS_ACTIVE == 0:
             _QS_WAS_ENABLED = t.enabled
+            _QS_WAS_MEM = t.mem_sample
         _QS_ACTIVE += 1
         if not t.enabled:
             enable(max_spans=t.max_spans, log_spans=t.log_spans)
+        if sample_memory:
+            t.mem_sample = True
     qs = QueryStatsCollector()
     with t._lock:
         t._sinks.append(qs._on_span)
@@ -799,6 +813,7 @@ def query_stats(sample_memory: bool = True):
         with _QS_LOCK:
             _QS_ACTIVE -= 1
             if _QS_ACTIVE == 0:
+                t.mem_sample = _QS_WAS_MEM
                 t.enabled = _QS_WAS_ENABLED
 
 

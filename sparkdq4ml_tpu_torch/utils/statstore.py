@@ -39,6 +39,7 @@ import threading
 import time
 from typing import Optional
 
+from ..config import config
 from . import profiling
 
 logger = logging.getLogger("sparkdq4ml_tpu_torch.statstore")
@@ -46,10 +47,6 @@ logger = logging.getLogger("sparkdq4ml_tpu_torch.statstore")
 #: Snapshot schema version — a mismatched file is STALE (the entry
 #: layout may have changed) and degrades to empty with a recovery event.
 SCHEMA_VERSION = 1
-
-#: Bound of the per-key entry table (the JAX package's
-#: ``stats_max_entries`` default); the least recently updated entry goes.
-MAX_ENTRIES = 512
 
 #: Wall/compile-time digest bucket bounds (milliseconds). Fixed at
 #: module level so persisted digests from different sessions always
@@ -288,7 +285,7 @@ class StatStore:
     def _entry_locked(self, key: str, kind: str) -> KeyStats:
         ks = self._entries.get(key)
         if ks is None:
-            while len(self._entries) >= max(int(MAX_ENTRIES), 1):
+            while len(self._entries) >= max(int(config.stats_max_entries), 1):
                 # evict the least-recently-updated entry — history is an
                 # optimization; a bounded table is the contract
                 victim = min(self._entries.values(),
@@ -459,7 +456,7 @@ class StatStore:
         join-reorder flop-cost term. Cost profiles land on FULL plan keys
         (``record_cost``) while selectivity evidence lands on the reduced
         key, so this is the bridge between the two; a linear scan over a
-        bounded table (:data:`MAX_ENTRIES`), paid once per plan.
+        bounded table (``spark.stats.maxEntries``), paid once per plan.
         None until an extraction lands, so rows-only ranking stays in
         charge on cold history."""
         if sel_key is None:
@@ -588,7 +585,7 @@ class StatStore:
     @staticmethod
     def _trim(target: dict, bound: int) -> int:
         """Evict least-recently-updated entries past ``bound`` (the
-        :data:`MAX_ENTRIES` contract — enforced on the merge
+        ``spark.stats.maxEntries`` contract — enforced on the merge
         paths too, so a huge snapshot can neither blow the in-memory
         table nor grow the on-disk file monotonically across
         sessions). Returns the eviction count."""
@@ -628,7 +625,7 @@ class StatStore:
             return 0
         with self._lock:
             self._merge_into(self._entries, loaded)
-            evicted = self._trim(self._entries, MAX_ENTRIES)
+            evicted = self._trim(self._entries, config.stats_max_entries)
         if evicted:
             profiling.counters.increment("stats.evict", evicted)
         if loaded:
@@ -641,7 +638,7 @@ class StatStore:
         I/O failure — including the injected ``stats_persist`` faults.
         ``merge=True`` folds the CURRENT file contents in first so a
         concurrent/previous writer is merged, not clobbered (the merged
-        set is trimmed to :data:`MAX_ENTRIES` so the file cannot grow
+        set is trimmed to ``spark.stats.maxEntries`` so the file cannot grow
         monotonically across sessions). The temp file is promoted by
         ``os.replace`` only after a full write+flush: a torn write never
         replaces the previous snapshot. In-process saves serialize on
@@ -670,7 +667,7 @@ class StatStore:
                         disk = {}   # a corrupt file cannot poison the write
                     self._merge_into(disk, entries.values())
                     entries = disk
-                self._trim(entries, MAX_ENTRIES)
+                self._trim(entries, config.stats_max_entries)
                 lines = [json.dumps({"version": SCHEMA_VERSION,
                                      "saved_at": time.time(),
                                      "entries": len(entries)})]

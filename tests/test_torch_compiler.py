@@ -386,7 +386,7 @@ def test_non_compilable_stays_eager(policy):
 
 def test_bucket_size_rule_matches(policy, monkeypatch):
     for settings in ((8, 1 << 17), (16, 1 << 10)):
-        monkeypatch.setattr(compiler, "MIN_BUCKET", settings[0])
+        monkeypatch.setattr(config, "pipeline_min_bucket", settings[0])
         monkeypatch.setattr(compiler, "EXACT_THRESHOLD", settings[1])
         monkeypatch.setattr(jax_config, "pipeline_min_bucket", settings[0])
         monkeypatch.setattr(jax_config, "pipeline_exact_threshold",
@@ -398,10 +398,10 @@ def test_bucket_size_rule_matches(policy, monkeypatch):
 
 
 def test_fixed_bounds_are_the_jax_defaults(policy):
-    """The port's fixed bucket rule, plan-cache and statstore bounds are
+    """The port's bucket rule, plan-cache and statstore bounds default to
     the JAX package's default settings."""
-    assert (compiler.MIN_BUCKET, compiler.EXACT_THRESHOLD,
-            compiler.CACHE_SIZE, statstore.MAX_ENTRIES) == (
+    assert (config.pipeline_min_bucket, compiler.EXACT_THRESHOLD,
+            config.pipeline_cache_size, config.stats_max_entries) == (
         jax_config.pipeline_min_bucket, jax_config.pipeline_exact_threshold,
         jax_config.pipeline_cache_size, jax_config.stats_max_entries)
     assert compiler.cache_stats()["capacity"] == \
@@ -409,7 +409,7 @@ def test_fixed_bounds_are_the_jax_defaults(policy):
 
 
 def test_lru_eviction_counts(policy, monkeypatch):
-    monkeypatch.setattr(compiler, "CACHE_SIZE", 2)
+    monkeypatch.setattr(config, "pipeline_cache_size", 2)
     monkeypatch.setattr(jax_config, "pipeline_cache_size", 2)
     for k in range(4):
         j, t = _frames(seed=8)

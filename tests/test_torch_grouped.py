@@ -180,8 +180,9 @@ def test_dense_miss_reroutes_huge_and_overflowing_ranges(policy):
 
 
 def test_dense_verdict_is_one_host_read(monkeypatch):
-    """The dense program reads the fit verdict and the group count in one
-    transfer; a miss adds the sorted program's one read."""
+    """The dense program reads the fit verdict, the table size and the
+    valid rows in one transfer; a miss adds the sorted program's one
+    read."""
     reads = []
     real = torch.Tensor.tolist
 
@@ -193,7 +194,7 @@ def test_dense_verdict_is_one_host_read(monkeypatch):
         f = TFrame({"k": [1.0, 2.0, 1.0], "v": [1.0, 2.0, 3.0]},
                    device="cpu")
         f.group_by("k").agg(TA.count(), TA.avg("v"))
-    assert reads == [(2,)]
+    assert reads == [(3,)]
 
 
 @pytest.mark.parametrize("case", ["single_group", "all_masked", "empty",

@@ -188,6 +188,33 @@ def test_dense_wrapper_launch_path(fake_launch):
     assert calls[-1]["xp"] != x.data_ptr()
 
 
+def test_dense_wrapper_times_its_launch(fake_launch, monkeypatch):
+    """Each launch is timed under the kernel's profile key (the host
+    clock for these CPU tensors, CUDA events on the card), so
+    ``profile_report()`` gives the kernel's row a time of its own;
+    with ``spark.costprof.enabled=false`` nothing is timed."""
+    from sparkdq4ml_tpu_torch.config import config
+    from sparkdq4ml_tpu_torch.utils import costprof
+
+    costprof.clear()
+    monkeypatch.setattr(kernels, "last_call", {})
+    x = torch.ones((1000, 2), dtype=torch.float64)
+    seg = torch.arange(1000) % 5
+    dims = {"n": 1000, "cols": 2, "size": 5, "itemsize": 8, "id_bytes": 8}
+    key = costprof.kernel_key("dense_segment_sum", dims)
+    kernels.dense_segment_sum(x, seg, 5)
+    kernels.dense_segment_sum(x, seg, 5)
+    assert kernels.last_call["dense_segment_sum"] == dims
+    assert len(costprof._TIMES[(key, 1000)]) == 2
+    (row,) = [r for r in costprof.report()["entries"] if r["key"] == key]
+    assert row["time_ms"] is not None and row["time_of"] == "wall"
+    monkeypatch.setattr(config, "costprof_enabled", False)
+    kernels.dense_segment_sum(x, seg, 5)
+    assert len(costprof._TIMES[(key, 1000)]) == 2
+    assert len(fake_launch) == 3
+    costprof.clear()
+
+
 @pytest.fixture
 def fake_sorted_launch(monkeypatch):
     """The sorted wrapper's launch path on CPU tensors, with a launcher

@@ -222,7 +222,7 @@ def test_pending_bound_drops_oldest(monkeypatch):
 
 
 def test_max_entries_evicts_and_trims(tmp_path, monkeypatch):
-    monkeypatch.setattr(statstore, "MAX_ENTRIES", 3)
+    monkeypatch.setattr(config, "stats_max_entries", 3)
     monkeypatch.setattr(jax_config, "stats_max_entries", 3)
     for pkg in (statstore, jax_statstore):
         s = pkg.StatStore()
