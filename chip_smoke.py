@@ -282,6 +282,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    recording a 5 ms first run of a warm six-step prefix, and a flush
    chunked under a budget below its remembered bytes, both bit-identical
    to one flush; no optimizer or adaptive fallback.
+19. faults, recovery and the data-quality observatory (utils/faults.py,
+   utils/recovery.py, utils/dqprof.py with the dq_sketch kernel), every
+   earlier phase having run with the observatory on and no recovery event
+   or recovery.* counter (no_recovery after each): (a) the app's DQ-clean
+   frame at 10^7 rows, its label column's profile exact against numpy on
+   the same rows and stride sample (count, nulls, min, max, histogram),
+   mean and M2 within 1e-6 of float64, the rule tallies equal to the
+   app's row counts; a batch scaled by 3 drifting past PSI 0.25 with the
+   dq.drift.price gauge set, an unshifted one not; dq_sketch twice
+   bit-identical and against its plain version on the card, timed at
+   10^7 and 1,040 rows; the steady DQ phase with the observatory on and
+   off in turns (medians of 21, launches from a profiler trace);
+   EXPLAIN ANALYZE's == Data Quality == tallies on dataset-abstract;
+   (b) chaos_app under each of CHAOS_SCHEDULES on dataset-abstract, its
+   recovery events equal to CHAOS_GOLDEN (the JAX package's) and its
+   results to the clean run's, and CHAOS_FULL at 10^7 rows bit for bit;
+   (c) an allocation twice the card's memory under resilient_call: the
+   OutOfMemoryError retried and logged, then raised; (d) fit:preempt
+   under fit_or_resume(checkpoint_every=10) on the 10^7-row Lasso,
+   resumed to the uninterrupted fit bit for bit; (e) the native reader's
+   four faults on a 10^6-row file, each read bit-identical to the clean
+   one and the page-locked pool whole.
 
 The last lines are the kernel table (with every phase's results and the
 optional modules) as one JSON object, the card's name and power limit from
@@ -417,10 +439,17 @@ def read_dataset(spark, name: str):
 
 
 def session(device: str):
+    """The port's session on ``device``. On the CPU, where the script runs
+    only its references, the data-quality observatory is off: its hooks
+    change no result, and its plain sketches at 10^7 rows would only slow
+    the references."""
     from sparkdq4ml_tpu_torch import TorchSession
 
-    return TorchSession.builder().app_name("chip_smoke").config(
-        "spark.torch.device", device).get_or_create()
+    b = TorchSession.builder().app_name("chip_smoke").config(
+        "spark.torch.device", device)
+    if device == "cpu":
+        b = b.config("spark.dq.profile.enabled", "false")
+    return b.get_or_create()
 
 
 # ---------------------------------------------------------------------------
@@ -2505,19 +2534,21 @@ def evaluated(model, df, label: str, metrics) -> tuple:
 
 def host_syncs(fn) -> int:
     """The synchronizing CUDA calls (device-to-host reads among them) that
-    one run of ``fn`` makes, counted by torch's sync debug mode."""
+    one run of ``fn`` makes, counted by torch's sync debug mode. Only the
+    warnings of ``fn()`` are recorded: switching the mode on warns once a
+    process itself, which is no call of ``fn``."""
     import warnings
 
     import torch
 
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
             fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     return sum("synchronizing" in str(w.message) for w in seen)
 
 
@@ -7245,7 +7276,7 @@ APP_REPORT_GOLDEN = {
            "'pipeline.hit': 6}")
     for name in ("abstract", "small", "full")}
 PIPELINE_SMALL_ROWS = 1040
-PIPELINE_FULL_RUNS = 3          # steady DQ phase at 10^7 rows, each way
+PIPELINE_FULL_RUNS = 21         # steady DQ phase at 10^7 rows, each way
 PIPELINE_SMALL_RUNS = 21        # and at 1,040 rows
 PIPELINE_TRACED = 20            # flushes under one profiler trace, each way
 PIPELINE_HOST_RUNS = 200        # calls a piece of a flush's host time
@@ -7307,22 +7338,30 @@ def pipeline_setting(on: bool):
 
 def timed_both_ways(fn, runs: int) -> dict:
     """Median host-clock ms of ``fn()`` (ended by a synchronisation), with
-    the pipeline on and off in turns, after one warm-up each way."""
+    the pipeline on and off and the observatory on and off
+    (spark.dq.profile.enabled), the four ways in turns after one warm-up
+    each. The pipeline's two ways with the observatory on (the default)
+    at the top level, with it off under ``unprofiled``."""
     import torch
 
-    times = {True: [], False: []}
+    ways = [(p, d) for d in (True, False) for p in (True, False)]
+    times = {w: [] for w in ways}
     for r in range(runs + 1):
-        for on in ((True, False) if r % 2 == 0 else (False, True)):
-            with pipeline_setting(on):
+        for on, prof in (ways if r % 2 == 0 else ways[::-1]):
+            with pipeline_setting(on), profile_setting(prof):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 if r:
-                    times[on].append(1e3 * (time.perf_counter() - t0))
-    return {"on_ms": float(np.median(times[True])),
-            "off_ms": float(np.median(times[False])),
-            "on_runs_ms": times[True], "off_runs_ms": times[False]}
+                    times[on, prof].append(1e3 * (time.perf_counter() - t0))
+
+    def both(prof):
+        return {"on_ms": float(np.median(times[True, prof])),
+                "off_ms": float(np.median(times[False, prof])),
+                "on_runs_ms": times[True, prof],
+                "off_runs_ms": times[False, prof]}
+    return {**both(True), "unprofiled": both(False)}
 
 
 def check_app_report() -> dict:
@@ -7546,7 +7585,8 @@ def flush_breakdown(spark, d1) -> dict:
     (``compiler.lower``), ``run_pipeline`` whole, and its parts, the
     cache probe (``_lookup_plan``, which joins the steps' lowerings into
     the plan key), the plan's steps (``_Plan.run``) and the statstore's
-    record (``_record_flush_stats``)."""
+    record (``_record_flush_stats``); the query and ``run_pipeline`` also
+    with the observatory off."""
     import sparkdq4ml_tpu_torch as dq
     from sparkdq4ml_tpu_torch.frame.frame import _step_names
     from sparkdq4ml_tpu_torch.ops import compiler
@@ -7568,6 +7608,10 @@ def flush_breakdown(spark, d1) -> dict:
     with pipeline_setting(False):
         out["query_off"] = flush_host_us(query)
     out["query_on"] = flush_host_us(query)
+    with profile_setting(False):
+        out["query_on_unprofiled"] = flush_host_us(query)
+        out["run_pipeline_unprofiled"] = flush_host_us(
+            lambda: compiler.run_pipeline(data, mask, n, steps, extra))
     out["defer_filter"] = flush_host_us(lambda: d1.filter(pred))
     out["lower_projection"] = flush_host_us(lambda: compiler.lower(
         cast, compiler.LazySchema(data, _step_names(steps))))
@@ -8145,14 +8189,16 @@ def planner_lowering(spark, tmp: str) -> dict:
     recorded cost of that prefix is kept for PERF.md; (2) with
     spark.audit.deviceBudget below a plan's remembered bytes_bound (a
     measured peak in the statstore) and above its static estimate, the
-    flush runs chunked (optimizer.mem_chunk); both bit-identical to one
-    flush."""
+    flush runs chunked (optimizer.mem_chunk), the oom ladder's rung with
+    its one recovery event (taken off the log, so that the phase ends
+    clean); both bit-identical to one flush."""
     import torch
 
     import sparkdq4ml_tpu_torch as dq
     from sparkdq4ml_tpu_torch.ops import compiler
     from sparkdq4ml_tpu_torch.utils import statstore
     from sparkdq4ml_tpu_torch.utils.profiling import counters
+    from sparkdq4ml_tpu_torch.utils.recovery import RECOVERY_LOG
 
     base = spark.table("opt_big")
 
@@ -8206,18 +8252,25 @@ def planner_lowering(spark, tmp: str) -> dict:
     statstore.STORE.record_flush(key, "pipeline", peak_bytes=4 * est)
     c0 = (counters.get("optimizer.mem_chunk"),
           counters.get("pipeline.oom_chunked"))
+    mark = len(RECOVERY_LOG)
     with planner_setting(audit_device_budget=2 * est,
                          audit_memory_fraction=1.0):
         chunked = flushed(base.with_column("d", dq.col("v") * 3.0
                                            - dq.col("x0")))
     c1 = (counters.get("optimizer.mem_chunk") - c0[0],
           counters.get("pipeline.oom_chunked") - c0[1])
-    if c1 != (1, 1) or same_frames(chunked, one):
+    # the chunked flush is the oom ladder's rung: its one recovery event
+    rung = recovery_events(RECOVERY_LOG)[mark:]
+    if c1 != (1, 1) or same_frames(chunked, one) or rung != [
+            ["oom", "fallback", "chunked", 0]]:
         raise AssertionError(f"phase 18(d): mem_chunk/oom_chunked {c1}, "
-                             f"differ {same_frames(chunked, one)}")
+                             f"differ {same_frames(chunked, one)}, "
+                             f"recovery {rung}")
+    RECOVERY_LOG.clear()
+    counters.clear("recovery.")
     out = {"split": split, "live_split": live_split,
            "prefix_first_run": own, "mem_chunk": c1,
-           "est_bytes": est, "budget": 2 * est}
+           "est_bytes": est, "budget": 2 * est, "recovery": rung}
     log(f"phase 18(d): {out}")
     return out
 
@@ -8258,6 +8311,719 @@ def check_planner_full() -> dict:
            "launches": launches, "tables_s": tables_s, "phase_s": phase_s,
            "fallbacks": fallbacks}
     log(f"phase 18: {phase_s:.1f} s (tables {tables_s:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: faults, recovery and the data-quality observatory
+# ---------------------------------------------------------------------------
+
+#: The seeded schedules the app runs under in 19(b), each on
+#: dataset-abstract; the ``CHAOS_FULL`` ones also at 10^7 rows, where the
+#: oom budget is CHAOS_FULL_BUDGET.
+#: pipeline_flush's first attempt is the fused select of the first SQL
+#: clean-up (its rung "select"), and a NaN there poisons no produced
+#: column; its fourth is the label column's flush, whose NaN takes the
+#: ladder, and "3,4,5,6" walks the ladder to eager replay.
+CHAOS_SCHEDULES = (
+    "pipeline_flush:device_error:1", "pipeline_flush:nan:1",
+    "grouped_flush:device_error:1", "solver:nan:1",
+    "fit_packed:device_error:1,2", "stats_persist:io_error:1",
+    "optimizer:device_error:1", "aqe:device_error:1",
+    "cost_profile:device_error:1", "dq_profile:device_error:1",
+    "oom:oom:n=64", "pipeline_flush:nan:4",
+    "pipeline_flush:device_error:3,4,5,6")
+CHAOS_FULL = ("pipeline_flush:nan:1", "pipeline_flush:nan:4",
+              "oom:oom:n=10000000")
+CHAOS_SEED = 7
+CHAOS_GROUP_SQL = ("SELECT guest, count(*) AS c FROM price_clean "
+                   "GROUP BY guest")
+# a selective grouping twice: the second run's history estimate re-buckets
+CHAOS_DEAR_SQL = ("SELECT guest, count(*) AS c FROM price_clean "
+                  "WHERE price > 150 GROUP BY guest")
+# a rule in the projection, a pipelined WHERE: the == Data Quality ==
+# section and a cost profile
+CHAOS_RULE_SQL = ("SELECT guest, priceCorrelationRule(price, guest) AS pcc "
+                  "FROM price_clean WHERE price > 50")
+
+
+# The JAX package's recovery events for each schedule on dataset-abstract
+# (CPU, float32) and its clean run's numbers; recomputed by
+# `JAX_PLATFORMS=cpu python tests/chaos_goldens.py`.
+CHAOS_GOLDEN = {
+    'clean': {
+        'rows': 24,
+        'group_sum': 24,
+        'coef': 4.9233317375183105,
+        'rmse': 2.8099366288010095,
+    },
+    'events': {
+        'pipeline_flush:device_error:1': [
+            ['pipeline_flush', 'fallback', 'select', 0],
+        ],
+        'pipeline_flush:nan:1': [],
+        'grouped_flush:device_error:1': [
+            ['grouped_flush', 'fallback', 'host', 0],
+        ],
+        'solver:nan:1': [
+            ['fit_packed', 'retry', 'primary', 1],
+            ['fit_packed', 'recovered', 'primary', 2],
+        ],
+        'fit_packed:device_error:1,2': [
+            ['fit_packed', 'retry', 'primary', 1],
+            ['fit_packed', 'retry', 'primary', 2],
+            ['fit_packed', 'recovered', 'primary', 3],
+        ],
+        'stats_persist:io_error:1': [
+            ['stats_persist', 'fallback', 'empty', 0],
+        ],
+        'optimizer:device_error:1': [
+            ['optimizer', 'fallback', 'unrewritten', 0],
+        ],
+        'aqe:device_error:1': [
+            ['aqe', 'fallback', 'static', 0],
+        ],
+        'cost_profile:device_error:1': [
+            ['cost_profile', 'fallback', 'unprofiled', 0],
+        ],
+        'dq_profile:device_error:1': [
+            ['dq_profile', 'fallback', 'unprofiled', 0],
+        ],
+        'oom:oom:n=64': [
+            ['oom', 'fallback', 'chunked', 0],
+        ],
+        'pipeline_flush:nan:4': [
+            ['pipeline_flush', 'retry', 'dispatch', 1],
+        ],
+        'pipeline_flush:device_error:3,4,5,6': [
+            ['pipeline_flush', 'retry', 'dispatch', 1],
+            ['pipeline_flush', 'retry', 'primary', 1],
+            ['pipeline_flush', 'retry', 'primary', 2],
+            ['pipeline_flush', 'exhausted', 'primary', 3],
+            ['pipeline_flush', 'fallback', 'eager', 0],
+            ['pipeline_flush', 'recovered', 'eager', 1],
+        ],
+    },
+}
+
+
+def chaos_app(dq, models, spark, df) -> dict:
+    """The reference app as phase 19(b) runs it under a fault schedule,
+    in either package (``dq`` the package, ``models`` its models module,
+    ``spark`` its session, ``df`` a frame of guest and price): both rules
+    and SQL clean-ups, a GROUP BY over the clean rows, a selective
+    grouping twice with the statstore drained between (the adaptive
+    re-bucket's decision point), EXPLAIN ANALYZE of a
+    rule-bearing query (the cost profiles and the == Data Quality ==
+    section), then the Lasso fit, its RMSE and predict(40)."""
+    spark.udf.register("minimumPriceRule", dq.minimum_price_rule, "double")
+    spark.udf.register("priceCorrelationRule", dq.price_correlation_rule,
+                       "double")
+    d = df.with_column("price_no_min",
+                       dq.call_udf("minimumPriceRule", df.col("price")))
+    d.create_or_replace_temp_view("price")
+    d = spark.sql(RULE_1_SQL)
+    d = d.with_column("price_correct_correl",
+                      dq.call_udf("priceCorrelationRule", d.col("price"),
+                                  d.col("guest")))
+    d.create_or_replace_temp_view("price")
+    clean = spark.sql(RULE_2_SQL)
+    clean.create_or_replace_temp_view("price_clean")
+    groups = spark.sql(CHAOS_GROUP_SQL).to_pydict()
+    dear = [int(sum(spark.sql(CHAOS_DEAR_SQL).to_pydict()["c"]))]
+    spark.stats_report()        # drains the first run's selectivity
+    dear.append(int(sum(spark.sql(CHAOS_DEAR_SQL).to_pydict()["c"])))
+    plan = spark.sql("EXPLAIN ANALYZE " + CHAOS_RULE_SQL).to_pydict()[
+        "plan"][0]
+    lines = plan.splitlines()
+    section = (lines[lines.index("== Data Quality =="):]
+               if "== Data Quality ==" in lines else [])
+    f = clean.with_column("label", clean.col("price"))
+    f = models.VectorAssembler().setInputCols(["guest"]).setOutputCol(
+        "features").transform(f)
+    model = (models.LinearRegression().setMaxIter(40).setRegParam(1)
+             .setElasticNetParam(1)).fit(f)
+    return {"rows": clean.count(), "group_sum": int(sum(groups["c"])),
+            "dear": dear, "coef": float(model.coefficients[0]),
+            "intercept": float(model.intercept),
+            "rmse": float(model.summary.rootMeanSquaredError),
+            "predict40": float(model.predict(models.Vectors.dense(40.0))),
+            "dq_section": section}
+
+
+def recovery_events(log) -> list:
+    """A recovery log's events as ``[site, action, rung, attempt]``."""
+    return [[e.site, e.action, e.rung, e.attempt] for e in log.events()]
+
+
+def fresh_chaos_state() -> None:
+    """The port's caches, statstore, observatory, cost profiles, recovery
+    log, breaker, fault plan, catalog and recovery counters as in a fresh
+    process."""
+    from sparkdq4ml_tpu_torch import sql
+    from sparkdq4ml_tpu_torch.ops import compiler, segments
+    from sparkdq4ml_tpu_torch.utils import (costprof, dqprof, faults,
+                                            recovery, statstore)
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+
+    compiler.clear_cache()
+    segments.clear_cache()
+    statstore.STORE.clear()
+    dqprof.clear()
+    costprof.clear()
+    recovery.RECOVERY_LOG.clear()
+    recovery.DEVICE_BREAKER.reset()
+    faults.clear()
+    sql.default_catalog().clear()
+    counters.clear("recovery.")
+    counters.clear("faults.")
+
+
+def chaos_session(builder, schedule, tmp: str, conf=()):
+    """The session of a chaos run from ``builder`` (a session builder of
+    either package): ``conf``, ``schedule`` (None: no fault) under
+    CHAOS_SEED, its statstore snapshot in a new directory under ``tmp``."""
+    import tempfile
+
+    b = builder.app_name("chaos").config(
+        "spark.stats.path",
+        os.path.join(tempfile.mkdtemp(dir=tmp), "stats.jsonl"))
+    for key, value in conf:
+        b = b.config(key, value)
+    if schedule:
+        b = b.config("spark.faults", schedule).config("spark.faults.seed",
+                                                       CHAOS_SEED)
+    return b.get_or_create()
+
+
+def chaos_drive(dq, models, spark, frame_of, plan, log) -> tuple:
+    """:func:`chaos_app` in ``spark`` on ``frame_of(spark)``, the session
+    stopped after; ``plan`` is the fault plan it installed and ``log`` its
+    package's recovery log. Returns ``(results, recovery events, the
+    faults that fired as [site, kind, attempt])``."""
+    try:
+        out = chaos_app(dq, models, spark, frame_of(spark))
+    finally:
+        spark.stop()
+    fired = [list(f) for f in plan.fired] if plan is not None else []
+    return out, recovery_events(log), fired
+
+
+def chaos_run(schedule, frame_of, tmp: str, conf=()) -> tuple:
+    """:func:`chaos_app` in the port from a fresh state, in a session of
+    ``conf`` under ``schedule`` (:func:`chaos_session`); ``frame_of(spark)``
+    gives the input frame. Returns what :func:`chaos_drive` does."""
+    import sparkdq4ml_tpu_torch as dq
+    from sparkdq4ml_tpu_torch import models
+    from sparkdq4ml_tpu_torch.utils import faults
+    from sparkdq4ml_tpu_torch.utils.recovery import RECOVERY_LOG
+
+    fresh_chaos_state()
+    spark = chaos_session(dq.TorchSession.builder(), schedule, tmp, conf)
+    return chaos_drive(dq, models, spark, frame_of, faults.active(),
+                       RECOVERY_LOG)
+
+
+def csv_frame(path: str):
+    """``frame_of`` for :func:`chaos_run`: the app's CSV read of ``path``,
+    columns renamed."""
+    def frame_of(spark):
+        df = (spark.read.format("csv").option("inferSchema", "true")
+              .option("header", "false").load(path))
+        return df.with_column_renamed("_c0", "guest").with_column_renamed(
+            "_c1", "price")
+    return frame_of
+
+
+
+def no_recovery(where: str) -> None:
+    """A clean phase took no recovery rung: the recovery log is empty and
+    every ``recovery.*`` counter is 0."""
+    from sparkdq4ml_tpu_torch.utils.profiling import counters
+    from sparkdq4ml_tpu_torch.utils.recovery import RECOVERY_LOG
+
+    events = recovery_events(RECOVERY_LOG)
+    counts = {k: v for k, v in counters.snapshot("recovery.").items() if v}
+    if events or counts:
+        raise AssertionError(f"{where}: recovery in a clean phase: "
+                             f"{events} {counts}")
+
+
+DQ_BINS = 32                    # spark.dq.histogramBins' default
+DQ_TURNS = 21                   # the steady DQ phase, profile on and off
+DQ_MOMENT_RTOL = 1e-6           # mean and M2 against numpy float64
+DQ_DRIFT_PSI = 0.25             # spark.dq.driftThreshold's default
+INGEST_FAULT_ROWS = 1_000_000
+INGEST_FAULT_CHUNK = 1 << 20
+INGEST_FAULTS = (("ingest_native:io_error:1", "python"),
+                 ("ingest_native:torn_chunk:2", "python"),
+                 ("ingest_native:thread_death:2", "python"),
+                 ("ingest_native:pool_exhaust:1", "chunked"))
+# The Lasso converges in 2 iterations, so at checkpoint_every=10 the
+# preemption lands before the first checkpoint; checkpoint_every=1 puts
+# it after one, and the fit resumes from that mid-fit cursor.
+PREEMPT_RUNS = (("fit:preempt:1", 10), ("fit:preempt:2", 1))
+
+
+def sketch_numpy(values, mask, step: int, bins: int = DQ_BINS) -> dict:
+    """A column's profile from numpy: count, nulls, min and max over the
+    valid rows, the histogram of the stride sample in float32 as the
+    kernel buckets it, mean and M2 in float64."""
+    x = np.asarray(values, np.float32)
+    valid = mask & ~np.isnan(x)
+    v = x[valid].astype(np.float64)
+    rows = np.arange(0, x.shape[0], step)
+    s = x[rows][valid[rows]]
+    t = np.sign(s) * np.log10(np.float32(1.0) + np.abs(s))
+    t = np.clip(t, np.float32(-12.0), np.float32(12.0))
+    idx = np.clip(((t + np.float32(12.0)) * np.float32(bins / 24.0))
+                  .astype(np.int64), 0, bins - 1)
+    mean = float(v.mean())
+    return {"count": int(valid.sum()),
+            "nulls": int((mask & np.isnan(x)).sum()),
+            "min": float(v.min()), "max": float(v.max()),
+            "hist": (np.bincount(idx, minlength=bins) * step).tolist(),
+            "mean": mean, "m2": float(((v - mean) ** 2).sum())}
+
+
+def observatory_app(guest, price) -> tuple:
+    """Phase 19(a)'s run: the app's DQ-clean frame at 10^7 rows with the
+    observatory fresh, the launch counts reset just before and read just
+    after; returns (report, counts, the clean frame, the row counts)."""
+    from sparkdq4ml_tpu_torch.utils import dqprof
+
+    spark = session("cuda")
+    dqprof.clear()
+    df = spark.create_data_frame({"guest": guest, "price": price})
+    rows = []
+
+    def run():
+        clean = dq_clean(spark, df, rows)
+        clean._data     # the label column's flush
+        return clean
+
+    clean, counts, _ = driven(run)
+    report = dqprof.report()
+    return spark, report, counts, clean, rows
+
+
+def check_observatory_profile(report: dict, clean, rows: list) -> dict:
+    """(a): the label column's profile against numpy on the same rows and
+    stride sample, the rule tallies against the app's row counts."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops.compiler import bucket_size
+    from sparkdq4ml_tpu_torch.utils import dqprof
+
+    n = clean.num_slots
+    step = dqprof.hist_step(bucket_size(n))
+    mask = clean.mask.cpu().numpy()
+    label = clean._column_values("label")
+    want = sketch_numpy(label.cpu().numpy(), mask, step)
+    got = {c["column"]: c for c in report["columns"]}["label"]
+    for k in ("count", "nulls", "min", "max", "hist"):
+        if got[k] != want[k]:
+            raise AssertionError(f"phase 19(a): label {k} {got[k]} against "
+                                 f"numpy {want[k]}")
+    for k in ("mean", "m2"):
+        if abs(got[k] - want[k]) > DQ_MOMENT_RTOL * abs(want[k]):
+            raise AssertionError(f"phase 19(a): label {k} {got[k]} against "
+                                 f"float64 {want[k]}")
+    rules = {r["rule"]: r for r in report["rules"]}
+    want_rules = {"minimumPriceRule": (rows[0], rows[1]),
+                  "priceCorrelationRule": (rows[0], rows[2])}
+    for name, (rows_in, passed) in want_rules.items():
+        r = rules[name]
+        if (r["evals"], r["rows"], r["rows"] - r["violations"]) != (
+                1, rows_in, passed):
+            raise AssertionError(f"phase 19(a): rule {name} {r} against "
+                                 f"{rows_in} rows, {passed} kept")
+    torch.cuda.synchronize()
+    return {"step": step, "label": {k: got[k] for k in (
+        "count", "nulls", "min", "max", "mean", "m2")},
+        "mean_rel_err": abs(got["mean"] - want["mean"]) / abs(want["mean"]),
+        "m2_rel_err": abs(got["m2"] - want["m2"]) / abs(want["m2"]),
+        "rules": rules}
+
+
+def drift_batches(spark, guest, price) -> dict:
+    """(a): a baseline batch of the table's prices, then an unshifted batch
+    (the next 10^7 seeded rows' prices) and, from the same baseline, one
+    with its prices scaled by 3: PSI and the dq.drift.price gauge."""
+    from sparkdq4ml_tpu_torch.utils import dqprof
+    from sparkdq4ml_tpu_torch.utils import observability as obs
+
+    def batch(p):
+        f = spark.create_data_frame({"price": p})
+        f = f.with_column("price", f.col("price") * 1.0)
+        f._data
+        return dqprof.report()
+
+    other = full_table(price.shape[0], seed=1)[1]
+    out = {}
+    for name, second in (("unshifted", other),
+                         ("scaled_3x", np.round(price * 3.0, 2))):
+        dqprof.clear()
+        obs.METRICS.clear()
+        batch(price)
+        doc = {c["column"]: c for c in batch(second)["columns"]}["price"]
+        out[name] = {"psi": doc["drift"],
+                     "gauge": obs.METRICS.get_gauge("dq.drift.price", -1.0)}
+    if not (out["scaled_3x"]["psi"] > DQ_DRIFT_PSI
+            and out["scaled_3x"]["gauge"] == out["scaled_3x"]["psi"]
+            and out["unshifted"]["psi"] <= DQ_DRIFT_PSI):
+        raise AssertionError(f"phase 19(a): drift {out}")
+    return out
+
+
+def sketch_parity(clean) -> tuple:
+    """(a): the kernel twice on the main path's inputs (the label column
+    under the clean mask, the JAX package's stride), bit-identical, and
+    against its plain version on the card: count, nulls, min, max and the
+    histogram exact, sum and sum of squares within 1e-6 relative. Returns
+    the inputs and the largest absolute difference."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+    from sparkdq4ml_tpu_torch.ops.compiler import bucket_size
+    from sparkdq4ml_tpu_torch.utils import dqprof
+
+    col, mask = clean._column_values("label"), clean.mask
+    step = dqprof.hist_step(bucket_size(col.shape[0]))
+    args = ([col], mask, (), None, DQ_BINS, step)
+    a = kernels.dq_sketch(*args)
+    b = kernels.dq_sketch(*args)
+    ref = kernels.dq_sketch_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
+        raise AssertionError("phase 19(a): dq_sketch differs between runs")
+    exact = [0, 1, 4, 5] + list(range(6, 6 + DQ_BINS))
+    if not torch.equal(a[exact], ref[exact]):
+        raise AssertionError(f"phase 19(a): dq_sketch {a[exact].tolist()} "
+                             f"against its plain version "
+                             f"{ref[exact].tolist()}")
+    sums = a[2:4]
+    if bool(((sums - ref[2:4]).abs() > 1e-6 * ref[2:4].abs()).any()):
+        raise AssertionError(f"phase 19(a): dq_sketch sums {sums.tolist()} "
+                             f"against {ref[2:4].tolist()}")
+    return args, float((a - ref).abs().max())
+
+
+def sketch_times(args) -> dict:
+    """The kernel's row: wrapper and plain medians, the device time of
+    one call, the byte bound (each column and mask byte read once)."""
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    cols, mask = args[0], args[1]
+    n = cols[0].shape[0]
+    moved = n * (sum(c.element_size() for c in cols) + 1) + 8 * (
+        len(cols) * (6 + args[4]))
+    return {**device_time(lambda: kernels.dq_sketch(*args)), "n": n,
+            "cols": len(cols),
+            "ms": median_ms(lambda: kernels.dq_sketch(*args)),
+            "plain_ms": median_ms(
+                lambda: kernels.dq_sketch_reference(*args)),
+            "library_ms": None,
+            "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+def profile_setting(on: bool):
+    """The observatory on or off for a block, as
+    spark.dq.profile.enabled sets it."""
+    import contextlib
+
+    from sparkdq4ml_tpu_torch.config import config
+
+    @contextlib.contextmanager
+    def block():
+        old = config.dq_profile_enabled
+        config.dq_profile_enabled = on
+        try:
+            yield
+        finally:
+            config.dq_profile_enabled = old
+    return block()
+
+
+def profile_turns(spark, df, runs: int = DQ_TURNS) -> dict:
+    """(a): the steady DQ phase with the observatory on and off in turns
+    (median host-clock ms, after one warm-up each way), and its launches
+    both ways from a profiler trace of 5 runs."""
+    import torch
+
+    def run():
+        return dq_phase(spark, df).mask
+
+    times = {True: [], False: []}
+    for r in range(runs + 1):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            with profile_setting(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                if r:
+                    times[on].append(1e3 * (time.perf_counter() - t0))
+    traces = {}
+    for on in (True, False):
+        with profile_setting(on):
+            traces["on" if on else "off"] = flush_trace(run, calls=5)
+    return {"on_ms": float(np.median(times[True])),
+            "off_ms": float(np.median(times[False])),
+            "on_runs_ms": times[True], "off_runs_ms": times[False],
+            "traces": traces}
+
+
+def check_abstract_section() -> list:
+    """(a): EXPLAIN ANALYZE of a rule-bearing query over the app's DQ
+    views on dataset-abstract: the == Data Quality == tallies 40 -> 34 ->
+    24 (each evaluation of the second rule keeps 24 of 40)."""
+    from sparkdq4ml_tpu_torch.utils import dqprof
+
+    dqprof.clear()
+    spark = session("cuda")
+    df = read_dataset(spark, "abstract")
+    dq_clean(spark, df)
+    plan = spark.sql("EXPLAIN ANALYZE SELECT guest, "
+                     "priceCorrelationRule(price, guest) AS pcc FROM price "
+                     "WHERE priceCorrelationRule(price, guest) > 0"
+                     ).to_pydict()["plan"][0]
+    lines = plan.splitlines()
+    section = lines[lines.index("== Data Quality =="):]
+    want = ["rule minimumPriceRule: evals=1 rows=40 violations=6 "
+            "rate=0.1500",
+            "rule priceCorrelationRule: evals=3 rows=120 violations=48 "
+            "rate=0.4000"]
+    if section[1:3] != want:
+        raise AssertionError(f"phase 19(a): dataset-abstract's section "
+                             f"{section}")
+    return section
+
+
+def check_chaos(guest, price, tmp: str) -> dict:
+    """(b): the app under each schedule on dataset-abstract, its events
+    against CHAOS_GOLDEN and its results against the clean run on the
+    card and the golden; the CHAOS_FULL schedules at 10^7 rows against
+    the clean 10^7-row run, bit for bit."""
+    card = (("spark.torch.device", "cuda"),)
+    abstract = csv_frame(os.path.join(ROOT, "data", "dataset-abstract.csv"))
+    keys = ("rows", "group_sum", "dear", "coef", "intercept", "rmse",
+            "predict40", "dq_section")
+    clean = chaos_run(None, abstract, tmp, card)[0]
+    gold = CHAOS_GOLDEN["clean"]
+    if (clean["rows"], clean["group_sum"]) != (gold["rows"],
+                                               gold["group_sum"]) or \
+            abs(clean["coef"] - gold["coef"]) > 1e-5 * gold["coef"] or \
+            abs(clean["rmse"] - gold["rmse"]) > 1e-5 * gold["rmse"]:
+        raise AssertionError(f"phase 19(b): clean run {clean} against "
+                             f"{gold}")
+    out = {"clean": {k: clean[k] for k in keys if k != "dq_section"},
+           "schedules": {}}
+    for schedule in CHAOS_SCHEDULES:
+        t0 = time.perf_counter()
+        got, events, fired = chaos_run(schedule, abstract, tmp, card)
+        bad = [k for k in keys if got[k] != clean[k]]
+        if events != CHAOS_GOLDEN["events"][schedule] or bad or not fired:
+            raise AssertionError(f"phase 19(b): {schedule}: events "
+                                 f"{events}, fired {fired}, differs in "
+                                 f"{bad}")
+        out["schedules"][schedule] = {"events": events, "fired": fired,
+                                      "s": time.perf_counter() - t0}
+
+    def full(spark):
+        return spark.create_data_frame({"guest": guest, "price": price})
+
+    t0 = time.perf_counter()
+    clean_full = chaos_run(None, full, tmp, card)[0]
+    out["full_clean"] = {k: clean_full[k] for k in keys
+                         if k != "dq_section"}
+    out["full_clean_s"] = time.perf_counter() - t0
+    for schedule in CHAOS_FULL:
+        t0 = time.perf_counter()
+        got, events, fired = chaos_run(schedule, full, tmp, card)
+        golden = CHAOS_GOLDEN["events"][
+            "oom:oom:n=64" if schedule.startswith("oom:") else schedule]
+        bad = [k for k in keys if got[k] != clean_full[k]]
+        if events != golden or bad or not fired:
+            raise AssertionError(f"phase 19(b) at {FULL_ROWS} rows: "
+                                 f"{schedule}: events {events}, differs in "
+                                 f"{bad}")
+        out["schedules"][f"{schedule} @ {FULL_ROWS}"] = {
+            "events": events, "fired": fired,
+            "s": time.perf_counter() - t0}
+    return out
+
+
+def check_real_fault() -> dict:
+    """(c): an allocation larger than the card under resilient_call: the
+    OutOfMemoryError retried per policy, each retry logged, then raised
+    as the ladder's FitFailure."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.utils import recovery
+
+    recovery.RECOVERY_LOG.clear()
+    total = torch.cuda.get_device_properties(0).total_memory
+    policy = recovery.RetryPolicy(max_attempts=3, backoff_base=0.01)
+    try:
+        recovery.resilient_call(
+            lambda: torch.empty(2 * total, dtype=torch.uint8, device="cuda"),
+            site="alloc", policy=policy)
+    except recovery.FitFailure as e:
+        cause = e.__cause__
+    else:
+        raise AssertionError("phase 19(c): a 2x-memory allocation succeeded")
+    events = recovery_events(recovery.RECOVERY_LOG)
+    torch.cuda.empty_cache()
+    if not isinstance(cause, torch.OutOfMemoryError) or events != [
+            ["alloc", "retry", "primary", 1], ["alloc", "retry", "primary", 2],
+            ["alloc", "exhausted", "primary", 3]]:
+        raise AssertionError(f"phase 19(c): {type(cause)} {events}")
+    recovery.RECOVERY_LOG.clear()
+    return {"cause": type(cause).__name__, "events": events}
+
+
+def check_preemption(clean, tmp: str) -> dict:
+    """(d): the 10^7-row Lasso under fit_or_resume with each of
+    PREEMPT_RUNS' preemptions, against an uninterrupted fit bit for
+    bit."""
+    from sparkdq4ml_tpu_torch.models import LinearRegression
+    from sparkdq4ml_tpu_torch.utils import faults, recovery
+
+    def lasso():
+        return LinearRegression(max_iter=40, reg_param=1.0,
+                                elastic_net_param=1.0)
+
+    whole = lasso().fit(clean)
+    out = {"coef": float(whole.coefficients[0]),
+           "iterations": int(whole.summary.totalIterations)}
+    for schedule, every in PREEMPT_RUNS:
+        recovery.RECOVERY_LOG.clear()
+        t0 = time.perf_counter()
+        with faults.inject_faults(schedule):
+            resumed = recovery.fit_or_resume(
+                lasso(), clean, os.path.join(tmp, f"lasso_{every}"),
+                checkpoint_every=every)
+        fit_s = time.perf_counter() - t0
+        events = recovery_events(recovery.RECOVERY_LOG)
+        same = (np.array_equal(np.asarray(resumed.coefficients),
+                               np.asarray(whole.coefficients))
+                and resumed.intercept == whole.intercept)
+        if not same or ["fit", "preempted", "", 1] not in events:
+            raise AssertionError(
+                f"phase 19(d): {schedule} every {every}: resumed "
+                f"{resumed.coefficients} {resumed.intercept} against "
+                f"{whole.coefficients} {whole.intercept}; {events}")
+        out[f"{schedule} every {every}"] = {"events": events,
+                                            "fit_s": fit_s}
+    recovery.RECOVERY_LOG.clear()
+    return out
+
+
+def check_ingest_faults(tmp: str) -> dict:
+    """(e): a 10^6-row CSV streamed in 1 MiB chunks under each native
+    fault: every read bit-identical to the clean read, the rung taken as
+    expected, the page-locked pool as it was."""
+    from sparkdq4ml_tpu_torch.config import config
+    from sparkdq4ml_tpu_torch.frame import native_csv
+    from sparkdq4ml_tpu_torch.frame.csv import read_csv
+    from sparkdq4ml_tpu_torch.utils import faults, recovery
+
+    guest, price = full_table(INGEST_FAULT_ROWS, seed=2)
+    path = os.path.join(tmp, "ingest_faults.csv")
+    write_table_csv(path, guest, price)
+    old = config.ingest_chunk_bytes
+    config.ingest_chunk_bytes = INGEST_FAULT_CHUNK
+    out = {}
+    try:
+        clean = read_csv(path, device="cuda")
+        pool = sorted(id(f) for f, _ in native_csv._POOL)
+        for schedule, rung in INGEST_FAULTS:
+            recovery.RECOVERY_LOG.clear()
+            t0 = time.perf_counter()
+            with faults.inject_faults(schedule):
+                got = read_csv(path, device="cuda")
+            s = time.perf_counter() - t0
+            events = recovery_events(recovery.RECOVERY_LOG)
+            differ = [c for c in clean.columns
+                      if not same_bits(clean._column_values(c),
+                                       got._column_values(c))]
+            now = sorted(id(f) for f, _ in native_csv._POOL)
+            if differ or events != [["ingest_native", "fallback", rung, 0]] \
+                    or now != pool or got.columns != clean.columns:
+                raise AssertionError(f"phase 19(e): {schedule}: differs in "
+                                     f"{differ}, events {events}, pool "
+                                     f"{len(now)} of {len(pool)}")
+            out[schedule] = {"rung": rung, "s": s,
+                             "path": native_csv.reads.last()["mode"]}
+    finally:
+        config.ingest_chunk_bytes = old
+        recovery.RECOVERY_LOG.clear()
+    return out
+
+
+def check_faults_full() -> dict:
+    """Phase 19: (a)-(e) on the card; the kernel's row at the main path's
+    shape and at 1,040 rows."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    marks = [t0]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    guest, price = full_table(FULL_ROWS)
+    spark, report, counts, clean, rows = observatory_app(guest, price)
+    out = {"rows": rows, "launches": counts,
+           "profile": check_observatory_profile(report, clean, rows)}
+    mark()
+    out["drift"] = drift_batches(spark, guest, price)
+    mark()
+    args, err = sketch_parity(clean)
+    out["max_abs_err"] = err
+    out["sketch_main"] = sketch_times(args)
+    small = session("cuda")
+    sg, sp = full_table(PIPELINE_SMALL_ROWS, seed=1)
+    small_clean = dq_clean(small, small.create_data_frame(
+        {"guest": sg, "price": sp}))
+    small_args, _ = sketch_parity(small_clean)
+    out["sketch_app_size"] = sketch_times(small_args)
+    mark()
+    out["profile_turns"] = profile_turns(
+        spark, spark.create_data_frame({"guest": guest, "price": price}))
+    mark()
+    out["abstract_section"] = check_abstract_section()
+    mark()
+    a_s = time.perf_counter() - t0
+    out["a_parts_s"] = dict(zip(
+        ("app_and_profile", "drift", "kernel_parity_and_times", "turns",
+         "abstract_section"), np.diff(marks).tolist()))
+    del clean, args
+    spark.stop()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        out["chaos"] = check_chaos(guest, price, tmp)
+        b_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["real_fault"] = check_real_fault()
+        spark = session("cuda")
+        clean = dq_clean(spark, spark.create_data_frame(
+            {"guest": guest, "price": price}))
+        out["preemption"] = check_preemption(clean, tmp)
+        spark.stop()
+        del clean
+        cd_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["ingest_faults"] = check_ingest_faults(tmp)
+        e_s = time.perf_counter() - t1
+    out["part_s"] = {"a": a_s, "b": b_s, "c_d": cd_s, "e": e_s}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 19: {out['phase_s']:.1f} s {out['part_s']}")
     return out
 
 
@@ -8559,7 +9325,7 @@ def main() -> int:
 
 def run_phases(card: str, reference: "CpuReference", script_t0: float,
                reference_wait_s: float) -> int:
-    """Phases 3 to 18 and the last lines; ``reference`` holds the CPU
+    """Phases 3 to 19 and the last lines; ``reference`` holds the CPU
     float64 runs of phases 7-8, 11 and 12, all ready."""
     import torch
 
@@ -8577,7 +9343,9 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     one_cases = one_slot_cases()
     one_errs = check_segment_sum(one_cases)
     check_goldens("cuda")
+    no_recovery("phases 3-4")
     full, plain, counts, app_s, stages = check_full()
+    no_recovery("phase 5's app")
     log(f"app phase at {FULL_ROWS} rows, card float32, s: {app_s}; "
         f"launches of the first run {counts}")
     t0 = time.perf_counter()
@@ -8587,6 +9355,7 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     small = {"dataset_full": check_dataset_full("cuda"),
              "owlqn": check_owlqn("cuda")}
     small_s = time.perf_counter() - t0
+    no_recovery("phase 5")
 
     dq_main, dq_app = dq_times(FULL_ROWS, device=True), dq_times(40)
     gram_main, gram_app, gram_big = (gram_times(FULL_ROWS, 3, device=True),
@@ -8606,6 +9375,7 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     zero_forms = sorted_zero_forms()
     del seg_cases, one_cases
     prof = profile_app()
+    no_recovery("phase 6")
     log(f"profile of the app phase: {prof}")
     tour = check_tour_golden("cuda")
     cpu, cpu_timing = reference.result("sql")
@@ -8614,30 +9384,37 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     t0 = time.perf_counter()
     sql_core = check_sql_core_full(cpu)
     sql_core_s = time.perf_counter() - t0
+    no_recovery("phase 7")
     t0 = time.perf_counter()
     sql_rest = check_sql_rest_full(cpu)
     sql_rest_s = time.perf_counter() - t0
+    no_recovery("phase 8")
     del cpu
     t0 = time.perf_counter()
     tour_classifiers = check_ml_tour_golden("cuda")
     classifiers = check_classifiers_full()
     classifiers_s = time.perf_counter() - t0
+    no_recovery("phase 9")
     have = optional_modules()
     log(f"optional modules: {have}")
     t0 = time.perf_counter()
     ingest = check_ingest(full, plain, have)
     ingest_s = time.perf_counter() - t0
+    no_recovery("phase 10")
     t0 = time.perf_counter()
     report = check_report_full(*full_table(FULL_ROWS), reference)
     report_s = time.perf_counter() - t0
+    no_recovery("phase 11")
     t0 = time.perf_counter()
     builtins = check_builtins_full(*full_table(FULL_ROWS), reference)
     builtins_s = time.perf_counter() - t0
+    no_recovery("phase 12")
     t0 = time.perf_counter()
     argmax_first_on_card()
     zoo_tour_res = check_zoo_tour_golden("cuda")
     zoo = check_zoo_full()
     zoo_s = time.perf_counter() - t0
+    no_recovery("phase 13")
     zoo_cases = zoo_segment_cases()
     zoo_errs = check_segment_sum(zoo_cases)
     zoo_times = {c[0]: {**segsum_times(*c), "kernel": c[1],
@@ -8647,6 +9424,7 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     rest_tour_res = check_rest_tour_golden("cuda")
     rest = check_rest_full()
     rest_s = time.perf_counter() - t0
+    no_recovery("phase 14")
     rest_cases = rest_segment_cases()
     rest_errs = check_segment_sum(rest_cases)
     rest_times = {c[0]: {**segsum_times(*c), "kernel": c[1],
@@ -8655,6 +9433,7 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     t0 = time.perf_counter()
     features = check_features_full()
     features_s = time.perf_counter() - t0
+    no_recovery("phase 15")
     import gc
 
     gc.collect()
@@ -8670,6 +9449,7 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     gc.collect()
     torch.cuda.empty_cache()
     als_segment_s = time.perf_counter() - t0
+    no_recovery("phase 16")
     log(f"phase 16: {text_rec_s:.1f} s, its segment-sum cases "
         f"{als_segment_s:.1f} s")
     t0 = time.perf_counter()
@@ -8678,10 +9458,15 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
     pipeline_small = check_pipeline_small()
     pipeline = pipeline_totals(app_report["fallbacks_before"])
     pipeline_s = time.perf_counter() - t0
+    no_recovery("phase 17")
     log(f"phase 17: {pipeline_s:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     planner = check_planner_full()
+    no_recovery("phase 18")
+    gc.collect()
+    torch.cuda.empty_cache()
+    faults = check_faults_full()
     zoo_launches = {name: zoo["launches"][name]
                     for name in ("glm", "gbt", "rf", "dt", "kmeans", "gmm",
                                  "bisecting", "pic")}
@@ -8707,7 +9492,8 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
                "text_mlp": text["mlp_launches"],
                **{f"rec_{name}": c for name, c in rec["launches"].items()},
                "planner": planner["launches"],
-               "planner_dq": {"dq_rules": planner["dq"]["dq_rules_launches"]}}
+               "planner_dq": {"dq_rules": planner["dq"]["dq_rules_launches"]},
+               "observatory": faults["launches"]}
     feature_launches = {k: {name: c[k]
                             for name, c in features["launches"].items()}
                         for k in ("dense_segment_sum", "masked_gram")}
@@ -8782,6 +9568,14 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
          "bit_identical_runs": True, "two_streams": two_streams,
          "zero_forms": zero_forms,
          **seg_sorted, "long_segments": seg_long},
+        {"name": "dq_sketch", "route": "cuda", "port_only": True,
+         "source": "sparkdq4ml_tpu_torch/ops/csrc/dq_sketch.cu",
+         "replaces": "sparkdq4ml_tpu/utils/dqprof.py:258 (_sketch_body "
+                     "and _rule_body, XLA-fused, no pallas_call)",
+         "launches": faults["launches"]["dq_sketch"],
+         "max_abs_err": faults["max_abs_err"], "parity": True,
+         "bit_identical_runs": True, **faults["sketch_main"],
+         "app_size": faults["sketch_app_size"]},
     ], "launches_by_path": by_path,
         "device_kernels_per_call": per_call,
         "app_phase_s": float(np.median(app_s)), "app_phase_runs_s": app_s,
@@ -8814,6 +9608,10 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
         "pipeline_phase_s": pipeline_s,
         "planner": {k: v for k, v in planner.items() if k != "launches"},
         "planner_phase_s": planner["phase_s"],
+        "faults": {k: v for k, v in faults.items()
+                   if k not in ("launches", "sketch_main",
+                                "sketch_app_size")},
+        "faults_phase_s": faults["phase_s"],
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
         "cpu_float64_reference_wait_s": reference_wait_s,

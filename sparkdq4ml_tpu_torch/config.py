@@ -5,7 +5,8 @@ ingest settings (``spark.ingest.*`` in a session's conf), the fused
 pipeline's and the plan-statistics store's switches and bounds
 (``spark.pipeline.*``, ``spark.stats.*``), and the planner's
 (``spark.optimizer.*``, ``spark.aqe.*``, ``spark.costprof.*``,
-``spark.explain.*``, ``spark.audit.deviceBudget``/``memoryFraction``).
+``spark.explain.*``, ``spark.audit.deviceBudget``/``memoryFraction``),
+and the data-quality observatory's (``spark.dq.*``).
 
 There is no kernel on/off switch: a wrapper in ``ops/kernels.py`` launches
 its CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a
@@ -97,6 +98,17 @@ class _Config:
     # in bytes, 0 = none; spark.audit.memoryFraction).
     audit_device_budget: int = 0
     audit_memory_fraction: float = 0.9
+    # Data-quality observatory (utils/dqprof.py): each flush's columns
+    # sketched and each DQ rule's evaluations tallied, deferred to a drain
+    # on the cold surfaces (spark.dq.profile.enabled; false reduces every
+    # hook to one flag read). The histogram's buckets
+    # (spark.dq.histogramBins), the PSI past which a column drifts
+    # (spark.dq.driftThreshold) and the drift reference
+    # (spark.dq.baselineMode: "first", "persisted" or "off").
+    dq_profile_enabled: bool = True
+    dq_histogram_bins: int = 32
+    dq_drift_threshold: float = 0.25
+    dq_baseline_mode: str = "first"
 
 
 config = _Config()
@@ -146,12 +158,20 @@ PLANNER_KEYS = {
     "spark.audit.memoryFraction": ("audit_memory_fraction", float),
 }
 
+# The data-quality observatory's keys, in the same form.
+DQ_KEYS = {
+    "spark.dq.profile.enabled": ("dq_profile_enabled", _flag),
+    "spark.dq.histogramBins": ("dq_histogram_bins", int),
+    "spark.dq.driftThreshold": ("dq_drift_threshold", float),
+    "spark.dq.baselineMode": ("dq_baseline_mode", str),
+}
+
 
 def apply_conf(conf: dict, saved: dict) -> None:
     """Set the settings that ``conf`` names, recording each setting's value
     before its first change into ``saved`` (for :func:`restore_conf`)."""
     for key, (attr, parse) in {**INGEST_KEYS, **PIPELINE_KEYS,
-                               **PLANNER_KEYS}.items():
+                               **PLANNER_KEYS, **DQ_KEYS}.items():
         if key in conf:
             value = parse(str(conf[key]))
             if value is not None:

@@ -236,10 +236,29 @@ def read_csv(path: str, header: bool = False, infer_schema: bool = True,
                 raise RuntimeError("native CSV engine supports "
                                    "mode=PERMISSIVE only")
         else:
-            frame = native_csv.try_read_csv(
-                path, header=header, infer_schema=infer_schema,
-                delimiter=delimiter, quote=quote,
-                required=(engine == "native"), device=device)
+            try:
+                frame = native_csv.try_read_csv(
+                    path, header=header, infer_schema=infer_schema,
+                    delimiter=delimiter, quote=quote,
+                    required=(engine == "native"), device=device)
+            except FileNotFoundError:
+                raise          # permanent: the Python engine cannot help
+            except (OSError, MemoryError,
+                    native_csv.NativeIngestError) as e:
+                if engine == "native":
+                    raise      # an explicit native read never degrades
+                # the native -> Python rung of the ingest ladder: a
+                # mid-read I/O error, an allocation failure or a dead
+                # producer thread (real or an injected ingest_native
+                # fault) re-reads the file with the Python engine
+                from ..utils.profiling import counters
+                from ..utils.recovery import RECOVERY_LOG
+
+                RECOVERY_LOG.record(
+                    "ingest_native", "fallback", rung="python",
+                    cause=f"{type(e).__name__}: {e}")
+                counters.increment("ingest.fault_fallback")
+                frame = None
             if frame is not None:
                 return frame
             declined = True

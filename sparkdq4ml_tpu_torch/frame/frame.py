@@ -46,7 +46,11 @@ from ..ops.expressions import (Alias, Col, Explode, Expr, JsonTuple,
                                SortOrder, is_host_column,
                                predicate_keep_mask, spark_type_name)
 from ..utils.observability import op_span
-from ..utils.profiling import counters
+from ..utils.profiling import block_until_ready, counters
+
+#: The device faults the flush ladder retries: what a real CUDA fault, or
+#: an injected ``pipeline_flush`` fault, surfaces as.
+_DEVICE_ERRORS = (torch.AcceleratorError, torch.OutOfMemoryError)
 
 logger = logging.getLogger("sparkdq4ml_tpu_torch.frame")
 
@@ -364,13 +368,22 @@ class Frame:
     def _flush(self) -> None:
         """Materialize the pending steps as one cached plan, or, when the
         compiler fails (a lowering failure, counted
-        ``pipeline.fallback``), by eager per-op replay. A device error
-        escapes as it is.
+        ``pipeline.fallback``), by eager per-op replay.
 
         ``_pending`` is cleared only after the new stores are published: if
         even the eager replay raises, every later read raises the same
-        error instead of serving the pre-op state."""
+        error instead of serving the pre-op state.
+
+        Degradation ladder: a device fault in the flush (a
+        ``torch.AcceleratorError`` or ``torch.OutOfMemoryError``, real or
+        an injected ``pipeline_flush`` fault) goes to
+        :meth:`_flush_ladder`: the fused plan retried, then eager per-op
+        replay (``pipeline.fault_fallback``). Under a fault plan the flush
+        waits for the card inside the ``try``, so that a fault shows here
+        and not at a later read; without one the cost is one ``is None``
+        check."""
         from ..ops.compiler import PipelineError, run_pipeline
+        from ..utils import faults as _faults
 
         with self._lock():
             steps = self._pending
@@ -379,13 +392,98 @@ class Frame:
             try:
                 new_data, new_mask, _ = run_pipeline(
                     self._data_store, self._mask_store, self._n, steps)
+                if _faults.active() is not None:
+                    block_until_ready((new_data, new_mask))
+                    new_data, new_mask = self._chaos_validate(
+                        steps, new_data, new_mask)
             except PipelineError as e:
                 logger.debug("pipeline flush fell back to eager replay: %s",
                              e)
                 new_data, new_mask = self._eager_replay(steps)
+            except _DEVICE_ERRORS as e:
+                new_data, new_mask = self._flush_ladder(
+                    steps, first_cause=e)
             self._data_store = new_data
             self._mask_store = new_mask
             self._pending = ()
+
+    def _chaos_validate(self, steps, new_data, new_mask):
+        """The ``nan`` arm of the ``pipeline_flush`` ladder, run only under
+        a fault plan with a ``nan`` spec at the site: the produced columns
+        pass through ``faults.corrupt`` and ``check_finite``; a poisoned
+        flush runs again through :meth:`_flush_ladder`."""
+        from ..utils import faults as _faults
+
+        plan = _faults.active()
+        if plan is None or not plan._has("pipeline_flush", ("nan",)):
+            return new_data, new_mask
+        from ..utils import recovery as _rec
+
+        new_data, changed = self._corrupt_changed(new_data)
+        if _rec.check_finite(changed):
+            return new_data, new_mask
+        # rung "dispatch": the flush before the ladder, apart from the
+        # ladder's own "primary" retries
+        _rec.RECOVERY_LOG.record("pipeline_flush", "retry", attempt=1,
+                                 rung="dispatch",
+                                 cause="non-finite result")
+        return self._flush_ladder(steps)
+
+    def _corrupt_changed(self, new_data):
+        """The columns this flush produced (those that are not the stored
+        ones) through ``faults.corrupt``, merged back; returns
+        ``(new_data, changed)``."""
+        from ..utils import faults as _faults
+
+        changed = {k: v for k, v in new_data.items()
+                   if v is not self._data_store.get(k)}
+        poisoned = _faults.corrupt("pipeline_flush", changed)
+        if poisoned is not changed:
+            new_data = {**new_data, **poisoned}
+            changed = poisoned
+        return new_data, changed
+
+    def _flush_ladder(self, steps, first_cause=None):
+        """The ``pipeline_flush`` ladder: the fused plan under
+        ``recovery.resilient_call`` (the ``spark.recovery.pipeline_flush.*``
+        policy), then eager per-op replay (``pipeline.fault_fallback``).
+        The steps stay pending until a rung succeeds."""
+        from ..ops.compiler import PipelineError, run_pipeline
+        from ..utils import faults as _faults
+        from ..utils import recovery as _rec
+
+        plan = _faults.active()
+        nan_armed = plan is not None and plan._has("pipeline_flush",
+                                                   ("nan",))
+
+        def fused():
+            new_data, new_mask, _ = run_pipeline(
+                self._data_store, self._mask_store, self._n, steps)
+            if not nan_armed:
+                return new_data, new_mask, None
+            new_data, changed = self._corrupt_changed(new_data)
+            return new_data, new_mask, changed
+
+        def eager():
+            counters.increment("pipeline.fault_fallback")
+            d, m = self._eager_replay(steps)
+            return d, m, None
+
+        validate = ((lambda out: out[2] is None
+                     or _rec.check_finite(out[2]))
+                    if nan_armed else None)
+        if first_cause is not None:
+            _rec.RECOVERY_LOG.record(
+                "pipeline_flush", "retry", attempt=1, rung="dispatch",
+                cause=f"{type(first_cause).__name__}: {first_cause}")
+        try:
+            new_data, new_mask, _ = _rec.resilient_call(
+                fused, site="pipeline_flush", validate=validate,
+                fallbacks=(("eager", eager),))
+        except PipelineError:
+            # a lowering failure inside the ladder: eager replay answers
+            new_data, new_mask, _ = eager()
+        return new_data, new_mask
 
     def _eager_replay(self, steps):
         """Apply pipeline steps through the eager code paths."""
@@ -737,6 +835,17 @@ class Frame:
                     extra)
             except PipelineError as e:
                 logger.debug("fused select fell back to eager: %s", e)
+                return {}
+            except _DEVICE_ERRORS as e:
+                # a device fault in the fused select: the eager path
+                # evaluates each expression, and its first read of the
+                # pending steps goes through the _flush ladder
+                from ..utils.recovery import RECOVERY_LOG
+
+                RECOVERY_LOG.record(
+                    "pipeline_flush", "fallback", rung="select",
+                    cause=f"{type(e).__name__}: {e}",
+                    detail="fused select deferred to eager evaluation")
                 return {}
             self._data_store = new_data
             self._mask_store = new_mask

@@ -49,6 +49,8 @@ import torch
 
 from ..config import config, float_dtype, int_dtype, numpy_dtype
 from ..ops.kernels import BUILD_ROOT
+from ..utils import faults as _faults
+from ..utils.profiling import counters
 
 
 class NativeIngestError(RuntimeError):
@@ -258,6 +260,9 @@ def try_read_csv(path: str, header: bool, infer_schema: bool, delimiter: str,
         names = _read_header_names(path, delimiter, quote)
         if names is None:
             return None
+    # the fault site: a due io_error raises InjectedIOError here (a flaky
+    # disk), which frame/csv.py degrades to the Python engine
+    _faults.inject("ingest_native")
     try:
         size = os.path.getsize(path)
     except OSError:
@@ -438,6 +443,17 @@ def _stream_pinned(lib, h, nc, total_cap, device):
     # Column stride padded to 16 elements, so that each column of both
     # buffers starts 64-byte aligned.
     stride = ((max(total_cap, 1) + 15) // 16) * 16
+    # a due pool_exhaust fault: the bind pool is out of buffers, and the
+    # read takes the per-chunk body instead
+    if _faults.fired("ingest_native", "pool_exhaust"):
+        from ..utils.recovery import RECOVERY_LOG
+
+        RECOVERY_LOG.record(
+            "ingest_native", "fallback", rung="chunked",
+            cause="pool exhausted",
+            detail="bind-buffer pool exhausted; chunked stream body")
+        counters.increment("ingest.fault_fallback")
+        return None
     fbuf, ibuf = _pool_checkout(nc * stride, fdt, nc * stride,
                                 pinned=on_card)
     rc = int(lib.dq_stream_bind(h, ctypes.c_void_p(fbuf.data_ptr()),
@@ -610,6 +626,8 @@ def _prefetch_iter(next_chunk, release=None):
     def produce():
         while True:
             try:
+                if _faults.fired("ingest_native", "thread_death"):
+                    raise RuntimeError("injected prefetch-producer death")
                 item = next_chunk()
             except BaseException as e:  # handed to the consumer, raised there
                 item = (_PRODUCER_ERROR, e)
@@ -675,6 +693,11 @@ def _chunk_iter(lib, h):
     def next_chunk():
         data_p = ctypes.POINTER(ctypes.c_double)()
         rows = int(lib.dq_stream_next(h, ctypes.byref(data_p)))
+        if rows > 0 and _faults.fired("ingest_native", "torn_chunk"):
+            # a torn chunk: the parse is discarded and the native layer's
+            # error raised (engine "auto" degrades, "native" raises)
+            lib.dq_free(data_p)
+            raise NativeIngestError("injected short-read/torn chunk")
         return rows, (data_p if rows > 0 else None)
 
     return _prefetch_iter(next_chunk, release=lib.dq_free)
@@ -690,6 +713,10 @@ def _bind_chunk_iter(lib, h, nc):
     def next_chunk():
         off = ctypes.c_longlong(0)
         rows = int(lib.dq_stream_next_into(h, ctypes.byref(off)))
+        if rows > 0 and _faults.fired("ingest_native", "torn_chunk"):
+            # a torn chunk in the bind body: the rows written are
+            # abandoned (the buffers go back once the producer stops)
+            raise NativeIngestError("injected short-read/torn chunk")
         flags = _stream_flags(lib, h, nc) if rows > 0 else b""
         return rows, (off.value if rows > 0 else 0, flags)
 

@@ -188,14 +188,43 @@ class LinearRegression(Estimator):
                 torch.where(mask, w, X.new_zeros(())))
         if self.loss == "huber":
             return self._fit_huber(frame, X, y, mask)
-        fit_fn = fused_linear_fit_packed(
-            resolve_solver(self.solver, self.reg_param,
-                           self.elastic_net_param),
-            self.max_iter, self.tol, self.fit_intercept,
-            self.standardization)
-        flat = fit_fn(pack_design(X, y, mask), self.reg_param,
-                      self.elastic_net_param)
-        return _model_from_flat(flat, X.shape[1], self._params_dict(), frame)
+        from ..parallel.distributed import unpack_fit_result
+        from ..utils import faults as _faults
+        from ..utils import recovery as _recovery
+        from .solvers import downgrade_solver
+
+        solver_name = resolve_solver(self.solver, self.reg_param,
+                                     self.elastic_net_param)
+        Z = pack_design(X, y, mask)
+        d = X.shape[1]
+
+        def make_call(sname):
+            def call():
+                _faults.inject("fit_packed")
+                fit_fn = fused_linear_fit_packed(
+                    sname, self.max_iter, self.tol, self.fit_intercept,
+                    self.standardization)
+                return _faults.corrupt("solver", unpack_fit_result(
+                    fit_fn(Z, self.reg_param, self.elastic_net_param), d))
+            return call
+
+        # the fit_packed ladder: the fit retried, then the closed-form
+        # solver where the penalty has no L1 term (the same statistics;
+        # only the solver's path differs)
+        downgraded = downgrade_solver(solver_name, self.reg_param,
+                                      self.elastic_net_param)
+        fallbacks = ([(f"solver_{downgraded}", make_call(downgraded))]
+                     if downgraded is not None else [])
+        result = _recovery.resilient_call(
+            make_call(solver_name), site="fit_packed",
+            policy=_recovery.active_policy("fit_packed"),
+            validate=_recovery.result_validator(), fallbacks=fallbacks,
+            breaker=_recovery.DEVICE_BREAKER)
+        model = LinearRegressionModel(result.coefficients,
+                                      float(result.intercept),
+                                      self._params_dict())
+        model._summary_source = (frame, result)
+        return model
 
     def _fit_huber(self, frame, X, y, mask) -> "LinearRegressionModel":
         """MLlib ``loss="huber"`` (see ``solvers.huber_fit``): L2 only, as

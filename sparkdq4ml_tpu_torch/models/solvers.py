@@ -243,8 +243,8 @@ def downgrade_solver(solver_name: str, reg_param: float,
     """The closed-form solver an iterative one (``owlqn``/``fista``) could
     give way to: ``normal``, but only when no L1 term is active (the normal
     equations cannot express the L1 penalty, MLlib's restriction); ``None``
-    when there is none. The port's fits never fall back on their own: this
-    answers the question for a caller that asks."""
+    when there is none. ``LinearRegression.fit``'s ``fit_packed`` ladder
+    takes it as its last rung."""
     has_l1 = (reg_param > 0.0) and (elastic_net_param > 0.0)
     if solver_name in ("owlqn", "fista") and not has_l1:
         return "normal"
@@ -275,10 +275,15 @@ def solve(A: torch.Tensor, reg_param: float, elastic_net_param: float,
           max_iter: int, tol: float, fit_intercept: bool,
           standardization: bool, solver: str = "auto") -> FitResult:
     """Solver dispatch on a precomputed Gramian (see
-    :func:`resolve_solver`)."""
-    return run_solver(resolve_solver(solver, reg_param, elastic_net_param),
-                      A, reg_param, elastic_net_param, max_iter, tol,
-                      fit_intercept, standardization)
+    :func:`resolve_solver`). The ``solver`` fault site: a due device error
+    raises before the solve, a due NaN poisons its result."""
+    from ..utils import faults as _faults
+
+    _faults.inject("solver")
+    result = run_solver(resolve_solver(solver, reg_param, elastic_net_param),
+                        A, reg_param, elastic_net_param, max_iter, tol,
+                        fit_intercept, standardization)
+    return _faults.corrupt("solver", result)
 
 
 def huber_fit(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,

@@ -51,6 +51,12 @@ Observability: ``pipeline.flush`` / ``pipeline.compile`` /
 bucket, rows, cache verdict, plan key) when tracing is on, one statstore
 record a flush, and the ``pipeline`` entry of ``session.cache_report()``.
 ``spark.pipeline.enabled=false`` restores the exact per-op eager path.
+
+Faults and the observatory: the ``pipeline_flush`` fault site fires at a
+flush's dispatch (its ladder is ``Frame._flush``'s), an ``oom`` fault
+shrinks the flush budget (:func:`flush_budget`), and a flush hands its
+produced columns to the data-quality observatory
+(``utils/dqprof.observe_flush``: one ``dq_sketch`` launch, no host read).
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import torch
 
 from ..config import config, float_dtype, int_dtype, numpy_dtype
 from ..utils import costprof as _costprof
+from ..utils import faults as _faults
 from ..utils import observability as _obs
 from ..utils.profiling import counters
 from . import expressions as E
@@ -739,14 +746,44 @@ def _record_flush_stats(plan, data, b: int, n: int, wall_ms: float,
         logger.debug("stats hand-off failed", exc_info=True)
 
 
+def _record_dq_profile(steps, changed, new_mask, mask_in, n: int,
+                       b: int) -> None:
+    """The observatory's hand-off (``utils/dqprof.observe_flush``): the
+    flush's produced columns, and each ``with_column`` step whose
+    expression is a registered DQ rule tallied against the flush's INPUT
+    mask (the flush's own filter has dropped the violations from its
+    output mask). A device fault leaves the flush unprofiled (the
+    ``dq_profile`` rung); any other failure raises."""
+    from ..utils import dqprof as _dqprof
+    from .udf import default_registry
+
+    registry = default_registry()
+    rules = []
+    for step in steps:
+        if step[0] == "with_column":
+            pairs = [(step[1], step[2])]
+        elif step[0] == "with_columns":
+            pairs = list(step[1])
+        else:
+            continue
+        for name, ex in pairs:
+            if (isinstance(ex, E.UdfCall) and name in changed
+                    and ex.udf_name in registry):
+                rules.append((ex.udf_name, name))
+    _dqprof.observe_flush(changed, new_mask, n, b, rules=rules,
+                          mask_in=mask_in)
+
+
 def flush_budget() -> Optional[int]:
     """The device-byte budget of ONE flush, or None (the default): an
+    injected ``oom`` fault's shrunk budget (``utils/faults.py``), else an
     explicit ``spark.audit.deviceBudget`` scaled by
     ``spark.audit.memoryFraction``. The allocator's limit is not read on
     this path. The adaptive re-bucket (``sql/adaptive.py``) checks a
-    shrunk stage against the same budget. (The JAX package's injected
-    ``oom`` fault comes first there; it comes with the port's fault
-    layer.)"""
+    shrunk stage against the same budget."""
+    shrunk = _faults.shrunk_budget("oom")
+    if shrunk is not None:
+        return shrunk
     budget = int(config.audit_device_budget)
     if budget > 0:
         return int(budget * float(config.audit_memory_fraction))
@@ -759,7 +796,8 @@ def _run_chunked(plan, lit_values, data: dict, mask, n: int,
     slices of a power-of-two size (scaled from the estimate down to the
     budget, floored at the bucket floor), concatenated. Bit-identical to
     one flush, since the compilable steps are elementwise and a filter's
-    mask AND is row-local. Counted ``pipeline.oom_chunked``."""
+    mask AND is row-local. Counted ``pipeline.oom_chunked``, with a
+    ``recovery.fallback`` event at site ``oom`` (rung ``chunked``)."""
     counters.increment("pipeline.oom_chunked")
     per_row = max(1.0, est / float(max(n, 1)))
     m = max(1, int(budget / per_row))
@@ -767,6 +805,12 @@ def _run_chunked(plan, lit_values, data: dict, mask, n: int,
     m = max(m, max(int(config.pipeline_min_bucket), 1))
     m = min(m, n)
     nchunks = -(-n // m)
+    from ..utils.recovery import RECOVERY_LOG
+
+    RECOVERY_LOG.record(
+        "oom", "fallback", rung="chunked",
+        detail=f"est {est} B > budget {budget} B; "
+               f"{nchunks} chunk(s) of {m} rows")
     device = mask.device
     stats_on = config.stats_enabled
     t_stats = time.perf_counter() if stats_on else 0.0
@@ -949,10 +993,15 @@ def run_pipeline(data: dict, mask, n: int, steps, extra=()):
                     "frame.pipeline.flush", cat="frame", steps=len(steps),
                     outputs=len(extra), rows=n, bucket=b,
                     plan_key=plan.key) as sp:
+                # the fault site at the dispatch: a due device_error
+                # raises inside the flush span and escapes to the
+                # Frame._flush ladder
+                _faults.inject("pipeline_flush")
                 (changed, new_mask, extras), compiled = plan.run(
                     data, mask, n, b, lit_values, device)
                 sp.set(cache="compile" if compiled else "hit")
         else:
+            _faults.inject("pipeline_flush")
             (changed, new_mask, extras), compiled = plan.run(
                 data, mask, n, b, lit_values, device)
         _costprof.end_run(plan.key, n, timer, device)
@@ -970,7 +1019,6 @@ def run_pipeline(data: dict, mask, n: int, steps, extra=()):
                                 compiled, new_mask)
         new_data = dict(data)
         new_data.update(changed)
-        return new_data, new_mask, extras
     except PipelineError:
         counters.increment("pipeline.fallback")
         raise
@@ -980,6 +1028,12 @@ def run_pipeline(data: dict, mask, n: int, steps, extra=()):
     except Exception as e:
         counters.increment("pipeline.fallback")
         raise PipelineError(str(e)) from e
+    # the data-quality observatory (utils/dqprof.py), outside the try: a
+    # failure of its kernel is never a PipelineError, so never an eager
+    # replay. One flag read when it is off.
+    if config.dq_profile_enabled:
+        _record_dq_profile(steps, changed, new_mask, mask, n, b)
+    return new_data, new_mask, extras
 
 
 # ---------------------------------------------------------------------------

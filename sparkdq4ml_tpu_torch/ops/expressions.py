@@ -496,6 +496,14 @@ class UdfCall(Expr):
         out = fn_(*[a.eval(frame) for a in self.args])
         if return_dtype is not None:
             out = out.to(return_dtype)
+        # the data-quality observatory (utils/dqprof.py): one flag read
+        # when it is off
+        from ..config import config as _cfg
+
+        if _cfg.dq_profile_enabled:
+            from ..utils import dqprof as _dqprof
+
+            _dqprof.record_eval(self.udf_name, out)
         return out
 
     @property

@@ -17,7 +17,11 @@ Three kernels are the counterparts of the Pallas TPU kernels in
 Two more are the port's own (``csrc/segment_sum.cu``), with no TPU
 counterpart: ``dense_segment_sum`` and ``sorted_segment_sum`` give the
 grouped engine's float sums (``ops/segments.py``) in a fixed order, where
-``index_add_`` adds float atomics in no fixed order on the card.
+``index_add_`` adds float atomics in no fixed order on the card. A third,
+``dq_sketch`` (``csrc/dq_sketch.cu``), sketches a flush's columns and
+tallies its rule columns for the data-quality observatory
+(``utils/dqprof.py``) in one call, where the JAX package has XLA fuse a
+small program a column.
 
 The two Gramian kernels share their plan (``csrc/gram_common.cuh``):
 upper-triangle tiles over row chunks, then, when there is more than one
@@ -59,10 +63,11 @@ from .rules import (BAD_ROW_SENTINEL, CORRELATION_MAX_GUESTS,
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / ".kernels_build"
 SOURCES = {"dq_rules": "dq_rules.cu", "packed_gram": "packed_gram.cu",
-           "masked_gram": "masked_gram.cu", "segment_sum": "segment_sum.cu"}
+           "masked_gram": "masked_gram.cu", "segment_sum": "segment_sum.cu",
+           "dq_sketch": "dq_sketch.cu"}
 # The wrappers that launch a kernel, each with its launch count.
 KERNELS = ("dq_rules", "packed_gram", "masked_gram", "dense_segment_sum",
-           "sorted_segment_sum")
+           "sorted_segment_sum", "dq_sketch")
 # Launches counted again by what they were given: dense_segment_sum onto a
 # table of one slot (the global sums), with slot ids or without.
 SUBCOUNTS = ("dense_segment_sum_one_slot",)
@@ -128,6 +133,22 @@ SEGSUM_SORTED_MIN_ROWS = 1024
 SEGSUM_STAGE_BYTES = 26 << 10
 SEGSUM_SORTED_SMEM_BYTES = 56 << 10
 SEGSUM_SORTED_ZERO_RATIO = 32
+# The dq_sketch kernel's contract (csrc/dq_sketch.cu), which reads each of
+# these from the nvcc flags below: the profiled columns (and rule columns)
+# one call takes, the most histogram buckets, the moment slots ahead of a
+# column's histogram (count, nulls, sum, sumsq, min, max), an empty
+# column's min and -max, the histogram domain [-TMAX, TMAX] in
+# log10(1 + |x|) space, and the codes of the column dtypes the kernel
+# reads as they are (any other is cast to float32 first).
+SKETCH_MAX_COLS = 16
+SKETCH_MAX_BINS = 1024
+SKETCH_MOMENTS = 6
+SKETCH_BIG = 3.0e38
+SKETCH_TMAX = 12.0
+_SKETCH_TYPES = (("F32", torch.float32), ("F64", torch.float64),
+                 ("I32", torch.int32), ("I64", torch.int64),
+                 ("B8", torch.bool))
+_SKETCH_DTYPES = {t: code for code, (_, t) in enumerate(_SKETCH_TYPES)}
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC",
               f"-DGRAM_SMALL_MAX_D={GRAM_SMALL_MAX_D}",
@@ -136,7 +157,14 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               f"-DSEGSUM_GROUP={SEGSUM_GROUP}",
               f"-DSEGSUM_SMEM_BYTES={SEGSUM_SMEM_BYTES}",
               f"-DSEGSUM_STAGE_BYTES={SEGSUM_STAGE_BYTES}",
-              f"-DSEGSUM_SORTED_SMEM_BYTES={SEGSUM_SORTED_SMEM_BYTES}")
+              f"-DSEGSUM_SORTED_SMEM_BYTES={SEGSUM_SORTED_SMEM_BYTES}",
+              f"-DDQ_SKETCH_MAX_COLS={SKETCH_MAX_COLS}",
+              f"-DDQ_SKETCH_MAX_BINS={SKETCH_MAX_BINS}",
+              f"-DDQ_SKETCH_MOMENTS={SKETCH_MOMENTS}",
+              f"-DDQ_SKETCH_BIG={SKETCH_BIG!r}f",
+              f"-DDQ_SKETCH_TMAX={SKETCH_TMAX!r}f",
+              *(f"-DDQ_SKETCH_{name}={code}"
+                for code, (name, _) in enumerate(_SKETCH_TYPES)))
 # Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
 # chunk at D = 514 in float64, so at most 15 chunks there).
 GRAM_PARTIAL_BYTES = 32 << 20
@@ -293,6 +321,9 @@ def _bind(name: str, lib) -> dict:
                     (f64, b8): lib.masked_gram_f64_b8,
                     (f64, f64): lib.masked_gram_f64_f64},
                    [P, P, P, P, P, LL, I, I, LL, P])]
+    elif name == "dq_sketch":
+        groups = [({"sketch": lib.dq_sketch},
+                   [ctypes.POINTER(_SketchArgs), P, P, P])]
     else:
         groups = [({("dense", f32): lib.dense_segment_sum_f32,
                     ("dense", f64): lib.dense_segment_sum_f64},
@@ -912,4 +943,148 @@ def _sorted_launch(x: torch.Tensor, seg: torch.Tensor, size: int,
         _check("sorted_segment_sum", err)
     launches.add("sorted_segment_sum")
     _launched("sorted_segment_sum", dims, dev, timer)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dq_sketch (port-only: the JAX package lets XLA fuse its sketch)
+# ---------------------------------------------------------------------------
+
+#: Blocks a column: ranges of at least SKETCH_MIN_ROWS rows, at most
+#: SKETCH_MAX_BLOCKS of them, enough for one column to keep an H100's
+#: memory busy (at 128 blocks a 10^7-row column took 19x its byte bound);
+#: a fixed function of n, so the order of the adds does not depend on the
+#: card.
+SKETCH_MIN_ROWS = 8192
+SKETCH_MAX_BLOCKS = 512
+
+
+class _SketchArgs(ctypes.Structure):
+    """csrc/dq_sketch.cu's SketchArgs: the columns' pointers and dtype
+    codes, the masks and the plan, handed to the kernel by value."""
+    _fields_ = [("cols", ctypes.c_void_p * (2 * SKETCH_MAX_COLS)),
+                ("dtypes", ctypes.c_int * (2 * SKETCH_MAX_COLS)),
+                ("mask", ctypes.c_void_p), ("mask_in", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("step", ctypes.c_longlong),
+                ("rows_per_block", ctypes.c_longlong),
+                ("ncols", ctypes.c_int), ("nrules", ctypes.c_int),
+                ("bins", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("bucket_scale", ctypes.c_float)]
+
+
+def sketch_size(ncols: int, nrules: int, bins: int) -> int:
+    """Length of a call's output: ``6 + bins`` a column, 2 a rule."""
+    return ncols * (SKETCH_MOMENTS + bins) + 2 * nrules
+
+
+def sketch_plan(n: int) -> tuple[int, int]:
+    """``(blocks, rows_per_block)`` of each column's grid row."""
+    blocks = max(1, min(SKETCH_MAX_BLOCKS, -(-n // SKETCH_MIN_ROWS)))
+    return blocks, max(1, -(-n // blocks))
+
+
+def _bucket_scale(bins: int) -> torch.Tensor:
+    # the JAX body's Python float bins / (2 TMAX), taken as float32
+    return torch.tensor(bins / (2.0 * SKETCH_TMAX), dtype=torch.float32)
+
+
+def dq_sketch_reference(cols, mask, rules=(), mask_in=None, bins: int = 32,
+                        step: int = 1) -> torch.Tensor:
+    """Plain version: ``utils/dqprof.py``'s sketch and rule bodies of the
+    JAX package in PyTorch, the moments summed in float64."""
+    out = []
+    dev = (cols[0] if len(cols) else rules[0]).device
+    big = torch.tensor([SKETCH_BIG], dtype=torch.float32, device=dev)
+    scale = _bucket_scale(bins).to(dev)
+    for col in cols:
+        x = col.to(torch.float32)
+        nan = torch.isnan(x)
+        valid = mask & ~nan
+        xv = torch.where(valid, x, x.new_zeros(())).double()
+        mn = torch.cat([torch.where(valid, x, big), big]).min()
+        mx = torch.cat([torch.where(valid, x, -big), -big]).max()
+        xs, vs = x[::step], valid[::step]
+        t = torch.sign(xs) * torch.log10(1.0 + torch.abs(xs))
+        t = torch.clamp(t, -SKETCH_TMAX, SKETCH_TMAX)
+        idx = torch.clamp(((t + SKETCH_TMAX) * scale).to(torch.int64),
+                          0, bins - 1)
+        hist = torch.bincount(idx[vs], minlength=bins).double() * step
+        head = torch.stack([valid.sum().double(),
+                            (mask & nan).sum().double(), xv.sum(),
+                            (xv * xv).sum(), mn.double(), mx.double()])
+        out += [head, hist]
+    for col in rules:
+        pos = col.to(torch.float32) > 0
+        if mask_in is None:
+            rows = torch.tensor(float(col.shape[0]), dtype=torch.float64,
+                                device=dev)
+        else:
+            rows, pos = mask_in.sum().double(), pos & mask_in
+        out.append(torch.stack([rows, pos.sum().double()]))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64,
+                                                  device=dev)
+
+
+def dq_sketch(cols, mask, rules=(), mask_in=None, bins: int = 32,
+              step: int = 1) -> torch.Tensor:
+    """One flush's data-quality sketch, as float64: for each of ``cols``
+    (1-D, under the bool ``mask``) ``[count, nulls, sum, sumsq, min, max]``
+    and a ``bins``-bucket histogram of the rows 0, ``step``, 2 ``step``, ...
+    weighted by ``step``; then for each of ``rules`` ``[rows, passed]``
+    over ``mask_in`` (every row when None). At most ``SKETCH_MAX_COLS``
+    of each. Bit-identical from run to run on the card."""
+    cols, rules = list(cols), list(rules)
+    if len(cols) > SKETCH_MAX_COLS or len(rules) > SKETCH_MAX_COLS:
+        raise ValueError(f"dq_sketch: at most {SKETCH_MAX_COLS} columns "
+                         "and rules a call")
+    if not 1 <= bins <= SKETCH_MAX_BINS or step < 1:
+        raise ValueError(f"dq_sketch: bins in [1, {SKETCH_MAX_BINS}] and "
+                         "step >= 1")
+    if not cols and not rules:
+        raise ValueError("dq_sketch: no column")
+    ref = cols[0] if cols else rules[0]
+    n = ref.shape[0]
+    masks = ([mask] if cols else []) + ([mask_in] if mask_in is not None
+                                        and rules else [])
+    for t in cols + rules:
+        if t.ndim != 1 or t.shape[0] != n:
+            raise ValueError("dq_sketch: columns must be 1-D, of one length")
+    for m in masks:
+        if m.dtype != torch.bool or m.shape != (n,):
+            raise ValueError("dq_sketch: masks must be bool, of the "
+                             "columns' length")
+    if not _route("dq_sketch", *(cols + rules + masks)):
+        return dq_sketch_reference(cols, mask, rules, mask_in, bins, step)
+    fn = _launcher("dq_sketch", "sketch")
+    dev = ref.device
+    keep = [c if c.dtype in _SKETCH_DTYPES else c.to(torch.float32)
+            for c in cols + rules]
+    keep = [c if c.is_contiguous() else c.contiguous() for c in keep]
+    masks = [m if m.is_contiguous() else m.contiguous() for m in masks]
+    blocks, rows = sketch_plan(n)
+    args = _SketchArgs()
+    for i, c in enumerate(keep):   # the columns, then the rules
+        args.cols[i] = c.data_ptr()
+        args.dtypes[i] = _SKETCH_DTYPES[c.dtype]
+    args.mask = masks[0].data_ptr() if cols else None
+    args.mask_in = (masks[-1].data_ptr()
+                    if rules and mask_in is not None else None)
+    args.n, args.step, args.rows_per_block = n, step, rows
+    args.ncols, args.nrules, args.bins, args.blocks = (len(cols), len(rules),
+                                                       bins, blocks)
+    # the JAX body's Python float bins / (2 TMAX), rounded to float32
+    args.bucket_scale = bins / (2.0 * SKETCH_TMAX)
+    stride = SKETCH_MOMENTS + bins
+    partials = torch.empty(blocks * (len(cols) * stride + 2 * len(rules)),
+                           dtype=torch.float64, device=dev)
+    out = torch.empty(sketch_size(len(cols), len(rules), bins),
+                      dtype=torch.float64, device=dev)
+    dims = {"n": n, "cols": len(cols), "rules": len(rules), "bins": bins,
+            "bytes_a_row": sum(c.element_size() for c in keep)
+            + len(masks)}
+    timer = _timer("dq_sketch", dims, dev)
+    _check("dq_sketch", fn(ctypes.byref(args), partials.data_ptr(),
+                           out.data_ptr(), _raw_stream(dev)))
+    launches.add("dq_sketch")
+    _launched("dq_sketch", dims, dev, timer)
     return out

@@ -72,10 +72,36 @@ from ..config import (config, float_dtype, int_dtype, numpy_dtype,
 from . import kernels, strings
 from .expressions import is_host_column
 from ..utils import costprof as _costprof
+from ..utils import faults as _faults
 from ..utils import observability as _obs
 from ..utils.profiling import counters
 
 logger = logging.getLogger("sparkdq4ml_tpu_torch.ops.segments")
+
+def _fault_fallback(op: str, e: BaseException) -> None:
+    """One rung of the ``grouped_flush`` ladder taken: a recovery event
+    (rung ``host``) and ``grouped.fault_fallback``."""
+    from ..utils.recovery import RECOVERY_LOG
+
+    RECOVERY_LOG.record(
+        "grouped_flush", "fallback", rung="host",
+        cause=f"{type(e).__name__}: {e}",
+        detail=f"device {op} degraded to the host lowering")
+    counters.increment("grouped.fault_fallback")
+
+
+def _entry_faulted(op: str) -> bool:
+    """The ``grouped_flush`` fault site at a grouped op's entry, where the
+    JAX package's ``try_device`` injects it: True when a due injected
+    device fault degraded the op (recorded). A real device fault or
+    out-of-memory of the grouped program escapes: it never moves the
+    work to the host."""
+    try:
+        _faults.inject("grouped_flush")
+    except _faults.InjectedDeviceError as e:
+        _fault_fallback(op, e)
+        return True
+    return False
 
 __all__ = ["DEVICE_AGG_FNS", "SEGMENT_FNS", "grouped_agg", "global_values",
            "host_path_columns", "narrow_dtype", "pivot_agg", "pivot_values",
@@ -1366,6 +1392,8 @@ def grouped_agg(frame, keys, agg_list):
     key_arrs, key_kinds, words = _key_columns(frame, keys, "group key")
     val_arrs, val_kinds, val_words, agg_ops = _value_slots(frame, agg_list)
     host = on_host_path(agg_list, val_kinds, words)
+    faulted = _entry_faulted("grouped_agg")
+    host = host or faulted
     # the JAX package's host path answers a frame with no valid row with
     # float columns
     if n == 0 or (host and not bool(frame.mask.any())):
@@ -1724,10 +1752,11 @@ def device_sort(frame, names, ascending, nulls_first):
             arr = torch.where(null, torch.zeros_like(arr), arr)
         keys.append(_to_int8_if_bool(arr))
         desc.append(not asc)
-    if host_key:
+    faulted = _entry_faulted("sort")
+    if host_key or faulted:
         counters.increment("grouped.fallback")
     n = frame.num_slots
-    planned = not host_key and frame.device.type != "cpu"
+    planned = not (host_key or faulted) and frame.device.type != "cpu"
     with (_obs.TRACER.span("frame.grouped.flush", cat="frame", op="sort",
                            keys=len(names), rows=n, bucket=bucket_size(n))
           if planned else contextlib.nullcontext()) as sp:
@@ -1772,6 +1801,7 @@ def device_unique(frame, key_names):
         for c in comps:
             key_kinds.append(_require_kind(c, k, "distinct key"))
             key_arrs.append(c)
+    host_key = _entry_faulted("distinct") or host_key
     if n == 0:
         return frame._with()
     if host_key:

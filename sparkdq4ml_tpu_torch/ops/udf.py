@@ -39,6 +39,9 @@ class UDFRegistry:
     def names(self):
         return sorted(self._fns)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._fns
+
 
 _DEFAULT = UDFRegistry()
 

@@ -13,7 +13,13 @@ CSV ingest (``config.INGEST_KEYS``), the ``spark.pipeline.*`` and
 (``config.PLANNER_KEYS``), while the session runs; ``stop`` restores them. ``spark.observability.enabled``
 (or ``SPARKDQ4ML_OBS=1``) turns the span tracer on. A session loads the
 statstore snapshot at ``spark.stats.path`` when it starts and saves it
-when it stops (unless ``spark.stats.flushOnStop=false``).
+when it stops (unless ``spark.stats.flushOnStop=false``). The
+``spark.dq.*`` keys set the data-quality observatory
+(``config.DQ_KEYS``; ``session.dq_report()``). ``spark.faults`` (or
+``SPARKDQ4ML_FAULTS``) installs a fault schedule for the session's life,
+seeded by ``spark.faults.seed``; the ``spark.recovery.*`` keys set the
+retry policy its faults meet (``utils/recovery.py``), and
+``session.recovery_log`` holds what recovered.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ class TorchSession:
         self.udf: UDFRegistry = default_registry()
         self._saved_conf: dict = {}
         self._session_span = None
+        self._fault_plan = None
+        self._init_faults()
         self._apply_conf(self.conf)
         self._init_observability()
         if config.stats_enabled and config.stats_path:
@@ -69,6 +77,25 @@ class TorchSession:
             from .ops import compiler as _compiler
 
             _compiler.clear_cache()
+
+    def _init_faults(self) -> None:
+        """Install the fault schedule (``utils/faults.py``) of the conf or
+        the environment::
+
+            .config("spark.faults", "pipeline_flush:device_error:1")
+            .config("spark.faults.seed", 7)
+
+        With neither, a plan installed by the caller stays as it is. The
+        session uninstalls its own plan when it stops."""
+        from .utils import faults as _faults
+
+        seed = int(self.conf.get("spark.faults.seed", 0))
+        spec = self.conf.get("spark.faults")
+        if spec:
+            self._fault_plan = _faults.install_plan(
+                _faults.parse_plan(spec, seed=seed))
+        elif os.environ.get(_faults.ENV_VAR):
+            self._fault_plan = _faults.install_from_env(seed=seed)
 
     def _init_observability(self) -> None:
         """The span tracer, from the conf or ``SPARKDQ4ML_OBS``:
@@ -133,6 +160,8 @@ class TorchSession:
                         f"the active session runs on {_ACTIVE.device}; stop "
                         f"it before asking for {self._conf[DEVICE_KEY]}")
                 _ACTIVE.conf.update(self._conf)
+                if any(k.startswith("spark.faults") for k in self._conf):
+                    _ACTIVE._init_faults()
                 _ACTIVE._apply_conf(self._conf)
                 return _ACTIVE
 
@@ -190,6 +219,15 @@ class TorchSession:
                     f"range ids [{lo}, {hi}] exceed int32 under the float32 "
                     "policy; use the float64 policy for 64-bit ids")
         return Frame({"id": ids}, device=self.device)
+
+    @property
+    def recovery_log(self):
+        """The structured recovery log (``utils.recovery.RECOVERY_LOG``):
+        every retry, fallback, breaker trip, preemption and resume. Empty
+        on a clean run."""
+        from .utils.recovery import RECOVERY_LOG
+
+        return RECOVERY_LOG
 
     @property
     def version(self) -> str:
@@ -272,6 +310,20 @@ class TorchSession:
 
         return _costprof.report(top=top, budget=budget)
 
+    def dq_report(self, top: Optional[int] = None) -> dict:
+        """The data-quality observatory (``utils.dqprof``): one row per
+        profiled column (count, nulls, min, max, mean, variance, the
+        histogram, PSI drift against the pinned baseline) and per rule
+        (evaluations, rows, violations, rate). Pays the observatory's one
+        counted batched read (``dq.drain_sync``).
+        ``spark.dq.profile.enabled=false`` makes it refuse."""
+        if not config.dq_profile_enabled:
+            return {"enabled": False, "columns": [], "rules": [],
+                    "size": 0, "pending": 0}
+        from .utils import dqprof as _dqprof
+
+        return _dqprof.report(top=top)
+
     def stop(self) -> None:
         """Save the statstore (``spark.stats.path``, unless
         ``spark.stats.flushOnStop=false``), end the session span, restore
@@ -287,6 +339,14 @@ class TorchSession:
 
             _obs.TRACER.end(self._session_span)
             self._session_span = None
+        if self._fault_plan is not None:
+            # a schedule is the session's: a later session does not
+            # inherit it
+            from .utils import faults as _faults
+
+            if _faults.active() is self._fault_plan:
+                _faults.clear()
+            self._fault_plan = None
         with _ACTIVE_LOCK:
             restore_conf(self._saved_conf)
             if _ACTIVE is self:

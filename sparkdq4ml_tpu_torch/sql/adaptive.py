@@ -98,14 +98,27 @@ def enabled() -> bool:
 
 def guard(decision: str) -> bool:
     """Admission of ONE re-plan decision point: True when the adaptive
-    decision may proceed. A failure degrades this decision to the static
-    plan (the query finishes on the plan it had) with an ``aqe.fallback``
-    count; never raises. (The JAX package injects its ``aqe`` fault site
-    here; it comes with the port's fault layer.)"""
+    decision may proceed. The ``aqe`` fault site injects here (a
+    ``device_error`` raises, a ``stall`` fires its due-test); either, or
+    any other failure, degrades this decision to the static plan (rung
+    ``static``: the query finishes on the plan it had) with an
+    ``aqe.fallback`` count and a recovery event. Never raises."""
+    from ..utils import faults as _faults
+
     try:
+        _faults.inject("aqe")
+        if _faults.fired("aqe", "stall"):
+            raise TimeoutError("injected stall at 'aqe'")
         return bool(config.aqe_enabled)
-    except Exception:
+    except Exception as e:
+        from ..utils.recovery import RECOVERY_LOG
+
         counters.increment("aqe.fallback")
+        RECOVERY_LOG.record(
+            "aqe", "fallback", rung="static",
+            cause=f"{type(e).__name__}: {e}",
+            detail=f"{decision} re-plan skipped; the static plan "
+                   "finishes the query")
         logger.debug("aqe %s decision degraded to the static plan",
                      decision, exc_info=True)
         return False

@@ -666,18 +666,26 @@ def optimize(q, cat):
 
 
 def optimize_or_fallback(q, cat):
-    """The production entry: :func:`optimize` behind the unrewritten-plan
-    degradation. Returns ``(query, rewrites)``; on any failure the
-    original query and no rewrite, counted ``optimizer.fallback``. (The
-    JAX package also injects its ``optimizer`` fault site here and logs a
-    ``recovery.fallback`` event; those come with the port's fault and
-    recovery layers.)"""
+    """The production entry: :func:`optimize` behind the ``optimizer``
+    fault site and the unrewritten-plan degradation. Returns ``(query,
+    rewrites)``; on any failure the original query and no rewrite,
+    counted ``optimizer.fallback`` with a recovery event: the optimizer
+    can slow a query, never change or lose it."""
     if not config.optimizer_enabled or getattr(q, "_optimized", False):
         return q, []
+    from ..utils import faults as _faults
+
     try:
+        _faults.inject("optimizer")
         return optimize(q, cat)
-    except Exception:
+    except Exception as e:
+        from ..utils.recovery import RECOVERY_LOG
+
         counters.increment("optimizer.fallback")
+        RECOVERY_LOG.record(
+            "optimizer", "fallback", rung="unrewritten",
+            cause=f"{type(e).__name__}: {e}",
+            detail="query runs its literal parse shape")
         logger.debug("optimizer degraded to the unrewritten plan",
                      exc_info=True)
         return q, []

@@ -2384,10 +2384,11 @@ def _execute_explain(body: str, cat, analyze: bool):
     ``== Adaptive ==`` sections. Returns a one-row frame with the plan
     text in a ``plan`` column (Spark's ``EXPLAIN`` result shape).
 
-    The output is the JAX package's under ``spark.audit.enabled=false``
-    and ``spark.dq.profile.enabled=false``: its ``est peak`` column and
-    budget line (``analysis/program/static_mem.py``) and its DQ-rule
-    lines (``utils/dqprof.py``) are not ported yet."""
+    ANALYZE of a query that evaluates a registered DQ rule adds the
+    ``== Data Quality ==`` section (``utils/dqprof.py``); a query without
+    one renders as it did. The output is the JAX package's under
+    ``spark.audit.enabled=false``: its ``est peak`` column and budget line
+    (``analysis/program/static_mem.py``) are not ported yet."""
     import time as _time
 
     import torch
@@ -2435,6 +2436,14 @@ def _execute_explain(body: str, cat, analyze: bool):
         return Frame({"plan": [text]})
 
     caches_before = _obs.cache_report() if _cfg.explain_caches else {}
+    # the observatory's rule marks (one flag read when it is off): the
+    # drain before execution is this cold surface's own counted read,
+    # outside the query's stats window
+    dq_marks = None
+    if _cfg.dq_profile_enabled:
+        from ..utils import dqprof as _dqprof
+
+        dq_marks = _dqprof.rule_marks()
     # any mid-query re-plan (sql/adaptive.py) records an event here and
     # renders as the == Adaptive == section
     with _adaptive.capture() as aqe_events, \
@@ -2500,6 +2509,10 @@ def _execute_explain(body: str, cat, analyze: bool):
     if aqe_events:
         lines.append("== Adaptive ==")
         lines.extend(_adaptive.render(aqe_events))
+    if dq_marks is not None:
+        from ..utils import dqprof as _dqprof
+
+        lines.extend(_dqprof.explain_lines(dq_marks))
     return Frame({"plan": ["\n".join(lines)]})
 
 

@@ -314,7 +314,9 @@ def kernel_profile(name: str, dims: dict) -> CostProfile:
     operations (one triangle) over the design read once and the D×D
     result written; the segment sums an id (``id_bytes``, 0 without ids)
     and ``cols`` floats a row read, one operation a value, and the
-    ``size``-slot table written."""
+    ``size``-slot table written; ``dq_sketch`` each column, rule and mask
+    read once (``bytes_a_row``), four operations a column value and one a
+    rule value, the float64 sketch written."""
     n = int(dims.get("n", 0))
     s = int(dims.get("itemsize", 4))
     if name == "dq_rules":
@@ -335,6 +337,12 @@ def kernel_profile(name: str, dims: dict) -> CostProfile:
                            bytes_accessed=n * (int(dims.get("id_bytes", 8))
                                                + c * s) + table,
                            output_bytes=table)
+    if name == "dq_sketch":
+        c, r = int(dims["cols"]), int(dims["rules"])
+        out = 8 * (c * (6 + int(dims["bins"])) + 2 * r)
+        return CostProfile(flops=float(n) * (4 * c + r),
+                           bytes_accessed=n * int(dims["bytes_a_row"]) + out,
+                           output_bytes=out)
     raise KeyError(f"no work formula for the kernel {name!r}")
 
 
@@ -451,15 +459,27 @@ def _stats_key(handle) -> str:
 
 
 def _extract(handle) -> Optional[CostProfile]:
-    """One count; a failure leaves the plan unprofiled (``-`` on the
-    surfaces, ``costprof.failed``) and never takes a surface down."""
+    """One count through the ``cost_profile`` fault site: any failure,
+    injected or real, leaves the plan unprofiled (``-`` on the surfaces,
+    ``costprof.failed``, a recovery event) and never takes a surface
+    down."""
+    from . import faults as _faults
+
     try:
+        _faults.inject("cost_profile")
         if handle.cache == "pipeline":
             prof = _pipeline_profile(handle)
         else:
             prof = kernel_profile(handle.meta["work"], handle.meta["dims"])
-    except Exception:
+    except Exception as e:
         counters.increment("costprof.failed")
+        from .recovery import RECOVERY_LOG
+
+        RECOVERY_LOG.record(
+            "cost_profile", "fallback", rung="unprofiled",
+            cause=f"{type(e).__name__}: {e}",
+            detail=f"cost extraction degraded; plan "
+                   f"{handle.program_key[:80]!r} reports no profile")
         logger.debug("cost count failed for %r", handle.program_key[:80],
                      exc_info=True)
         return None

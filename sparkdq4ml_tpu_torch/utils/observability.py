@@ -741,6 +741,42 @@ def op_span(name: str, cat: str = "frame"):
 
 
 # ---------------------------------------------------------------------------
+# Recovery annotations
+# ---------------------------------------------------------------------------
+
+
+def recovery_mark() -> int:
+    """Cursor into the recovery log; pair with :func:`recovery_delta` to
+    annotate a span with the retries and fallbacks inside it."""
+    from .recovery import RECOVERY_LOG
+
+    return len(RECOVERY_LOG)
+
+
+def recovery_delta(mark: int) -> dict:
+    """``{action: count}`` of the recovery events recorded since ``mark``
+    (empty on a clean run). The log is bounded: a mark older than its
+    window counts the whole window."""
+    from .recovery import RECOVERY_LOG
+
+    events = RECOVERY_LOG.events()
+    out: dict[str, int] = {}
+    for e in events[max(0, min(mark, len(events))):]:
+        out[e.action] = out.get(e.action, 0) + 1
+    return out
+
+
+def annotate_recovery(s, mark: int) -> None:
+    """``recovery_<action>=count`` attributes on span ``s`` for the events
+    since ``mark`` (nothing for the no-op span or a clean run)."""
+    if s is _NOOP:
+        return
+    delta = recovery_delta(mark)
+    if delta:
+        s.set(**{f"recovery_{k}": v for k, v in delta.items()})
+
+
+# ---------------------------------------------------------------------------
 # Per-query stats collection
 # ---------------------------------------------------------------------------
 

@@ -605,7 +605,11 @@ class StatStore:
         recovery event (``stats_persist``/``fallback`` rung ``empty``)
         and a ``stats.load_failed`` counter — persisted history is an
         optimization, never a crash."""
+        from . import faults as _faults
+        from .recovery import RECOVERY_LOG
+
         try:
+            _faults.inject("stats_persist")
             with open(path) as f:
                 header = json.loads(f.readline() or "null")
                 if not isinstance(header, dict) \
@@ -620,6 +624,11 @@ class StatStore:
             return 0
         except Exception as e:
             profiling.counters.increment("stats.load_failed")
+            RECOVERY_LOG.record(
+                "stats_persist", "fallback", rung="empty",
+                cause=f"{type(e).__name__}: {e}",
+                detail=f"corrupt/stale stats snapshot {path!r}; "
+                       "starting with empty history")
             logger.warning("stats snapshot %s unreadable (%s); starting "
                            "with empty history", path, e)
             return 0
@@ -646,11 +655,15 @@ class StatStore:
         without both, two racing saves could share the temp path and
         one's late writes would land inside the already-promoted live
         snapshot — exactly the torn file this method promises away."""
+        from . import faults as _faults
+        from .recovery import RECOVERY_LOG
+
         self.drain_pending()
         entries = {ks.key: ks for ks in self._snapshot_entries()}
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         try:
             with self._persist_lock:
+                _faults.inject("stats_persist")
                 if merge and os.path.exists(path):
                     disk: dict[str, KeyStats] = {}
                     try:
@@ -674,13 +687,26 @@ class StatStore:
                 lines.extend(json.dumps(ks.to_doc(), sort_keys=True)
                              for ks in entries.values())
                 payload = "\n".join(lines) + "\n"
+                torn = _faults.fired("stats_persist", "torn_chunk")
                 with open(tmp, "w") as f:
+                    if torn:
+                        # the torn-write fault: half the payload lands,
+                        # then the write dies; the snapshot stays whole
+                        f.write(payload[: max(len(payload) // 2, 1)])
+                        f.flush()
+                        raise _faults.InjectedIOError(
+                            "injected torn write at 'stats_persist'")
                     f.write(payload)
                     f.flush()
                     os.fsync(f.fileno())
                 os.replace(tmp, path)
         except Exception as e:
             profiling.counters.increment("stats.persist_failed")
+            RECOVERY_LOG.record(
+                "stats_persist", "fallback", rung="memory",
+                cause=f"{type(e).__name__}: {e}",
+                detail=f"stats snapshot {path!r} not written; "
+                       "continuing in-memory only")
             logger.warning("stats snapshot %s not written (%s); "
                            "continuing in-memory only", path, e)
             try:

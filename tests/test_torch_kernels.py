@@ -79,9 +79,11 @@ def test_cpu_tensors_count_no_launch():
     kernels.dense_segment_sum(torch.ones(4, dtype=torch.float64), seg, 3)
     kernels.dense_segment_sum(torch.ones(4, dtype=torch.float64), None, 1)
     kernels.sorted_segment_sum(torch.ones(4, dtype=torch.float64), seg, 3)
+    kernels.dq_sketch([torch.ones(4)], torch.ones(4, dtype=torch.bool),
+                      [torch.ones(4)], torch.ones(4, dtype=torch.bool))
     assert kernels.launches.snapshot() == {
         "dq_rules": 0, "packed_gram": 0, "masked_gram": 0,
-        "dense_segment_sum": 0, "sorted_segment_sum": 0,
+        "dense_segment_sum": 0, "sorted_segment_sum": 0, "dq_sketch": 0,
         "dense_segment_sum_one_slot": 0}
 
 

@@ -4,9 +4,11 @@ port under one float policy and one set of planner settings, the same
 seeded numpy frames registered as views in both catalogs, each statement
 run through both packages' ``execute``, and the comparisons.
 
-The JAX side runs with ``spark.audit.enabled=false`` and
-``spark.dq.profile.enabled=false``: its ``est peak`` column and its
-DQ-rule lines are not in the port. Float policies: ``float64`` runs the
+The JAX side runs with ``spark.audit.enabled=false`` (its ``est peak``
+column is not in the port), and both with
+``spark.dq.profile.enabled=false``, so that neither's recorded flush
+costs include sketches (``tests/test_torch_dqprof.py`` holds the
+observatory's EXPLAIN section). Float policies: ``float64`` runs the
 JAX side with x64 on and the port at one intra-op thread; ``float32``
 with x64 off, as on a TPU.
 """
@@ -42,8 +44,9 @@ from sparkdq4ml_tpu_torch.utils.profiling import counters
 #: The settings both packages share, saved and restored by ``planner``.
 SHARED = ("optimizer_enabled", "optimizer_level", "aqe_enabled",
           "aqe_drift_factor", "audit_device_budget", "explain_memory",
-          "explain_caches", "costprof_enabled", "pipeline")
-JAX_ONLY = ("audit_enabled", "dq_profile_enabled", "default_float_dtype")
+          "explain_caches", "costprof_enabled", "pipeline",
+          "dq_profile_enabled")
+JAX_ONLY = ("audit_enabled", "default_float_dtype")
 
 
 def reset() -> None:
@@ -70,9 +73,9 @@ def planner(policy: str = "float64"):
     saved = ({a: getattr(config, a) for a in SHARED},
              {a: getattr(jax_config, a) for a in SHARED + JAX_ONLY})
     jax_config.audit_enabled = False
-    jax_config.dq_profile_enabled = False
     jax_config.default_float_dtype = getattr(jnp, policy)
     for cfg in (config, jax_config):
+        cfg.dq_profile_enabled = False
         cfg.optimizer_enabled = True
         cfg.optimizer_level = 1
         cfg.aqe_enabled = True
