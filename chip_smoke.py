@@ -7727,6 +7727,11 @@ DRIFT_GROUP_SQL = ("SELECT k, count(*) AS c, max(v) AS m, sum(w) AS s "
                    f"FROM drift_fact WHERE v > {DRIFT_CUT} GROUP BY k")
 DRIFT_WIDE_SQL = ("SELECT k, count(*) AS c, sum(w) AS s FROM drift_fact "
                   "GROUP BY k")
+# (b), after drift_steps: a global float SUM, AVG and STDDEV over the same
+# WHERE, whose plan takes the re-bucket, held bit-identical to adaptive
+# execution off (ROADMAP section C2)
+DRIFT_GLOBAL_SQL = ("SELECT sum(w) AS s, avg(w) AS a, stddev(w) AS d "
+                    f"FROM drift_fact WHERE v > {DRIFT_CUT}")
 # Plain EXPLAIN of each arm on cold history: the JAX package's
 # sparkdq4ml_tpu.sql.parser.execute("EXPLAIN " + sql) over views of
 # planner_tables() (10^7 fact rows), spark.audit.enabled=false,
@@ -7865,6 +7870,28 @@ def drift_steps(sql, analyze, set_aqe, snapshot) -> dict:
     out["wide_analyzed"] = analyze(DRIFT_WIDE_SQL)
     out["wide_on"] = sql(DRIFT_WIDE_SQL)
     return out
+
+
+def drift_global(sql, analyze, set_aqe) -> dict:
+    """(b), after ``drift_steps`` (same calls): DRIFT_GLOBAL_SQL with
+    adaptive execution on (its == Adaptive == lines, which hold a
+    re-bucket) and off, and each aggregate's value both ways with whether
+    the two are the same bits."""
+    set_aqe(True)
+    lines = adaptive_lines(analyze(DRIFT_GLOBAL_SQL))
+    on = sql(DRIFT_GLOBAL_SQL)
+    set_aqe(False)
+    off = sql(DRIFT_GLOBAL_SQL)
+    set_aqe(True)
+    values = {}
+    for c in on.columns:
+        a, b = on._column_values(c), off._column_values(c)
+        values[c] = {"on": float(a[0]), "off": float(b[0]),
+                     "same_bits": same_bits(a, b)}
+    return {"adaptive": lines,
+            "rebucket": any(ln.startswith("re-bucket:") for ln in lines),
+            "values": values,
+            "same_bits": all(v["same_bits"] for v in values.values())}
 
 
 def adaptive_lines(text: str) -> list:
@@ -8044,9 +8071,14 @@ def planner_drift(spark, tmp: str) -> dict:
     t0 = time.perf_counter()
     try:
         steps = drift_steps(sql, analyze, set_aqe, snapshot)
+        glob = drift_global(sql, analyze, set_aqe)
     finally:
         config.aqe_enabled = old
     steps_s = time.perf_counter() - t0
+    if not glob["rebucket"] or not glob["same_bits"]:
+        raise AssertionError(f"phase 18(b): the global SUM/AVG/STDDEV after "
+                             f"a re-bucket against adaptive execution off: "
+                             f"{glob}")
     lines = {k: adaptive_lines(steps[k])
              for k in ("join_analyzed", "group_analyzed", "wide_analyzed")}
     for key, trigger in (("join_analyzed", "build-flip"),
@@ -8063,11 +8095,61 @@ def planner_drift(spark, tmp: str) -> dict:
         if differ:
             raise AssertionError(f"phase 18(b) {q}: adaptive on against off "
                                  f"differ at {differ}")
-    out = {"adaptive": lines, "steps_s": steps_s,
+    out = {"adaptive": lines, "steps_s": steps_s, "global": glob,
            "rows": {q: steps[f"{q}_on"].num_slots
                     for q in ("join", "group", "wide")}}
     log(f"phase 18(b): {out}")
     return out
+
+
+def drift_global_ab(tree: str) -> dict:
+    """Phase 18(b)'s steps and its global SUM/AVG/STDDEV (``drift_global``)
+    in the port of the checkout ``tree`` (a ``git archive`` of another
+    commit, say): whether that tree's global float sums after a re-bucket
+    are the bits of adaptive execution off. ``python3 chip_smoke.py
+    --drift-global TREE`` prints it as one JSON line."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from sparkdq4ml_tpu_torch.config import config
+    from sparkdq4ml_tpu_torch.sql.parser import execute
+    from sparkdq4ml_tpu_torch.utils import statstore
+
+    spark = session("cuda")
+    register_views(spark, drift_tables())
+    old = config.aqe_enabled
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "drift_seed.jsonl")
+        statstore.STORE.clear()
+        execute(DRIFT_SEED_SQL).mask
+        statstore.STORE.drain_pending()
+        statstore.STORE.save(path, merge=False)
+
+        def snapshot():
+            statstore.STORE.clear()
+            statstore.STORE.load(path)
+
+        def set_aqe(on):
+            config.aqe_enabled = on
+
+        def sql(s):
+            frame = execute(s)
+            frame.mask
+            torch.cuda.synchronize()
+            return frame
+
+        def analyze(s):
+            return execute("EXPLAIN ANALYZE " + s).to_pydict()["plan"][0]
+
+        try:
+            drift_steps(sql, analyze, set_aqe, snapshot)
+            out = drift_global(sql, analyze, set_aqe)
+        finally:
+            config.aqe_enabled = old
+    spark.stop()
+    return {"tree": tree, **out}
 
 
 def planner_dq(spark) -> dict:
@@ -8553,7 +8635,9 @@ DQ_BINS = 32                    # spark.dq.histogramBins' default
 DQ_TURNS = 21                   # the steady DQ phase, profile on and off
 DQ_MOMENT_RTOL = 1e-6           # mean and M2 against numpy float64
 DQ_DRIFT_PSI = 0.25             # spark.dq.driftThreshold's default
-INGEST_FAULT_ROWS = 1_000_000
+# four 1 MiB chunks: every fault lands past the first, and the three
+# Python-engine re-reads (10.0-11.3 s of phase 19 at 10^6 rows) stay short
+INGEST_FAULT_ROWS = 400_000
 INGEST_FAULT_CHUNK = 1 << 20
 INGEST_FAULTS = (("ingest_native:io_error:1", "python"),
                  ("ingest_native:torn_chunk:2", "python"),
@@ -8584,6 +8668,100 @@ def sketch_numpy(values, mask, step: int, bins: int = DQ_BINS) -> dict:
             "min": float(v.min()), "max": float(v.max()),
             "hist": (np.bincount(idx, minlength=bins) * step).tolist(),
             "mean": mean, "m2": float(((v - mean) ** 2).sum())}
+
+
+def _lanes_then_warps(part: np.ndarray) -> np.ndarray:
+    """The sums over the last axis (a block's threads) as the sketch adds
+    them: a butterfly of shuffles within each warp (lane l adds lane l ^ o
+    for o = 16, 8, 4, 2, 1), then the warps' lane 0 in warp order."""
+    w = part.reshape(part.shape[:-1] + (-1, 32))
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        w = w + w[..., lanes ^ o]
+    out = w[..., 0, 0]
+    for k in range(1, w.shape[-2]):
+        out = out + w[..., k, 0]
+    return out
+
+
+def sketch_replay(cols, mask, rules=(), mask_in=None, bins: int = DQ_BINS,
+                  step: int = 1) -> np.ndarray:
+    """csrc/dq_sketch.cu's plan and order of adds in numpy (float64), the
+    layout of ``kernels.dq_sketch``: the blocks of ``kernels.sketch_plan``;
+    in a block, thread t adds the chunks of ``SKETCH_GRAIN`` rows t, t + T,
+    ... in order, each chunk's rows in order (T = ``SKETCH_THREADS``; an
+    invalid row adds +0.0), the rows past the last whole chunk after its
+    others in the thread that owns the next chunk; each block's threads by
+    ``_lanes_then_warps``; over several blocks, thread t of the last block
+    adds the blocks t, t + T, ... in order onto 0.0, then
+    ``_lanes_then_warps`` again. Counts, extremes and the histogram are
+    exact in any order."""
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    ref = cols[0] if len(cols) else rules[0]
+    n = ref.shape[0]
+    blocks, rows = kernels.sketch_plan(n)
+    T, G = kernels.SKETCH_THREADS, kernels.SKETCH_GRAIN
+    starts = np.arange(blocks, dtype=np.int64) * rows
+    ends = np.minimum(starts + rows, n)
+    whole = (ends - starts) // G
+    t = np.arange(T, dtype=np.int64)
+    out = []
+    for col in cols:
+        x = np.asarray(col).astype(np.float32)
+        nan = np.isnan(x)
+        ok = mask & ~nan
+        xd = np.where(ok, x, np.float32(0)).astype(np.float64)
+        s1 = np.zeros((blocks, T))
+        s2 = np.zeros((blocks, T))
+        for c in range(-(-int(whole.max(initial=0)) // T)):
+            k = t[None, :] + c * T
+            live = k < whole[:, None]
+            for j in range(G):
+                i = np.where(live, starts[:, None] + G * k + j, 0)
+                d = np.where(live, xd[i], 0.0)
+                s1 = s1 + d
+                s2 = s2 + d * d
+        for b in range(blocks):
+            owner = whole[b] % T
+            for i in range(starts[b] + G * whole[b], ends[b]):
+                s1[b, owner] += xd[i]
+                s2[b, owner] += xd[i] * xd[i]
+        s1, s2 = _lanes_then_warps(s1), _lanes_then_warps(s2)
+        if blocks > 1:
+            s1 = _lanes_then_warps(_block_order(s1, T))
+            s2 = _lanes_then_warps(_block_order(s2, T))
+        else:
+            s1, s2 = s1[0], s2[0]
+        v = x[ok]
+        rows_s = np.arange(0, n, step)
+        s = x[rows_s][ok[rows_s]]
+        tt = np.sign(s) * np.log10(np.float32(1.0) + np.abs(s))
+        tt = np.clip(tt, np.float32(-12.0), np.float32(12.0))
+        idx = np.clip(((tt + np.float32(12.0)) * np.float32(bins / 24.0))
+                      .astype(np.int64), 0, bins - 1)
+        out.append(np.concatenate([
+            [ok.sum(), (mask & nan).sum(), s1, s2,
+             float(v.min()) if v.size else float(np.float32(3.0e38)),
+             float(v.max()) if v.size else -float(np.float32(3.0e38))],
+            np.bincount(idx, minlength=bins) * float(step)]))
+    for col in rules:
+        pos = np.asarray(col).astype(np.float32) > 0
+        if mask_in is None:
+            out.append(np.array([n, pos.sum()], np.float64))
+        else:
+            out.append(np.array([mask_in.sum(), (pos & mask_in).sum()],
+                                np.float64))
+    return np.concatenate(out).astype(np.float64)
+
+
+def _block_order(per_block: np.ndarray, T: int) -> np.ndarray:
+    """Thread t's sum of the blocks t, t + T, ... in order onto 0.0."""
+    acc = np.zeros(T)
+    for b0 in range(0, per_block.shape[0], T):
+        part = per_block[b0:b0 + T]
+        acc[:part.shape[0]] = acc[:part.shape[0]] + part
+    return acc
 
 
 def observatory_app(guest, price) -> tuple:
@@ -8676,55 +8854,314 @@ def drift_batches(spark, guest, price) -> dict:
     return out
 
 
-def sketch_parity(clean) -> tuple:
-    """(a): the kernel twice on the main path's inputs (the label column
-    under the clean mask, the JAX package's stride), bit-identical, and
-    against its plain version on the card: count, nulls, min, max and the
-    histogram exact, sum and sum of squares within 1e-6 relative. Returns
-    the inputs and the largest absolute difference."""
+# Phase 19(a)'s dq_sketch shapes: (a) the label column's flush at 10^7
+# rows, (b) record_eval's rule tally (one float32 rule, no mask_in), (c) a
+# flush of four float32 columns under its mask and two rules under its
+# input mask, (d) the label column's flush at the app's 1,040 rows.
+SKETCH_SHAPES = ("a", "b", "c", "d")
+SKETCH_SEED = 19
+SKETCH_RTOL = 1e-6              # sums against the plain version
+
+
+def sketch_extra(n: int, seed: int = SKETCH_SEED,
+                 device: str = "cuda") -> tuple:
+    """(c)'s inputs besides the mask, seeded: four float32 columns
+    (lognormal prices of either sign, a tenth NaN), two float32 rule
+    columns and an input mask keeping about 90% of the rows."""
     import torch
 
-    from sparkdq4ml_tpu_torch.ops import kernels
+    rng = np.random.default_rng(seed)
+
+    def column():
+        x = (rng.lognormal(4.0, 1.5, n) * np.where(rng.random(n) < 0.2,
+                                                    -1.0, 1.0))
+        x[rng.random(n) < 0.1] = np.nan
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    cols = [column() for _ in range(4)]
+    rules = [torch.as_tensor(rng.standard_normal(n, dtype=np.float32),
+                             device=device) for _ in range(2)]
+    mask_in = torch.as_tensor(rng.random(n) < 0.9, device=device)
+    return cols, rules, mask_in
+
+
+def sketch_cases(clean, small_clean) -> dict:
+    """SKETCH_SHAPES' arguments of ``kernels.dq_sketch`` (cols, mask,
+    rules, mask_in, bins, step): the main path's label columns and masks
+    for (a), (b) and (d), the JAX package's stride at each n."""
     from sparkdq4ml_tpu_torch.ops.compiler import bucket_size
     from sparkdq4ml_tpu_torch.utils import dqprof
 
-    col, mask = clean._column_values("label"), clean.mask
-    step = dqprof.hist_step(bucket_size(col.shape[0]))
-    args = ([col], mask, (), None, DQ_BINS, step)
+    out = {}
+    for name, frame in (("a", clean), ("d", small_clean)):
+        col, mask = frame._column_values("label"), frame.mask
+        step = dqprof.hist_step(bucket_size(col.shape[0]))
+        out[name] = ([col], mask, (), None, DQ_BINS, step)
+    a_cols, a_mask, _, _, _, a_step = out["a"]
+    out["b"] = ([], None, a_cols, None, DQ_BINS, a_step)
+    cols, rules, mask_in = sketch_extra(a_cols[0].shape[0],
+                                        device=str(a_mask.device))
+    out["c"] = (cols, a_mask, rules, mask_in, DQ_BINS, a_step)
+    return {k: out[k] for k in SKETCH_SHAPES}
+
+
+def sketch_parity(args, name: str) -> dict:
+    """One shape: the kernel twice, bit-identical; against its plain
+    version on the card count, nulls, min, max, the histogram and the rule
+    tallies exact, sum and sum of squares within SKETCH_RTOL relative;
+    whether its sums are the bits of ``sketch_replay`` (the kernel's order
+    of adds in numpy). Returns the largest absolute difference from the
+    plain version and the replay's verdict."""
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    cols, mask, rules, mask_in, bins, step = args
     a = kernels.dq_sketch(*args)
     b = kernels.dq_sketch(*args)
     ref = kernels.dq_sketch_reference(*args)
     torch.cuda.synchronize()
     if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
-        raise AssertionError("phase 19(a): dq_sketch differs between runs")
-    exact = [0, 1, 4, 5] + list(range(6, 6 + DQ_BINS))
+        raise AssertionError(f"phase 19(a) {name}: dq_sketch differs "
+                             "between runs")
+    stride = 6 + bins
+    sums = [c * stride + i for c in range(len(cols)) for i in (2, 3)]
+    exact = [i for i in range(a.shape[0]) if i not in sums]
     if not torch.equal(a[exact], ref[exact]):
-        raise AssertionError(f"phase 19(a): dq_sketch {a[exact].tolist()} "
-                             f"against its plain version "
+        raise AssertionError(f"phase 19(a) {name}: dq_sketch "
+                             f"{a[exact].tolist()} against its plain version "
                              f"{ref[exact].tolist()}")
-    sums = a[2:4]
-    if bool(((sums - ref[2:4]).abs() > 1e-6 * ref[2:4].abs()).any()):
-        raise AssertionError(f"phase 19(a): dq_sketch sums {sums.tolist()} "
-                             f"against {ref[2:4].tolist()}")
-    return args, float((a - ref).abs().max())
+    if bool(((a[sums] - ref[sums]).abs()
+             > SKETCH_RTOL * ref[sums].abs()).any()):
+        raise AssertionError(f"phase 19(a) {name}: dq_sketch sums "
+                             f"{a[sums].tolist()} against "
+                             f"{ref[sums].tolist()}")
+    host = [c.cpu().numpy() for c in cols]
+    replay = sketch_replay(
+        host, None if mask is None else mask.cpu().numpy(),
+        [r.cpu().numpy() for r in rules],
+        None if mask_in is None else mask_in.cpu().numpy(), bins, step)
+    got = a.cpu().numpy()
+    return {"max_abs_err": float((a - ref).abs().max()),
+            "replay_bits": bool(np.array_equal(got.view(np.int64),
+                                               replay.view(np.int64)))}
+
+
+# dq_sketch's edges on the card: rows around its vector width and grain,
+# n = 0, views off the 16-byte grid in each dtype, the most groups a call.
+SKETCH_EDGE_ROWS = (0, 16_383, 16_385, 1_000_003)
+SKETCH_EDGE_TYPES = ("float32", "float64", "int32", "int64", "bool")
+
+
+def sketch_edge_cases(device: str = "cuda") -> dict:
+    """``sketch_parity`` (two runs bit-identical, the plain version, the
+    replay) at SKETCH_EDGE_ROWS with a column and a rule under mask_in;
+    each SKETCH_EDGE_TYPES dtype as a view at an offset of one element,
+    whose pointer is off the 16-byte grid (the kernel reads it row by row
+    in the same order), bit for bit against its contiguous copy; 16
+    columns and 16 rules of mixed dtypes in one call, with mask_in and 16
+    bins, and without mask_in at the most bins (64 KB of histograms a
+    block). Returns each case's parity."""
+    import torch
+
+    rng = np.random.default_rng(SKETCH_SEED + 2)
+
+    def values(n, dtype):
+        if dtype == "bool":
+            x = rng.random(n) < 0.3
+        elif dtype.startswith("int"):
+            x = rng.integers(-50, 400, n).astype(dtype)
+        else:
+            x = rng.lognormal(4.0, 1.5, n) * np.where(rng.random(n) < 0.2,
+                                                       -1.0, 1.0)
+            x[rng.random(n) < 0.1] = np.nan
+            x = x.astype(dtype)
+        return torch.as_tensor(x, device=device)
+
+    def mask(n, keep=0.8):
+        return torch.as_tensor(rng.random(n) < keep, device=device)
+
+    out = {}
+    for n in SKETCH_EDGE_ROWS:
+        args = ([values(n, "float32")], mask(n), [values(n, "float32")],
+                mask(n, 0.9), DQ_BINS, 3)
+        out[f"n={n}"] = sketch_parity(args, f"n={n}")
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    n = SKETCH_EDGE_ROWS[-1]
+    for dtype in SKETCH_EDGE_TYPES:
+        col = values(n + 1, dtype)[1:]
+        m, mi = mask(n + 1)[1:], mask(n + 1, 0.9)[1:]
+        args = ([col], m, [col], mi, DQ_BINS, 7)
+        got = sketch_parity(args, f"{dtype} at offset 1")
+        whole = kernels.dq_sketch([col.contiguous().clone()], m.clone(),
+                                  [col.clone()], mi.clone(), DQ_BINS, 7)
+        if not same_bits(kernels.dq_sketch(*args), whole):
+            raise AssertionError(f"dq_sketch: a {dtype} view at offset 1 "
+                                 "differs from its contiguous copy")
+        out[f"{dtype} at offset 1"] = got
+    n = 40_003                       # five blocks
+    for masked, bins in ((True, 16), (False, kernels.SKETCH_MAX_BINS)):
+        cols = [values(n, SKETCH_EDGE_TYPES[c % 5])
+                for c in range(kernels.SKETCH_MAX_COLS)]
+        rules = [values(n, SKETCH_EDGE_TYPES[(r + 2) % 5])
+                 for r in range(kernels.SKETCH_MAX_COLS)]
+        args = (cols, mask(n), rules, mask(n, 0.7) if masked else None,
+                bins, 11)
+        name = (f"16 columns of {bins} bins, 16 rules"
+                f"{'' if masked else ', no mask_in'}")
+        out[name] = sketch_parity(args, name)
+    return out
+
+
+def sketch_bytes(args) -> int:
+    """The bytes one call must move: each column, rule and mask byte read
+    once, the output written once."""
+    cols, mask, rules, mask_in, bins, _ = args
+    n = (cols or rules)[0].shape[0]
+    masks = (1 if cols else 0) + (1 if rules and mask_in is not None else 0)
+    return n * (sum(c.element_size() for c in list(cols) + list(rules))
+                + masks) + 8 * (len(cols) * (6 + bins) + 2 * len(rules))
 
 
 def sketch_times(args) -> dict:
-    """The kernel's row: wrapper and plain medians, the device time of
-    one call, the byte bound (each column and mask byte read once)."""
+    """One shape's row: the wrapper's and the plain version's medians
+    (CUDA events), the device time of one call from graph replays (the
+    profiler loses single-call traces this late in the script;
+    ``device_kernels_per_call`` traces one), the device kernels and
+    memsets a call from the nodes of a captured graph, the byte bound."""
     from sparkdq4ml_tpu_torch.ops import kernels
 
-    cols, mask = args[0], args[1]
-    n = cols[0].shape[0]
-    moved = n * (sum(c.element_size() for c in cols) + 1) + 8 * (
-        len(cols) * (6 + args[4]))
-    return {**device_time(lambda: kernels.dq_sketch(*args)), "n": n,
-            "cols": len(cols),
-            "ms": median_ms(lambda: kernels.dq_sketch(*args)),
-            "plain_ms": median_ms(
-                lambda: kernels.dq_sketch_reference(*args)),
-            "library_ms": None,
-            "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "bound_by": "bytes"}
+    cols, mask, rules = args[0], args[1], args[2]
+    n = (cols or rules)[0].shape[0]
+    call = lambda: kernels.dq_sketch(*args)
+    nodes, memsets = graph_kernels(call)
+    out = {"device_ms": graph_ms(call), "n": n, "cols": len(cols), "rules": len(rules),
+           "mask_in": args[3] is not None,
+           "graph_kernels": nodes, "graph_memsets": memsets,
+           "ms": median_ms(call),
+           "plain_ms": median_ms(lambda: kernels.dq_sketch_reference(*args)),
+           "library_ms": None,
+           "bound_ms": 1e3 * sketch_bytes(args) / HBM_BYTES_PER_S,
+           "bound_by": "bytes"}
+    out["host_path_ms"] = out["ms"] - out["device_ms"]
+    return out
+
+
+def sketch_check() -> dict:
+    """The quickest check of ``dq_sketch`` on the card: every kernel built
+    (all at once), then ``sketch_edge_cases``. ``python3 chip_smoke.py
+    --sketch-check`` prints it as one JSON line."""
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    build_s = time.perf_counter() - t0
+    edges = sketch_edge_cases()
+    import torch
+
+    n = PIPELINE_SMALL_ROWS
+    cols, _, _ = sketch_extra(n)
+    mask = torch.as_tensor(np.random.default_rng(SKETCH_SEED + 1)
+                           .random(n) < 0.96, device="cuda")
+    return {"build_s": build_s, "edges": edges,
+            "host_path_us_d": sketch_host_path(([cols[0]], mask, (), None,
+                                                DQ_BINS, 1)),
+            "card": card_line()}
+
+
+def sketch_ab(tree: str) -> dict:
+    """SKETCH_SHAPES on seeded inputs of the main path's shapes (a 96%
+    mask; (d) at 1,040 rows) through ``dq_sketch`` of the checkout
+    ``tree`` (a ``git archive`` of another commit, say): each shape's
+    wrapper median, device time from graph replays and device kernels a
+    call from a profiler trace. ``python3 chip_smoke.py --sketch-ab TREE``
+    prints it as one JSON line; to compare, run parent, change, change,
+    parent in one call."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from sparkdq4ml_tpu_torch.ops import kernels
+    from sparkdq4ml_tpu_torch.ops.compiler import bucket_size
+    from sparkdq4ml_tpu_torch.utils import dqprof
+
+    kernels.build(("dq_sketch",))
+    out = {"tree": tree}
+    for name in SKETCH_SHAPES:
+        n = PIPELINE_SMALL_ROWS if name == "d" else FULL_ROWS
+        cols, rules, mask_in = sketch_extra(n)
+        mask = torch.as_tensor(np.random.default_rng(SKETCH_SEED + 1)
+                               .random(n) < 0.96, device="cuda")
+        step = dqprof.hist_step(bucket_size(n))
+        args = {"a": ([cols[0]], mask, (), None),
+                "b": ([], None, rules[:1], None),
+                "c": (cols, mask, rules, mask_in),
+                "d": ([cols[0]], mask, (), None)}[name] + (DQ_BINS, step)
+        call = lambda: kernels.dq_sketch(*args)
+        call()                          # the stream's scratch, once
+        torch.cuda.synchronize()
+        got = trace_call(call)
+        out[name] = {"ms": median_ms(call), "device_ms": graph_ms(call),
+                     "device_kernels": got["device_kernels"],
+                     "host_launches": got["host_launches"],
+                     "names": got["names"],
+                     "bound_ms": 1e3 * sketch_bytes(args) / HBM_BYTES_PER_S}
+        if name == "d":
+            out[name]["host_us"] = host_us(call)
+        torch.cuda.synchronize()
+    return out
+
+
+def sketch_host_path(args) -> dict:
+    """The wrapper's host time a call at a shape where the card keeps up
+    (``host_us``) and its pieces: the launch alone (the ctypes call, the
+    launcher, cudaLaunchKernel), the output (a view of the stream's batch
+    where the wrapper takes one; ``torch_empty`` beside it, what the
+    batch saves), the plan's lookup, the pointer array, the routing check;
+    the rest is the wrapper's own Python (validation, counts, costprof's
+    timer, ``last_call``)."""
+    import ctypes
+
+    import torch
+
+    from sparkdq4ml_tpu_torch.ops import kernels
+
+    cols, mask, rules, mask_in, bins, step = args
+    keep = list(cols) + list(rules)
+    masks = ([mask] if cols else []) + ([mask_in] if mask_in is not None
+                                        else [])
+    n = keep[0].shape[0]
+    codes = tuple(kernels._SKETCH_DTYPES[c.dtype] for c in keep)
+    nbytes = sum(c.element_size() for c in keep) + len(masks)
+    call = kernels._sketch_call(n, step, bins, codes, len(cols), nbytes)
+    dev = keep[0].device
+    fn = kernels._launcher("dq_sketch", "sketch")
+    out = torch.empty(call.size, dtype=torch.float64, device=dev)
+    ptr_values = ([mask.data_ptr() if cols else 0,
+                   mask_in.data_ptr() if mask_in is not None else 0]
+                  + [c.data_ptr() for c in keep])
+    ptrs = (ctypes.c_uint64 * len(ptr_values))(*ptr_values)
+    stream = kernels._raw_stream(dev)
+    state = kernels._stream_state(dev, stream, call.scratch_bytes)
+    scratch = state.tickets if call.scratch_bytes else 0
+    empty = lambda: torch.empty(call.size, dtype=torch.float64, device=dev)
+    pooled = call.size <= kernels.SKETCH_POOLED_SIZE
+    pieces = {
+        "wrapper": lambda: kernels.dq_sketch(*args),
+        "launch": lambda: fn(call.plan, ptrs, scratch, out.data_ptr(),
+                             stream),
+        "output": (lambda: kernels._one_slot_output(
+            state, (call.size,), torch.float64, dev)) if pooled else empty,
+        "plan_lookup": lambda: kernels._sketch_call(n, step, bins, codes,
+                                                    len(cols), nbytes),
+        "pointer_array": lambda: (ctypes.c_uint64 * len(ptr_values))(
+            *ptr_values),
+        "route": lambda: kernels._route("dq_sketch", *(keep + masks))}
+    got = {k: host_us(f) for k, f in pieces.items()}
+    got["rest"] = got["wrapper"] - sum(v for k, v in got.items()
+                                       if k != "wrapper")
+    got["torch_empty"] = host_us(empty)
+    return got
 
 
 def profile_setting(on: bool):
@@ -8921,9 +9358,9 @@ def check_preemption(clean, tmp: str) -> dict:
 
 
 def check_ingest_faults(tmp: str) -> dict:
-    """(e): a 10^6-row CSV streamed in 1 MiB chunks under each native
-    fault: every read bit-identical to the clean read, the rung taken as
-    expected, the page-locked pool as it was."""
+    """(e): an INGEST_FAULT_ROWS-row CSV streamed in 1 MiB chunks under
+    each native fault: every read bit-identical to the clean read, the
+    rung taken as expected, the page-locked pool as it was."""
     from sparkdq4ml_tpu_torch.config import config
     from sparkdq4ml_tpu_torch.frame import native_csv
     from sparkdq4ml_tpu_torch.frame.csv import read_csv
@@ -8983,15 +9420,27 @@ def check_faults_full() -> dict:
     mark()
     out["drift"] = drift_batches(spark, guest, price)
     mark()
-    args, err = sketch_parity(clean)
-    out["max_abs_err"] = err
-    out["sketch_main"] = sketch_times(args)
     small = session("cuda")
     sg, sp = full_table(PIPELINE_SMALL_ROWS, seed=1)
     small_clean = dq_clean(small, small.create_data_frame(
         {"guest": sg, "price": sp}))
-    small_args, _ = sketch_parity(small_clean)
-    out["sketch_app_size"] = sketch_times(small_args)
+    cases = sketch_cases(clean, small_clean)
+    out["sketch"] = {}
+    for name, args in cases.items():
+        got = sketch_parity(args, name)
+        out["sketch"][name] = {**got, **sketch_times(args)}
+        if out["sketch"][name]["graph_kernels"] != 1 \
+                or out["sketch"][name]["graph_memsets"] != 0:
+            raise AssertionError(f"phase 19(a) {name}: dq_sketch "
+                                 f"{out['sketch'][name]} is not one "
+                                 "kernel a call")
+    out["max_abs_err"] = out["sketch"]["a"]["max_abs_err"]
+    out["sketch_host_path_us"] = sketch_host_path(cases["d"])
+    out["sketch_edges"] = sketch_edge_cases()
+    out["sketch_kernels_per_call"] = {
+        name: device_kernels_per_call("dq_sketch", *args)
+        for name, args in cases.items()}
+    del cases
     mark()
     out["profile_turns"] = profile_turns(
         spark, spark.create_data_frame({"guest": guest, "price": price}))
@@ -9002,7 +9451,7 @@ def check_faults_full() -> dict:
     out["a_parts_s"] = dict(zip(
         ("app_and_profile", "drift", "kernel_parity_and_times", "turns",
          "abstract_section"), np.diff(marks).tolist()))
-    del clean, args
+    del clean
     spark.stop()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -9574,10 +10023,15 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
                      "and _rule_body, XLA-fused, no pallas_call)",
          "launches": faults["launches"]["dq_sketch"],
          "max_abs_err": faults["max_abs_err"], "parity": True,
-         "bit_identical_runs": True, **faults["sketch_main"],
-         "app_size": faults["sketch_app_size"]},
+         "bit_identical_runs": True, **faults["sketch"]["a"],
+         "shapes": faults["sketch"], "edges": faults["sketch_edges"],
+         "host_path_us": faults["sketch_host_path_us"]},
     ], "launches_by_path": by_path,
-        "device_kernels_per_call": per_call,
+        "device_kernels_per_call": {
+            **per_call, **{f"dq_sketch ({name})": {
+                **got, **{k: faults["sketch"][name][k]
+                          for k in ("graph_kernels", "graph_memsets")}}
+                for name, got in faults["sketch_kernels_per_call"].items()}},
         "app_phase_s": float(np.median(app_s)), "app_phase_runs_s": app_s,
         "app_rows": FULL_ROWS, "app_stages_ms": stages,
         "app_profile": prof,
@@ -9609,8 +10063,9 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
         "planner": {k: v for k, v in planner.items() if k != "launches"},
         "planner_phase_s": planner["phase_s"],
         "faults": {k: v for k, v in faults.items()
-                   if k not in ("launches", "sketch_main",
-                                "sketch_app_size")},
+                   if k not in ("launches", "sketch", "sketch_edges",
+                                "sketch_kernels_per_call",
+                                "sketch_host_path_us")},
         "faults_phase_s": faults["phase_s"],
         "optional_modules": have,
         "cpu_float64_reference_s": cpu_s,
@@ -9632,5 +10087,14 @@ def run_phases(card: str, reference: "CpuReference", script_t0: float,
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--join-ab"] and len(sys.argv) == 3:
         print(json.dumps(join_ab(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:] == ["--sketch-check"]:
+        print(json.dumps(sketch_check()), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--sketch-ab"] and len(sys.argv) == 3:
+        print(json.dumps(sketch_ab(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--drift-global"] and len(sys.argv) == 3:
+        print(json.dumps(drift_global_ab(sys.argv[2])), flush=True)
         sys.exit(0)
     sys.exit(main())

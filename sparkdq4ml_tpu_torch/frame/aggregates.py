@@ -40,6 +40,22 @@ _WINDOWABLE = ("count", "sum", "avg", "min", "max")
 # the JAX package's device-reduced global aggregates; the rest of the
 # device family it answers with one host value each (``_one_value``)
 _GLOBAL_FNS = ("count", "sum", "avg", "min", "max", "stddev", "variance")
+# ... of which these add floats: over the valid rows compacted in row order
+# (``_valid_slots``), so that the order of the adds follows the rows and not
+# the slots around them, as after adaptive execution's re-bucket
+_ROW_ORDER_FNS = ("sum", "avg", "stddev", "variance")
+
+
+def _valid_slots(mask: torch.Tensor) -> Optional[torch.Tensor]:
+    """The valid slots of ``mask`` in order (one counted host read, for
+    their count), or None when every slot is valid. A float sum over
+    them takes the same input, and so the same order of adds, as the same
+    sum over the frame that ``sql/adaptive.py:maybe_rebucket`` compacts to
+    those rows: a global SUM/AVG/STDDEV is the same bits with adaptive
+    execution on or off."""
+    counters.increment("frame.host_sync")
+    rows = torch.nonzero(mask).squeeze(1)
+    return None if rows.shape[0] == mask.shape[0] else rows
 
 
 def _check_fn(fn: str) -> str:
@@ -333,6 +349,7 @@ def global_agg(frame, aggs: list):
     out: dict = {}
     deferred = []          # (name, non-null count, value, NULL result)
     hosted = []            # (agg, string column?) for global_values
+    rows, have_rows = None, False      # _valid_slots(mask), once a call
 
     def fsum(x):
         """A float sum in the fixed order of the segment-sum kernels (the
@@ -363,8 +380,14 @@ def global_agg(frame, aggs: list):
             continue
         vf = v.to(torch.float64 if v.dtype == torch.float64
                   else torch.float32)
+        m = mask
+        if agg.fn in _ROW_ORDER_FNS:
+            if not have_rows:
+                rows, have_rows = _valid_slots(mask), True
+            if rows is not None:
+                vf, m = vf.index_select(0, rows), m.index_select(0, rows)
         null = torch.isnan(vf)
-        valid = mask & ~null
+        valid = m & ~null
         wf = valid.to(vf.dtype)
         nv = fsum(wf)
         vf = torch.where(null, torch.zeros_like(vf), vf)

@@ -92,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tickets.cuh"  // arrive: the last block's ticket
+
 namespace {
 
 // The plan's constants come from ops/kernels.py through nvcc flags, where
@@ -214,23 +216,6 @@ __device__ __forceinline__ T warp_tree(const T* src, int stride) {
 #pragma unroll
     for (int i = 0; i + h < kWarps; i += 2 * h) w[i] += w[i + h];
   return w[0];
-}
-
-// One of `members` blocks that each wrote a table takes a ticket from
-// `counter`; true in every thread of the block that came last, which also
-// puts the counter back to 0 for the next call on this stream (every
-// member has taken its ticket by then).
-__device__ bool arrive(unsigned* counter, unsigned members) {
-  __shared__ bool last;
-  __threadfence();  // this block's table is visible before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(counter, 1u) == members - 1;
-    if (last) *counter = 0;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
 }
 
 // dst[e] = src[e] + src[entries + e] + ... over `rows` tables, in order,

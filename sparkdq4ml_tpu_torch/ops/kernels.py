@@ -145,6 +145,15 @@ SKETCH_MAX_BINS = 1024
 SKETCH_MOMENTS = 6
 SKETCH_BIG = 3.0e38
 SKETCH_TMAX = 12.0
+# ... and its plan's: each block's range of rows a multiple of SKETCH_GRAIN
+# (so that a range starts on the 16-byte grid of every dtype, the mask's
+# too), and the bytes of one block's tallies of a column or rule in the
+# scratch (csrc/dq_sketch.cu: Tally).
+SKETCH_GRAIN = 16
+SKETCH_TALLY_BYTES = 40
+# The threads of a sketch block: thread t takes the chunks of four rows t,
+# t + SKETCH_THREADS, ... of its block's range (the order of its adds).
+SKETCH_THREADS = 128
 _SKETCH_TYPES = (("F32", torch.float32), ("F64", torch.float64),
                  ("I32", torch.int32), ("I64", torch.int64),
                  ("B8", torch.bool))
@@ -163,6 +172,9 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               f"-DDQ_SKETCH_MOMENTS={SKETCH_MOMENTS}",
               f"-DDQ_SKETCH_BIG={SKETCH_BIG!r}f",
               f"-DDQ_SKETCH_TMAX={SKETCH_TMAX!r}f",
+              f"-DDQ_SKETCH_GRAIN={SKETCH_GRAIN}",
+              f"-DDQ_SKETCH_TALLY_BYTES={SKETCH_TALLY_BYTES}",
+              f"-DDQ_SKETCH_THREADS={SKETCH_THREADS}",
               *(f"-DDQ_SKETCH_{name}={code}"
                 for code, (name, _) in enumerate(_SKETCH_TYPES)))
 # Partial Gramians of stage 1 stay under this many bytes (about 2 MB a
@@ -323,7 +335,7 @@ def _bind(name: str, lib) -> dict:
                    [P, P, P, P, P, LL, I, I, LL, P])]
     elif name == "dq_sketch":
         groups = [({"sketch": lib.dq_sketch},
-                   [ctypes.POINTER(_SketchArgs), P, P, P])]
+                   [ctypes.POINTER(_SketchPlan), P, P, P, P])]
     else:
         groups = [({("dense", f32): lib.dense_segment_sum_f32,
                     ("dense", f64): lib.dense_segment_sum_f64},
@@ -749,19 +761,25 @@ def _sorted_call(n: int, cols: int, elem_bytes: int, size: int) -> tuple:
                              plan.memset)
 
 
-# Each (device, stream) keeps its own scratch for both segment-sum kernels:
-# SEGSUM_TICKETS zeroed ticket counters, which every call leaves at zero,
-# then the partial tables. A call runs on its stream's scratch, after every
+# Each (device, stream) keeps its own scratch for the segment sums and the
+# sketch: zeroed counters, which every call leaves at zero (SEGSUM_TICKETS
+# tickets of the segment sums; the sketch's own ticket, padded to 16
+# bytes; its SKETCH_MAX_COLS x SKETCH_MAX_BINS histogram counters), then
+# the partial tables. A call runs on its stream's scratch, after every
 # earlier call there, so two calls never share a counter or a table.
-_TICKET_BYTES = 4 * SEGSUM_TICKETS
+_SKETCH_TICKET_OFFSET = 4 * SEGSUM_TICKETS
+_SKETCH_HIST_OFFSET = _SKETCH_TICKET_OFFSET + 16
+_TICKET_BYTES = _SKETCH_HIST_OFFSET + 4 * SKETCH_MAX_COLS * SKETCH_MAX_BINS
 # Outputs of one slot and at most SEGSUM_REG_COLS columns (the global
-# sums) are views of a batch of SEGSUM_OUTPUTS made at once, a new view a
-# call: there the kernel takes about as long as the host path, and an
-# allocation a call (5-10 us on the card's host; PERF.md section 6) lost
-# the race with `sum`. A stream keeps at most one batch for each of these
-# (2 x (SEGSUM_REG_COLS + 1)) shapes and dtypes, each of at most 1 KiB;
-# every other output is allocated by its call.
+# sums), and sketches of at most SKETCH_POOLED_SIZE values, are views of a
+# batch of SEGSUM_OUTPUTS made at once, a new view a call: there the
+# kernel takes about as long as the host path, and an allocation a call
+# (5-10 us on the card's host; PERF.md section 6) lost the race with
+# `sum` and was a third of the sketch's host path. A stream keeps at most
+# one batch for each such shape and dtype, each of at most 1 KiB; every
+# other output is allocated by its call.
 SEGSUM_OUTPUTS = 32
+SKETCH_POOLED_SIZE = 128
 
 
 class _StreamState:
@@ -793,8 +811,9 @@ def _stream_state(device: torch.device, stream: int,
 
 def _one_slot_output(state: _StreamState, shape: tuple, dtype: torch.dtype,
                      device: torch.device) -> torch.Tensor:
-    """A new output of one slot: a view of the stream's batch for this
-    shape and dtype, made anew when it is used up."""
+    """A new small output (a global sum's one slot, a sketch): a view of
+    the stream's batch for this shape and dtype, made anew when it is
+    used up."""
     pool = state.outputs.get((shape, dtype))
     if not pool:
         pool = state.outputs[(shape, dtype)] = list(torch.empty(
@@ -950,23 +969,26 @@ def _sorted_launch(x: torch.Tensor, seg: torch.Tensor, size: int,
 # dq_sketch (port-only: the JAX package lets XLA fuse its sketch)
 # ---------------------------------------------------------------------------
 
-#: Blocks a column: ranges of at least SKETCH_MIN_ROWS rows, at most
-#: SKETCH_MAX_BLOCKS of them, enough for one column to keep an H100's
-#: memory busy (at 128 blocks a 10^7-row column took 19x its byte bound);
-#: a fixed function of n, so the order of the adds does not depend on the
-#: card.
+#: The grid: ranges of at least SKETCH_MIN_ROWS rows, at most
+#: SKETCH_MAX_BLOCKS of them (eight an H100 SM's worth: 132 x 8, so that a
+#: 10^7-row call fills the card in one wave of 128-thread blocks), each a
+#: multiple of SKETCH_GRAIN rows; a fixed function of n, never of the card,
+#: so the order of the adds does not depend on the card. With the block's
+#: SKETCH_THREADS it fixes the order of every add (chip_smoke.py:
+#: sketch_replay replays it).
 SKETCH_MIN_ROWS = 8192
-SKETCH_MAX_BLOCKS = 512
+SKETCH_MAX_BLOCKS = 1056
 
 
-class _SketchArgs(ctypes.Structure):
-    """csrc/dq_sketch.cu's SketchArgs: the columns' pointers and dtype
-    codes, the masks and the plan, handed to the kernel by value."""
-    _fields_ = [("cols", ctypes.c_void_p * (2 * SKETCH_MAX_COLS)),
-                ("dtypes", ctypes.c_int * (2 * SKETCH_MAX_COLS)),
-                ("mask", ctypes.c_void_p), ("mask_in", ctypes.c_void_p),
-                ("n", ctypes.c_longlong), ("step", ctypes.c_longlong),
+class _SketchPlan(ctypes.Structure):
+    """csrc/dq_sketch.cu's SketchPlan: what a call's launch takes besides
+    its pointers, made once a shape (``_sketch_call``)."""
+    _fields_ = [("n", ctypes.c_longlong), ("step", ctypes.c_longlong),
                 ("rows_per_block", ctypes.c_longlong),
+                ("ticket_offset", ctypes.c_longlong),
+                ("hist_offset", ctypes.c_longlong),
+                ("tally_offset", ctypes.c_longlong),
+                ("dtypes", ctypes.c_int * (2 * SKETCH_MAX_COLS)),
                 ("ncols", ctypes.c_int), ("nrules", ctypes.c_int),
                 ("bins", ctypes.c_int), ("blocks", ctypes.c_int),
                 ("bucket_scale", ctypes.c_float)]
@@ -978,9 +1000,44 @@ def sketch_size(ncols: int, nrules: int, bins: int) -> int:
 
 
 def sketch_plan(n: int) -> tuple[int, int]:
-    """``(blocks, rows_per_block)`` of each column's grid row."""
+    """``(blocks, rows_per_block)`` of the grid: contiguous ranges of a
+    multiple of ``SKETCH_GRAIN`` rows, none empty (one block at n = 0)."""
     blocks = max(1, min(SKETCH_MAX_BLOCKS, -(-n // SKETCH_MIN_ROWS)))
-    return blocks, max(1, -(-n // blocks))
+    rows = -(-max(1, -(-n // blocks)) // SKETCH_GRAIN) * SKETCH_GRAIN
+    return max(1, -(-n // rows)), rows
+
+
+class SketchCall(NamedTuple):
+    """One shape's launch: its plan as the launcher takes it, the stream
+    scratch it needs (none for one block), the output's length, its
+    dimensions for ``last_call`` and its profile key."""
+    plan: _SketchPlan
+    scratch_bytes: int
+    size: int
+    dims: dict
+    key: str
+
+
+@functools.lru_cache(maxsize=4096)
+def _sketch_call(n: int, step: int, bins: int, codes: tuple, ncols: int,
+                 bytes_a_row: int) -> SketchCall:
+    """The launch of ``dq_sketch`` for ``n`` rows of the groups with dtype
+    codes ``codes`` (``ncols`` columns, then the rules)."""
+    blocks, rows = sketch_plan(n)
+    nrules = len(codes) - ncols
+    # the JAX body's Python float bins / (2 TMAX), rounded to float32
+    plan = _SketchPlan(n, step, rows, _SKETCH_TICKET_OFFSET,
+                       _SKETCH_HIST_OFFSET, _TICKET_BYTES,
+                       (ctypes.c_int * (2 * SKETCH_MAX_COLS))(*codes),
+                       ncols, nrules, bins, blocks,
+                       bins / (2.0 * SKETCH_TMAX))
+    scratch = (_TICKET_BYTES + blocks * len(codes) * SKETCH_TALLY_BYTES
+               if blocks > 1 else 0)
+    dims = {"n": n, "cols": ncols, "rules": nrules, "bins": bins,
+            "bytes_a_row": bytes_a_row}
+    return SketchCall(plan, scratch,
+                      sketch_size(ncols, nrules, bins), dims,
+                      _costprof.kernel_key("dq_sketch", dims))
 
 
 def _bucket_scale(bins: int) -> torch.Tensor:
@@ -1032,59 +1089,68 @@ def dq_sketch(cols, mask, rules=(), mask_in=None, bins: int = 32,
     and a ``bins``-bucket histogram of the rows 0, ``step``, 2 ``step``, ...
     weighted by ``step``; then for each of ``rules`` ``[rows, passed]``
     over ``mask_in`` (every row when None). At most ``SKETCH_MAX_COLS``
-    of each. Bit-identical from run to run on the card."""
+    of each. Bit-identical from run to run on the card: one launch a call
+    (``sketch_plan``), on the stream's scratch (``_stream_state``); the
+    output is a new tensor a call (a view of the stream's batch when
+    small), the plan made once a shape (``_sketch_call``)."""
     cols, rules = list(cols), list(rules)
-    if len(cols) > SKETCH_MAX_COLS or len(rules) > SKETCH_MAX_COLS:
+    ncols, nrules = len(cols), len(rules)
+    if ncols > SKETCH_MAX_COLS or nrules > SKETCH_MAX_COLS:
         raise ValueError(f"dq_sketch: at most {SKETCH_MAX_COLS} columns "
                          "and rules a call")
     if not 1 <= bins <= SKETCH_MAX_BINS or step < 1:
         raise ValueError(f"dq_sketch: bins in [1, {SKETCH_MAX_BINS}] and "
                          "step >= 1")
-    if not cols and not rules:
+    groups = cols + rules
+    if not groups:
         raise ValueError("dq_sketch: no column")
-    ref = cols[0] if cols else rules[0]
-    n = ref.shape[0]
-    masks = ([mask] if cols else []) + ([mask_in] if mask_in is not None
-                                        and rules else [])
-    for t in cols + rules:
+    n = groups[0].shape[0]
+    masked_rules = nrules > 0 and mask_in is not None
+    masks = ([mask] if ncols else []) + ([mask_in] if masked_rules else [])
+    for t in groups:
         if t.ndim != 1 or t.shape[0] != n:
             raise ValueError("dq_sketch: columns must be 1-D, of one length")
     for m in masks:
         if m.dtype != torch.bool or m.shape != (n,):
             raise ValueError("dq_sketch: masks must be bool, of the "
                              "columns' length")
-    if not _route("dq_sketch", *(cols + rules + masks)):
+    if not _route("dq_sketch", *groups, *masks):
         return dq_sketch_reference(cols, mask, rules, mask_in, bins, step)
     fn = _launcher("dq_sketch", "sketch")
-    dev = ref.device
-    keep = [c if c.dtype in _SKETCH_DTYPES else c.to(torch.float32)
-            for c in cols + rules]
-    keep = [c if c.is_contiguous() else c.contiguous() for c in keep]
-    masks = [m if m.is_contiguous() else m.contiguous() for m in masks]
-    blocks, rows = sketch_plan(n)
-    args = _SketchArgs()
-    for i, c in enumerate(keep):   # the columns, then the rules
-        args.cols[i] = c.data_ptr()
-        args.dtypes[i] = _SKETCH_DTYPES[c.dtype]
-    args.mask = masks[0].data_ptr() if cols else None
-    args.mask_in = (masks[-1].data_ptr()
-                    if rules and mask_in is not None else None)
-    args.n, args.step, args.rows_per_block = n, step, rows
-    args.ncols, args.nrules, args.bins, args.blocks = (len(cols), len(rules),
-                                                       bins, blocks)
-    # the JAX body's Python float bins / (2 TMAX), rounded to float32
-    args.bucket_scale = bins / (2.0 * SKETCH_TMAX)
-    stride = SKETCH_MOMENTS + bins
-    partials = torch.empty(blocks * (len(cols) * stride + 2 * len(rules)),
-                           dtype=torch.float64, device=dev)
-    out = torch.empty(sketch_size(len(cols), len(rules), bins),
-                      dtype=torch.float64, device=dev)
-    dims = {"n": n, "cols": len(cols), "rules": len(rules), "bins": bins,
-            "bytes_a_row": sum(c.element_size() for c in keep)
-            + len(masks)}
-    timer = _timer("dq_sketch", dims, dev)
-    _check("dq_sketch", fn(ctypes.byref(args), partials.data_ptr(),
-                           out.data_ptr(), _raw_stream(dev)))
+    dev = groups[0].device
+    # the pointers (the masks, then the groups), each group's dtype code
+    # (any other dtype cast to float32), the bytes a row
+    ptrs, codes, nbytes = [0, 0], [], len(masks)
+    for k, m in enumerate(masks):
+        if not m.is_contiguous():
+            masks[k] = m = m.contiguous()
+        ptrs[0 if k == 0 and ncols else 1] = m.data_ptr()
+    for k, t in enumerate(groups):
+        code = _SKETCH_DTYPES.get(t.dtype)
+        if code is None:
+            groups[k] = t = t.to(torch.float32)
+            code = _SKETCH_DTYPES[torch.float32]
+        elif not t.is_contiguous():
+            groups[k] = t = t.contiguous()
+        codes.append(code)
+        ptrs.append(t.data_ptr())
+        nbytes += _SKETCH_TYPES[code][1].itemsize
+    call = _sketch_call(n, step, bins, tuple(codes), ncols, nbytes)
+    ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+    stream = _raw_stream(dev)
+    state = _streams.get((dev.index, stream))
+    if state is None or state.nbytes < call.scratch_bytes:
+        state = _stream_state(dev, stream, call.scratch_bytes)
+    if call.size <= SKETCH_POOLED_SIZE:
+        out = _one_slot_output(state, (call.size,), torch.float64, dev)
+    else:
+        out = torch.empty(call.size, dtype=torch.float64, device=dev)
+    timer = ((call.key, _costprof.start_run(call.key, n, dev))
+             if config.costprof_enabled else None)
+    err = fn(call.plan, ptrs, state.tickets if call.scratch_bytes else 0,
+             out.data_ptr(), stream)
+    if err:
+        _check("dq_sketch", err)
     launches.add("dq_sketch")
-    _launched("dq_sketch", dims, dev, timer)
+    _launched("dq_sketch", call.dims, dev, timer)
     return out

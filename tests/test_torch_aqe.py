@@ -161,6 +161,32 @@ def test_sql_rebucket_bit_parity(both):
     assert_exact(jgot, got)
 
 
+GLOBAL_SQL = ("SELECT sum(v) AS s, avg(v) AS a, stddev(v) AS d "
+              "FROM aqe_t WHERE v > 1.0")
+
+
+@pytest.mark.parametrize("n", (4096, 40_000))
+def test_global_float_sums_keep_their_bits_through_a_rebucket(both, n):
+    """A global SUM, AVG and STDDEV whose WHERE takes the re-bucket give
+    the bits of the same query with adaptive execution off: both add the
+    valid rows compacted in row order, whatever the slots around them
+    (frame/aggregates.py:_valid_slots)."""
+    _rebucket_view(n=n, seed=23)
+    ref = _seed_filter_history(GLOBAL_SQL)
+    setting(aqe_enabled=True)
+    got = port_run(GLOBAL_SQL)
+    assert _replans("re-bucket") == 1
+    assert list(got) == list(ref) == ["s", "a", "d"]
+    for c in got:
+        x, y = np.asarray(got[c]), np.asarray(ref[c])
+        assert x.dtype == y.dtype and x.shape == y.shape == (1,)
+        assert x.tobytes() == y.tobytes(), (c, x, y)
+    jgot = jax_run(GLOBAL_SQL)
+    for c in got:
+        assert float(got[c][0]) == pytest.approx(float(jgot[c][0]),
+                                                 rel=1e-5), c
+
+
 @pytest.mark.parametrize("sql", [
     REBUCKET_SQL,
     "SELECT k, v FROM aqe_t WHERE v > 2.0 ORDER BY v",

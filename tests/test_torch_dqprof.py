@@ -5,8 +5,10 @@ package's (``sparkdq4ml_tpu/utils/dqprof.py``), on the CPU:
 * sketches of the same seeded columns: count, nulls, min, max and the
   histogram exact, sum and sum of squares within 1e-6 relative (the JAX
   package sums in float32); rule tallies exact;
-* the kernel's row partition, replayed in numpy, gives the plain
-  version's sketch;
+* the kernel's plan and order of adds, replayed in numpy
+  (``chip_smoke.sketch_replay``), gives the plain version's sketch at
+  every edge of its vector reads, for each dtype, for views off the
+  16-byte grid, for 16 columns and 16 rules in one call;
 * PSI within 1e-9, the profile algebra alike;
 * the app's ``dq_report()`` documents and EXPLAIN ANALYZE's
   ``== Data Quality ==`` text equal, timings stripped;
@@ -33,14 +35,15 @@ from sparkdq4ml_tpu_torch.utils.profiling import counters
 
 EXACT = (0, 1, 4, 5)        # count, nulls, min, max
 SUMS = (2, 3)               # sum, sumsq
+DTYPES = ("float32", "float64", "int32", "int64", "bool")  # read as they are
 
 
 def _column(n: int, dtype: str, seed: int):
     rng = np.random.default_rng(seed)
     if dtype == "bool":
         col = rng.random(n) < 0.3
-    elif dtype == "int32":
-        col = rng.integers(-50, 400, n).astype(np.int32)
+    elif dtype in ("int32", "int64"):
+        col = rng.integers(-50, 400, n).astype(dtype)
     else:
         col = rng.lognormal(4.0, 1.5, n) * np.where(rng.random(n) < 0.2,
                                                     -1.0, 1.0)
@@ -73,7 +76,7 @@ def _check_sketch(got, want):
 
 
 @pytest.mark.parametrize("n", (1, 7, 40, 1040, 5000, 20_000, 200_003))
-@pytest.mark.parametrize("dtype", ("float32", "float64", "int32", "bool"))
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_sketch_equals_the_jax_body(n, dtype):
     col, mask = _column(n, dtype, seed=n)
     bins = 32
@@ -104,61 +107,113 @@ def test_rule_tallies_and_bins_equal_the_jax_bodies(bins):
     assert every.tolist() == [3000, float((rule > 0).sum())]
 
 
-def _replayed(cols, mask, bins: int, step: int) -> np.ndarray:
-    """csrc/dq_sketch.cu's partition in numpy: each column's rows in
-    ``sketch_plan`` blocks, each block's stride-sample rows, the block
-    partials added in block order."""
-    n = cols[0].shape[0]
-    blocks, rows = kernels.sketch_plan(n)
-    scale = np.float32(bins / 24.0)
-    out = []
-    for col in cols:
-        x = col.astype(np.float32)
-        parts = []
-        for blk in range(blocks):
-            lo, hi = blk * rows, min((blk + 1) * rows, n)
-            xs, ms = x[lo:hi], mask[lo:hi]
-            valid = ms & ~np.isnan(xs)
-            v = xs[valid].astype(np.float64)
-            k0 = -(-lo // step)
-            samp = np.arange(k0 * step, hi, step, dtype=np.int64)
-            sv = samp[mask[samp] & ~np.isnan(x[samp])] if samp.size else samp
-            with np.errstate(invalid="ignore"):
-                t = np.sign(x[sv]) * np.log10(np.float32(1) + np.abs(x[sv]))
-            t = np.clip(t, np.float32(-12), np.float32(12))
-            idx = np.clip(((t + np.float32(12)) * scale).astype(np.int64), 0,
-                          bins - 1)
-            parts.append((valid.sum(), (ms & np.isnan(xs)).sum(), v.sum(),
-                          (v * v).sum(),
-                          v.min() if v.size else 3.0e38,
-                          v.max() if v.size else -3.0e38,
-                          np.bincount(idx, minlength=bins)))
-        head = [sum(float(p[i]) for p in parts) for i in range(4)]
-        head += [float(np.float32(min(p[4] for p in parts))),
-                 float(np.float32(max(p[5] for p in parts)))]
-        hist = sum(p[6] for p in parts) * step
-        out.append(np.concatenate([head, hist.astype(np.float64)]))
-    return np.concatenate(out)
+def _replayed(cols, mask, bins: int, step: int, rules=(),
+              mask_in=None) -> np.ndarray:
+    """csrc/dq_sketch.cu's plan in numpy (``chip_smoke.sketch_replay``):
+    ``sketch_plan``'s blocks over ranges of a multiple of 16 rows, each
+    thread's chunks of four rows in order, the lanes and warps in a fixed
+    order, the last block adding the block tallies in block order."""
+    import chip_smoke as smoke
+
+    return smoke.sketch_replay(cols, mask, rules, mask_in, bins, step)
 
 
-@pytest.mark.parametrize("n,step", ((1, 1), (16_384, 1), (16_385, 5),
-                                    (300_001, 74), (2_097_152, 512)))
+def _check_replayed(got, want, ncols: int, bins: int) -> None:
+    """The replay against the plain version: count, nulls, min, max, the
+    histogram and the rule tallies exact, the sums within 1e-12 (another
+    order of float64 adds)."""
+    stride = tdq.MOMENTS + bins
+    assert got.shape == want.shape
+    for c in range(ncols):
+        g, w = got[c * stride:(c + 1) * stride], want[c * stride:
+                                                      (c + 1) * stride]
+        for i in EXACT:
+            assert g[i] == w[i], (c, i)
+        for i in SUMS:
+            assert g[i] == pytest.approx(w[i], rel=1e-12, abs=1e-300)
+        np.testing.assert_array_equal(g[tdq.MOMENTS:], w[tdq.MOMENTS:])
+    np.testing.assert_array_equal(got[ncols * stride:], want[ncols * stride:])
+
+
+@pytest.mark.parametrize("n,step", ((1, 1), (16_383, 4), (16_384, 1),
+                                    (16_385, 5), (300_001, 74),
+                                    (1_000_003, 245), (2_097_152, 512)))
 def test_the_kernels_partition_gives_the_plain_sketch(n, step):
+    """At n around the vector width (a tail of 3 and 1 rows past whole
+    chunks), one block, a few, and the 16-row grain's last block."""
     cols = [_column(n, dt, seed=3)[0] for dt in ("float32", "int32")]
     mask = _column(n, "bool", seed=4)[1]
+    blocks, rows = kernels.sketch_plan(n)
+    assert rows % kernels.SKETCH_GRAIN == 0
+    assert (blocks - 1) * rows < max(n, 1) <= blocks * rows
     got = _replayed(cols, mask, 32, step)
     want = kernels.dq_sketch([torch.as_tensor(c) for c in cols],
                              torch.as_tensor(mask), bins=32,
                              step=step).numpy()
-    stride = tdq.MOMENTS + 32
-    for c in range(2):
-        g, w = got[c * stride:(c + 1) * stride], want[c * stride:
-                                                      (c + 1) * stride]
-        for i in EXACT:
-            assert g[i] == w[i]
-        for i in SUMS:
-            assert g[i] == pytest.approx(w[i], rel=1e-12)
-        np.testing.assert_array_equal(g[tdq.MOMENTS:], w[tdq.MOMENTS:])
+    _check_replayed(got, want, 2, 32)
+
+
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_each_dtype_and_view_gives_the_replayed_sketch(dtype, offset):
+    """A column and a rule of each dtype the kernel reads as it is, as
+    contiguous tensors and as views at an offset of one element (a
+    pointer off the 16-byte grid, where the kernel reads row by row in
+    the same order), against the replay and the JAX bodies."""
+    n, bins = 16_385, 32
+    col, mask = _column(n + offset, dtype, seed=17)
+    mask_in = np.random.default_rng(18).random(n + offset) < 0.9
+    tc, tm, ti = (torch.as_tensor(a)[offset:]
+                  for a in (col, mask, mask_in))
+    assert tc.storage_offset() == offset
+    col, mask, mask_in = col[offset:], mask[offset:], mask_in[offset:]
+    want_j, b = _jax_sketch(col, mask, bins)
+    step = tdq.hist_step(b)
+    got = kernels.dq_sketch([tc], tm, [tc], ti, bins=bins, step=step).numpy()
+    _check_replayed(_replayed([col], mask, bins, step, [col], mask_in),
+                    got, 1, bins)
+    _check_sketch(got[:-2], want_j)
+    pad = b - n
+    rule_j = np.asarray(jdq._rule_body()(
+        jnp.asarray(np.concatenate([col.astype(np.float32),
+                                    np.zeros(pad, np.float32)])),
+        jnp.asarray(np.concatenate([mask_in, np.zeros(pad, bool)]))))
+    np.testing.assert_array_equal(got[-2:], rule_j)
+
+
+@pytest.mark.parametrize("masked", (True, False))
+def test_sixteen_columns_and_sixteen_rules_in_one_call(masked):
+    """The most groups a launch takes: each column's slice equals its own
+    call, the rules' tallies count mask_in rows, or every row without
+    one (record_eval's shape), and the whole equals the replay."""
+    n, bins, step = 40_003, 16, 3
+    cols = [_column(n, DTYPES[c % 5], seed=30 + c)[0]
+            for c in range(kernels.SKETCH_MAX_COLS)]
+    rules = [_column(n, DTYPES[(r + 2) % 5], seed=60 + r)[0]
+             for r in range(kernels.SKETCH_MAX_COLS)]
+    mask = _column(n, "bool", seed=90)[1]
+    mask_in = (np.random.default_rng(91).random(n) < 0.7) if masked \
+        else None
+    got = kernels.dq_sketch(
+        [torch.as_tensor(c) for c in cols], torch.as_tensor(mask),
+        [torch.as_tensor(r) for r in rules],
+        None if mask_in is None else torch.as_tensor(mask_in),
+        bins=bins, step=step).numpy()
+    assert got.shape == (kernels.sketch_size(16, 16, bins),)
+    _check_replayed(_replayed(cols, mask, bins, step, rules, mask_in), got,
+                    16, bins)
+    stride = tdq.MOMENTS + bins
+    for c, col in enumerate(cols):
+        one = kernels.dq_sketch([torch.as_tensor(col)],
+                                torch.as_tensor(mask), bins=bins,
+                                step=step).numpy()
+        np.testing.assert_array_equal(got[c * stride:(c + 1) * stride], one)
+    tallies = got[16 * stride:].reshape(16, 2)
+    for r, rule in enumerate(rules):
+        pos = rule.astype(np.float32) > 0
+        rows = n if mask_in is None else int(mask_in.sum())
+        passed = pos.sum() if mask_in is None else (pos & mask_in).sum()
+        assert tallies[r].tolist() == [rows, passed]
 
 
 def test_the_wrapper_refuses_what_the_kernel_does_not_take():
@@ -458,13 +513,14 @@ def test_a_sketch_fault_leaves_the_flush_unprofiled(sessions):
 
 @pytest.mark.parametrize("name, value", [
     ("MAX_COLS", 8), ("MAX_BINS", 512), ("MOMENTS", 7), ("BIG", "1e+30f"),
-    ("TMAX", "10.0f"), ("F32", 5), ("F64", 5), ("I32", 5), ("I64", 5),
-    ("B8", 5),
+    ("TMAX", "10.0f"), ("GRAIN", 8), ("TALLY_BYTES", 48), ("THREADS", 256),
+    ("F32", 5), ("F64", 5), ("I32", 5), ("I64", 5), ("B8", 5),
 ])
 def test_the_sketch_contract_reaches_the_kernel_through_the_flags(
         monkeypatch, name, value):
     """csrc/dq_sketch.cu takes each constant it shares with ops/kernels.py
-    (the SketchArgs layout, the moment slots, the clip, the dtype codes)
+    (the SketchPlan layout, the moment slots, the clip, the plan's grain,
+    tally size and threads, the dtype codes)
     from the nvcc flags, refuses to build without it, and has no default
     of its own; a changed value changes the build key."""
     src = (kernels.CSRC / "dq_sketch.cu").read_text()
@@ -481,19 +537,28 @@ def test_the_sketch_contract_reaches_the_kernel_through_the_flags(
 
 
 def test_the_sketch_flags_carry_the_python_constants():
-    """The flags hold the values the wrapper and the plain version use,
-    and the ctypes SketchArgs is laid out for the same column count."""
+    """The flags hold the values the wrapper, the plan and the plain
+    version use, and the ctypes SketchPlan is laid out for the same column
+    count; the scratch's counters leave the segment sums' tickets alone
+    and the tallies on the 16-byte grid."""
     flags = set(kernels.NVCC_FLAGS)
     assert {f"-DDQ_SKETCH_MAX_COLS={kernels.SKETCH_MAX_COLS}",
             f"-DDQ_SKETCH_MAX_BINS={kernels.SKETCH_MAX_BINS}",
             f"-DDQ_SKETCH_MOMENTS={kernels.SKETCH_MOMENTS}",
             f"-DDQ_SKETCH_BIG={kernels.SKETCH_BIG!r}f",
-            f"-DDQ_SKETCH_TMAX={kernels.SKETCH_TMAX!r}f"} <= flags
+            f"-DDQ_SKETCH_TMAX={kernels.SKETCH_TMAX!r}f",
+            f"-DDQ_SKETCH_GRAIN={kernels.SKETCH_GRAIN}",
+            f"-DDQ_SKETCH_TALLY_BYTES={kernels.SKETCH_TALLY_BYTES}",
+            f"-DDQ_SKETCH_THREADS={kernels.SKETCH_THREADS}"} <= flags
     for name, dtype in kernels._SKETCH_TYPES:
         assert f"-DDQ_SKETCH_{name}={kernels._SKETCH_DTYPES[dtype]}" in flags
-    fields = dict(kernels._SketchArgs._fields_)
-    assert fields["cols"]._length_ == 2 * kernels.SKETCH_MAX_COLS
+    fields = dict(kernels._SketchPlan._fields_)
     assert fields["dtypes"]._length_ == 2 * kernels.SKETCH_MAX_COLS
+    assert kernels._SKETCH_TICKET_OFFSET >= 4 * kernels.SEGSUM_TICKETS
+    assert kernels._SKETCH_HIST_OFFSET >= kernels._SKETCH_TICKET_OFFSET + 4
+    assert kernels._TICKET_BYTES >= kernels._SKETCH_HIST_OFFSET + 4 * (
+        kernels.SKETCH_MAX_COLS * kernels.SKETCH_MAX_BINS)
+    assert kernels._TICKET_BYTES % 16 == 0
 
 
 @pytest.mark.parametrize("error, degrades", [

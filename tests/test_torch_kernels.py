@@ -460,9 +460,11 @@ def test_segment_sum_plan_reaches_the_kernel_through_the_flags(monkeypatch):
                 f"-D{name}={value}" if f.startswith(f"-D{name}=") else f
                 for f in kernels.NVCC_FLAGS))
             assert kernels.build_key("segment_sum") != key
-    src = (kernels.CSRC / "segment_sum.cu").read_text()
-    # no float atomic: the one integer atomic hands out both kernels'
-    # tickets
+    path = kernels.CSRC / "segment_sum.cu"
+    src = "\n".join(p.read_text() for p in
+                    [path] + kernels._local_headers(path, {path}))
+    # no float atomic, in the source or the headers it includes: the one
+    # integer atomic (tickets.cuh: arrive) hands out both kernels' tickets
     atomics = [line for line in src.splitlines()
                if "atomic" in line and not line.lstrip().startswith("//")]
     assert atomics and all("atomicAdd(counter, 1u)" in a for a in atomics)
